@@ -1,0 +1,214 @@
+"""Spheres app on the dense row-grid engine (BASELINE config #1).
+
+Port of mundy_tpu/driver/apps/spheres_rows.py. The state lives in the
+(ny, nz, R) row layout between rebuilds; each step computes Hertzian contact
+forces with kernel K1 (ops/kernels/row_central.py), adds gid-keyed Brownian
+noise, and takes an overdamped Euler step with periodic wrap. A skin
+displacement trigger re-sorts the rows.
+
+The control flow is the reference's, step for step: every block begins with
+a rebuild, and the skin test after every inner step ends the inner loop.
+The reference keeps that trigger on the device inside a while loop; here
+the host reads it once per step (one `.item()`, a device sync per step),
+because reading it less often would rebuild later than the reference does
+and break trajectory parity.
+"""
+
+from __future__ import annotations
+
+import math as _math
+from typing import Optional
+
+import torch
+
+from mundy_tpu_torch.core.config import validate_config
+from mundy_tpu_torch.core.containers import frozen_dataclass
+from mundy_tpu_torch.driver.apps.spheres import SpheresConfig
+from mundy_tpu_torch.driver.regrow import grow_int, run_blocks
+from mundy_tpu_torch.dynamics.brownian import brownian_velocity_keyed
+from mundy_tpu_torch.forces.contact import effective_youngs
+from mundy_tpu_torch.geom.periodicity import periodic
+from mundy_tpu_torch.neighbor.rows import (
+    RowState,
+    build_rows,
+    make_row_grid,
+    moved_beyond_skin,
+    orthorhombic_lengths,
+    rows_to_flat,
+)
+from mundy_tpu_torch.ops.kernels.row_central import row_hertzian_forces_sym
+
+_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+_CAPACITY_SLACK = 1.9  # row capacity over the mean occupancy, before init right-sizing
+
+
+@frozen_dataclass
+class RowSpheresState:
+    rows: RowState
+    key: tuple  # the run's two uint32 key words (python ints)
+    step: int
+    rebuild_count: int
+    overflow: torch.Tensor  # () bool, sticky
+
+
+class RowSpheresSim:
+    """Assembled row-engine simulation for SpheresConfig on one device."""
+
+    def __init__(self, config: SpheresConfig, device="cpu"):
+        self.config = c = config
+        validate_config(config)
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("RowSpheresSim(device='cuda') needs a CUDA "
+                               "device, and torch sees none")
+        if c.polydispersity > 0:
+            raise NotImplementedError(
+                "polydisperse spheres are not ported yet (ROADMAP queue 1, "
+                "item 1: the polydisperse branch)")
+        self.dtype = _DTYPES[c.dtype]
+        box = [c.box_size] * 3
+        self.metric = periodic(box, dtype=self.dtype, device=self.device)
+        self.cutoff = 2 * c.radius + c.skin
+        # align=8 keeps the reference's slot layout (its TPU kernel needs
+        # nz % 8 == 0; the CUDA kernel does not)
+        self.grid = make_row_grid([0, 0, 0], box, self.cutoff, c.num_spheres,
+                                  capacity_slack=_CAPACITY_SLACK,
+                                  dtype=self.dtype, align=8,
+                                  device=self.device)
+        if self.grid.ny < 5 or self.grid.nz < 5:
+            raise NotImplementedError(
+                "row grids with ny or nz < 5 need the general pair_accumulate, "
+                "not ported yet (ROADMAP queue 1, item 1)")
+        self.box_static = orthorhombic_lengths(self.metric)
+        self.inv_drag = 1.0 / (6.0 * _math.pi * c.viscosity * c.radius)
+        self.e_eff = effective_youngs(c.youngs_modulus, c.youngs_modulus,
+                                      c.poissons_ratio, c.poissons_ratio)
+        self.dt = torch.tensor(c.dt, dtype=self.dtype, device=self.device)
+
+    def _gids(self) -> torch.Tensor:
+        return torch.arange(self.config.num_spheres, dtype=torch.int32,
+                            device=self.device)
+
+    def init(self, pos: Optional[torch.Tensor] = None,
+             key_words: Optional[tuple] = None) -> RowSpheresState:
+        """Initial state. With no arguments the positions are drawn uniformly
+        in the box from a torch.Generator seeded with config.seed, and the
+        key is (0, seed), what jax.random.PRNGKey(seed) holds. Pass `pos`
+        (N, 3) and `key_words` to start from another engine's state."""
+        c = self.config
+        if pos is None:
+            gen = torch.Generator(device=self.device).manual_seed(c.seed)
+            pos = torch.rand((c.num_spheres, 3), generator=gen,
+                             dtype=self.dtype, device=self.device) * c.box_size
+        if key_words is None:
+            key_words = (0, c.seed & 0xFFFFFFFF)
+        pos = torch.as_tensor(pos, dtype=self.dtype, device=self.device)
+        rows = build_rows(pos, self._gids(), self.grid)
+        # Right-size the row capacity from the measured max occupancy: the
+        # pair work scales with R^2, so slack is paid every step. +12.5%
+        # margin (occupancy drifts between rebuilds), 8-aligned; the sticky
+        # overflow flag catches later violations.
+        R = self.grid.row_capacity
+        max_occ = int(rows.valid.reshape(-1, R).sum(dim=1).max())
+        tight = ((int(max_occ * 1.125) + 4 + 7) // 8) * 8
+        if tight < R:
+            self.grid = self.grid.replace(row_capacity=tight)
+            rows = build_rows(pos, self._gids(), self.grid)
+        return RowSpheresState(rows=rows, key=tuple(int(k) for k in key_words),
+                               step=0, rebuild_count=1, overflow=rows.overflow)
+
+    # ------------------------------------------------------------------
+    def _forces(self, rows: RowState) -> torch.Tensor:
+        c = self.config
+        return row_hertzian_forces_sym(rows.pos, self.box_static[0], c.radius,
+                                       c.youngs_modulus, c.poissons_ratio)
+
+    def _inner_step(self, state: RowSpheresState) -> RowSpheresState:
+        c = self.config
+        rows = state.rows
+        vel = self.inv_drag * self._forces(rows)
+        if c.diffusion_coeff > 0:
+            # gid-keyed counter-based noise: the reference's streams
+            bz = brownian_velocity_keyed(state.key, state.step, rows.gid,
+                                         c.diffusion_coeff, c.dt,
+                                         dtype=self.dtype)
+            vel = vel + torch.where(rows.valid[..., None], bz, 0.0)
+        new_pos = self.metric.wrap(rows.pos + self.dt * vel)
+        new_pos = torch.where(rows.valid[..., None], new_pos, rows.pos)
+        return state.replace(rows=rows.replace(pos=new_pos), step=state.step + 1)
+
+    def _rebuild(self, state: RowSpheresState) -> RowSpheresState:
+        c = self.config
+        flat = rows_to_flat(state.rows, c.num_spheres)
+        rows = build_rows(flat, self._gids(), self.grid)
+        return state.replace(rows=rows, rebuild_count=state.rebuild_count + 1,
+                             overflow=state.overflow | rows.overflow)
+
+    def _skin_fired(self, state: RowSpheresState) -> bool:
+        return bool(moved_beyond_skin(state.rows, self.metric,
+                                      self.config.skin).item())
+
+    def run_block(self, state: RowSpheresState, n_steps: int) -> RowSpheresState:
+        """n_steps steps: a rebuild at the start of the block and after every
+        step that moved a particle beyond skin/2, as in the reference."""
+        done = 0
+        while done < n_steps:
+            state = self._rebuild(state)
+            fired = False
+            while done < n_steps and not fired:
+                state = self._inner_step(state)
+                done += 1
+                # the trigger only decides the next iteration: skip the
+                # read (and its sync) once the block is complete
+                fired = done < n_steps and self._skin_fired(state)
+        return state
+
+    def regrow(self, state: RowSpheresState) -> RowSpheresState:
+        """Grow the row slot capacity and re-sort the current positions into
+        the bigger layout (driver/regrow.py)."""
+        c = self.config
+        if int(state.rows.valid.sum()) != c.num_spheres:
+            # the row layout is the primary state: a build that dropped
+            # particles has already lost their positions
+            raise RuntimeError("row state lost particles; cannot regrow")
+        pos = rows_to_flat(state.rows, c.num_spheres)
+        self.grid = self.grid.replace(
+            row_capacity=grow_int(self.grid.row_capacity))
+        rows = build_rows(pos, self._gids(), self.grid)
+        return state.replace(rows=rows, overflow=rows.overflow)
+
+    def run(self, state: Optional[RowSpheresState] = None, log=print):
+        c = self.config
+        if state is None:
+            state = self.init()
+
+        def status(s, done, tps):
+            return (f"step {done}/{c.num_steps}  tps={tps:.1f}  "
+                    f"rebuilds={s.rebuild_count}  overflow={bool(s.overflow)}")
+
+        return run_blocks(self, state, c.num_steps, c.log_every, log, status)
+
+    # diagnostics ------------------------------------------------------
+    def positions(self, state: RowSpheresState) -> torch.Tensor:
+        return rows_to_flat(state.rows, self.config.num_spheres)
+
+    def max_overlap(self, state: RowSpheresState) -> float:
+        """Largest pair overlap 2r - d over the 9-row neighborhood (0 when no
+        pair touches)."""
+        two_r = 2.0 * self.config.radius
+        pos, valid = state.rows.pos, state.rows.valid
+        R = pos.shape[2]
+        not_self = ~torch.eye(R, dtype=torch.bool, device=pos.device)
+        worst = torch.zeros((), dtype=pos.dtype, device=pos.device)
+        for dy in (-1, 0, 1):
+            for dz in (-1, 0, 1):
+                cand_pos = torch.roll(pos, (-dy, -dz), dims=(0, 1))
+                cand_valid = torch.roll(valid, (-dy, -dz), dims=(0, 1))
+                d = self.metric.distance(pos[..., :, None, :],
+                                         cand_pos[..., None, :, :])
+                mask = valid[..., :, None] & cand_valid[..., None, :]
+                if (dy, dz) == (0, 0):
+                    mask = mask & not_self
+                ov = torch.where(mask, two_r - d, -torch.inf)
+                worst = torch.maximum(worst, ov.max())
+        return float(worst)

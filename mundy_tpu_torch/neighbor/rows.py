@@ -1,0 +1,267 @@
+"""Dense row-grid engine: gather-free neighbor interactions.
+
+Port of the spheres path of mundy_tpu/neighbor/rows.py. Particles live in a
+dense (ny, nz, R) row layout: a row is the full x extent of one (y, z) cell
+column, padded to R slots and sorted by x. The neighbor candidates of a row
+are the rows (y+dy, z+dz), reached by `torch.roll` with the periodic image
+shift pre-applied, so a pair needs a minimum image along x only. Invalid
+slots carry a sentinel position far outside the box and separate themselves
+from every pair, so central-force kernels take no validity mask.
+
+The layout is the reference's slot for slot: two stable sorts (x, then
+row), the same sentinel and the same capacity rule. The only departure is
+the out-of-capacity scatter: JAX drops the update for the overflow slot
+index, torch indexing raises on it, so the scatters write into one extra
+dump slot that is cut off afterwards (no host sync on the device path).
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+
+from mundy_tpu_torch.core.containers import frozen_dataclass, static_field
+from mundy_tpu_torch.geom.periodicity import Metric
+
+
+@frozen_dataclass
+class RowGrid:
+    """Static geometry of the (y, z) row decomposition."""
+
+    origin: torch.Tensor  # (3,)
+    cell_yz: torch.Tensor  # (2,) row cell edge along y, z
+    ny: int = static_field(default=1)
+    nz: int = static_field(default=1)
+    row_capacity: int = static_field(default=32)
+
+
+@frozen_dataclass
+class RowState:
+    """Dense row-layout particle state."""
+
+    grid: RowGrid
+    pos: torch.Tensor  # (ny, nz, R, 3)
+    gid: torch.Tensor  # (ny, nz, R) int32 global ids (noise streams / unsort)
+    valid: torch.Tensor  # (ny, nz, R) bool
+    ref_pos: torch.Tensor  # (ny, nz, R, 3) positions at last rebuild
+    overflow: torch.Tensor  # () bool
+
+
+def make_row_grid(domain_low, domain_high, cutoff: float, n_particles: int,
+                  capacity_slack: float = 2.0, dtype=torch.float32,
+                  align: int = 1, device=None) -> RowGrid:
+    """Rows sized so the y/z cell edge >= cutoff; capacity from the mean
+    occupancy with slack (overflow flag + host regrow on violation).
+
+    `align`: round ny/nz DOWN to a multiple of this (cells grow slightly past
+    the cutoff, which stays correct). The CUDA kernel does not need it; the
+    row engine keeps align=8 so its slot layouts match the reference's."""
+    low = np.asarray(domain_low, np.float64)
+    high = np.asarray(domain_high, np.float64)
+    ext = high - low
+    ny = max(int(ext[1] // cutoff), 1)
+    nz = max(int(ext[2] // cutoff), 1)
+    if align > 1:
+        ny = max((ny // align) * align, min(ny, align))
+        nz = max((nz // align) * align, min(nz, align))
+    mean_occ = n_particles / (ny * nz)
+    cap = int(np.ceil(mean_occ * capacity_slack + 8))
+    cap = ((cap + 7) // 8) * 8
+    return RowGrid(
+        origin=torch.as_tensor(low, dtype=dtype, device=device),
+        cell_yz=torch.as_tensor([ext[1] / ny, ext[2] / nz], dtype=dtype,
+                                device=device),
+        ny=ny, nz=nz, row_capacity=cap,
+    )
+
+
+def _row_coords(grid: RowGrid, pos: torch.Tensor):
+    iy = torch.floor((pos[..., 1] - grid.origin[1]) / grid.cell_yz[0]).to(torch.int64)
+    iz = torch.floor((pos[..., 2] - grid.origin[2]) / grid.cell_yz[1]).to(torch.int64)
+    return iy.clamp(0, grid.ny - 1), iz.clamp(0, grid.nz - 1)
+
+
+def build_rows(pos: torch.Tensor, gid: torch.Tensor, grid: RowGrid) -> RowState:
+    """Flat (N, 3) positions -> dense row layout. Two stable sorts + one
+    scatter; particles past a row's capacity are dropped and flag overflow."""
+    n = pos.shape[0]
+    R = grid.row_capacity
+    n_slots = grid.ny * grid.nz * R
+    dev = pos.device
+    iy, iz = _row_coords(grid, pos)
+    row = iy * grid.nz + iz
+    # two-key sort (x within row): sort by x, then stable-sort by row
+    order_x = torch.argsort(pos[:, 0], stable=True)
+    order = order_x[torch.argsort(row[order_x], stable=True)]
+
+    row_sorted = row[order]
+    first = torch.ones(n, dtype=torch.bool, device=dev)
+    first[1:] = row_sorted[1:] != row_sorted[:-1]
+    ar = torch.arange(n, device=dev)
+    row_start = torch.cummax(torch.where(first, ar, 0), dim=0).values
+    rank = ar - row_start
+
+    counts = torch.zeros(grid.ny * grid.nz, dtype=torch.int32, device=dev)
+    counts.index_add_(0, row, torch.ones_like(row, dtype=torch.int32))
+    overflow = (counts > R).any()
+
+    # ranks past the capacity go to the dump slot n_slots (cut off below)
+    slot = torch.where(rank < R, row_sorted * R + rank, n_slots)
+    # Sentinel ~1e6 box heights below the box: any pair involving an invalid
+    # slot is separated beyond every cutoff, and two sentinels of one row
+    # coincide exactly (sep = 0), so neither contributes to a central force.
+    extent_y = grid.cell_yz[0] * grid.ny
+    sentinel_y = grid.origin[1] - 1e6 * (extent_y + 1.0)
+    flat_pos = torch.zeros((n_slots + 1, 3), dtype=pos.dtype, device=dev)
+    flat_pos[:, 1] = sentinel_y.to(pos.dtype)
+    flat_pos[slot] = pos[order]
+    flat_gid = torch.zeros(n_slots + 1, dtype=torch.int32, device=dev)
+    flat_gid[slot] = gid[order].to(torch.int32)
+    flat_valid = torch.zeros(n_slots + 1, dtype=torch.bool, device=dev)
+    flat_valid[slot] = True
+
+    shape = (grid.ny, grid.nz, R)
+    p = flat_pos[:n_slots].reshape(shape + (3,))
+    return RowState(grid=grid, pos=p, gid=flat_gid[:n_slots].reshape(shape),
+                    valid=flat_valid[:n_slots].reshape(shape), ref_pos=p,
+                    overflow=overflow)
+
+
+def rows_to_flat(state: RowState, n: int) -> torch.Tensor:
+    """Dense layout -> flat (N, 3) positions ordered by global id."""
+    flat_pos = state.pos.reshape(-1, 3)
+    idx = torch.where(state.valid.reshape(-1), state.gid.reshape(-1).to(torch.int64), n)
+    out = torch.zeros((n + 1, 3), dtype=state.pos.dtype, device=state.pos.device)
+    out[idx] = flat_pos
+    return out[:n]
+
+
+def orthorhombic_lengths(metric: Metric):
+    """Static (Lx, Ly, Lz) + per-axis periodic flags from a diagonal metric,
+    or None for a triclinic one. Call at sim construction time."""
+    if not metric.diagonal:
+        return None
+    cell = metric.cell.cpu().numpy()
+    per = metric.periodic.cpu().numpy()
+    lengths = tuple(float(cell[i, i]) for i in range(3))
+    flags = tuple(bool(per[i]) for i in range(3))
+    return lengths, flags
+
+
+def _roll_image_shift(n: int, d: int, L: float, dtype, device=None) -> torch.Tensor:
+    """Per-index coordinate shift that turns a rolled candidate row into the
+    periodic image nearest its partner row: roll(x, -d)[i] = x[(i+d) % n], so
+    indices with i + d >= n (or < 0) wrapped and live one box away."""
+    idx = np.arange(n)
+    s = np.where(idx + d >= n, L, np.where(idx + d < 0, -L, 0.0))
+    return torch.as_tensor(s, dtype=dtype, device=device)
+
+
+# Half stencil for Newton's-third-law accumulation: these four offsets plus
+# their negations cover all 8 neighbor rows, so each unordered row pair is
+# evaluated exactly once (needs ny, nz >= 3; the >= 5 rule guarantees it).
+_SYM_OFFSETS = ((0, 1), (1, -1), (1, 0), (1, 1))
+
+# Byte budget for the pair-block temporaries of one y-slab of the plain
+# half-stencil path: at 1M bodies one unchunked (R, 5R) block is 3.6 GB.
+_PAIR_BUDGET_BYTES = 2.5e9
+
+
+def _candidate_planes_half(pos: torch.Tensor, box: tuple):
+    """Candidate component planes for the half stencil: (cx, cy, cz), each
+    (ny, nz, 5R), the self row plus the 4 _SYM_OFFSETS rolled rows joined
+    along the last axis, periodic y/z image shifts pre-applied."""
+    ny, nz = pos.shape[:2]
+    dtype, dev = pos.dtype, pos.device
+    (lx, ly, lz), (px, py, pz) = box
+    cand_x, cand_y, cand_z = [pos[..., 0]], [pos[..., 1]], [pos[..., 2]]
+    for dy, dz in _SYM_OFFSETS:
+        cp = torch.roll(pos, (-dy, -dz), dims=(0, 1))
+        x, y, z = cp[..., 0], cp[..., 1], cp[..., 2]
+        if dy != 0 and py:
+            y = y + _roll_image_shift(ny, dy, ly, dtype, dev)[:, None, None]
+        if dz != 0 and pz:
+            z = z + _roll_image_shift(nz, dz, lz, dtype, dev)[None, :, None]
+        cand_x.append(x)
+        cand_y.append(y)
+        cand_z.append(z)
+    return (torch.cat(cand_x, dim=-1), torch.cat(cand_y, dim=-1),
+            torch.cat(cand_z, dim=-1))
+
+
+def _central_force_chunk_sym(ox, oy, oz, cx, cy_, cz, scalar_fn, lx_px, R):
+    """Half-stencil pair force for one y-chunk.
+
+    Returns (f_own (..., R, 3), f_par (..., 4R, 3)): f_own is the
+    candidate-axis reduction over all 5R lanes; f_par is minus the own-axis
+    reduction of the 4 off-row blocks (the Newton's-third-law partner force,
+    still in the rolled candidate frame; the caller rolls it back)."""
+    DX = cx[..., None, :] - ox[..., :, None]   # (chunk, nz, R, 5R)
+    if lx_px is not None:
+        lx, inv_lx = lx_px
+        DX = DX - lx * torch.round(DX * inv_lx)  # one-component min image
+    DY = cy_[..., None, :] - oy[..., :, None]
+    DZ = cz[..., None, :] - oz[..., :, None]
+    w = scalar_fn(DX * DX + DY * DY + DZ * DZ)
+    WX, WY, WZ = w * DX, w * DY, w * DZ
+    f_own = torch.stack([WX.sum(-1), WY.sum(-1), WZ.sum(-1)], dim=-1)
+    f_par = -torch.stack([WX[..., R:].sum(-2), WY[..., R:].sum(-2),
+                          WZ[..., R:].sum(-2)], dim=-1)
+    return f_own, f_par
+
+
+def pair_accumulate_central_sym(
+    pos: torch.Tensor,
+    box: tuple,
+    scalar_fn: Callable[[torch.Tensor], torch.Tensor],
+) -> torch.Tensor:
+    """Half-stencil central pair forces f_i = sum_j w_ij * sep_ij on the row
+    layout, with sep_ij = pos_j - pos_i (minimum image), w = scalar_fn(r2).
+
+    pos: (ny, nz, R, 3) from build_rows. Contract as in the reference:
+    scalar_fn vanishes beyond the grid cutoff (sentinel slots separate
+    themselves, so no validity mask), is finite at r2 = 0 (self-pairs give
+    w * 0 = 0), and is symmetric, because each off-row pair is evaluated
+    once and the partner receives -w * sep. Needs a static orthorhombic
+    `box` from orthorhombic_lengths with ny, nz >= 5 on periodic axes.
+
+    The (R, 5R) pair blocks are evaluated in y-slabs whose temporaries stay
+    within _PAIR_BUDGET_BYTES."""
+    ny, nz, R = pos.shape[:3]
+    (lx, ly, lz), (px, py, pz) = box
+    if (py and ny < 5) or (pz and nz < 5):
+        raise ValueError("pair_accumulate_central_sym needs ny,nz >= 5 on "
+                         "periodic axes")
+    cx, cy_, cz = _candidate_planes_half(pos, box)
+    ox, oy, oz = pos[..., 0], pos[..., 1], pos[..., 2]
+    lx_px = (lx, 1.0 / lx) if px else None
+
+    # ~8 live (R, 5R) blocks per row
+    bytes_per_row = 8 * nz * R * 5 * R * pos.element_size()
+    chunk_y = max(min(int(_PAIR_BUDGET_BYTES // bytes_per_row), ny), 1)
+    parts = [
+        _central_force_chunk_sym(ox[s], oy[s], oz[s], cx[s], cy_[s], cz[s],
+                                 scalar_fn, lx_px, R)
+        for s in (slice(y0, y0 + chunk_y) for y0 in range(0, ny, chunk_y))
+    ]
+    f_own = torch.cat([p[0] for p in parts], dim=0)
+    f_par = torch.cat([p[1] for p in parts], dim=0)
+
+    # partner sums live in the rolled candidate frame: roll them back.
+    # Wrapped rows saw image-shifted coordinates, but forces are translation
+    # invariant so the shift needs no undoing.
+    force = f_own
+    for b, (dy, dz) in enumerate(_SYM_OFFSETS):
+        force = force + torch.roll(f_par[..., b * R:(b + 1) * R, :], (dy, dz),
+                                   dims=(0, 1))
+    return force
+
+
+def moved_beyond_skin(state: RowState, metric: Metric, skin: float) -> torch.Tensor:
+    """() bool tensor: has any valid particle moved more than skin/2 since
+    the last rebuild?"""
+    disp = metric.sep(state.ref_pos, state.pos)
+    d2 = torch.where(state.valid, (disp * disp).sum(-1), 0.0)
+    return d2.max() > (0.5 * skin) ** 2
