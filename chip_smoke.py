@@ -2,28 +2,45 @@
 
     python3 chip_smoke.py
 
-Builds kernel K1 from mundy_tpu_torch/csrc/ and drives BASELINE config #1
-(the row-grid spheres engine) through the port's own entry points:
+Builds the kernels of mundy_tpu_torch/csrc/ and drives BASELINE configs #1
+(the row-grid spheres engine, kernel K1) and #2 (the dry LCP spheres line,
+kernels K2 and K3) through the port's own entry points:
 
-1. build K1 with nvcc (sm_90a); print the card and its power limit;
-2. K1 vs its plain PyTorch version at the 1M-sphere main-path shape
-   (float32, max |diff| over valid slots <= 2e-5 max|f|), both timed with
-   CUDA events after a synchronize (median of several runs);
+1. build K1, K2 and K3 with nvcc (sm_90a), one process per source, all at
+   once; print each kernel's registers and spills and the card with its
+   power limit;
+2. K1 vs its plain PyTorch version at the 1M-sphere config #1 shape
+   (float32, max |diff| over valid slots <= 2e-5 max|f|);
 3. examples/spheres_10k.yaml for 200 steps through load_yaml /
    config_from_dict -> RowSpheresSim(...).run();
-4. a small float64 run (2000 spheres, 60 steps) on the card against the
-   same run on the CPU, which takes the plain version;
-5. the 1M bench config (phi = 0.05) for 300 steps through run_block, with
-   the K1 launch count reset just before: no lost particle, no overflow,
-   >= 1 rebuild, one K1 launch per step; prints steps/s and ms/step.
+4. config #1 in float64 (2000 spheres, 60 steps) on the card against the
+   same run on the CPU, which takes the plain versions;
+5. the 1M config #1 (phi = 0.05) for 300 steps through run_block, with the
+   K1 count set to 0 just before: one K1 launch per step;
+6. the 1M LCP bench protocol of bench.py:39-74: init, 3 settle blocks of 9
+   steps, a 2-step block at fixed capacities that must not overflow, then a
+   24-step timed window with the K2/K3 counts set to 0 just before: one K3
+   launch per step, one K2 launch per broad phase; then torch.profiler over
+   8 more steps;
+7. K2 vs its plain version at the row shape of the window's final state:
+   ids and counts exactly equal;
+8. K3 vs its plain version at the strided shape of the window's final
+   state (within 1e-6 of max|sum|), and index_add_ timed beside them as the
+   library yardstick;
+9. examples/lcp_spheres_100k.yaml through LCPSpheresSim(...).run(): no
+   overflow, finite positions;
+10. the LCP line in float64 (2000 spheres, 30 steps) on the card against
+    the CPU: equal counters at every step, positions within 1e-8.
 
-Prints one JSON line of kernel results, then a final JSON line
-{"ok": true, "device": {...}}. Exits non-zero, with no result, without a
-CUDA device or without the package beside it.
+Kernel times are medians of CUDA-event timings after a synchronize, kernel
+and plain version alternating. Prints one JSON line of kernel results, then
+a final JSON line {"ok": true, "device": {...}}. Exits non-zero, with no
+result, without a CUDA device or without the package beside it.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import math
 import os
@@ -35,11 +52,22 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 N_BIG = 1_000_000
 BIG_STEPS = 300
+KERNELS = ("row_central", "row_extract", "seg_onehot")
+# published H100 SXM peaks (NVIDIA data sheet): FP32 outside the
+# tensor cores, and HBM bandwidth
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
 
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def bound(flops: float, nbytes: float) -> tuple:
+    """(bound_ms, bound_by): the larger of the operation and byte times."""
+    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def bench_config(SpheresConfig, n: int):
@@ -50,6 +78,31 @@ def bench_config(SpheresConfig, n: int):
                          youngs_modulus=1000.0, diffusion_coeff=0.1, dt=1e-4,
                          skin=0.4, max_neighbors=32, cell_capacity=8,
                          chunk=16384, dtype="float32")
+
+
+def lcp_bench_config(LCPSpheresConfig, n: int):
+    """bench.py's measure_lcp config (bench.py:39-42)."""
+    box = (n * (4.0 / 3.0) * math.pi * 0.125 / 0.05) ** (1.0 / 3.0)
+    return LCPSpheresConfig(num_spheres=n, box_size=float(box), radius=0.5,
+                            dt=1e-3, diffusion_coeff=0.1, constraint_buffer=0.45)
+
+
+def stencil_work(valid, torch) -> tuple:
+    """(K1 pairs, K2 candidate distances) that this row layout's data needs,
+    from the occupancy of its (ny, nz) rows: K1's half stencil takes each
+    occupied pair once, occ (occ - 1) / 2 in the own row plus occ x occ' with
+    the rows (y, z+1), (y+1, z-1), (y+1, z), (y+1, z+1); K2 tests each
+    occupied slot against every occupied slot of its 9 rows, itself
+    included (the self test is by gid)."""
+    occ = valid.sum(-1).to(torch.float64)
+
+    def at(dy, dz):  # occupancy of row (iy + dy, iz + dz), periodic
+        return torch.roll(occ, (-dy, -dz), dims=(0, 1))
+
+    half = at(0, 1) + at(1, -1) + at(1, 0) + at(1, 1)
+    nine = sum(at(dy, dz) for dy in (-1, 0, 1) for dz in (-1, 0, 1))
+    k1_pairs = (occ * half).sum() + (occ * (occ - 1) / 2).sum()
+    return float(k1_pairs), float((occ * nine).sum())
 
 
 def cuda_ms(fn, torch, reps: int) -> float:
@@ -67,6 +120,64 @@ def cuda_ms(fn, torch, reps: int) -> float:
     return statistics.median(times)
 
 
+def alternate(kernel, plain, torch, reps_k: int, reps_p: int, rounds: int = 3):
+    """Median kernel and plain times over rounds of plain, kernel, kernel,
+    plain."""
+    ms_k, ms_p = [], []
+    for _ in range(rounds):
+        ms_p.append(cuda_ms(plain, torch, reps_p))
+        ms_k.append(cuda_ms(kernel, torch, reps_k))
+        ms_k.append(cuda_ms(kernel, torch, reps_k))
+        ms_p.append(cuda_ms(plain, torch, reps_p))
+    return statistics.median(ms_k), statistics.median(ms_p)
+
+
+def build_all(_build) -> None:
+    """One nvcc process per source, all started together."""
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        libs = list(pool.map(_build.build, KERNELS))
+    print(f"[1] built {len(libs)} kernel libraries in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for lib in libs:
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"    {os.path.basename(lib)}: {line.strip()}")
+
+
+def profile_lcp(sim, st, torch, step_ms: float, steps: int = 8) -> None:
+    """Where the time of the 1M LCP step goes: torch.profiler over `steps`
+    steps at fixed capacities. Prints device busy time, host reads and
+    kernel launches per step, the device time of the largest kernels, and
+    the idle share against the profiled wall clock (which the profiler's
+    own host overhead inflates) and against `step_ms`, the un-profiled
+    window's ms/step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.run_block(st, steps, resize=False)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = prof.key_averages()
+    kernels = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.self_device_time_total, reverse=True)
+
+    def per_step(name):
+        return sum(e.count for e in events if e.key == name) / steps
+
+    busy_ms = 1e-3 * sum(e.self_device_time_total for e in kernels)
+    print(f"    profile over {steps} steps: wall {wall_ms / steps:.3f} ms/step, device "
+          f"busy {busy_ms / steps:.3f} ms/step, idle share {1 - busy_ms / wall_ms:.4f} "
+          f"(un-profiled {1 - busy_ms / steps / step_ms:.4f}); per step "
+          f"{per_step('aten::_local_scalar_dense'):.1f} host reads, "
+          f"{per_step('cudaLaunchKernel'):.1f} kernel launches", flush=True)
+    for e in kernels[:8]:
+        print(f"      {1e-3 * e.self_device_time_total / steps:8.4f} ms/step  "
+              f"{e.count / steps:7.1f} calls/step  {e.key[:90]}", flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -80,11 +191,18 @@ def main() -> None:
     if os.path.dirname(os.path.dirname(os.path.abspath(mundy_tpu_torch.__file__))) != HERE:
         fail(f"mundy_tpu_torch was imported from {mundy_tpu_torch.__file__}, "
              "not from this checkout")
+    from mundy_tpu_torch.constraints.collision import (active_pair_subset_strided,
+                                                       collision_setup_spheres)
     from mundy_tpu_torch.core.config import config_from_dict, load_yaml
+    from mundy_tpu_torch.driver.apps.lcp_spheres import (LCPSpheresConfig,
+                                                         LCPSpheresSim)
     from mundy_tpu_torch.driver.apps.spheres import SpheresConfig
     from mundy_tpu_torch.driver.apps.spheres_rows import RowSpheresSim
+    from mundy_tpu_torch.neighbor.rows import build_rows, make_row_grid
     from mundy_tpu_torch.ops.kernels import _build
     from mundy_tpu_torch.ops.kernels import row_central as k1
+    from mundy_tpu_torch.ops.kernels import row_extract as k2
+    from mundy_tpu_torch.ops.kernels import seg_onehot as k3
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -95,15 +213,10 @@ def main() -> None:
     except (OSError, subprocess.SubprocessError) as e:
         fail(f"nvidia-smi could not read the card's power limit: {e}")
     print(f"card: {smi.stdout.strip().splitlines()[0]}", flush=True)
+    t_start = time.perf_counter()
 
     # ---- 1. build ---------------------------------------------------------
-    t0 = time.perf_counter()
-    lib = _build.build("row_central")
-    print(f"[1] built {os.path.relpath(lib, HERE)} in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"    ptxas: {line.strip()}")
+    build_all(_build)
 
     # ---- 2. K1 vs plain at the 1M main-path shape -------------------------
     big = bench_config(SpheresConfig, N_BIG)
@@ -116,20 +229,24 @@ def main() -> None:
     f_p = k1.row_hertzian_forces_plain(rows.pos, *args)
     torch.cuda.synchronize()
     m = rows.valid
-    err = (f_k[m] - f_p[m]).abs().max().item()
+    k1_err = (f_k[m] - f_p[m]).abs().max().item()
     fmax = f_p[m].abs().max().item()
     ny, nz, R = rows.valid.shape
     print(f"[2] K1 at (ny, nz, R) = ({ny}, {nz}, {R}), {int(m.sum())} valid "
-          f"slots: max|diff| {err:.3e}, max|f| {fmax:.3e}", flush=True)
-    if not (fmax > 0 and math.isfinite(err) and err <= 2e-5 * fmax):
-        fail(f"K1 disagrees with its plain version: {err} > 2e-5 * {fmax}")
-    ms_k, ms_p = [], []
-    for _ in range(3):  # alternate plain and kernel
-        ms_p.append(cuda_ms(lambda: k1.row_hertzian_forces_plain(rows.pos, *args), torch, 3))
-        ms_k.append(cuda_ms(lambda: k1.row_hertzian_forces_sym(rows.pos, *args), torch, 10))
-    kernel_ms, plain_ms = statistics.median(ms_k), statistics.median(ms_p)
-    print(f"    K1 {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms (medians, "
-          "CUDA events)", flush=True)
+          f"slots: max|diff| {k1_err:.3e}, max|f| {fmax:.3e}", flush=True)
+    if not (fmax > 0 and math.isfinite(k1_err) and k1_err <= 2e-5 * fmax):
+        fail(f"K1 disagrees with its plain version: {k1_err} > 2e-5 * {fmax}")
+    k1_ms, k1_plain_ms = alternate(
+        lambda: k1.row_hertzian_forces_sym(rows.pos, *args),
+        lambda: k1.row_hertzian_forces_plain(rows.pos, *args), torch, 10, 2)
+    # the half stencil's occupied pairs at 33 FP32 operations each (x image
+    # 5, dy dz 2, r2 5, clamp, rsqrt, d, delta 2, w 4, and both Newton sums
+    # as 6 FMAs, an FMA counting two as the peak does); read pos once, write
+    # the forces once
+    k1_pairs = stencil_work(m, torch)[0]
+    k1_bound = bound(k1_pairs * 33.0, 2 * rows.pos.numel() * 4)
+    print(f"    K1 {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms, bound "
+          f"{k1_bound[0]:.4f} ms ({k1_bound[1]}, {k1_pairs:.0f} pairs)", flush=True)
     del f_k, f_p, sim, state, rows
 
     # ---- 3. examples/spheres_10k.yaml, 200 steps ----------------------------
@@ -167,7 +284,7 @@ def main() -> None:
             and torch.equal(sg.rows.gid.cpu(), sc.rows.gid)):
         fail("the float64 run on the card disagrees with the CPU run")
 
-    # ---- 5. the 1M bench config through run_block -------------------------
+    # ---- 5. the 1M config #1 through run_block ----------------------------
     sim = RowSpheresSim(big, device=dev)
     st = sim.init()
     st = sim.run_block(st, 3)  # warm up allocator and kernel
@@ -178,29 +295,206 @@ def main() -> None:
     st = sim.run_block(st, BIG_STEPS)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = k1.row_hertzian_forces_sym.launches
+    k1_launches = k1.row_hertzian_forces_sym.launches
     pos = sim.positions(st)
     n_valid = int(st.rows.valid.sum())
     rebuilds = st.rebuild_count - rb0
-    print(f"[5] 1M bench config: {BIG_STEPS} steps in {elapsed:.3f} s = "
+    print(f"[5] 1M config #1: {BIG_STEPS} steps in {elapsed:.3f} s = "
           f"{BIG_STEPS / elapsed:.2f} steps/s, {1e3 * elapsed / BIG_STEPS:.3f} "
           f"ms/step, rebuilds {rebuilds}, R {sim.grid.row_capacity}, "
-          f"K1 launches {launches}", flush=True)
+          f"K1 launches {k1_launches}", flush=True)
     if not bool(torch.isfinite(pos).all()):
         fail("non-finite positions in the 1M run")
     if n_valid != N_BIG or bool(st.overflow):
         fail(f"1M run lost particles or overflowed (valid {n_valid})")
     if rebuilds < 1:
         fail("no rebuild in the 1M window")
-    if launches != BIG_STEPS:
-        fail(f"K1 launched {launches} times in {BIG_STEPS} steps")
+    if k1_launches != BIG_STEPS:
+        fail(f"K1 launched {k1_launches} times in {BIG_STEPS} steps")
+    del sim, st, pos
 
-    print(json.dumps({"kernels": [{
-        "name": "row_hertzian_forces_sym", "route": "cuda",
-        "source": "mundy_tpu_torch/csrc/row_central.cu",
-        "replaces": "mundy_tpu/ops/pallas/row_central.py:128",
-        "launches": launches, "max_abs_err": err, "ms": kernel_ms,
-        "plain_ms": plain_ms}]}), flush=True)
+    # ---- 6. the 1M LCP bench protocol (bench.py:39-74) ---------------------
+    lcfg = lcp_bench_config(LCPSpheresConfig, N_BIG)
+    sim = LCPSpheresSim(lcfg, device=dev)
+    t0 = time.perf_counter()
+    st = sim.init()
+    torch.cuda.synchronize()
+    print(f"[6] 1M LCP init in {time.perf_counter() - t0:.2f} s: pair capacity "
+          f"{sim.pair_capacity}, rows_k {sim.rows_k}, rows_slack "
+          f"{sim.rows_slack:.4f}, seg_window {sim.seg_window}, act_window "
+          f"{sim.act_window}, active {int(st.act_count)}", flush=True)
+    for _ in range(3):  # settle + give the active-window resize chances
+        st = sim.run_block(st, 9)
+    settle_overflow = bool(st.overflow)
+    st = st.replace(overflow=torch.zeros((), dtype=torch.bool, device=dev))
+    st = sim.run_block(st, 2, resize=False)
+    torch.cuda.synchronize()
+    if bool(st.overflow):
+        fail("LCP capacities still overflow after the settle+resize blocks")
+    rb0 = st.rebuild_count
+    window = 24
+    k2.row_neighbor_extract.launches = 0
+    k3.strided_onehot_segment_sum.launches = 0
+    t0 = time.perf_counter()
+    st = sim.run_block(st, window, resize=False)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    k2_launches = k2.row_neighbor_extract.launches
+    k3_launches = k3.strided_onehot_segment_sum.launches
+    rebuilds = st.rebuild_count - rb0
+    print(f"    1M LCP line: {window} steps in {elapsed:.3f} s = "
+          f"{window / elapsed:.3f} steps/s, {1e3 * elapsed / window:.3f} ms/step, "
+          f"lcp_iters {st.lcp_iters} (max {st.lcp_iters_max}), active "
+          f"{int(st.act_count)}, rebuilds/step {rebuilds / window:.4f}, "
+          f"settle overflow {settle_overflow}, W {sim.act_window}, rows_k "
+          f"{sim.rows_k}, K2 launches {k2_launches}, K3 launches {k3_launches}",
+          flush=True)
+    if bool(st.overflow) or not bool(torch.isfinite(st.pos).all()):
+        fail("the 1M LCP window overflowed or went non-finite")
+    if k3_launches != window:
+        fail(f"K3 launched {k3_launches} times in {window} steps")
+    if rebuilds < 1 or k2_launches != rebuilds:
+        fail(f"K2 launched {k2_launches} times for {rebuilds} broad phases")
+    profile_lcp(sim, st, torch, 1e3 * elapsed / window)
+
+    # ---- 7. K2 vs plain at the 1M LCP row shape of the timed window ---------
+    K = min(lcfg.max_neighbors, sim.rows_k)
+    cutoff = 2 * sim.search_radius
+    grid = make_row_grid([0, 0, 0], [lcfg.box_size] * 3, cutoff, N_BIG,
+                         capacity_slack=sim.rows_slack, dtype=torch.float32,
+                         align=8, device=dev)
+    rs = build_rows(st.pos, torch.arange(N_BIG, dtype=torch.int32, device=dev), grid)
+    k2_args = (rs.pos, rs.gid, rs.valid, ((lcfg.box_size,) * 3, (True,) * 3),
+               cutoff, K, N_BIG)
+    ids_k, cnt_k = k2.row_neighbor_extract(*k2_args)
+    ids_p, cnt_p = k2.row_neighbor_extract_plain(*k2_args)
+    torch.cuda.synchronize()
+    ny, nz, R = rs.valid.shape
+    k2_mismatch = int((ids_k != ids_p).sum()) + int((cnt_k != cnt_p).sum())
+    k2_err = max(int((ids_k - ids_p).abs().max()), int((cnt_k - cnt_p).abs().max()))
+    print(f"[7] K2 at (ny, nz, R) = ({ny}, {nz}, {R}), K = {K}: "
+          f"{k2_mismatch} mismatched ids/counts, max count {int(cnt_p.max())}, "
+          f"mean count {cnt_p[rs.valid].float().mean().item():.3f}", flush=True)
+    if k2_mismatch != 0:
+        fail(f"K2 disagrees with its plain version in {k2_mismatch} entries")
+    k2_ms, k2_plain_ms = alternate(lambda: k2.row_neighbor_extract(*k2_args),
+                                   lambda: k2.row_neighbor_extract_plain(*k2_args),
+                                   torch, 10, 1, rounds=2)
+    # 13 FP32 operations per occupied candidate (x image 5, dy dz 2, r2 5,
+    # the cutoff test); read pos, gid and valid once, write ids and counts
+    # once
+    n_slots = ny * nz * R
+    k2_cands = stencil_work(rs.valid, torch)[1]
+    k2_bound = bound(k2_cands * 13.0,
+                     n_slots * (12 + 4 + 1) + n_slots * (K + 1) * 4)
+    print(f"    K2 {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms, bound "
+          f"{k2_bound[0]:.4f} ms ({k2_bound[1]}, {k2_cands:.0f} candidates)", flush=True)
+    del ids_k, ids_p, cnt_k, cnt_p, rs
+
+    # ---- 8. K3 vs plain at the 1M LCP strided shape of the timed window ----
+    # the strided layout of the next step of the bench line: the active
+    # subset of the window's final state, through collision_forces' reshapes
+    setup = collision_setup_spheres(st.pos, sim._radius(), st.pairs, sim.metric)
+    act = active_pair_subset_strided(setup, sim._dyn_margin(setup), N_BIG,
+                                     sim.seg_block, sim.act_window, st.seg_starts)
+    nb, W, B = sim.nb_blocks, sim.act_window, sim.seg_block
+    gam = torch.rand(act.setup.pairs.i.shape, generator=torch.Generator(dev).manual_seed(3),
+                     device=dev)
+    gn = -(torch.where(act.setup.pairs.mask, gam, 0.0)[:, None] * act.setup.normals)
+    values = gn.reshape(nb, W, 3).transpose(1, 2).contiguous()
+    blk = torch.arange(nb, dtype=torch.int32, device=dev)[:, None] * B
+    loc = (act.setup.pairs.i.reshape(nb, W) - blk).contiguous()
+    s_k = k3.strided_onehot_segment_sum(values, loc, B)
+    s_p = k3.strided_segment_sum_plain(values, loc, B)
+    torch.cuda.synchronize()
+    k3_err = (s_k - s_p).abs().max().item()
+    smax = s_p.abs().max().item()
+    n_act = int(act.setup.pairs.mask.sum())
+    print(f"[8] K3 at (nb, W, B) = ({nb}, {W}, {B}), {n_act} active pairs: "
+          f"max|diff| {k3_err:.3e}, max|sum| {smax:.3e}, bit-equal "
+          f"{bool(torch.equal(s_k, s_p))}", flush=True)
+    if not (smax > 0 and k3_err <= 1e-6 * smax):
+        fail(f"K3 disagrees with its plain version: {k3_err} > 1e-6 * {smax}")
+    k3_ms, k3_plain_ms = alternate(lambda: k3.strided_onehot_segment_sum(values, loc, B),
+                                   lambda: k3.strided_segment_sum_plain(values, loc, B),
+                                   torch, 20, 3)
+    # the library yardstick: one index_add_ of the (A, 3) pair vectors into
+    # the body sums, dropped ids sent to a spare row (inputs prepared untimed)
+    keep = (loc >= 0) & (loc < B)
+    flat = torch.where(keep, blk.to(torch.int64) + loc, nb * B).reshape(-1)
+    vals = values.transpose(1, 2).reshape(-1, 3).contiguous()
+    acc = torch.zeros((nb * B + 1, 3), device=dev)
+    lib_sum = acc.clone().index_add_(0, flat, vals)[:nb * B]
+    lib_err = (lib_sum.reshape(nb, B, 3).transpose(1, 2) - s_p).abs().max().item()
+    k3_lib_ms = statistics.median(
+        [cuda_ms(lambda: acc.index_add_(0, flat, vals), torch, 20) for _ in range(3)])
+    # 3 adds per active pair; read values and loc once, write the sums once
+    k3_bound = bound(3.0 * n_act, values.numel() * 4 + loc.numel() * 4 + s_k.numel() * 4)
+    print(f"    K3 {k3_ms:.4f} ms, plain {k3_plain_ms:.4f} ms, index_add_ "
+          f"{k3_lib_ms:.4f} ms (max|diff| {lib_err:.3e}), bound "
+          f"{k3_bound[0]:.4f} ms ({k3_bound[1]})", flush=True)
+    del sim, st, setup, act, values, loc, s_k, s_p, acc, vals, flat
+
+    # ---- 9. examples/lcp_spheres_100k.yaml ---------------------------------
+    raw = load_yaml(os.path.join(HERE, "examples", "lcp_spheres_100k.yaml"))
+    cfg = config_from_dict(LCPSpheresConfig, raw["params"])
+    sim = LCPSpheresSim(cfg, device=dev)
+    t0 = time.perf_counter()
+    st = sim.run(log=lambda line: print(f"    {line}", flush=True))
+    torch.cuda.synchronize()
+    print(f"[9] lcp_spheres_100k.yaml: {st.step} steps in "
+          f"{time.perf_counter() - t0:.2f} s, rebuilds {st.rebuild_count}, "
+          f"lcp_iters {st.lcp_iters} (max {st.lcp_iters_max}), max overlap "
+          f"{sim.max_overlap(st):.3e}", flush=True)
+    if not (st.step == cfg.num_steps and not bool(st.overflow)
+            and bool(torch.isfinite(st.pos).all())):
+        fail("lcp_spheres_100k.yaml overflowed or went non-finite")
+
+    # ---- 10. the LCP line in float64 on the card vs the CPU ----------------
+    small = dict(num_spheres=2000, box_size=20.0, radius=0.5, dt=1e-3,
+                 diffusion_coeff=0.01, constraint_buffer=0.45, dtype="float64")
+    pos0 = torch.rand((2000, 3), dtype=torch.float64,
+                      generator=torch.Generator().manual_seed(9)) * 20.0
+    trace = {}
+    for d in ("cuda", "cpu"):
+        sim = LCPSpheresSim(LCPSpheresConfig(**small), device=d)
+        st = sim.init(pos=pos0, key_words=(0, 9))
+        rows_ = []
+        for _ in range(30):
+            st = sim.run_block(st, 1, resize=False)
+            rows_.append((st.lcp_iters, int(st.act_count), int(st.act_block_max),
+                          st.rebuild_count, bool(st.overflow)))
+        trace[d] = (rows_, st.pos.cpu())
+    diff = (trace["cuda"][1] - trace["cpu"][1]).abs().max().item()
+    print(f"[10] LCP float64 2000 spheres, 30 steps: rebuilds "
+          f"{trace['cuda'][0][-1][3]} (cpu {trace['cpu'][0][-1][3]}), max|pos "
+          f"diff| vs cpu {diff:.3e}", flush=True)
+    print(f"    lcp_iters card {[r[0] for r in trace['cuda'][0]]}", flush=True)
+    print(f"    lcp_iters cpu  {[r[0] for r in trace['cpu'][0]]}", flush=True)
+    if not (trace["cuda"][0] == trace["cpu"][0] and diff <= 1e-8
+            and trace["cuda"][0][-1][3] >= 2):
+        fail("the float64 LCP run on the card disagrees with the CPU run")
+
+    print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(json.dumps({"kernels": [
+        {"name": "row_hertzian_forces_sym", "route": "cuda",
+         "source": "mundy_tpu_torch/csrc/row_central.cu",
+         "replaces": "mundy_tpu/ops/pallas/row_central.py:128",
+         "launches": k1_launches, "max_abs_err": k1_err, "ms": k1_ms,
+         "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
+         "library_ms": None},
+        {"name": "row_neighbor_extract", "route": "cuda",
+         "source": "mundy_tpu_torch/csrc/row_extract.cu",
+         "replaces": "mundy_tpu/ops/pallas/row_extract.py:210",
+         "launches": k2_launches, "max_abs_err": k2_err, "ms": k2_ms,
+         "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
+         "library_ms": None},
+        {"name": "strided_onehot_segment_sum", "route": "cuda",
+         "source": "mundy_tpu_torch/csrc/seg_onehot.cu",
+         "replaces": "mundy_tpu/ops/pallas/seg_onehot.py:55",
+         "launches": k3_launches, "max_abs_err": k3_err, "ms": k3_ms,
+         "plain_ms": k3_plain_ms, "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
+         "library_ms": k3_lib_ms}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
         flush=True)

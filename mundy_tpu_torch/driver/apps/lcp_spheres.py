@@ -1,0 +1,507 @@
+"""BASELINE config #2: N spheres with LCP non-penetration constraints.
+
+Port of mundy_tpu/driver/apps/lcp_spheres.py with the dry local-drag
+mobility (hydro = "none", monodisperse). Per step: constraints from the
+skin-buffered ordered pair list (signed separation + normals at the current
+positions), strided active-set compaction, matrix-free BBPGD with the
+banded Delassus apply and warm-started multipliers, and an Euler step with
+the constraint velocities plus Brownian drift. A skin trigger rebuilds the
+broad phase: the rows engine with kernel K2 (ops/kernels/row_extract.py)
+when the box holds >= 5 cells per axis, else the cell list. The force
+assembly runs kernel K3 (ops/kernels/seg_onehot.py) once per step.
+
+The control flow is the reference's, step for step: before every step the
+host reads the skin trigger and rebuilds when it fired, and the BBPGD loop
+reads its exit condition once per iteration. The reference's jit
+recompiles on a capacity change are plain capacity changes here; the
+shrink hysteresis (two consecutive blocks) is kept exactly, because it
+decides the trajectory.
+
+ref: `scrap/lcp_spheres/StkNgpLCP.cpp` main + time loop (SURVEY.md 3.1).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math as _math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from mundy_tpu_torch.constraints.collision import (
+    active_pair_subset_strided,
+    body_pair_starts,
+    collision_setup_spheres,
+    make_band_delassus_apply,
+    pair_dual_slots,
+    remap_gamma,
+    resolve_collisions,
+)
+from mundy_tpu_torch.core.config import validate_config
+from mundy_tpu_torch.core.containers import frozen_dataclass
+from mundy_tpu_torch.driver.regrow import grow_int, run_blocks
+from mundy_tpu_torch.dynamics.brownian import brownian_velocity_keyed
+from mundy_tpu_torch.dynamics.integrators import euler_step
+from mundy_tpu_torch.geom.periodicity import periodic
+from mundy_tpu_torch.mobility.local_drag import local_drag_mobility
+from mundy_tpu_torch.neighbor.cell_list import (
+    build_cell_list,
+    build_pair_list_ordered,
+    make_cell_grid,
+    neighbor_matrix,
+)
+from mundy_tpu_torch.neighbor.rows import make_row_grid, neighbor_matrix_rows
+from mundy_tpu_torch.ops.segments import segment_windows
+
+_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+@dataclasses.dataclass
+class LCPSpheresConfig:
+    """Validated config of the reference's LCPSpheresConfig, field for field."""
+
+    num_spheres: int = 10_000
+    box_size: float = 40.0
+    radius: float = 0.5
+    polydispersity: float = 0.0  # r_i = radius * (1 + U(-p, p)); not ported
+    viscosity: float = 1.0
+    diffusion_coeff: float = 0.0
+    dt: float = 1e-3
+    num_steps: int = 100
+    # pairs within 2r + buffer become constraint candidates
+    constraint_buffer: float = 0.2
+    # each step's BBPGD runs on pairs with sep0 < margin (+ deepest overlap);
+    # None -> 0.5 * min(constraint_buffer, 0.25)
+    active_margin: Optional[float] = None
+    max_allowable_overlap: float = 1e-5
+    max_col_iterations: int = 10_000
+    hydro: str = "none"  # "none" | "rpy_neighbors" | "rpy_ewald" | "rpy_spectral" | "rpy_ring"
+    pair_capacity_per_body: int = 2
+    max_neighbors: int = 32
+    cell_capacity: int = 16
+    chunk: int = 32768
+    seed: int = 1234
+    dtype: str = "float32"
+    log_every: int = 10
+
+    def __validate__(self):
+        assert self.hydro in ("none", "rpy_neighbors", "rpy_ewald",
+                              "rpy_spectral", "rpy_ring"), self.hydro
+        assert self.num_spheres > 0 and self.dt > 0
+        assert 0.0 <= self.polydispersity < 1.0
+        if self.polydispersity > 0:
+            assert self.hydro == "none", "the RPY hydro modes assume equal radii"
+
+
+@frozen_dataclass
+class LCPSpheresState:
+    pos: torch.Tensor  # (N, 3)
+    gamma: torch.Tensor  # (A,) active-set warm-start multipliers
+    gamma_sel: torch.Tensor  # (A,) int32 full-list slot per active pair (C = pad)
+    gamma_full: torch.Tensor  # (C,) rebuild-time snapshot for set-entry warm starts
+    key: tuple  # the run's two uint32 key words (python ints)
+    step: int
+    nmat: object  # NeighborMatrix (skin-buffered)
+    pairs: object  # PairList (skin-buffered constraint candidates)
+    seg_starts: torch.Tensor  # (nb,) first-pair index per body block
+    dual_full: torch.Tensor  # (C,) full-list slot of each pair's (j, i) duplicate
+    prev_cum: torch.Tensor  # (C,) last step's active cumsum; zeros = invalid
+    ref_pos: torch.Tensor  # positions at the last rebuild
+    rebuild_count: int
+    lcp_iters: int  # last solve's iterations
+    lcp_iters_max: int
+    lcp_residual: torch.Tensor
+    lcp_alpha: torch.Tensor  # last solve's BB step (next solve's alpha0)
+    act_count: torch.Tensor  # () last step's active-pair count
+    act_block_max: torch.Tensor  # () last step's max active pairs per block
+    overflow: torch.Tensor  # () bool, sticky
+
+
+class LCPSpheresSim:
+    """Assembled LCP spheres simulation for LCPSpheresConfig on one device."""
+
+    def __init__(self, config: LCPSpheresConfig, device="cuda"):
+        self.config = c = config
+        validate_config(config)
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("LCPSpheresSim(device='cuda') needs a CUDA "
+                               "device, and torch sees none")
+        if c.hydro != "none":
+            raise NotImplementedError(
+                f"hydro={c.hydro!r} is not ported yet (ROADMAP queue 1, item 4: "
+                "the LCP hydro modes)")
+        if c.polydispersity > 0:
+            raise NotImplementedError(
+                "polydisperse LCP spheres are not ported yet (ROADMAP queue 1, "
+                "item 2: the polydisperse branch)")
+        self.dtype = _DTYPES[c.dtype]
+        box = [c.box_size] * 3
+        self.metric = periodic(box, dtype=self.dtype, device=self.device)
+        self.search_radius = c.radius + 0.5 * c.constraint_buffer
+        self.grid = make_cell_grid([0, 0, 0], box, 2 * self.search_radius,
+                                   (True,) * 3, self.dtype, device=self.device)
+        self.pair_capacity = c.pair_capacity_per_body * c.num_spheres
+        # 1024 bodies per assembly block; block b's active pairs live at the
+        # strided slots [b*W, b*W + count_b), W right-sized at init()
+        self.seg_block = 1024
+        self.seg_window = max(2048, 8 * self.seg_block)
+        self.active_margin = (c.active_margin if c.active_margin is not None
+                              else 0.5 * min(c.constraint_buffer, 0.25))
+        self.nb_blocks = -(-c.num_spheres // self.seg_block)
+        self.act_window = 512
+        # rows-broad-phase caps, grown by regrow() on overflow and right-sized
+        # down by init() and _refit_broad()
+        self.rows_k = 20
+        self.rows_slack = 1.9
+        self._broad_shrink_streak = 0
+        self._act_shrink_streak = 0
+
+    @property
+    def act_capacity(self) -> int:
+        """Total active-pair slots of the strided layout (nb blocks x W)."""
+        return self.nb_blocks * self.act_window
+
+    def _n_cells(self) -> int:
+        return int(self.config.box_size // (2 * self.search_radius))
+
+    def _pair_run_bound(self) -> int:
+        """Max pairs per body: the broad phase's neighbor cap."""
+        c = self.config
+        return (min(c.max_neighbors, self.rows_k) if self._n_cells() >= 5
+                else c.max_neighbors)
+
+    def _radius(self) -> torch.Tensor:
+        return torch.tensor(self.config.radius, dtype=self.dtype, device=self.device)
+
+    def _broad_phase(self, pos):
+        c = self.config
+        if self._n_cells() >= 5:
+            nmat = neighbor_matrix_rows(
+                pos, float(self.search_radius), (c.box_size,) * 3,
+                max_neighbors=min(c.max_neighbors, self.rows_k),
+                capacity_slack=self.rows_slack)
+            clist_ovf = torch.zeros((), dtype=torch.bool, device=self.device)
+        else:
+            clist = build_cell_list(pos, self.grid, c.cell_capacity)
+            nmat = neighbor_matrix(
+                pos, clist, torch.tensor(self.search_radius, dtype=self.dtype,
+                                         device=self.device),
+                metric=self.metric, max_neighbors=c.max_neighbors,
+                chunk=min(c.chunk, max(256, c.num_spheres)))
+            clist_ovf = clist.overflow
+        pairs = build_pair_list_ordered(nmat, self.pair_capacity)
+        starts = body_pair_starts(nmat)
+        seg = segment_windows(pairs.i, c.num_spheres, self.seg_block,
+                              self.seg_window, body_starts=starts)
+        # a missing dual (asymmetric pair list) overflows only for pairs that
+        # can reach contact before the next rebuild: pairs within ~1 ulp of
+        # the search radius round the cutoff test per direction
+        setup_reb = collision_setup_spheres(pos, self._radius(), pairs,
+                                            metric=self.metric)
+        near = setup_reb.sep0 < torch.tensor(0.5 * c.constraint_buffer,
+                                             dtype=self.dtype, device=self.device)
+        dual_full, dual_missing = pair_dual_slots(pairs, starts, nmat, near=near)
+        ovf = clist_ovf | nmat.overflow | pairs.overflow | seg.overflow | dual_missing
+        return nmat, pairs, seg.starts, dual_full, ovf
+
+    def init(self, pos: Optional[torch.Tensor] = None,
+             key_words: Optional[tuple] = None) -> LCPSpheresState:
+        """Initial state, with the reference's right-sizing of the pair
+        capacity, row slack, rows K, assembly window and active window. With
+        no arguments the positions are drawn uniformly in the box from a
+        torch.Generator seeded with config.seed and the key is (0, seed).
+        Pass `pos` (N, 3) and `key_words` to start from the reference's
+        state (its positions and the key words of its state key)."""
+        c = self.config
+        if pos is None:
+            gen = torch.Generator(device=self.device).manual_seed(c.seed)
+            pos = torch.rand((c.num_spheres, 3), generator=gen, dtype=self.dtype,
+                             device=self.device) * c.box_size
+        if key_words is None:
+            key_words = (0, c.seed & 0xFFFFFFFF)
+        pos = torch.as_tensor(pos, dtype=self.dtype, device=self.device)
+        nmat, pairs, seg_starts, dual_full, ovf = self._broad_phase(pos)
+        # every BBPGD iteration streams the full capacity: right-size it to
+        # 1.3x the measured candidate count (+margin)
+        count = int(pairs.num_pairs)
+        tight = ((int(count * 1.3) + 512 + 1023) // 1024) * 1024
+        resize = tight != self.pair_capacity
+        self.pair_capacity = tight
+        if self._refit_rows_slack(pos):
+            resize = True
+        if self._n_cells() >= 5 and not bool(nmat.overflow):
+            kmax = int(nmat.mask.sum(dim=1).max())
+            k_tight = max(4, -(-(kmax + 1) // 4) * 4)
+            if k_tight < min(c.max_neighbors, self.rows_k):
+                self.rows_k = k_tight
+                resize = True
+        if resize:  # windows need the un-truncated pair list
+            nmat, pairs, seg_starts, dual_full, ovf = self._broad_phase(pos)
+        counts = np.diff(np.append(seg_starts.cpu().numpy(), int(pairs.num_pairs)))
+        w_tight = (int(counts.max() * 1.5) + 511) // 512 * 512
+        if w_tight != self.seg_window:
+            self.seg_window = w_tight
+            nmat, pairs, seg_starts, dual_full, ovf = self._broad_phase(pos)
+        # active window from the near-contact per-block maximum (a cold start
+        # is the high-water mark), 1.1x slack on a 64 grid
+        setup0 = collision_setup_spheres(pos, self._radius(), pairs, metric=self.metric)
+        act = pairs.mask & (setup0.sep0 < self._dyn_margin(setup0))
+        n_act = int(act.sum())
+        act_i = torch.where(act, pairs.i, c.num_spheres).cpu().numpy()
+        blk = np.bincount(act_i[act_i < c.num_spheres] // self.seg_block, minlength=1)
+        self.act_window = max(64, (int(blk.max() * 1.1) + 63) // 64 * 64)
+        kw = dict(dtype=self.dtype, device=self.device)
+        return LCPSpheresState(
+            pos=pos,
+            gamma=torch.zeros((self.act_capacity,), **kw),
+            gamma_sel=torch.full((self.act_capacity,), self.pair_capacity,
+                                 dtype=torch.int32, device=self.device),
+            gamma_full=torch.zeros((self.pair_capacity,), **kw),
+            key=tuple(int(k) for k in key_words), step=0,
+            nmat=nmat, pairs=pairs, seg_starts=seg_starts, dual_full=dual_full,
+            prev_cum=torch.zeros((self.pair_capacity,), dtype=torch.int32,
+                                 device=self.device),
+            ref_pos=pos, rebuild_count=1, lcp_iters=0, lcp_iters_max=0,
+            lcp_residual=torch.zeros((), **kw),
+            lcp_alpha=torch.full((), torch.nan, **kw),
+            act_count=torch.tensor(n_act, dtype=torch.int32, device=self.device),
+            act_block_max=torch.tensor(int(blk.max()), dtype=torch.int32,
+                                       device=self.device),
+            overflow=ovf)
+
+    def _refit_rows_slack(self, pos) -> bool:
+        """Set rows_slack so the row capacity sits just above the measured
+        max row occupancy (host bincount over the current positions).
+        Returns True when the slack changed (the caller rebuilds)."""
+        c = self.config
+        if self._n_cells() < 5:
+            return False
+        g = make_row_grid([0, 0, 0], [c.box_size] * 3, 2 * self.search_radius,
+                          c.num_spheres, capacity_slack=self.rows_slack,
+                          dtype=self.dtype, align=8)
+        p = np.mod(pos.cpu().numpy(), c.box_size)
+        iy = np.minimum((p[:, 1] // float(g.cell_yz[0])).astype(np.int64), g.ny - 1)
+        iz = np.minimum((p[:, 2] // float(g.cell_yz[1])).astype(np.int64), g.nz - 1)
+        occ = np.bincount(iy * g.nz + iz, minlength=g.ny * g.nz)
+        mean = c.num_spheres / (g.ny * g.nz)
+        target_cap = ((int(occ.max() * 1.12) + 6 + 7) // 8) * 8
+        slack = max(1.15, (target_cap - 8) / mean)
+        if abs(slack - self.rows_slack) / self.rows_slack < 0.05:
+            return False
+        self.rows_slack = slack
+        return True
+
+    def _scatter_gamma(self, gamma_full, state) -> torch.Tensor:
+        """The active multipliers written onto a full-list snapshot at their
+        full-list slots (pads, slot == its length, are dropped)."""
+        cap = gamma_full.shape[0]
+        out = torch.cat([gamma_full, gamma_full.new_zeros(1)])
+        sel = state.gamma_sel.to(torch.int64)
+        out[sel] = torch.where(sel < cap, state.gamma, 0.0)
+        return out[:cap]
+
+    def _rebuild(self, state: LCPSpheresState) -> LCPSpheresState:
+        nmat, pairs, seg_starts, dual_full, ovf = self._broad_phase(state.pos)
+        # warm-start multipliers survive the rebuild by pair identity: scatter
+        # the active ones onto the old full list, remap into the new list
+        gfull_old = self._scatter_gamma(
+            torch.zeros((self.pair_capacity,), dtype=self.dtype, device=self.device),
+            state)
+        gamma_full = remap_gamma(state.pairs, gfull_old, pairs,
+                                 probes=self._pair_run_bound(),
+                                 old_starts=body_pair_starts(state.nmat),
+                                 old_nmat=state.nmat)
+        return state.replace(
+            nmat=nmat, pairs=pairs, seg_starts=seg_starts, dual_full=dual_full,
+            prev_cum=torch.zeros_like(state.prev_cum),
+            gamma=torch.zeros_like(state.gamma),
+            gamma_sel=torch.full_like(state.gamma_sel, self.pair_capacity),
+            gamma_full=gamma_full, ref_pos=state.pos,
+            rebuild_count=state.rebuild_count + 1,
+            overflow=state.overflow | ovf)
+
+    def _mobility(self, f: torch.Tensor) -> torch.Tensor:
+        return local_drag_mobility(f, self.config.radius, self.config.viscosity)
+
+    def _dyn_margin(self, setup) -> torch.Tensor:
+        """Active-set margin = static margin + deepest current overlap (a
+        deep cold-start contact moves its bodies that far in one step)."""
+        sep0 = torch.where(setup.pairs.mask, setup.sep0, torch.inf)
+        deepest = torch.clamp(-sep0.min(), min=0.0)
+        return torch.tensor(self.active_margin, dtype=self.dtype,
+                            device=self.device) + deepest
+
+    def _inner_step(self, state: LCPSpheresState) -> LCPSpheresState:
+        """Constraint assembly + BBPGD + Euler against the skin-buffered
+        pair list (separations and normals from the current positions)."""
+        c = self.config
+        setup_full = collision_setup_spheres(state.pos, self._radius(), state.pairs,
+                                             metric=self.metric)
+        act = active_pair_subset_strided(
+            setup_full, self._dyn_margin(setup_full), c.num_spheres,
+            self.seg_block, self.act_window, state.seg_starts,
+            dual_full=state.dual_full,
+            prev=(state.prev_cum, state.gamma, self.act_window),
+            gamma_full=state.gamma_full)
+        mob = torch.tensor(1.0 / (6.0 * _math.pi * c.viscosity * c.radius),
+                           dtype=self.dtype, device=self.device)
+        apply_band = make_band_delassus_apply(act.setup, act.dual, c.dt,
+                                              self._pair_run_bound(),
+                                              mobility_i=mob, mobility_j=mob)
+        # Brownian drift is a known velocity: it enters the LCP's constant
+        # term so the solve enforces non-penetration of the end-of-step
+        # positions
+        u_ext = None
+        if c.diffusion_coeff > 0:
+            u_ext = brownian_velocity_keyed(
+                state.key, state.step,
+                torch.arange(c.num_spheres, dtype=torch.int32, device=self.device),
+                c.diffusion_coeff, c.dt, dtype=self.dtype)
+        gamma, vel, res = resolve_collisions(
+            act.setup, self._mobility, c.num_spheres, c.dt,
+            max_allowable_overlap=c.max_allowable_overlap,
+            max_iterations=c.max_col_iterations, gamma0=act.gamma0,
+            u_ext=u_ext, alpha0=state.lcp_alpha, apply_override=apply_band)
+        if u_ext is not None:
+            vel = vel + u_ext
+        new_pos = euler_step(state.pos, vel,
+                             torch.tensor(c.dt, dtype=self.dtype, device=self.device),
+                             metric=self.metric)
+        return state.replace(
+            pos=new_pos, gamma=gamma, gamma_sel=act.sel, prev_cum=act.cum,
+            step=state.step + 1, lcp_iters=res.num_iters,
+            lcp_iters_max=max(state.lcp_iters_max, res.num_iters),
+            lcp_residual=res.residual, lcp_alpha=res.alpha,
+            act_count=act.n_act, act_block_max=act.block_max.to(torch.int32),
+            overflow=state.overflow | act.overflow)
+
+    def _moved(self, state: LCPSpheresState) -> bool:
+        disp = self.metric.sep(state.ref_pos, state.pos)
+        skin_sq = torch.tensor((0.5 * self.config.constraint_buffer) ** 2,
+                               dtype=self.dtype, device=self.device)
+        return bool((disp * disp).sum(-1).max() > skin_sq)
+
+    def step(self, state: LCPSpheresState) -> LCPSpheresState:
+        """One step, rebuilding first when the skin trigger fired."""
+        if self._moved(state):
+            state = self._rebuild(state)
+        return self._inner_step(state)
+
+    def run_block(self, state: LCPSpheresState, n_steps: int,
+                  resize: bool = True) -> LCPSpheresState:
+        """n_steps steps (a skin rebuild before any step whose trigger fired,
+        as the reference's bursts do), then, unless `resize` is False, the
+        between-block refits of the rows broad phase and the active window."""
+        for _ in range(n_steps):
+            state = self.step(state)
+        if resize:
+            state = self._refit_broad(state)
+            state = self._resize_active(state)
+        return state
+
+    def _refit_broad(self, state: LCPSpheresState) -> LCPSpheresState:
+        """Between blocks: shrink rows_k to the measured max neighbor count
+        and rows_slack to the measured max row occupancy. A shrink must be
+        demanded by two consecutive blocks."""
+        c = self.config
+        if self._n_cells() < 5 or bool(state.overflow):
+            return state
+        kmax = int(state.nmat.mask.sum(dim=1).max())
+        k_tight = max(4, -(-(kmax + 1) // 4) * 4)
+        want_k = k_tight < min(c.max_neighbors, self.rows_k)
+        slack_old = self.rows_slack
+        want_slack = self._refit_rows_slack(state.pos)
+        if not (want_k or want_slack):
+            self._broad_shrink_streak = 0
+            return state
+        if self._broad_shrink_streak < 1:
+            self.rows_slack = slack_old  # defer (hysteresis)
+            self._broad_shrink_streak += 1
+            return state
+        self._broad_shrink_streak = 0
+        if want_k:
+            self.rows_k = k_tight
+        return self._rebuild(state)
+
+    def _resize_active(self, state: LCPSpheresState) -> LCPSpheresState:
+        """Between blocks: re-fit the active window W to the measured
+        per-block maximum. Growing is immediate; a shrink by less than 25%
+        must be demanded by two consecutive blocks."""
+        blk_max = int(state.act_block_max)
+        target_w = max(64, (int(blk_max * 1.1) + 63) // 64 * 64)
+        if target_w == self.act_window:
+            self._act_shrink_streak = 0
+            return state
+        if (target_w <= self.act_window and self._act_shrink_streak < 1
+                and target_w > 0.75 * self.act_window):
+            self._act_shrink_streak += 1
+            return state
+        self._act_shrink_streak = 0
+        # W moves every strided slot: fold the live multipliers into the
+        # full-list snapshot (the warm start's fallback) instead
+        gfull = self._scatter_gamma(state.gamma_full, state)
+        self.act_window = target_w
+        return state.replace(
+            gamma=torch.zeros((self.act_capacity,), dtype=self.dtype, device=self.device),
+            gamma_sel=torch.full((self.act_capacity,), self.pair_capacity,
+                                 dtype=torch.int32, device=self.device),
+            gamma_full=gfull, prev_cum=torch.zeros_like(state.prev_cum))
+
+    def regrow(self, state: LCPSpheresState) -> LCPSpheresState:
+        """Grow every overflow-bounded capacity and rebuild from the state's
+        positions; warm-start multipliers are remapped by pair identity into
+        the bigger list (driver/regrow.py)."""
+        c = self.config
+        probes = self._pair_run_bound()
+        old = torch.zeros((self.pair_capacity,), dtype=self.dtype, device=self.device)
+        self.pair_capacity = grow_int(self.pair_capacity, align=1024)
+        self.seg_window = grow_int(self.seg_window, align=512)
+        self.act_window = grow_int(self.act_window, align=256)
+        self.rows_k = grow_int(self.rows_k, align=4)
+        self.rows_slack *= 1.5
+        c.max_neighbors = grow_int(c.max_neighbors)
+        c.cell_capacity = grow_int(c.cell_capacity)
+        nmat, pairs, seg_starts, dual_full, ovf = self._broad_phase(state.pos)
+        gamma_full = remap_gamma(state.pairs, self._scatter_gamma(old, state), pairs,
+                                 probes=probes, old_starts=body_pair_starts(state.nmat),
+                                 old_nmat=state.nmat)
+        return state.replace(
+            nmat=nmat, pairs=pairs, seg_starts=seg_starts, dual_full=dual_full,
+            prev_cum=torch.zeros((self.pair_capacity,), dtype=torch.int32,
+                                 device=self.device),
+            gamma=torch.zeros((self.act_capacity,), dtype=self.dtype, device=self.device),
+            gamma_sel=torch.full((self.act_capacity,), self.pair_capacity,
+                                 dtype=torch.int32, device=self.device),
+            gamma_full=gamma_full, ref_pos=state.pos, overflow=ovf)
+
+    def run(self, state: Optional[LCPSpheresState] = None, log=print):
+        c = self.config
+        if state is None:
+            state = self.init()
+
+        def status(s, done, tps):
+            return (f"step {done}/{c.num_steps}  tps={tps:.2f}  "
+                    f"lcp_iters={s.lcp_iters}  "
+                    f"residual={float(s.lcp_residual):.2e}  "
+                    f"overflow={bool(s.overflow)}")
+
+        return run_blocks(self, state, c.num_steps, c.log_every, log, status)
+
+    def max_overlap(self, state: LCPSpheresState) -> float:
+        """Largest pair overlap r_i + r_j - d over a fresh cell-list search
+        (negative when no pair touches)."""
+        c = self.config
+        n = c.num_spheres
+        clist = build_cell_list(state.pos, self.grid, c.cell_capacity)
+        nmat = neighbor_matrix(state.pos, clist,
+                               torch.tensor(self.search_radius, dtype=self.dtype,
+                                            device=self.device),
+                               metric=self.metric, max_neighbors=c.max_neighbors,
+                               chunk=min(c.chunk, max(256, n)))
+        idx = torch.clamp(nmat.idx, max=n - 1).to(torch.int64)
+        sep = self.metric.sep(state.pos[:, None, :], state.pos[idx])
+        radius = torch.full((n,), c.radius, dtype=self.dtype, device=self.device)
+        d = torch.linalg.vector_norm(sep, dim=-1) - radius[:, None] - radius[idx]
+        return float(-torch.where(nmat.mask, d, torch.inf).min())

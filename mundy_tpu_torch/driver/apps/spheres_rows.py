@@ -52,9 +52,10 @@ class RowSpheresState:
 
 
 class RowSpheresSim:
-    """Assembled row-engine simulation for SpheresConfig on one device."""
+    """Assembled row-engine simulation for SpheresConfig on one device (the
+    card unless the caller asks for "cpu")."""
 
-    def __init__(self, config: SpheresConfig, device="cpu"):
+    def __init__(self, config: SpheresConfig, device="cuda"):
         self.config = c = config
         validate_config(config)
         self.device = torch.device(device)

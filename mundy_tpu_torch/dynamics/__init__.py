@@ -1,1 +1,1 @@
-"""Dynamics: counter-based Brownian noise."""
+"""Dynamics: counter-based Brownian noise and explicit integration."""

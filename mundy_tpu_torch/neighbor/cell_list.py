@@ -1,0 +1,223 @@
+"""Dense cell-list broad phase and the pair-list formats.
+
+Port of mundy_tpu/neighbor/cell_list.py (the parts the LCP spheres line
+runs): bin particles into a dense (ncells, capacity) table with one stable
+sort, gather the 27-cell stencil per particle in chunks, keep the first K
+in-cutoff candidates in stencil order, and compact a neighbor matrix into
+the i-sorted ordered pair list of the constraint pipeline. Shapes and
+capacities are python ints; overflow is a 0-d bool tensor the host reads
+between blocks.
+
+The scatters that JAX runs with mode="drop" write into one extra dump slot
+that is cut off afterwards, as in neighbor/rows.py.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from mundy_tpu_torch.core.containers import frozen_dataclass, static_field
+from mundy_tpu_torch.geom.periodicity import Metric
+
+
+@frozen_dataclass
+class CellGrid:
+    """Static grid geometry."""
+
+    origin: torch.Tensor  # (3,) lower corner of the binned domain
+    cell_size: torch.Tensor  # (3,) cell edge lengths
+    dims: tuple = static_field(default=(1, 1, 1))  # (nx, ny, nz)
+    periodic: tuple = static_field(default=(False, False, False))
+
+
+@frozen_dataclass
+class CellList:
+    """Dense bucketed cells: entries[c, k] = particle index or -1."""
+
+    grid: CellGrid
+    entries: torch.Tensor  # (ncells, cell_capacity) int32
+    counts: torch.Tensor  # (ncells,) int32
+    cell_of: torch.Tensor  # (N,) int64 cell index per particle
+    overflow: torch.Tensor  # () bool, some cell exceeded capacity
+
+
+class NeighborMatrix(NamedTuple):
+    """Per-particle dense neighbor ids (the force-kernel format)."""
+
+    idx: torch.Tensor  # (N, K) int32 neighbor ids, N marks empty slots
+    mask: torch.Tensor  # (N, K) bool
+    overflow: torch.Tensor  # () bool, a particle had more than K neighbors
+
+
+class PairList(NamedTuple):
+    """Compacted pairs (the constraint-assembly format)."""
+
+    i: torch.Tensor  # (C,) int32
+    j: torch.Tensor  # (C,) int32
+    mask: torch.Tensor  # (C,) bool
+    num_pairs: torch.Tensor  # () int32
+    overflow: torch.Tensor  # () bool, more than C pairs found
+
+
+def make_cell_grid(domain_low, domain_high, min_cell_size: float,
+                   periodic=(False, False, False), dtype=torch.float32,
+                   device=None) -> CellGrid:
+    """As many cells as fit with edge >= min_cell_size (>= the largest pair
+    cutoff, so all neighbors of a particle live in its 27 cells)."""
+    low = np.asarray(domain_low, dtype=np.float64)
+    high = np.asarray(domain_high, dtype=np.float64)
+    extent = high - low
+    dims = np.maximum(np.floor(extent / min_cell_size).astype(int), 1)
+    cell = extent / dims
+    return CellGrid(
+        origin=torch.as_tensor(low, dtype=dtype, device=device),
+        cell_size=torch.as_tensor(cell, dtype=dtype, device=device),
+        dims=tuple(int(d) for d in dims),
+        periodic=tuple(bool(p) for p in periodic),
+    )
+
+
+def _cell_coords(grid: CellGrid, pos: torch.Tensor) -> torch.Tensor:
+    """Integer cell coords of each position, wrapped (periodic axes) or
+    clamped into the grid."""
+    rel = (pos - grid.origin) / grid.cell_size
+    c = torch.floor(rel).to(torch.int64)
+    dims = torch.as_tensor(grid.dims, dtype=torch.int64, device=pos.device)
+    per = torch.as_tensor(grid.periodic, dtype=torch.bool, device=pos.device)
+    wrapped = torch.remainder(c, dims)
+    clamped = torch.minimum(torch.clamp(c, min=0), dims - 1)
+    return torch.where(per, wrapped, clamped)
+
+
+def _linear_cell(grid: CellGrid, c: torch.Tensor) -> torch.Tensor:
+    nx, ny, _nz = grid.dims
+    return c[..., 0] + nx * (c[..., 1] + ny * c[..., 2])
+
+
+def build_cell_list(pos: torch.Tensor, grid: CellGrid, cell_capacity: int) -> CellList:
+    """Bin particles into the dense (ncells, capacity) table: one stable sort
+    by cell id, within-cell rank by a running-max segment trick, one
+    scatter. Particles past a cell's capacity are dropped and flag
+    overflow."""
+    n = pos.shape[0]
+    dev = pos.device
+    ncells = int(np.prod(grid.dims))
+    cell_of = _linear_cell(grid, _cell_coords(grid, pos))
+
+    order = torch.argsort(cell_of, stable=True)
+    sorted_cells = cell_of[order]
+    first_of_run = torch.zeros(n, dtype=torch.bool, device=dev)
+    first_of_run[1:] = sorted_cells[1:] != sorted_cells[:-1]
+    ar = torch.arange(n, device=dev)
+    start_of_cell = torch.cummax(torch.where(first_of_run, ar, 0), dim=0).values
+    rank = ar - start_of_cell
+
+    counts = torch.bincount(cell_of, minlength=ncells).to(torch.int32)
+    overflow = (counts > cell_capacity).any()
+
+    dump = ncells * cell_capacity
+    slot = torch.where(rank < cell_capacity, sorted_cells * cell_capacity + rank, dump)
+    entries = torch.full((dump + 1,), -1, dtype=torch.int32, device=dev)
+    entries[slot] = order.to(torch.int32)
+    return CellList(grid=grid, entries=entries[:dump].reshape(ncells, cell_capacity),
+                    counts=counts, cell_of=cell_of, overflow=overflow)
+
+
+def _neighbor_cells_of(grid: CellGrid, coords: torch.Tensor):
+    """For cell coords (..., 3): (27 linear ids, validity) with wrap/clamp."""
+    offs = torch.as_tensor(
+        [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1) for dz in (-1, 0, 1)],
+        dtype=torch.int64, device=coords.device)
+    nb = coords[..., None, :] + offs  # (..., 27, 3)
+    dims = torch.as_tensor(grid.dims, dtype=torch.int64, device=coords.device)
+    per = torch.as_tensor(grid.periodic, dtype=torch.bool, device=coords.device)
+    in_range = (nb >= 0) & (nb < dims)
+    valid = (in_range | per).all(dim=-1)
+    nb = torch.where(per, torch.remainder(nb, dims),
+                     torch.minimum(torch.clamp(nb, min=0), dims - 1))
+    return _linear_cell(grid, nb), valid
+
+
+def _compact_rows(cand: torch.Tensor, ok: torch.Tensor, k: int, empty_marker: int):
+    """First-k hits of each row in candidate order -> (idx, mask, count)."""
+    rows, ncand = cand.shape
+    c = torch.cumsum(ok.to(torch.int32), dim=1)
+    count = c[:, -1]
+    targets = torch.arange(1, k + 1, dtype=torch.int32, device=cand.device)[None, :]
+    lo = torch.zeros((rows, k), dtype=torch.int64, device=cand.device)
+    hi = torch.full((rows, k), ncand, dtype=torch.int64, device=cand.device)
+    for _ in range(max(1, int(np.ceil(np.log2(ncand))))):
+        mid = (lo + hi) >> 1
+        ge = torch.gather(c, 1, torch.clamp(mid, max=ncand - 1)) >= targets
+        hi = torch.where(ge, mid, hi)
+        lo = torch.where(ge, lo, mid + 1)
+    found = targets <= count[:, None]
+    idx = torch.gather(cand, 1, torch.clamp(lo, max=ncand - 1))
+    return torch.where(found, idx, empty_marker), found, count
+
+
+def neighbor_matrix(pos: torch.Tensor, clist: CellList, search_radius,
+                    metric: Optional[Metric] = None, max_neighbors: int = 32,
+                    chunk: int = 4096) -> NeighborMatrix:
+    """Per-particle neighbor ids within search_radius_i + search_radius_j
+    (self-pairs dropped), the first max_neighbors in 27-cell stencil order.
+    Chunked over particles so the (chunk, 27 cap) candidate table stays
+    small."""
+    n = pos.shape[0]
+    dev = pos.device
+    cap = clist.entries.shape[1]
+    radius = torch.broadcast_to(torch.as_tensor(search_radius, dtype=pos.dtype,
+                                                device=dev), (n,))
+    n_pad = ((n + chunk - 1) // chunk) * chunk
+    pos_p = torch.cat([pos, pos.new_zeros((n_pad - n, 3))])
+    rad_p = torch.cat([radius, radius.new_zeros((n_pad - n,))])
+    coords_all = _cell_coords(clist.grid, pos_p)
+    idx_parts, mask_parts, ovf = [], [], torch.zeros((), dtype=torch.bool, device=dev)
+    for start in range(0, n_pad, chunk):
+        sl = slice(start, start + chunk)
+        p, r = pos_p[sl], rad_p[sl]
+        cells27, valid27 = _neighbor_cells_of(clist.grid, coords_all[sl])
+        cand = clist.entries[cells27]  # (chunk, 27, cap)
+        cand = torch.where(valid27[..., None], cand, -1).reshape(chunk, 27 * cap)
+        cand_idx = torch.clamp(cand, min=0).to(torch.int64)
+        cand_pos = pos_p[cand_idx]
+        if metric is None:
+            sep = cand_pos - p[:, None, :]
+        else:
+            sep = metric.sep(p[:, None, :], cand_pos)
+        d2 = (sep * sep).sum(-1)
+        cutoff = r[:, None] + rad_p[cand_idx]
+        me = torch.arange(start, start + chunk, dtype=torch.int32, device=dev)
+        ok = (cand >= 0) & (d2 <= cutoff * cutoff) & (cand != me[:, None])
+        row_idx, row_ok, count = _compact_rows(cand, ok, max_neighbors, n)
+        idx_parts.append(row_idx)
+        mask_parts.append(row_ok)
+        ovf = ovf | (count > max_neighbors).any()
+    idx = torch.cat(idx_parts)[:n].to(torch.int32)
+    mask = torch.cat(mask_parts)[:n]
+    return NeighborMatrix(idx=idx, mask=mask, overflow=ovf)
+
+
+def build_pair_list_ordered(nmat: NeighborMatrix, capacity: int) -> PairList:
+    """ALL ordered (i, j) neighbor entries of a front-packed neighbor matrix,
+    sorted by i (row-major order), padded slots carrying i = j = N. Each
+    contact appears twice, (i, j) and (j, i). No scatter: the row of slot p
+    is found by a search over the rows' exclusive cumsum."""
+    n, _k = nmat.idx.shape
+    dev = nmat.idx.device
+    cnt = nmat.mask.sum(dim=1, dtype=torch.int32)
+    base = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
+                      torch.cumsum(cnt, dim=0, dtype=torch.int32)])
+    num = base[n]
+    pos_in = torch.arange(capacity, dtype=torch.int32, device=dev)
+    valid = pos_in < num
+    # row of slot p: the number of row ends <= p
+    ii = torch.searchsorted(base[1:], pos_in, right=True).to(torch.int32)
+    ii = torch.where(valid, ii, n)
+    ii_safe = torch.clamp(ii, max=n - 1).to(torch.int64)
+    lane = torch.where(valid, pos_in - base[ii_safe], 0).to(torch.int64)
+    jj = torch.where(valid, nmat.idx[ii_safe, lane].to(torch.int32), n)
+    return PairList(i=ii, j=jj, mask=valid, num_pairs=num, overflow=num > capacity)

@@ -1,6 +1,8 @@
 """Dense row-grid engine: gather-free neighbor interactions.
 
-Port of the spheres path of mundy_tpu/neighbor/rows.py. Particles live in a
+Port of the spheres path of mundy_tpu/neighbor/rows.py: the central-force
+engine of config #1 and the neighbor-matrix broad phase of config #2
+(`neighbor_matrix_rows`, through kernel K2). Particles live in a
 dense (ny, nz, R) row layout: a row is the full x extent of one (y, z) cell
 column, padded to R slots and sorted by x. The neighbor candidates of a row
 are the rows (y+dy, z+dz), reached by `torch.roll` with the periodic image
@@ -17,7 +19,7 @@ dump slot that is cut off afterwards (no host sync on the device path).
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -257,6 +259,99 @@ def pair_accumulate_central_sym(
         force = force + torch.roll(f_par[..., b * R:(b + 1) * R, :], (dy, dz),
                                    dims=(0, 1))
     return force
+
+
+def _candidate_planes(pos: torch.Tensor, box: tuple, extra_fields: tuple = ()):
+    """Concatenated 9-row candidate component planes (cx, cy, cz, extras),
+    each (ny, nz, 9R): the rolled rows (y+dy, z+dz) in (dy, dz) major order,
+    periodic y/z image shifts pre-applied, so a pair needs a minimum image
+    along x only."""
+    ny, nz = pos.shape[:2]
+    dtype, dev = pos.dtype, pos.device
+    (_lx, ly, lz), (_px, py, pz) = box
+    cand_x, cand_y, cand_z = [], [], []
+    cand_extras = [[] for _ in extra_fields]
+    for dy in (-1, 0, 1):
+        for dz in (-1, 0, 1):
+            if (dy, dz) == (0, 0):
+                cp, ces = pos, extra_fields
+            else:
+                cp = torch.roll(pos, (-dy, -dz), dims=(0, 1))
+                ces = tuple(torch.roll(f, (-dy, -dz), dims=(0, 1))
+                            for f in extra_fields)
+            x, y, z = cp[..., 0], cp[..., 1], cp[..., 2]
+            if dy != 0 and py:
+                y = y + _roll_image_shift(ny, dy, ly, dtype, dev)[:, None, None]
+            if dz != 0 and pz:
+                z = z + _roll_image_shift(nz, dz, lz, dtype, dev)[None, :, None]
+            cand_x.append(x)
+            cand_y.append(y)
+            cand_z.append(z)
+            for acc, f in zip(cand_extras, ces):
+                acc.append(f)
+    return (torch.cat(cand_x, dim=-1), torch.cat(cand_y, dim=-1),
+            torch.cat(cand_z, dim=-1),
+            tuple(torch.cat(a, dim=-1) for a in cand_extras))
+
+
+def _unsort_rows_to_gid(vals_flat: torch.Tensor, state: RowState, n: int) -> torch.Tensor:
+    """(slots, K) per-row-slot values -> (N, K) in gid order, through the
+    gid -> slot inverse permutation and one row gather. Bodies dropped by
+    row overflow get the padded all-`n` row (the overflow flag covers
+    them)."""
+    slots, k = vals_flat.shape
+    dev = vals_flat.device
+    tgt = torch.where(state.valid.reshape(-1), state.gid.reshape(-1).to(torch.int64), n)
+    slot_of = torch.full((n + 1,), slots, dtype=torch.int64, device=dev)
+    slot_of[tgt] = torch.arange(slots, device=dev)  # index n is the dump
+    vals_pad = torch.cat([vals_flat, vals_flat.new_full((1, k), n)])
+    return vals_pad[slot_of[:n]]
+
+
+def neighbor_matrix_rows(pos: torch.Tensor, search_radius: float, box_lengths,
+                         periodic_axes=(True, True, True),
+                         origin=(0.0, 0.0, 0.0), max_neighbors: int = 8,
+                         capacity_slack: float = 1.9,
+                         hbm_budget_bytes: float = 2.5e9,
+                         grid: Optional[RowGrid] = None):
+    """NeighborMatrix built through the row layout, the fast broad phase.
+
+    build_rows, then the K nearest in-cutoff neighbors of every row slot
+    (kernel K2, ops/kernels/row_extract.py: distance-sorted, ties to the
+    lower candidate lane), then the slot -> gid unsort. Pair cutoff is
+    2 * search_radius (the reference's per-body radii, for polydisperse
+    systems, are not ported). Needs >= 5 cells per periodic y/z axis. Returns NeighborMatrix(idx (N, K) with
+    N marking empty, mask, overflow)."""
+    from mundy_tpu_torch.neighbor.cell_list import NeighborMatrix
+    from mundy_tpu_torch.ops.kernels.row_extract import row_neighbor_extract
+
+    n = pos.shape[0]
+    dtype, dev = pos.dtype, pos.device
+    cutoff = 2.0 * float(search_radius)
+    lengths = tuple(float(v) for v in box_lengths)
+    flags = tuple(bool(v) for v in periodic_axes)
+    if grid is None:
+        low = np.asarray(origin, np.float64)
+        grid = make_row_grid(low, low + np.asarray(lengths, np.float64), cutoff, n,
+                             capacity_slack=capacity_slack, dtype=dtype, align=8,
+                             device=dev)
+    if (flags[1] and grid.ny < 5) or (flags[2] and grid.nz < 5):
+        raise ValueError("neighbor_matrix_rows needs >=5 cells per periodic "
+                         "y/z axis; use neighbor_matrix")
+    # wrap periodic axes into the primary cell: build_rows clamps y/z cell
+    # coordinates, so an out-of-box position would land in an edge row the
+    # partner's 9-row stencil never scans
+    orig = torch.as_tensor(grid.origin, dtype=dtype, device=dev)
+    L = torch.as_tensor(lengths, dtype=dtype, device=dev)
+    wrapped = orig + torch.remainder(pos - orig, L)
+    pos = torch.where(torch.as_tensor(flags, device=dev), wrapped, pos)
+    state = build_rows(pos, torch.arange(n, dtype=torch.int32, device=dev), grid)
+    ids, count = row_neighbor_extract(state.pos, state.gid, state.valid,
+                                      (lengths, flags), cutoff, max_neighbors, n,
+                                      hbm_budget_bytes=hbm_budget_bytes)
+    idx = _unsort_rows_to_gid(ids.reshape(-1, max_neighbors), state, n)
+    return NeighborMatrix(idx=idx, mask=idx < n,
+                          overflow=state.overflow | (count > max_neighbors).any())
 
 
 def moved_beyond_skin(state: RowState, metric: Metric, skin: float) -> torch.Tensor:

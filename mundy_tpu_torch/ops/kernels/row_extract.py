@@ -1,0 +1,151 @@
+"""Kernel K2: K nearest in-cutoff neighbors per row slot.
+
+Port of mundy_tpu/ops/pallas/row_extract.py::row_neighbor_extract. On a
+CUDA tensor the wrapper launches the hand-written kernel of
+csrc/row_extract.cu (one block per row, the 9 image-shifted candidate rows
+staged in shared memory, one thread per own slot keeping a sorted top-K
+list; see the note there). On a CPU tensor it computes the plain version,
+`row_neighbor_extract_plain`: the XLA extraction branch of the reference's
+neighbor_matrix_rows, K argmin passes over the (R, 9R) candidate blocks.
+Both order a slot's neighbors by (r2, candidate lane), which is argmin's
+first-index rule, and compute r2 with the same operations in the same order
+(no fused multiply-add), so ids, order and counts agree bit for bit. A CUDA
+tensor never takes the plain version: a failed build or launch raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from mundy_tpu_torch.ops.kernels import _build
+
+_DTYPES = {torch.float32: "f32", torch.float64: "f64"}
+K_MAX = 512  # the kernel's largest top-K list (csrc/row_extract.cu)
+
+
+def _check(pos, gid, valid, box, max_neighbors) -> None:
+    if pos.ndim != 4 or pos.shape[-1] != 3:
+        raise ValueError(f"pos must be (ny, nz, R, 3), got {tuple(pos.shape)}")
+    if pos.dtype not in _DTYPES:
+        raise TypeError(f"pos must be float32 or float64, got {pos.dtype}")
+    if gid.shape != pos.shape[:3] or valid.shape != pos.shape[:3]:
+        raise ValueError("gid and valid must be (ny, nz, R)")
+    if len(box) != 2 or len(box[0]) != 3 or len(box[1]) != 3:
+        raise ValueError("box must be ((lx, ly, lz), (px, py, pz))")
+    if max_neighbors < 1:
+        raise ValueError("max_neighbors must be positive")
+
+
+def row_neighbor_extract_plain(pos: torch.Tensor, gid: torch.Tensor,
+                               valid: torch.Tensor, box, cutoff: float,
+                               max_neighbors: int, n: int,
+                               hbm_budget_bytes: float = 2.5e9):
+    """Plain PyTorch version of K2 (any device).
+
+    pos/gid/valid: (ny, nz, R) row layout from build_rows; box: ((lx, ly,
+    lz), (px, py, pz)). Returns (ids (ny, nz, R, K) int32 neighbor gids in
+    (r2, lane) order padded with n, count (ny, nz, R) int32 in-cutoff hits,
+    zero on invalid slots). The (R, 9R) blocks run in y-slabs whose ~4 live
+    blocks stay within `hbm_budget_bytes`."""
+    from mundy_tpu_torch.neighbor.rows import _candidate_planes
+
+    _check(pos, gid, valid, box, max_neighbors)
+    ny, nz, R, _ = pos.shape
+    k_out = max_neighbors
+    dtype, dev = pos.dtype, pos.device
+    lengths, flags = box
+    gid_f = gid.to(dtype)  # gid rides the plane machinery as a float
+    cx, cy_, cz, (cgid,) = _candidate_planes(pos, box, (gid_f,))
+    ox, oy, oz = pos[..., 0], pos[..., 1], pos[..., 2]
+    lx, px = lengths[0], flags[0]
+    cut2 = torch.tensor(cutoff * cutoff, dtype=dtype, device=dev)
+
+    def extract(sl):
+        DX = cx[sl][..., None, :] - ox[sl][..., :, None]
+        if px:
+            DX = DX - lx * torch.round(DX * (1.0 / lx))
+        DY = cy_[sl][..., None, :] - oy[sl][..., :, None]
+        DZ = cz[sl][..., None, :] - oz[sl][..., :, None]
+        r2 = DX * DX + DY * DY + DZ * DZ
+        del DX, DY, DZ
+        hit = (r2 < cut2) & (cgid[sl][..., None, :] != gid_f[sl][..., :, None])
+        count = hit.sum(-1, dtype=torch.int32)
+        r2m = torch.where(hit, r2, torch.inf)
+        del r2, hit
+        ovc = valid[sl]
+        cg = cgid[sl][..., None, :].expand(r2m.shape)
+        ids = []
+        for _ in range(k_out):
+            amin = torch.argmin(r2m, dim=-1, keepdim=True)
+            v = torch.gather(r2m, -1, amin)[..., 0]
+            g = torch.gather(cg, -1, amin)[..., 0]
+            ids.append(torch.where(torch.isfinite(v) & ovc, g.to(torch.int32), n))
+            r2m.scatter_(-1, amin, torch.inf)
+        return torch.stack(ids, dim=-1), torch.where(ovc, count, 0)
+
+    bytes_per_row = 4 * nz * R * 9 * R * pos.element_size()
+    chunk_y = int(hbm_budget_bytes // max(bytes_per_row, 1))
+    if chunk_y < 1:
+        raise ValueError(
+            f"neighbor_matrix_rows: one y-plane of the extraction graph needs "
+            f"{bytes_per_row / 1e9:.1f} GB (> budget {hbm_budget_bytes / 1e9:.1f} "
+            f"GB) at R={R}, nz={nz}; the distribution is too clustered for the "
+            "row layout; use the cell-list builder (neighbor_matrix)")
+    parts = [extract(slice(y0, y0 + chunk_y)) for y0 in range(0, ny, chunk_y)]
+    return (torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts]))
+
+
+def _launch(pos, gid, valid, box, cutoff, max_neighbors, n):
+    lib = _build.load("row_extract")
+    fn = getattr(lib, f"row_neighbor_extract_{_DTYPES[pos.dtype]}")
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                   + [ctypes.c_double] * 4 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    ny, nz, R, _ = pos.shape
+    ids = torch.empty((ny, nz, R, max_neighbors), dtype=torch.int32, device=pos.device)
+    count = torch.empty((ny, nz, R), dtype=torch.int32, device=pos.device)
+    (lx, ly, lz), _flags = box
+    with torch.cuda.device(pos.device):
+        stream = torch.cuda.current_stream(pos.device).cuda_stream
+        err = fn(pos.data_ptr(), gid.data_ptr(), valid.data_ptr(), ids.data_ptr(),
+                 count.data_ptr(), ny, nz, R, max_neighbors, n, float(lx),
+                 float(ly), float(lz), float(cutoff) * float(cutoff), stream)
+    if err != 0:
+        raise RuntimeError(f"row_extract kernel launch failed: CUDA error {err}")
+    return ids, count
+
+
+def row_neighbor_extract(pos: torch.Tensor, gid: torch.Tensor, valid: torch.Tensor,
+                         box, cutoff: float, max_neighbors: int, n: int,
+                         hbm_budget_bytes: float = 2.5e9):
+    """K nearest in-cutoff neighbor gids per row slot, plus hit counts.
+
+    Arguments and results as row_neighbor_extract_plain. A CPU tensor
+    computes the plain version. A CUDA tensor launches the kernel (counted
+    in `.launches`); it must be contiguous, with int32 gid, bool valid, all
+    three axes periodic, ny, nz >= 5 and max_neighbors <= K_MAX, or the
+    wrapper raises."""
+    _check(pos, gid, valid, box, max_neighbors)
+    if pos.device.type == "cpu":
+        return row_neighbor_extract_plain(pos, gid, valid, box, cutoff,
+                                          max_neighbors, n, hbm_budget_bytes)
+    if pos.device.type != "cuda":
+        raise ValueError(f"no K2 kernel for device {pos.device}")
+    if not all(box[1]):
+        raise NotImplementedError("K2 needs all three axes periodic")
+    if pos.shape[0] < 5 or pos.shape[1] < 5:
+        raise ValueError("K2 needs ny, nz >= 5")
+    if max_neighbors > K_MAX:
+        raise ValueError(f"K2 keeps at most {K_MAX} neighbors, got {max_neighbors}")
+    if gid.dtype != torch.int32 or valid.dtype != torch.bool:
+        raise TypeError("gid must be int32 and valid bool")
+    if not (pos.is_contiguous() and gid.is_contiguous() and valid.is_contiguous()):
+        raise ValueError("pos, gid and valid must be contiguous")
+    out = _launch(pos, gid, valid, box, cutoff, max_neighbors, n)
+    row_neighbor_extract.launches += 1
+    return out
+
+
+row_neighbor_extract.launches = 0

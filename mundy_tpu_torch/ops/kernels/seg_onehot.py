@@ -1,0 +1,97 @@
+"""Kernel K3: strided-block segmented sum.
+
+Port of mundy_tpu/ops/pallas/seg_onehot.py::strided_onehot_segment_sum. On
+a CUDA tensor the wrapper launches the hand-written kernel of
+csrc/seg_onehot.cu (one block per body block, loc and value tiles in shared
+memory, one thread per local segment summing in slot order; see the note
+there). On a CPU tensor it computes the plain version,
+`strided_segment_sum_plain`: the blocked reduction, each segment summed over
+its slots in increasing w order from zero, which is the order the kernel
+adds in, so the two agree bit for bit. The TPU kernel's bf16 one-hot and
+three-term mantissa split are not carried over. A CUDA tensor never takes
+the plain version: a failed build or launch raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from mundy_tpu_torch.ops.kernels import _build
+
+_DTYPES = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def _check(values: torch.Tensor, loc: torch.Tensor) -> None:
+    if values.ndim != 3 or loc.ndim != 2 or values.shape[::2] != loc.shape:
+        raise ValueError(f"values must be (nb, D, W) and loc (nb, W), got "
+                         f"{tuple(values.shape)} and {tuple(loc.shape)}")
+    if values.dtype not in _DTYPES:
+        raise TypeError(f"values must be float32 or float64, got {values.dtype}")
+
+
+def strided_segment_sum_plain(values: torch.Tensor, loc: torch.Tensor,
+                              block_segments: int) -> torch.Tensor:
+    """Plain PyTorch version of K3 (any device): (nb, D, W) values and
+    (nb, W) local ids -> (nb, D, B) per-block segment sums; ids outside
+    [0, B) are dropped. Pass w adds slot w of every block at once (blocks
+    never collide), so each segment is summed over its slots in increasing
+    w from zero."""
+    _check(values, loc)
+    nb, D, W = values.shape
+    B = block_segments
+    # column B of each block collects the dropped ids
+    col = torch.where((loc >= 0) & (loc < B), loc.to(torch.int64), B)
+    rows = torch.arange(nb, device=values.device)
+    out = values.new_zeros((nb, B + 1, D))
+    for w in range(W):
+        c = col[:, w]
+        out[rows, c] = out[rows, c] + values[:, :, w]
+    return out[:, :B].permute(0, 2, 1).contiguous()
+
+
+def _launch(values: torch.Tensor, loc: torch.Tensor, B: int) -> torch.Tensor:
+    lib = _build.load("seg_onehot")
+    fn = getattr(lib, f"strided_segment_sum_{_DTYPES[values.dtype]}")
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    nb, _, W = values.shape
+    out = torch.empty((nb, 3, B), dtype=values.dtype, device=values.device)
+    with torch.cuda.device(values.device):
+        stream = torch.cuda.current_stream(values.device).cuda_stream
+        err = fn(values.data_ptr(), loc.data_ptr(), out.data_ptr(), nb, W, B, stream)
+    if err != 0:
+        raise RuntimeError(f"seg_onehot kernel launch failed: CUDA error {err}")
+    return out
+
+
+def strided_onehot_segment_sum(values: torch.Tensor, loc: torch.Tensor,
+                               block_segments: int) -> torch.Tensor:
+    """Per-block segmented reduction -> (nb, D, B) in values' dtype.
+
+    out[b, :, s] = sum over w with loc[b, w] == s of values[b, :, w]; ids
+    outside [0, B) are dropped. A CPU tensor computes the plain version. A
+    CUDA tensor launches the kernel (counted in `.launches`); it needs
+    D = 3, int32 loc and contiguous inputs, or the wrapper raises."""
+    _check(values, loc)
+    if values.device.type == "cpu":
+        return strided_segment_sum_plain(values, loc, block_segments)
+    if values.device.type != "cuda":
+        raise ValueError(f"no K3 kernel for device {values.device}")
+    if values.shape[1] != 3:
+        raise ValueError(f"K3 sums 3-vectors, got D = {values.shape[1]}")
+    if loc.dtype != torch.int32:
+        raise TypeError(f"loc must be int32, got {loc.dtype}")
+    if not (values.is_contiguous() and loc.is_contiguous()):
+        raise ValueError("values and loc must be contiguous")
+    if block_segments < 1:
+        raise ValueError("block_segments must be positive")
+    if values.shape[0] == 0:
+        return values.new_zeros((0, 3, block_segments))
+    out = _launch(values, loc, block_segments)
+    strided_onehot_segment_sum.launches += 1
+    return out
+
+
+strided_onehot_segment_sum.launches = 0

@@ -1,0 +1,88 @@
+"""Blocked segmented reductions for sorted ids: the force assembly of the
+LCP collision path.
+
+Port of mundy_tpu/ops/segments.py (the parts the LCP spheres line runs).
+Bodies are partitioned into blocks of B; each block's pairs occupy one
+window of at most W slots. The rebuild-time SegmentWindows find each
+block's window in the sorted pair list (its start and whether it overflows
+W); the per-step StridedWindows put block b's pairs at the static slots
+[b*W, b*W + count_b), which is the layout kernel K3
+(ops/kernels/seg_onehot.py) reduces.
+
+The reference's bf16 hi/mid/lo split existed to carry the f32 mantissa
+through the TPU's MXU; here every sum is taken directly in the working
+dtype.
+
+ref: the force-assembly primitive of the LCP collision path
+(`scrap/lcp_spheres/StkNgpLCP.cpp:578` sum_collision_force).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from mundy_tpu_torch.ops.kernels.seg_onehot import strided_onehot_segment_sum
+
+
+class SegmentWindows(NamedTuple):
+    """Rebuild-time block structure for sorted-id segmented reductions.
+
+    starts: (nb,) int32, first row of each B-body block's window.
+    overflow: any block holds > W rows (the host regrows W and rebuilds)."""
+
+    starts: torch.Tensor
+    block_bodies: int  # B
+    window: int  # W
+    overflow: torch.Tensor
+
+
+def segment_windows(ids: torch.Tensor, n_segments: int, block_bodies: int,
+                    window: int, body_starts: Optional[torch.Tensor] = None
+                    ) -> SegmentWindows:
+    """Block windows for sorted `ids` (padded tail >= n_segments).
+
+    `body_starts` ((n_segments+1,) exclusive-cumulative per-body counts, e.g.
+    body_pair_starts on the neighbor matrix the list came from) replaces the
+    search with one (nb+1,)-row gather."""
+    B, W = block_bodies, window
+    nb = -(-n_segments // B)
+    dev = ids.device
+    # pads carry id == n_segments: clip the edges so the trailing pad run
+    # never counts into the last block's occupancy
+    edges = torch.clamp(torch.arange(0, nb * B + 1, B, device=dev), max=n_segments)
+    if body_starts is not None:
+        bounds = torch.clamp(body_starts[edges], max=ids.shape[0]).to(torch.int32)
+    else:
+        bounds = torch.searchsorted(ids, edges.to(ids.dtype)).to(torch.int32)
+    counts = bounds[1:] - bounds[:-1]
+    return SegmentWindows(starts=bounds[:-1], block_bodies=B, window=W,
+                          overflow=(counts > W).any())
+
+
+class StridedWindows(NamedTuple):
+    """Static-offset block structure: pairs of segment block b occupy slots
+    [b*W, b*W + count_b) (constraints/collision.active_pair_subset_strided)."""
+
+    block_bodies: int  # B
+    window: int  # W
+    nb: int
+    overflow: torch.Tensor  # any block's active count exceeded W
+
+
+def segment_sum_strided(values: torch.Tensor, ids: torch.Tensor, n_segments: int,
+                        windows: StridedWindows) -> torch.Tensor:
+    """Strided-layout segmented reduction -> (n_segments, D).
+
+    values (nb*W, D); ids (nb*W,) int32 segment ids, block b's slots holding
+    ids in [b*B, (b+1)*B) (pads carry ids outside, which are dropped).
+    Runs kernel K3 on (nb, D, W) value planes."""
+    B, W, nb = windows.block_bodies, windows.window, windows.nb
+    D = values.shape[1]
+    blk = torch.arange(nb, dtype=torch.int32, device=ids.device)[:, None] * B
+    loc = (ids.reshape(nb, W) - blk).contiguous()
+    v = values.reshape(nb, W, D).transpose(1, 2).contiguous()
+    out = strided_onehot_segment_sum(v, loc, B)
+    return out.transpose(1, 2).reshape(nb * B, D)[:n_segments]
+

@@ -5,9 +5,11 @@ no JAX, so it runs on a machine with the card alone:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 
-Bounds: float32 within 2e-5 max(max|f|, 1), the bound of
+Bounds for K1: float32 within 2e-5 max(max|f|, 1), the bound of
 tests/test_pallas_row_central.py (rsqrt approximations and summation
-order); float64 within 1e-12 max(max|f|, 1) (summation order only).
+order); float64 within 1e-12 max(max|f|, 1) (summation order only). K2 and
+K3 compute what their plain versions compute in the same order, so they
+are held to bit equality.
 """
 
 import numpy as np
@@ -16,6 +18,8 @@ import torch
 
 from mundy_tpu_torch.neighbor import rows as tr
 from mundy_tpu_torch.ops.kernels import row_central as k1
+from mundy_tpu_torch.ops.kernels import row_extract as k2
+from mundy_tpu_torch.ops.kernels import seg_onehot as k3
 
 _DT = {"float32": torch.float32, "float64": torch.float64}
 
@@ -55,3 +59,80 @@ def test_k1_kernel_matches_plain(cuda_device, dtype, n, box, cutoff, align):
     fmax = ref[m].abs().max().item()
     assert fmax > 0
     assert err <= (1e-12 if dtype == "float64" else 2e-5) * max(fmax, 1.0)
+
+
+def _rows(n, box, cutoff, align, td, dev, seed=11):
+    rng = np.random.default_rng(seed)
+    grid = tr.make_row_grid([0, 0, 0], [box] * 3, cutoff, n, dtype=td,
+                            align=align, device=dev)
+    return tr.build_rows(torch.as_tensor(rng.uniform(0, box, (n, 3)), dtype=td,
+                                         device=dev),
+                         torch.arange(n, dtype=torch.int32, device=dev), grid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("n,box,align,K", [(6000, 14.5, 8, 20),
+                                           (4000, 13.05, 1, 12),
+                                           (80000, 40.0, 8, 24),
+                                           (3000, 13.0, 8, k2.K_MAX)])
+def test_k2_kernel_matches_plain(cuda_device, dtype, n, box, align, K):
+    """K2 ids, order and counts are bit-equal to the plain version. align=1
+    gives nz = 9 (not a multiple of 8); n = 80000 gives R > 256, rows longer
+    than one thread pass; K = K_MAX is the regrow ceiling."""
+    ts = _rows(n, box, 1.45, align, _DT[dtype], cuda_device)
+    args = (ts.pos, ts.gid, ts.valid, ((box,) * 3, (True,) * 3), 1.45, K, n)
+    if n == 80000:
+        assert ts.pos.shape[2] > 256
+    if align == 1:
+        assert ts.pos.shape[1] % 8 != 0
+    before = k2.row_neighbor_extract.launches
+    ids, cnt = k2.row_neighbor_extract(*args)
+    torch.cuda.synchronize()
+    assert k2.row_neighbor_extract.launches == before + 1
+    ids_p, cnt_p = k2.row_neighbor_extract_plain(*args)
+    assert int(cnt_p.max()) > 0
+    assert torch.equal(cnt, cnt_p)
+    assert torch.equal(ids, ids_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("nb,W,B,sort", [(7, 640, 1024, True),
+                                         (5, 2600, 1024, False),
+                                         (3, 300, 200, False)])
+def test_k3_kernel_matches_plain(cuda_device, dtype, nb, W, B, sort):
+    """K3 sums each segment in slot order, as the plain version does, so the
+    two are bit-equal. W = 2600 spans more than one shared-memory tile; the
+    unsorted cases scatter ids over [-B/4, 5B/4), some outside [0, B)."""
+    rng = np.random.default_rng(5)
+    loc = rng.integers(-B // 4, B + B // 4, (nb, W))
+    if sort:
+        loc = np.sort(loc, axis=1)
+    values = torch.as_tensor(rng.normal(size=(nb, 3, W)), dtype=_DT[dtype],
+                             device=cuda_device)
+    loc = torch.as_tensor(loc, dtype=torch.int32, device=cuda_device)
+    before = k3.strided_onehot_segment_sum.launches
+    got = k3.strided_onehot_segment_sum(values, loc, B)
+    torch.cuda.synchronize()
+    assert k3.strided_onehot_segment_sum.launches == before + 1
+    ref = k3.strided_segment_sum_plain(values, loc, B)
+    assert got.shape == (nb, 3, B)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_k2_refuses_cpu_only_branches(cuda_device):
+    """Non-periodic axes run only in the plain version, and K3 takes int32
+    ids only: on a CUDA tensor the wrappers raise instead."""
+    ts = _rows(4000, 13.0, 1.45, 8, torch.float32, cuda_device)
+    box = ((13.0,) * 3, (True,) * 3)
+    before = k2.row_neighbor_extract.launches
+    with pytest.raises(NotImplementedError, match="periodic"):
+        k2.row_neighbor_extract(ts.pos, ts.gid, ts.valid, ((13.0,) * 3, (True, False, True)),
+                                1.45, 12, 4000)
+    with pytest.raises(TypeError, match="int32"):
+        k3.strided_onehot_segment_sum(torch.zeros((2, 3, 8), device=cuda_device),
+                                      torch.zeros((2, 8), dtype=torch.int64,
+                                                  device=cuda_device), 16)
+    assert k2.row_neighbor_extract.launches == before

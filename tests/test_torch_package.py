@@ -11,10 +11,13 @@ import pytest
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
+from mundy_tpu_torch.driver.apps.lcp_spheres import LCPSpheresConfig, LCPSpheresSim
 from mundy_tpu_torch.driver.apps.spheres import SpheresConfig
 from mundy_tpu_torch.driver.apps.spheres_rows import RowSpheresSim
 from mundy_tpu_torch.ops.kernels import _build
 from mundy_tpu_torch.ops.kernels import row_central as k1
+from mundy_tpu_torch.ops.kernels import row_extract as k2
+from mundy_tpu_torch.ops.kernels import seg_onehot as k3
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "mundy_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -67,3 +70,69 @@ def test_k1_library_is_keyed_by_source():
     lib = _build.library_path("row_central")
     assert lib.parent == ROOT / "build" / "kernels"
     assert lib.name.startswith("row_central_") and lib.suffix == ".so"
+
+
+def test_entry_points_default_to_the_card():
+    """A user who omits `device` runs on the card or gets an error, never a
+    silent CPU run."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RowSpheresSim(SpheresConfig(num_spheres=100, box_size=16.0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LCPSpheresSim(LCPSpheresConfig(num_spheres=100, box_size=16.0))
+
+
+def _no_library(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    _build.load.cache_clear()
+
+
+def test_k2_k3_cuda_tensors_without_library_raise(monkeypatch, tmp_path):
+    """As for K1: a CUDA tensor never takes the plain version."""
+    _no_library(monkeypatch, tmp_path)
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(k2, "row_neighbor_extract_plain", no_plain)
+    monkeypatch.setattr(k3, "strided_segment_sum_plain", no_plain)
+    before = (k2.row_neighbor_extract.launches, k3.strided_onehot_segment_sum.launches)
+    with FakeTensorMode():
+        pos = torch.zeros((8, 8, 16, 3), device="cuda")
+        gid = torch.zeros((8, 8, 16), dtype=torch.int32, device="cuda")
+        valid = torch.zeros((8, 8, 16), dtype=torch.bool, device="cuda")
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            k2.row_neighbor_extract(pos, gid, valid, ((12.0,) * 3, (True,) * 3), 1.45, 12, 500)
+        values = torch.zeros((2, 3, 64), device="cuda")
+        loc = torch.zeros((2, 64), dtype=torch.int32, device="cuda")
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            k3.strided_onehot_segment_sum(values, loc, 128)
+    assert (k2.row_neighbor_extract.launches,
+            k3.strided_onehot_segment_sum.launches) == before
+    _build.load.cache_clear()
+
+
+def test_k2_refuses_cpu_only_branches_on_cuda_tensors():
+    """Open axes and K past the kernel's list run only in the plain version;
+    on a CUDA tensor the wrapper raises before any build."""
+    with FakeTensorMode():
+        pos = torch.zeros((8, 8, 16, 3), device="cuda")
+        gid = torch.zeros((8, 8, 16), dtype=torch.int32, device="cuda")
+        valid = torch.zeros((8, 8, 16), dtype=torch.bool, device="cuda")
+        box = ((12.0,) * 3, (True,) * 3)
+        with pytest.raises(NotImplementedError, match="periodic"):
+            k2.row_neighbor_extract(pos, gid, valid, ((12.0,) * 3, (True, True, False)),
+                                    1.45, 12, 500)
+        with pytest.raises(ValueError, match="at most"):
+            k2.row_neighbor_extract(pos, gid, valid, box, 1.45, k2.K_MAX + 1, 500)
+
+
+@pytest.mark.parametrize("name", ["row_extract", "seg_onehot"])
+def test_k2_k3_libraries_are_keyed_by_source(name):
+    lib = _build.library_path(name)
+    assert lib.parent == ROOT / "build" / "kernels"
+    assert lib.name.startswith(f"{name}_") and lib.suffix == ".so"
+    assert (_build.CSRC / f"{name}.cu").exists()

@@ -56,7 +56,7 @@ def _assert_same(jsim, js, tsim, ts):
 def _sims(**over):
     kw = dict(KW, **over)
     jsim = JaxSim(JaxConfig(**kw))
-    tsim = RowSpheresSim(config_from_dict(SpheresConfig, kw))
+    tsim = RowSpheresSim(config_from_dict(SpheresConfig, kw), device="cpu")
     return jsim, tsim
 
 
@@ -112,6 +112,6 @@ def test_run_blocks_regrow_matches():
 
 def test_untouched_branches_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RowSpheresSim(SpheresConfig(**dict(KW, polydispersity=0.1)))
+        RowSpheresSim(SpheresConfig(**dict(KW, polydispersity=0.1)), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RowSpheresSim(SpheresConfig(**dict(KW, box_size=5.0, skin=0.2)))
+        RowSpheresSim(SpheresConfig(**dict(KW, box_size=5.0, skin=0.2)), device="cpu")
