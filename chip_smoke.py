@@ -3,12 +3,13 @@
     python3 chip_smoke.py
 
 Builds the kernels of mundy_tpu_torch/csrc/ and drives BASELINE configs #1
-(the row-grid spheres engine, kernel K1) and #2 (the dry LCP spheres line,
-kernels K2 and K3) through the port's own entry points:
+(the row-grid spheres engine, kernel K1), #2 (the dry LCP spheres line,
+kernels K2 and K3) and #3 (the row-engine spherocylinder suspension, kernel
+K4) through the port's own entry points:
 
-1. build K1, K2 and K3 with nvcc (sm_90a), one process per source, all at
-   once; print each kernel's registers and spills and the card with its
-   power limit;
+1. build K1-K4 with nvcc (sm_90a), one process per source, all at once;
+   print each kernel's registers and spills and the card with its power
+   limit;
 2. K1 vs its plain PyTorch version at the 1M-sphere config #1 shape
    (float32, max |diff| over valid slots <= 2e-5 max|f|);
 3. examples/spheres_10k.yaml for 200 steps through load_yaml /
@@ -30,7 +31,20 @@ kernels K2 and K3) through the port's own entry points:
 9. examples/lcp_spheres_100k.yaml through LCPSpheresSim(...).run(): no
    overflow, finite positions;
 10. the LCP line in float64 (2000 spheres, 30 steps) on the card against
-    the CPU: equal counters at every step, positions within 1e-8.
+    the CPU: equal counters at every step, positions within 1e-8;
+11. K4 vs its plain version at the 1M config #3 shape (float32, from
+    RowRodsSim.init at 1M rods: examples/rods_100k.yaml's physics and
+    volume fraction in a box 10^(1/3) larger), max |diff| within 1e-5 of
+    max|force| and of max|torque|;
+12. examples/rods_100k.yaml, all 1000 steps, through load_yaml /
+    config_from_dict -> RowRodsSim(...).run(): no rod lost, no overflow,
+    finite, unit quaternions within 1e-5;
+13. config #3 in float64 (400 rods, box 24, 60 steps) on the card against
+    the CPU: equal rebuilds and layout, positions and quaternions (up to
+    sign) within 1e-7;
+14. the 1M config #3 through run_block: 3 warm-up steps, then 200 steps
+    with the K4 count set to 0 just before: one K4 launch per step; then
+    one keyed noise call timed alone, and torch.profiler over 8 more steps.
 
 Kernel times are medians of CUDA-event timings after a synchronize, kernel
 and plain version alternating. Prints one JSON line of kernel results, then
@@ -52,7 +66,23 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 N_BIG = 1_000_000
 BIG_STEPS = 300
-KERNELS = ("row_central", "row_extract", "seg_onehot")
+RODS_STEPS = 200
+KERNELS = ("row_central", "row_extract", "seg_onehot", "row_segments")
+# FP32 operations that K4's function needs, counted from the algorithm, not
+# from the kernel (each + - * / min max rint sqrt rsqrt as one; compares and
+# selects not counted; a negation that a subtraction or a swapped cross
+# product absorbs not counted). Per rod, once: u = 2e (3), a = |u|^2 (5),
+# 1 / max(a, eps) (2). Per occupied pair of the half stencil, both sides'
+# outputs: separation and x minimum image 7, w = (e_j - e_i) - sep 6,
+# b = u.v, d = u.w, e = v.w 15, det and the two numerators 9, the clamped
+# solve 15 (e + b, -d, b - d, four clips, two guarded divisions), the four
+# endpoint candidates 12, the five quadratics 41 (w2 5, 2b 2d 2e 3, the
+# general one 11 in Horner form, its 0 and 1 operands folded in the others:
+# q(0,t) 4, q(s,0) 4, q(1,t) 7, q(s,1) 7), closest vector, d2 and noise floor
+# 20, the own side's Hertz push, arm, torque and sums 39, the partner's arm
+# (reusing radius D / dist), torque and sums 23
+K4_OPS = 187.0
+K4_ROD_OPS = 10.0
 # published H100 SXM peaks (NVIDIA data sheet): FP32 outside the
 # tensor cores, and HBM bandwidth
 PEAK_FP32 = 67e12
@@ -145,19 +175,19 @@ def build_all(_build) -> None:
                 print(f"    {os.path.basename(lib)}: {line.strip()}")
 
 
-def profile_lcp(sim, st, torch, step_ms: float, steps: int = 8) -> None:
-    """Where the time of the 1M LCP step goes: torch.profiler over `steps`
-    steps at fixed capacities. Prints device busy time, host reads and
-    kernel launches per step, the device time of the largest kernels, and
-    the idle share against the profiled wall clock (which the profiler's
-    own host overhead inflates) and against `step_ms`, the un-profiled
-    window's ms/step."""
+def profile_window(run, torch, step_ms: float, steps: int = 8) -> None:
+    """Where the time of a step goes: torch.profiler over run(steps), a
+    window of `steps` steps. Prints device busy time, host reads and kernel
+    launches per step, the device time of the largest kernels, and the idle
+    share against the profiled wall clock (which the profiler's own host
+    overhead inflates) and against `step_ms`, the un-profiled window's
+    ms/step."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sim.run_block(st, steps, resize=False)
+        run(steps)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     events = prof.key_averages()
@@ -196,12 +226,17 @@ def main() -> None:
     from mundy_tpu_torch.core.config import config_from_dict, load_yaml
     from mundy_tpu_torch.driver.apps.lcp_spheres import (LCPSpheresConfig,
                                                          LCPSpheresSim)
+    from mundy_tpu_torch.driver.apps.rods import RodsConfig
+    from mundy_tpu_torch.driver.apps.rods_rows import RowRodsSim
     from mundy_tpu_torch.driver.apps.spheres import SpheresConfig
     from mundy_tpu_torch.driver.apps.spheres_rows import RowSpheresSim
+    from mundy_tpu_torch.dynamics.brownian import brownian_velocity_keyed
+    from mundy_tpu_torch.geom.randomize import random_unit_quaternions
     from mundy_tpu_torch.neighbor.rows import build_rows, make_row_grid
     from mundy_tpu_torch.ops.kernels import _build
     from mundy_tpu_torch.ops.kernels import row_central as k1
     from mundy_tpu_torch.ops.kernels import row_extract as k2
+    from mundy_tpu_torch.ops.kernels import row_segments as k4
     from mundy_tpu_torch.ops.kernels import seg_onehot as k3
 
     dev = torch.device("cuda")
@@ -355,7 +390,8 @@ def main() -> None:
         fail(f"K3 launched {k3_launches} times in {window} steps")
     if rebuilds < 1 or k2_launches != rebuilds:
         fail(f"K2 launched {k2_launches} times for {rebuilds} broad phases")
-    profile_lcp(sim, st, torch, 1e3 * elapsed / window)
+    profile_window(lambda n: sim.run_block(st, n, resize=False), torch,
+                   1e3 * elapsed / window)
 
     # ---- 7. K2 vs plain at the 1M LCP row shape of the timed window ---------
     K = min(lcfg.max_neighbors, sim.rows_k)
@@ -474,6 +510,119 @@ def main() -> None:
     if not (trace["cuda"][0] == trace["cpu"][0] and diff <= 1e-8
             and trace["cuda"][0][-1][3] >= 2):
         fail("the float64 LCP run on the card disagrees with the CPU run")
+    del sim, st
+
+    # ---- 11. K4 vs plain at the 1M config #3 shape -------------------------
+    raw = load_yaml(os.path.join(HERE, "examples", "rods_100k.yaml"))
+    big_rods = config_from_dict(RodsConfig, dict(
+        raw["params"], num_rods=N_BIG,
+        box_size=raw["params"]["box_size"] * (N_BIG / raw["params"]["num_rods"]) ** (1 / 3)))
+    rsim = RowRodsSim(big_rods, device=dev)
+    rst = rsim.init()
+    rows = rst.rows
+    k4_args = (rows.pos, rsim.half_edges(rows, rst.quat), rsim.box_static[0],
+               big_rods.radius, rsim.e_eff)
+    k4_kernel = (lambda: k4.row_segment_pairs_sym(*k4_args[:2], rows.valid, *k4_args[2:]))
+    out_k = k4_kernel()
+    out_p = k4.row_segment_pairs_plain(*k4_args)
+    torch.cuda.synchronize()
+    errs = [(g - r).abs().max().item() for g, r in zip(out_k, out_p)]
+    maxs = [r.abs().max().item() for r in out_p]
+    k4_err = max(errs)
+    ny, nz, R = rows.valid.shape
+    print(f"[11] K4 at (ny, nz, R) = ({ny}, {nz}, {R}), box {big_rods.box_size:.4f}, "
+          f"{int(rows.valid.sum())} valid slots: force max|diff| {errs[0]:.3e} of "
+          f"max {maxs[0]:.3e}, torque max|diff| {errs[1]:.3e} of max {maxs[1]:.3e}, "
+          f"dynamic shared memory {54 * R * 4} B", flush=True)
+    # each pair's arithmetic is the plain version's (no FMA contraction):
+    # only the order of the candidate sums differs
+    if not all(m > 0 and math.isfinite(e) and e <= 1e-5 * m for e, m in zip(errs, maxs)):
+        fail(f"K4 disagrees with its plain version: {errs} vs 1e-5 * {maxs}")
+    k4_ms, k4_plain_ms = alternate(k4_kernel,
+                                   lambda: k4.row_segment_pairs_plain(*k4_args),
+                                   torch, 5, 1, rounds=2)
+    # the occupied half-stencil pairs at K4_OPS each and the rods at
+    # K4_ROD_OPS; read the midpoints and half-edges once, write force and
+    # torque once
+    k4_pairs = stencil_work(rows.valid, torch)[0]
+    k4_bound = bound(k4_pairs * K4_OPS + float(rows.valid.sum()) * K4_ROD_OPS,
+                     (2 + 2) * rows.pos.numel() * 4)
+    print(f"    K4 {k4_ms:.4f} ms, plain {k4_plain_ms:.4f} ms, bound "
+          f"{k4_bound[0]:.4f} ms ({k4_bound[1]}, {k4_pairs:.0f} pairs)", flush=True)
+    del out_k, out_p, k4_args, k4_kernel, rows
+
+    # ---- 12. examples/rods_100k.yaml, 1000 steps ----------------------------
+    cfg = config_from_dict(RodsConfig, raw["params"])
+    sim = RowRodsSim(cfg, device=dev)
+    t0 = time.perf_counter()
+    st = sim.run(log=lambda line: print(f"    {line}", flush=True))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    pos, quat = sim.positions(st), sim.quaternions(st)
+    n_valid = int(st.rows.valid.sum())
+    q_err = (quat.norm(dim=1) - 1).abs().max().item()
+    print(f"[12] rods_100k.yaml: {st.step} steps in {elapsed:.2f} s = "
+          f"{st.step / elapsed:.2f} steps/s, rebuilds {st.rebuild_count}, R "
+          f"{sim.grid.row_capacity}, max| |q| - 1 | {q_err:.3e}", flush=True)
+    if not (st.step == cfg.num_steps and n_valid == cfg.num_rods and not bool(st.overflow)
+            and bool(torch.isfinite(pos).all()) and q_err <= 1e-5):
+        fail("rods_100k.yaml lost rods, overflowed, went non-finite or lost unit quaternions")
+    del sim, st, pos, quat
+
+    # ---- 13. config #3 in float64 on the card vs the CPU -------------------
+    small = RodsConfig(num_rods=400, box_size=24.0, radius=0.25, length=2.0,
+                       diffusion_coeff=0.05, rot_diffusion_coeff=0.05, dt=1e-4,
+                       dtype="float64")
+    gen = torch.Generator().manual_seed(13)
+    pos0 = torch.rand((400, 3), dtype=torch.float64, generator=gen) * 24.0
+    quat0 = random_unit_quaternions(gen, 400, dtype=torch.float64)
+    runs = {}
+    for d in ("cuda", "cpu"):
+        sim = RowRodsSim(small, device=d)
+        st = sim.init(pos=pos0, quat=quat0, key_words=(0, 13))
+        st = sim.run_block(st, 60)
+        runs[d] = (st, sim.positions(st).cpu(), sim.quaternions(st).cpu())
+    (sg, pg, qg), (sc, pc, qc) = runs["cuda"], runs["cpu"]
+    diff = (pg - pc).abs().max().item()
+    qdiff = torch.minimum((qg - qc).abs().amax(1), (qg + qc).abs().amax(1)).max().item()
+    print(f"[13] rods float64 400 rods, 60 steps: rebuilds {sg.rebuild_count} (cpu "
+          f"{sc.rebuild_count}), max|pos diff| {diff:.3e}, max|quat diff| {qdiff:.3e}",
+          flush=True)
+    if not (sg.rebuild_count == sc.rebuild_count >= 2 and diff <= 1e-7 and qdiff <= 1e-7
+            and torch.equal(sg.rows.gid.cpu(), sc.rows.gid)):
+        fail("the float64 rods run on the card disagrees with the CPU run")
+
+    # ---- 14. the 1M config #3 through run_block -----------------------------
+    rst = rsim.run_block(rst, 3)  # warm up allocator and kernel
+    torch.cuda.synchronize()
+    rb0 = rst.rebuild_count
+    k4.row_segment_pairs_sym.launches = 0
+    t0 = time.perf_counter()
+    rst = rsim.run_block(rst, RODS_STEPS)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    k4_launches = k4.row_segment_pairs_sym.launches
+    rebuilds = rst.rebuild_count - rb0
+    print(f"[14] 1M config #3: {RODS_STEPS} steps in {elapsed:.3f} s = "
+          f"{RODS_STEPS / elapsed:.3f} steps/s, {1e3 * elapsed / RODS_STEPS:.3f} "
+          f"ms/step, rebuilds/step {rebuilds / RODS_STEPS:.4f}, R "
+          f"{rsim.grid.row_capacity}, K4 launches {k4_launches}", flush=True)
+    if not bool(torch.isfinite(rsim.positions(rst)).all()):
+        fail("non-finite positions in the 1M rods run")
+    if int(rst.rows.valid.sum()) != N_BIG or bool(rst.overflow):
+        fail("the 1M rods run lost rods or overflowed")
+    if rebuilds < 1:
+        fail("no rebuild in the 1M rods window")
+    if k4_launches != RODS_STEPS:
+        fail(f"K4 launched {k4_launches} times in {RODS_STEPS} steps")
+    # one of the step's two keyed noise calls at this row shape, alone
+    noise_ms = statistics.median([cuda_ms(
+        lambda: brownian_velocity_keyed(rst.key, rst.step, rst.rows.gid,
+                                        big_rods.diffusion_coeff, big_rods.dt), torch, 5)
+        for _ in range(3)])
+    print(f"    one keyed noise call at the row shape: {noise_ms:.4f} ms "
+          f"(two per step)", flush=True)
+    profile_window(lambda n: rsim.run_block(rst, n), torch, 1e3 * elapsed / RODS_STEPS)
 
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [
@@ -494,7 +643,13 @@ def main() -> None:
          "replaces": "mundy_tpu/ops/pallas/seg_onehot.py:55",
          "launches": k3_launches, "max_abs_err": k3_err, "ms": k3_ms,
          "plain_ms": k3_plain_ms, "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
-         "library_ms": k3_lib_ms}]}), flush=True)
+         "library_ms": k3_lib_ms},
+        {"name": "row_segment_pairs_sym", "route": "cuda",
+         "source": "mundy_tpu_torch/csrc/row_segments.cu",
+         "replaces": "mundy_tpu/ops/pallas/row_segments.py:227",
+         "launches": k4_launches, "max_abs_err": k4_err, "ms": k4_ms,
+         "plain_ms": k4_plain_ms, "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
+         "library_ms": None}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
         flush=True)

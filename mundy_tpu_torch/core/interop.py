@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from mundy_tpu_torch.driver.apps.rods_rows import RowRodsState
 from mundy_tpu_torch.driver.apps.spheres_rows import RowSpheresState
 from mundy_tpu_torch.neighbor.rows import RowGrid, RowState
 
@@ -23,6 +24,23 @@ def row_grid_from_numpy(origin, cell_yz, ny: int, nz: int, row_capacity: int,
         ny=int(ny), nz=int(nz), row_capacity=int(row_capacity))
 
 
+def _t(a, dtype=None, device="cpu"):
+    return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+
+def _rows_and_key(grid: RowGrid, pos, gid, valid, ref_pos, rows_overflow, key,
+                  device):
+    pos = _t(pos, device=device)
+    if pos.dtype != grid.origin.dtype:
+        raise TypeError(f"positions are {pos.dtype}, the grid {grid.origin.dtype}")
+    rows = RowState(grid=grid, pos=pos, gid=_t(gid, torch.int32, device),
+                    valid=_t(valid, torch.bool, device),
+                    ref_pos=_t(ref_pos, device=device),
+                    overflow=_t(bool(rows_overflow), torch.bool, device))
+    k0, k1 = (int(w) for w in np.asarray(key, dtype=np.uint32).reshape(-1))
+    return rows, (k0, k1)
+
+
 def row_spheres_state_from_numpy(grid: RowGrid, pos, gid, valid, ref_pos,
                                  rows_overflow, key, step, rebuild_count,
                                  overflow, device="cpu") -> RowSpheresState:
@@ -33,17 +51,24 @@ def row_spheres_state_from_numpy(grid: RowGrid, pos, gid, valid, ref_pos,
     the raw threefry key (`jax.random.key_data`); step and rebuild_count:
     ints; overflow: the state's sticky flag. The positions keep their numpy
     dtype, which must match the grid's."""
-
-    def t(a, dtype=None):
-        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
-
-    pos = t(pos)
-    if pos.dtype != grid.origin.dtype:
-        raise TypeError(f"positions are {pos.dtype}, the grid {grid.origin.dtype}")
-    rows = RowState(grid=grid, pos=pos, gid=t(gid, torch.int32),
-                    valid=t(valid, torch.bool), ref_pos=t(ref_pos),
-                    overflow=t(bool(rows_overflow), torch.bool))
-    k0, k1 = (int(w) for w in np.asarray(key, dtype=np.uint32).reshape(-1))
-    return RowSpheresState(rows=rows, key=(k0, k1), step=int(step),
+    rows, key = _rows_and_key(grid, pos, gid, valid, ref_pos, rows_overflow,
+                              key, device)
+    return RowSpheresState(rows=rows, key=key, step=int(step),
                            rebuild_count=int(rebuild_count),
-                           overflow=t(bool(overflow), torch.bool))
+                           overflow=_t(bool(overflow), torch.bool, device))
+
+
+def row_rods_state_from_numpy(grid: RowGrid, pos, gid, valid, ref_pos,
+                              rows_overflow, quat, key, step, rebuild_count,
+                              overflow, device="cpu") -> RowRodsState:
+    """A RowRodsState from the reference RowRodsState's arrays: the row
+    fields as for row_spheres_state_from_numpy, and quat, the (ny, nz, R, 4)
+    orientation payload in the positions' dtype."""
+    rows, key = _rows_and_key(grid, pos, gid, valid, ref_pos, rows_overflow,
+                              key, device)
+    quat = _t(quat, device=device)
+    if quat.dtype != rows.pos.dtype:
+        raise TypeError(f"quaternions are {quat.dtype}, positions {rows.pos.dtype}")
+    return RowRodsState(rows=rows, quat=quat, key=key, step=int(step),
+                        rebuild_count=int(rebuild_count),
+                        overflow=_t(bool(overflow), torch.bool, device))

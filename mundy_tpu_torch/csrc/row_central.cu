@@ -24,6 +24,11 @@
 // nz % 8 requirement, the VMEM z-chunk planner, the lane-concatenated
 // (nz, 5R) scratch and the three partner planes rolled outside the kernel.
 //
+// Arithmetic. The kernels build with -fmad=false (ops/kernels/_build.py),
+// so no product and sum contract on their own; this kernel writes its fused
+// multiply-adds out (fma_), as the 2e-5 contract with the TPU kernel's
+// rsqrt arithmetic allows.
+//
 // Bound: per pair about 20 FP32 operations plus one rsqrt and one sqrt, and
 // no memory traffic beyond the staged rows, so the SFU and FP32 pipes bound
 // it, not bytes. A half-stencil variant with a deterministic in-block
@@ -40,6 +45,8 @@ __device__ __forceinline__ float rsqrt_(float x) { return rsqrtf(x); }
 __device__ __forceinline__ double rsqrt_(double x) { return rsqrt(x); }
 __device__ __forceinline__ float sqrt_(float x) { return sqrtf(x); }
 __device__ __forceinline__ double sqrt_(double x) { return sqrt(x); }
+__device__ __forceinline__ float fma_(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double fma_(double a, double b, double c) { return fma(a, b, c); }
 
 template <typename T>
 __global__ void row_hertz_kernel(const T* __restrict__ pos, T* __restrict__ out,
@@ -78,17 +85,16 @@ __global__ void row_hertz_kernel(const T* __restrict__ pos, T* __restrict__ out,
     T fx = T(0), fy = T(0), fz = T(0);
     for (int j = 0; j < n_cand; ++j) {
       T dx = cx[j] - ox;
-      dx = dx - lx * rint_(dx * inv_lx);
+      dx = fma_(-lx, rint_(dx * inv_lx), dx);
       const T dy = cy[j] - oy;
       const T dz = cz[j] - oz;
-      const T r2 = fmax(dx * dx + dy * dy + dz * dz, T(1e-24));
+      const T r2 = fmax(fma_(dz, dz, fma_(dy, dy, dx * dx)), T(1e-24));
       const T rinv = rsqrt_(r2);
-      const T d = r2 * rinv;
-      const T delta = fmax(two_r - d, T(0));
+      const T delta = fmax(fma_(-r2, rinv, two_r), T(0));  // 2r - |d|
       const T w = -(coef * delta * sqrt_(delta)) * rinv;
-      fx += w * dx;
-      fy += w * dy;
-      fz += w * dz;
+      fx = fma_(w, dx, fx);
+      fy = fma_(w, dy, fy);
+      fz = fma_(w, dz, fz);
     }
     T* o = out + (static_cast<size_t>(row) * R + i) * 3;
     o[0] = fx;

@@ -10,8 +10,9 @@
 //     nearest the own row (rows._candidate_planes), so a pair needs a minimum
 //     image along x only: dx -= lx * rint(dx * (1/lx));
 //   * r2 = (dx*dx + dy*dy) + dz*dz, every product and sum rounded on its own
-//     (__fmul_rn / __fadd_rn: no contraction into FMA), exactly as the plain
-//     version's separate elementwise passes round them;
+//     (the kernels build with -fmad=false, ops/kernels/_build.py: no
+//     contraction into FMA), exactly as the plain version's separate
+//     elementwise passes round them;
 //   * a hit is r2 < cut2 with a different gid; a slot keeps its K nearest
 //     hits ordered by (r2, candidate lane), argmin's first-index rule, and
 //     counts all hits. Output: ids (ny, nz, R, K) int32 padded with n, count
@@ -43,12 +44,6 @@
 
 namespace {
 
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ float rint_(float x) { return rintf(x); }
 __device__ __forceinline__ double rint_(double x) { return rint(x); }
 
@@ -83,8 +78,8 @@ __global__ void row_extract_kernel(const T* __restrict__ pos,
     const int* gsrc = gid + base * R;
     for (int k = threadIdx.x; k < R; k += blockDim.x) {
       cx[b * R + k] = src[3 * k];
-      cy[b * R + k] = add_rn(src[3 * k + 1], sy);
-      cz[b * R + k] = add_rn(src[3 * k + 2], sz);
+      cy[b * R + k] = src[3 * k + 1] + sy;
+      cz[b * R + k] = src[3 * k + 2] + sz;
       cg[b * R + k] = gsrc[k];
     }
   }
@@ -107,11 +102,11 @@ __global__ void row_extract_kernel(const T* __restrict__ pos,
     int best_lane[KMAX];
     int kept = 0, count = 0;
     for (int j = 0; j < n_cand; ++j) {
-      T dx = sub_rn(cx[j], ox);
-      dx = sub_rn(dx, mul_rn(lx, rint_(mul_rn(dx, inv_lx))));
-      const T dy = sub_rn(cy[j], oy);
-      const T dz = sub_rn(cz[j], oz);
-      const T r2 = add_rn(add_rn(mul_rn(dx, dx), mul_rn(dy, dy)), mul_rn(dz, dz));
+      T dx = cx[j] - ox;
+      dx = dx - lx * rint_(dx * inv_lx);
+      const T dy = cy[j] - oy;
+      const T dz = cz[j] - oz;
+      const T r2 = (dx * dx + dy * dy) + dz * dz;
       if (!(r2 < cut2) || cg[j] == og) continue;
       ++count;
       if (kept == K && !(r2 < best_r2[K - 1])) continue;

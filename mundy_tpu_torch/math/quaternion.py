@@ -1,0 +1,62 @@
+"""Batched quaternion algebra, convention w-x-y-z (scalar first).
+
+Port of the part of mundy_tpu/math/quaternion.py that the rods path uses:
+Hamilton products, scalar-first storage, and `quat_rotate(q, v) = q v q*`
+as the active rotation of `v` by `q`. All functions broadcast over leading
+batch axes; quaternions are (..., 4). The arithmetic order is the
+reference's, so float64 results agree to rounding.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mundy_tpu_torch.math.linalg import cross, norm
+
+
+def quat_multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    """Hamilton product q1 * q2."""
+    w1, x1, y1, z1 = q1[..., 0], q1[..., 1], q1[..., 2], q1[..., 3]
+    w2, x2, y2, z2 = q2[..., 0], q2[..., 1], q2[..., 2], q2[..., 3]
+    return torch.stack(
+        [
+            w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+            w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+            w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+            w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+        ],
+        dim=-1,
+    )
+
+
+def quat_normalize(q: torch.Tensor, eps: float = 1e-30) -> torch.Tensor:
+    n = torch.clamp(norm(q), min=eps)
+    return q / n[..., None]
+
+
+def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vector(s) v by quaternion(s) q (active rotation, q v q*), in
+    the expanded 15-multiply form."""
+    w = q[..., 0]
+    u = q[..., 1:4]
+    uv = cross(u, v)
+    uuv = cross(u, uv)
+    return v + 2.0 * (w[..., None] * uv + uuv)
+
+
+def quat_from_omega_dt(omega: torch.Tensor, dt) -> torch.Tensor:
+    """Rotation quaternion exp(omega dt / 2) for angular velocity `omega`
+    over the step `dt`, branch-free: below |omega dt / 2| = 1e-8 the sinc
+    takes its series 1 - a^2 / 6."""
+    rot_vec = 0.5 * torch.as_tensor(dt, dtype=omega.dtype, device=omega.device) * omega
+    angle = norm(rot_vec)
+    small = angle < 1e-8
+    safe = torch.where(small, 1.0, angle)
+    sinc = torch.where(small, 1.0 - angle * angle / 6.0, torch.sin(safe) / safe)
+    return torch.cat([torch.cos(angle)[..., None], sinc[..., None] * rot_vec], dim=-1)
+
+
+def quat_integrate(q: torch.Tensor, omega: torch.Tensor, dt) -> torch.Tensor:
+    """One explicit step of dq/dt = 1/2 omega * q by the exponential map
+    (norm-preserving), renormalised."""
+    return quat_normalize(quat_multiply(quat_from_omega_dt(omega, dt), q))

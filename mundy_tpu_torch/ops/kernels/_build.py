@@ -20,8 +20,12 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
+# -fmad=false: no kernel contracts a product and a sum into an FMA, so every
+# product and sum rounds on its own, as the plain version's separate
+# elementwise passes round them (K2's ids and K4's closest-point tie-breaks
+# then follow the plain version's)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _nvcc() -> str:

@@ -9,7 +9,9 @@ Bounds for K1: float32 within 2e-5 max(max|f|, 1), the bound of
 tests/test_pallas_row_central.py (rsqrt approximations and summation
 order); float64 within 1e-12 max(max|f|, 1) (summation order only). K2 and
 K3 compute what their plain versions compute in the same order, so they
-are held to bit equality.
+are held to bit equality. K4 rounds every pair quantity as its plain
+version does (no FMA contraction) and sums in another order: float32
+within 1e-5 of max|force| and of max|torque|, float64 within 1e-12 of each.
 """
 
 import numpy as np
@@ -19,6 +21,7 @@ import torch
 from mundy_tpu_torch.neighbor import rows as tr
 from mundy_tpu_torch.ops.kernels import row_central as k1
 from mundy_tpu_torch.ops.kernels import row_extract as k2
+from mundy_tpu_torch.ops.kernels import row_segments as k4
 from mundy_tpu_torch.ops.kernels import seg_onehot as k3
 
 _DT = {"float32": torch.float32, "float64": torch.float64}
@@ -136,3 +139,68 @@ def test_k2_refuses_cpu_only_branches(cuda_device):
                                       torch.zeros((2, 8), dtype=torch.int64,
                                                   device=cuda_device), 16)
     assert k2.row_neighbor_extract.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("n,box,align", [(600, 12.8, 8), (1500, 14.5, 1),
+                                         (4000, 8.5, 8)])
+def test_k4_kernel_matches_plain(cuda_device, dtype, n, box, align):
+    """Rods force and torque, every slot (invalid ones included). align=1
+    gives nz = 9; n = 4000 in a 5 x 5 row grid gives R = 312: rows longer
+    than one 256-thread pass, and more than 48 KB of shared memory in both
+    dtypes. Rods 0 and 1 coincide (one midpoint, one axis)."""
+    td = _DT[dtype]
+    rng = np.random.default_rng(13)
+    pos = rng.uniform(0, box, (n, 3))
+    axes = rng.normal(size=(n, 3))
+    axes /= np.linalg.norm(axes, axis=1, keepdims=True)
+    pos[1], axes[1] = pos[0], axes[0]
+    grid = tr.make_row_grid([0, 0, 0], [box] * 3, 1.6, n, dtype=td, align=align,
+                            device=cuda_device)
+    ts = tr.build_rows(torch.as_tensor(pos, dtype=td, device=cuda_device),
+                       torch.arange(n, dtype=torch.int32, device=cuda_device), grid)
+    if align == 1:
+        assert ts.pos.shape[1] == 9
+    if n == 4000:
+        assert ts.pos.shape[2] > 256
+    gid = ts.gid.long().clamp(max=n - 1)
+    hedges = torch.where(ts.valid[..., None],
+                         0.4 * torch.as_tensor(axes, dtype=td, device=cuda_device)[gid], 0.0)
+    args = (ts.pos, hedges.contiguous(), (box,) * 3, 0.2, 109.89)
+    before = k4.row_segment_pairs_sym.launches
+    got = k4.row_segment_pairs_sym(ts.pos, args[1], ts.valid, *args[2:])
+    torch.cuda.synchronize()
+    assert k4.row_segment_pairs_sym.launches == before + 1
+    ref = k4.row_segment_pairs_plain(*args)
+    for g, r in zip(got, ref):
+        assert bool(torch.isfinite(g).all())
+        scale = r.abs().max().item()
+        assert scale > 0
+        assert (g - r).abs().max().item() <= (1e-12 if dtype == "float64" else 1e-5) * scale
+
+
+@pytest.mark.cuda
+def test_k4_rows_with_holes(cuda_device):
+    """The kernel stops each row at its last valid slot; with the slots of
+    every row permuted (holes before valid slots) it still matches the plain
+    version on the same layout, float64 within 1e-12 of max|out|."""
+    n, box, td = 600, 12.8, torch.float64
+    rng = np.random.default_rng(17)
+    pos = rng.uniform(0, box, (n, 3))
+    axes = rng.normal(size=(n, 3))
+    axes /= np.linalg.norm(axes, axis=1, keepdims=True)
+    grid = tr.make_row_grid([0, 0, 0], [box] * 3, 1.6, n, dtype=td, device=cuda_device)
+    ts = tr.build_rows(torch.as_tensor(pos, dtype=td, device=cuda_device),
+                       torch.arange(n, dtype=torch.int32, device=cuda_device), grid)
+    perm = torch.as_tensor(rng.permutation(ts.pos.shape[2]), device=cuda_device)
+    mid, valid, gid = ts.pos[:, :, perm], ts.valid[:, :, perm], ts.gid[:, :, perm]
+    assert bool((~valid[..., :-1] & valid[..., 1:]).any())  # a hole before a rod
+    hedges = torch.where(valid[..., None], 0.4 * torch.as_tensor(
+        axes, dtype=td, device=cuda_device)[gid.long().clamp(max=n - 1)], 0.0)
+    mid, hedges, valid = mid.contiguous(), hedges.contiguous(), valid.contiguous()
+    got = k4.row_segment_pairs_sym(mid, hedges, valid, (box,) * 3, 0.2, 109.89)
+    ref = k4.row_segment_pairs_plain(mid, hedges, (box,) * 3, 0.2, 109.89)
+    for g, r in zip(got, ref):
+        scale = r.abs().max().item()
+        assert scale > 0 and (g - r).abs().max().item() <= 1e-12 * scale

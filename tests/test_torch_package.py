@@ -12,11 +12,14 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from mundy_tpu_torch.driver.apps.lcp_spheres import LCPSpheresConfig, LCPSpheresSim
+from mundy_tpu_torch.driver.apps.rods import RodsConfig
+from mundy_tpu_torch.driver.apps.rods_rows import RowRodsSim
 from mundy_tpu_torch.driver.apps.spheres import SpheresConfig
 from mundy_tpu_torch.driver.apps.spheres_rows import RowSpheresSim
 from mundy_tpu_torch.ops.kernels import _build
 from mundy_tpu_torch.ops.kernels import row_central as k1
 from mundy_tpu_torch.ops.kernels import row_extract as k2
+from mundy_tpu_torch.ops.kernels import row_segments as k4
 from mundy_tpu_torch.ops.kernels import seg_onehot as k3
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -81,6 +84,8 @@ def test_entry_points_default_to_the_card():
         RowSpheresSim(SpheresConfig(num_spheres=100, box_size=16.0))
     with pytest.raises(RuntimeError, match="CUDA"):
         LCPSpheresSim(LCPSpheresConfig(num_spheres=100, box_size=16.0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RowRodsSim(RodsConfig(num_rods=100, box_size=24.0))
 
 
 def _no_library(monkeypatch, tmp_path):
@@ -136,3 +141,41 @@ def test_k2_k3_libraries_are_keyed_by_source(name):
     assert lib.parent == ROOT / "build" / "kernels"
     assert lib.name.startswith(f"{name}_") and lib.suffix == ".so"
     assert (_build.CSRC / f"{name}.cu").exists()
+
+
+def test_k4_cuda_tensors_without_library_raise(monkeypatch, tmp_path):
+    """As for K1: a CUDA tensor never takes the plain version."""
+    _no_library(monkeypatch, tmp_path)
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(k4, "row_segment_pairs_plain", no_plain)
+    before = k4.row_segment_pairs_sym.launches
+    with FakeTensorMode():
+        mid = torch.zeros((8, 8, 16, 3), device="cuda")
+        valid = torch.ones((8, 8, 16), dtype=torch.bool, device="cuda")
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            k4.row_segment_pairs_sym(mid, torch.zeros_like(mid), valid, (24.0,) * 3, 0.25,
+                                     500.0)
+        with pytest.raises(ValueError, match="contiguous"):
+            k4.row_segment_pairs_sym(mid, mid.transpose(0, 1), valid, (24.0,) * 3, 0.25,
+                                     500.0)
+        with pytest.raises(ValueError, match="contiguous"):
+            k4.row_segment_pairs_sym(mid, mid, valid.transpose(0, 1), (24.0,) * 3, 0.25,
+                                     500.0)
+    assert k4.row_segment_pairs_sym.launches == before
+    _build.load.cache_clear()
+
+
+def test_k4_library_is_keyed_by_source_and_flags(monkeypatch):
+    """Every kernel, K4 included, builds with -fmad=false; the flags are part
+    of each library's key, so a library built with other flags is not
+    loaded."""
+    lib = _build.library_path("row_segments")
+    assert lib.parent == ROOT / "build" / "kernels"
+    assert lib.name.startswith("row_segments_") and lib.suffix == ".so"
+    assert "-fmad=false" in _build.NVCC_FLAGS
+    monkeypatch.setattr(_build, "NVCC_FLAGS",
+                        tuple(f for f in _build.NVCC_FLAGS if f != "-fmad=false"))
+    assert _build.library_path("row_segments") != lib
