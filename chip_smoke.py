@@ -4,8 +4,9 @@
 
 Builds the kernels of mundy_tpu_torch/csrc/ and drives BASELINE configs #1
 (the row-grid spheres engine, kernel K1), #2 (the dry LCP spheres line,
-kernels K2 and K3) and #3 (the row-engine spherocylinder suspension, kernel
-K4) through the port's own entry points:
+kernels K2 and K3), #3 (the row-engine spherocylinder suspension, kernel
+K4's rods op) and #4 (flexible filaments: K2 in the default engine, K4's
+filaments op in the row engine) through the port's own entry points:
 
 1. build K1-K4 with nvcc (sm_90a), one process per source, all at once;
    print each kernel's registers and spills and the card with its power
@@ -44,7 +45,25 @@ K4) through the port's own entry points:
     sign) within 1e-7;
 14. the 1M config #3 through run_block: 3 warm-up steps, then 200 steps
     with the K4 count set to 0 just before: one K4 launch per step; then
-    one keyed noise call timed alone, and torch.profiler over 8 more steps.
+    one keyed noise call timed alone, and torch.profiler over 8 more steps;
+15. K4's filaments op vs its plain version at the 2000 x 50 row-engine
+    shape (float32, from FilamentsSim(contact_engine="rows").init, the
+    reference's benchmark size): f_start and f_end max |diff| within 1e-5
+    of their max;
+16. examples/filaments_sperm.yaml, all 1000 steps, through load_yaml /
+    config_from_dict -> FilamentsSim(...).run() (float64, the active wave,
+    the cell-list neighbor matrix): no overflow, finite, unit edge
+    quaternions within 1e-10;
+17. config #4 in float64 (12 x 8 nodes, box 24, D = 0.05, 60 steps, skin
+    rebuilds) on the card against the CPU, for both engines: equal rebuilds
+    and overflow, positions within 1e-7;
+18. the 2000 x 50 config #4 (box 120, D = 0.05, float32, the default
+    neighbor-matrix engine, built through K2): 3 warm-up steps, then 200
+    steps of run_block with the K2 count set to 0 just before: one K2
+    launch per broad phase; then torch.profiler over 8 more steps;
+19. the same config with contact_engine="rows": 200 steps with the K4
+    filaments count set to 0 just before: one launch per step; then
+    torch.profiler over 8 more steps.
 
 Kernel times are medians of CUDA-event timings after a synchronize, kernel
 and plain version alternating. Prints one JSON line of kernel results, then
@@ -83,6 +102,13 @@ KERNELS = ("row_central", "row_extract", "seg_onehot", "row_segments")
 # (reusing radius D / dist), torque and sums 23
 K4_OPS = 187.0
 K4_ROD_OPS = 10.0
+# K4's filaments op: the same closest points (125 of the 187), then the own
+# side's Hertz push (d2 clamp, rsqrt, dist, dist - 2r, clamp, coef delta,
+# sqrt, product, mag / dist: 9), force 3, 1 - s 1, the node split 6 and
+# sums 6, and the partner's split by 1 - t (1 + 6 + 6) with the force
+# reused; the adjacency test is integer work, not counted
+K4F_OPS = 163.0
+FIL_STEPS = 200
 # published H100 SXM peaks (NVIDIA data sheet): FP32 outside the
 # tensor cores, and HBM bandwidth
 PEAK_FP32 = 67e12
@@ -224,6 +250,7 @@ def main() -> None:
     from mundy_tpu_torch.constraints.collision import (active_pair_subset_strided,
                                                        collision_setup_spheres)
     from mundy_tpu_torch.core.config import config_from_dict, load_yaml
+    from mundy_tpu_torch.driver.apps.filaments import FilamentsConfig, FilamentsSim
     from mundy_tpu_torch.driver.apps.lcp_spheres import (LCPSpheresConfig,
                                                          LCPSpheresSim)
     from mundy_tpu_torch.driver.apps.rods import RodsConfig
@@ -624,6 +651,135 @@ def main() -> None:
           f"(two per step)", flush=True)
     profile_window(lambda n: rsim.run_block(rst, n), torch, 1e3 * elapsed / RODS_STEPS)
 
+    del rsim, rst
+
+    # ---- 15. K4's filaments op vs plain at the 2000 x 50 row-engine shape --
+    fil = dict(num_filaments=2000, nodes_per_filament=50, box_size=120.0,
+               diffusion_coeff=0.05, dtype="float32")
+    fsim = FilamentsSim(FilamentsConfig(**fil, contact_engine="rows"), device=dev)
+    fst = fsim.init()
+    rows = fst.nmat
+    k4f_args = fsim.row_contact_args(fst.pos, rows)  # what the step passes to it
+    out_k = k4.row_segment_filaments_sym(*k4f_args)
+    out_p = k4.row_segment_filaments_plain(*k4f_args)
+    torch.cuda.synchronize()
+    errs = [(g - r).abs().max().item() for g, r in zip(out_k, out_p)]
+    maxs = [r.abs().max().item() for r in out_p]
+    k4f_err = max(errs)
+    ny, nz, R = rows.valid.shape
+    print(f"[15] K4 filaments op at (ny, nz, R) = ({ny}, {nz}, {R}), "
+          f"{int(rows.valid.sum())} segments: f_start max|diff| {errs[0]:.3e} of max "
+          f"{maxs[0]:.3e}, f_end max|diff| {errs[1]:.3e} of max {maxs[1]:.3e}, dynamic "
+          f"shared memory {9 * R * (6 * 4 + 4)} B", flush=True)
+    if not all(m > 0 and math.isfinite(e) and e <= 1e-5 * m for e, m in zip(errs, maxs)):
+        fail(f"K4's filaments op disagrees with its plain version: {errs} vs 1e-5 * {maxs}")
+    del out_k, out_p
+    k4f_ms, k4f_plain_ms = alternate(lambda: k4.row_segment_filaments_sym(*k4f_args),
+                                     lambda: k4.row_segment_filaments_plain(*k4f_args),
+                                     torch, 5, 1, rounds=1)
+    # the occupied half-stencil pairs at K4F_OPS each and the segments at
+    # K4_ROD_OPS; read valid on every slot and the midpoints, half-edges and
+    # gids of the occupied slots once (a padded slot's outputs are exact
+    # zeros that depend on valid alone), write the two node forces on every
+    # slot once
+    k4f_pairs = stencil_work(rows.valid, torch)[0]
+    n_seg = float(rows.valid.sum())
+    k4f_flops = k4f_pairs * K4F_OPS + n_seg * K4_ROD_OPS
+    k4f_bytes = rows.valid.numel() * (1 + 24) + n_seg * (12 + 12 + 4)
+    k4f_bound = bound(k4f_flops, k4f_bytes)
+    print(f"    K4 filaments {k4f_ms:.4f} ms, plain {k4f_plain_ms:.4f} ms, bound "
+          f"{k4f_bound[0]:.4f} ms ({k4f_bound[1]}, {k4f_pairs:.0f} pairs; operations "
+          f"{1e3 * k4f_flops / PEAK_FP32:.4f} ms, {k4f_bytes / 1e6:.1f} MB "
+          f"{1e3 * k4f_bytes / PEAK_BYTES:.4f} ms)", flush=True)
+    del k4f_args, rows
+
+    # ---- 16. examples/filaments_sperm.yaml, 1000 steps ---------------------
+    raw = load_yaml(os.path.join(HERE, "examples", "filaments_sperm.yaml"))
+    cfg = config_from_dict(FilamentsConfig, raw["params"])
+    sim = FilamentsSim(cfg, device=dev)
+    t0 = time.perf_counter()
+    st = sim.run(log=lambda line: print(f"    {line}", flush=True))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    q_err = (st.rod.edge_q.norm(dim=-1) - 1).abs().max().item()
+    print(f"[16] filaments_sperm.yaml: {st.step} steps in {elapsed:.2f} s = "
+          f"{st.step / elapsed:.2f} steps/s, engine {sim.contact_engine}, rebuilds "
+          f"{st.rebuild_count}, max| |q| - 1 | {q_err:.3e}", flush=True)
+    if not (st.step == cfg.num_steps and not bool(st.overflow)
+            and bool(torch.isfinite(st.pos).all()) and q_err <= 1e-10):
+        fail("filaments_sperm.yaml overflowed, went non-finite or lost unit quaternions")
+    del sim, st
+
+    # ---- 17. config #4 in float64 on the card vs the CPU, both engines ------
+    small = dict(num_filaments=12, nodes_per_filament=8, box_size=24.0, radius=0.25,
+                 bend_modulus=2.0, stretch_stiffness=100.0, dt=2e-4, diffusion_coeff=0.05,
+                 skin=0.1, chunk=256, dtype="float64")
+    pos0 = FilamentsSim(FilamentsConfig(**small), device="cpu").init().pos
+    for engine in ("nmat", "rows"):
+        runs = {}
+        for d in ("cuda", "cpu"):
+            sim = FilamentsSim(FilamentsConfig(**small, contact_engine=engine), device=d)
+            st = sim.run_block(sim.init(pos=pos0, key_words=(0, 17)), 60)
+            runs[d] = (st, st.pos.cpu(), sim.contact_engine)
+        (sg, pg, eg), (sc, pc, ec) = runs["cuda"], runs["cpu"]
+        diff = (pg - pc).abs().max().item()
+        print(f"[17] filaments float64 12 x 8, 60 steps, engine {eg}: rebuilds "
+              f"{sg.rebuild_count} (cpu {sc.rebuild_count}), max|pos diff| {diff:.3e}",
+              flush=True)
+        if not (eg == ec == engine and sg.rebuild_count == sc.rebuild_count >= 4
+                and bool(sg.overflow) == bool(sc.overflow) and diff <= 1e-7):
+            fail(f"the float64 filaments run ({engine}) on the card disagrees with the CPU run")
+
+    # ---- 18. the 2000 x 50 config #4, default engine, through run_block ----
+    nsim = FilamentsSim(FilamentsConfig(**fil), device=dev)
+    t0 = time.perf_counter()
+    nst = nsim.init()
+    torch.cuda.synchronize()
+    print(f"[18] 2000 x 50 filaments, engine {nsim.contact_engine}: init in "
+          f"{time.perf_counter() - t0:.2f} s, rows slack {nsim.rows_slack:.4f}, K "
+          f"{nst.nmat.idx.shape[1]}", flush=True)
+    nst = nsim.run_block(nst, 3)  # warm up allocator and kernels
+    torch.cuda.synchronize()
+    rb0 = nst.rebuild_count
+    k2.row_neighbor_extract.launches = 0
+    t0 = time.perf_counter()
+    nst = nsim.run_block(nst, FIL_STEPS)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    k2_fil_launches = k2.row_neighbor_extract.launches
+    rebuilds = nst.rebuild_count - rb0
+    print(f"    {FIL_STEPS} steps in {elapsed:.3f} s = {FIL_STEPS / elapsed:.3f} steps/s, "
+          f"{1e3 * elapsed / FIL_STEPS:.3f} ms/step, rebuilds/step "
+          f"{rebuilds / FIL_STEPS:.4f}, K2 launches {k2_fil_launches}", flush=True)
+    if bool(nst.overflow) or not bool(torch.isfinite(nst.pos).all()):
+        fail("the 2000 x 50 filaments run (nmat) overflowed or went non-finite")
+    if rebuilds < 1 or k2_fil_launches != rebuilds:
+        fail(f"K2 launched {k2_fil_launches} times for {rebuilds} broad phases")
+    profile_window(lambda n: nsim.run_block(nst, n), torch, 1e3 * elapsed / FIL_STEPS)
+    del nsim, nst
+
+    # ---- 19. the same config on the row engine (K4's filaments op) ---------
+    fst = fsim.run_block(fst, 3)  # warm up
+    torch.cuda.synchronize()
+    rb0 = fst.rebuild_count
+    k4.row_segment_filaments_sym.launches = 0
+    t0 = time.perf_counter()
+    fst = fsim.run_block(fst, FIL_STEPS)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    k4f_launches = k4.row_segment_filaments_sym.launches
+    rebuilds = fst.rebuild_count - rb0
+    print(f"[19] 2000 x 50 filaments, engine {fsim.contact_engine}: {FIL_STEPS} steps in "
+          f"{elapsed:.3f} s = {FIL_STEPS / elapsed:.3f} steps/s, "
+          f"{1e3 * elapsed / FIL_STEPS:.3f} ms/step, rebuilds/step "
+          f"{rebuilds / FIL_STEPS:.4f}, R {fsim.row_grid.row_capacity}, K4 filaments "
+          f"launches {k4f_launches}", flush=True)
+    if bool(fst.overflow) or not bool(torch.isfinite(fst.pos).all()):
+        fail("the 2000 x 50 filaments run (rows) overflowed or went non-finite")
+    if k4f_launches != FIL_STEPS:
+        fail(f"K4's filaments op launched {k4f_launches} times in {FIL_STEPS} steps")
+    profile_window(lambda n: fsim.run_block(fst, n), torch, 1e3 * elapsed / FIL_STEPS)
+
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [
         {"name": "row_hertzian_forces_sym", "route": "cuda",
@@ -649,6 +805,12 @@ def main() -> None:
          "replaces": "mundy_tpu/ops/pallas/row_segments.py:227",
          "launches": k4_launches, "max_abs_err": k4_err, "ms": k4_ms,
          "plain_ms": k4_plain_ms, "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
+         "library_ms": None},
+        {"name": "row_segment_filaments_sym", "route": "cuda",
+         "source": "mundy_tpu_torch/csrc/row_segments.cu",
+         "replaces": "mundy_tpu/ops/pallas/row_segments.py:227",
+         "launches": k4f_launches, "max_abs_err": k4f_err, "ms": k4f_ms,
+         "plain_ms": k4f_plain_ms, "bound_ms": k4f_bound[0], "bound_by": k4f_bound[1],
          "library_ms": None}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

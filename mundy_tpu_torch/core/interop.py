@@ -12,6 +12,7 @@ import torch
 
 from mundy_tpu_torch.driver.apps.rods_rows import RowRodsState
 from mundy_tpu_torch.driver.apps.spheres_rows import RowSpheresState
+from mundy_tpu_torch.neighbor.cell_list import NeighborMatrix
 from mundy_tpu_torch.neighbor.rows import RowGrid, RowState
 
 
@@ -28,17 +29,29 @@ def _t(a, dtype=None, device="cpu"):
     return torch.as_tensor(np.array(a), dtype=dtype, device=device)
 
 
-def _rows_and_key(grid: RowGrid, pos, gid, valid, ref_pos, rows_overflow, key,
-                  device):
+def _key(key) -> tuple:
+    k0, k1 = (int(w) for w in np.asarray(key, dtype=np.uint32).reshape(-1))
+    return k0, k1
+
+
+def row_state_from_numpy(grid: RowGrid, pos, gid, valid, ref_pos, overflow,
+                         device="cpu") -> RowState:
+    """A RowState from the reference RowState's arrays: pos/ref_pos
+    (ny, nz, R, 3) in the grid's dtype, gid (ny, nz, R) int, valid
+    (ny, nz, R) bool, overflow the build's flag."""
     pos = _t(pos, device=device)
     if pos.dtype != grid.origin.dtype:
         raise TypeError(f"positions are {pos.dtype}, the grid {grid.origin.dtype}")
-    rows = RowState(grid=grid, pos=pos, gid=_t(gid, torch.int32, device),
+    return RowState(grid=grid, pos=pos, gid=_t(gid, torch.int32, device),
                     valid=_t(valid, torch.bool, device),
                     ref_pos=_t(ref_pos, device=device),
-                    overflow=_t(bool(rows_overflow), torch.bool, device))
-    k0, k1 = (int(w) for w in np.asarray(key, dtype=np.uint32).reshape(-1))
-    return rows, (k0, k1)
+                    overflow=_t(bool(overflow), torch.bool, device))
+
+
+def neighbor_matrix_from_numpy(idx, mask, overflow, device="cpu") -> NeighborMatrix:
+    """A NeighborMatrix from the reference's idx (N, K), mask and flag."""
+    return NeighborMatrix(idx=_t(idx, torch.int32, device), mask=_t(mask, torch.bool, device),
+                          overflow=_t(bool(overflow), torch.bool, device))
 
 
 def row_spheres_state_from_numpy(grid: RowGrid, pos, gid, valid, ref_pos,
@@ -51,9 +64,8 @@ def row_spheres_state_from_numpy(grid: RowGrid, pos, gid, valid, ref_pos,
     the raw threefry key (`jax.random.key_data`); step and rebuild_count:
     ints; overflow: the state's sticky flag. The positions keep their numpy
     dtype, which must match the grid's."""
-    rows, key = _rows_and_key(grid, pos, gid, valid, ref_pos, rows_overflow,
-                              key, device)
-    return RowSpheresState(rows=rows, key=key, step=int(step),
+    rows = row_state_from_numpy(grid, pos, gid, valid, ref_pos, rows_overflow, device)
+    return RowSpheresState(rows=rows, key=_key(key), step=int(step),
                            rebuild_count=int(rebuild_count),
                            overflow=_t(bool(overflow), torch.bool, device))
 
@@ -64,11 +76,10 @@ def row_rods_state_from_numpy(grid: RowGrid, pos, gid, valid, ref_pos,
     """A RowRodsState from the reference RowRodsState's arrays: the row
     fields as for row_spheres_state_from_numpy, and quat, the (ny, nz, R, 4)
     orientation payload in the positions' dtype."""
-    rows, key = _rows_and_key(grid, pos, gid, valid, ref_pos, rows_overflow,
-                              key, device)
+    rows = row_state_from_numpy(grid, pos, gid, valid, ref_pos, rows_overflow, device)
     quat = _t(quat, device=device)
     if quat.dtype != rows.pos.dtype:
         raise TypeError(f"quaternions are {quat.dtype}, positions {rows.pos.dtype}")
-    return RowRodsState(rows=rows, quat=quat, key=key, step=int(step),
+    return RowRodsState(rows=rows, quat=quat, key=_key(key), step=int(step),
                         rebuild_count=int(rebuild_count),
                         overflow=_t(bool(overflow), torch.bool, device))

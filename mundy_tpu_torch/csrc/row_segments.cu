@@ -1,13 +1,16 @@
-// Segment-segment row contact (kernel K4), the rods op: Hertzian force and
-// torque between spherocylinders on the dense row layout.
+// Segment-segment row contact (kernel K4): Hertzian contact between
+// segments on the dense row layout, with two pair ops, the rods op (force
+// and torque) and the filaments op (force split to the segment's nodes).
 //
 // Replaces the Pallas TPU kernel mundy_tpu/ops/pallas/row_segments.py
-// (row_segment_pairs_sym / _seg_kernel, with the rods closures of
-// driver/apps/rods_rows.py) and computes what its plain version,
-// neighbor/rows.pair_accumulate_segments with the rods out_fn, computes:
+// (row_segment_pairs_sym / _seg_kernel), with the rods closures of
+// driver/apps/rods_rows.py or the filaments closures of
+// driver/apps/filaments.py, and computes what its plain version,
+// neighbor/rows.pair_accumulate_segments with that out_fn, computes:
 //   * input: (ny, nz, R, 3) midpoints from build_rows (invalid slots hold a
 //     sentinel far outside the box), (ny, nz, R, 3) half-edges (zero on
-//     invalid slots) and the (ny, nz, R) valid mask;
+//     invalid slots) and the (ny, nz, R) valid mask; the filaments op also
+//     takes the (ny, nz, R) int32 segment gids;
 //   * candidate rows (y+dy, z+dz) are pre-shifted to the periodic image
 //     nearest the own row, so a pair needs a minimum image along x only:
 //     sx -= lx * rint(sx * (1/lx)) (round half to even);
@@ -18,8 +21,17 @@
 //     below it;
 //   * the rods op: w = -mag(dist - 2r) / dist on D (d2 clamped at 1e-24,
 //     where mag * rinv stays finite and multiplies an exact zero), torque of
-//     the own contact point (2s - 1) e_own + radius D / dist.
-// Output: (ny, nz, R, 6) = force (3) then torque (3) per own slot.
+//     the own contact point (2s - 1) e_own + radius D / dist. Output
+//     (ny, nz, R, 6) = force (3) then torque (3) per own slot;
+//   * the filaments op: the same push w, zeroed between adjacent segments
+//     of one filament (|g_own - g_cand| == 1 and min(g) mod E != E - 1, E
+//     segments per filament), split to the own segment's start node by
+//     1 - s and to its end node by s. Output (ny, nz, R, 6) = start-node
+//     force (3) then end-node force (3). The reference carries the gid as a
+//     float payload (exact to 2^24) with -10 on invalid slots; this op reads
+//     the int32 gids and stages -10 on invalid slots, which gives the same
+//     exclusion for every segment count below 2^24 (and for any count the
+//     int32 gid holds).
 //
 // Arithmetic. Like every kernel of the package, the file is built with
 // -fmad=false (ops/kernels/_build.py): no product and sum contract into an
@@ -35,30 +47,43 @@
 // candidate rows as structure-of-arrays planes in shared memory: midpoint
 // x, y, z (image-shifted) and half-edge x, y, z, 6 values x 9R slots (33 KB
 // in float32 at R = 152, 66 KB in float64, where the dynamic shared-memory
-// opt-in above 48 KB is taken), and each row's extent, 1 + its last valid
-// slot (its occupancy, as build_rows packs valid slots first). One thread
-// owns one slot (looping when R > blockDim) and sums its six outputs in
+// opt-in above 48 KB is taken), plus the gid plane for the filaments op
+// (9R (6 itemsize + 4) bytes: 183 KB in float32 at R = 728, float64 fits
+// up to R = 496), and each row's
+// extent, 1 + its last valid slot (its occupancy, as build_rows packs valid
+// slots first). One thread owns one slot (looping when R > blockDim) and
+// sums its six outputs in
 // registers over the candidates within the 9 extents, one-sidedly: every
 // off-row pair is evaluated from both sides, and the result is
 // deterministic with no atomic sums and no second pass. Slots past the extents
 // hold the sentinel and add exact zeros, so the plain version, which visits
 // all 9R, gives the same sums. All threads read the same candidate at once,
-// a shared-memory broadcast. What a pair contributes, and how many outputs
-// there are, is the compile-time Op of one kernel body; the filaments op
-// (node split by arc parameter, with a gid payload) becomes a second Op.
+// a shared-memory broadcast. What a pair contributes, how many outputs
+// there are and whether the gid plane is staged are the compile-time Op of
+// one kernel body (`if constexpr` keeps the rods op's instantiation free of
+// the gid plane). Past the card's opt-in shared memory the launch fails
+// and its error is returned; there is no fallback.
 //
 // Dropped from the TPU kernel, because they exist only for the TPU: the
 // half stencil with its partner planes rolled outside the kernel, the
 // nz % 8 requirement, the VMEM z-chunk planner and the lane-concatenated
 // (nz, 5R) scratch.
 //
-// Bound: the function needs about 187 FP32 operations per occupied pair of
+// Bound: the rods op needs about 187 FP32 operations per occupied pair of
 // the half stencil, both sides' outputs (counted from the algorithm in
-// chip_smoke.py, K4_OPS, with per-rod quantities hoisted), and no memory
-// traffic beyond reading the rows once, so the FP32 rate bounds it, not
-// bytes. This kernel does about 220 per ordered pair (closest points 178,
-// the Hertz push and torque 41): it recomputes per-rod quantities, evaluates
-// the endpoint quadratics in full, and takes every off-row pair twice.
+// chip_smoke.py, K4_OPS, with per-rod quantities hoisted), the filaments op
+// about 163 (K4F_OPS), and no memory traffic beyond reading the mask of
+// every slot and the payload of the occupied ones once and writing the sums
+// once. The FP32 rate bounds both: the rods op at 1M rods, and the
+// filaments op at 2000 x 50, whose 15.7M pairs outweigh its 77 MB even on
+// rows 3% occupied (98k of 3M slots). This kernel does about 220 per
+// ordered pair for the rods op (closest points 178, the Hertz push and
+// torque 41): it recomputes per-rod quantities, evaluates the endpoint
+// quadratics in full, and takes every off-row pair twice. The filaments
+// op's time is set by its fullest rows: straight chains along x put a whole
+// filament in one row (R = 728 at 2000 x 50 for a mean occupancy of 24),
+// and one block per row leaves those few blocks as the tail; spreading a
+// row's work over several blocks is later work.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -166,6 +191,7 @@ __device__ __forceinline__ PairGeom<T> closest(T sx, T sy, T sz, T oex,
 template <typename T>
 struct RodsOp {
   static constexpr int kOut = 6;
+  static constexpr bool kGid = false;
   T two_r, radius, coef;  // coef = 4/3 E* sqrt(R*), rounded as the plain version
 
   __device__ __forceinline__ void operator()(const PairGeom<T>& g, T oex,
@@ -191,10 +217,43 @@ struct RodsOp {
   }
 };
 
+// The filaments op (driver/apps/filaments.py out_fn): the Hertzian push,
+// zeroed between adjacent segments of one filament, split to the own
+// segment's start (1 - s) and end (s) nodes.
+template <typename T>
+struct FilamentsOp {
+  static constexpr int kOut = 6;
+  static constexpr bool kGid = true;
+  T two_r, coef;  // coef = 4/3 E* sqrt(R*), rounded as the plain version
+  int n_edges;    // segments per filament
+
+  __device__ __forceinline__ void operator()(const PairGeom<T>& g, int own_g,
+                                             int cand_g, T* acc) const {
+    const T d2c = fmax(g.d2, T(1e-24));
+    const T rinv = rsqrt_(d2c);
+    const T dist = d2c * rinv;
+    const T delta = fmax(-(dist - two_r), T(0));
+    const T mag = coef * delta * sqrt_(delta);
+    const int dg = cand_g - own_g;
+    const int min_g = min(own_g, cand_g);
+    const bool adjacent = (dg == 1 || dg == -1) && min_g % n_edges != n_edges - 1;
+    const T w = adjacent ? T(0) : -(mag * rinv);
+    const T fx = w * g.dx, fy = w * g.dy, fz = w * g.dz;
+    const T ws = T(1) - g.s, we = g.s;
+    acc[0] += ws * fx;
+    acc[1] += ws * fy;
+    acc[2] += ws * fz;
+    acc[3] += we * fx;
+    acc[4] += we * fy;
+    acc[5] += we * fz;
+  }
+};
+
 template <typename T, typename Op>
 __global__ void row_segment_kernel(const T* __restrict__ mid,
                                    const T* __restrict__ hedge,
                                    const unsigned char* __restrict__ valid,
+                                   const int* __restrict__ gid,
                                    T* __restrict__ out, int ny, int nz, int R,
                                    T lx, T inv_lx, T ly, T lz, T eps,
                                    T noise_c, Op op) {
@@ -205,6 +264,7 @@ __global__ void row_segment_kernel(const T* __restrict__ mid,
   T* ex = cz + 9 * R;
   T* ey = ex + 9 * R;
   T* ez = ey + 9 * R;
+  int* cg = reinterpret_cast<int*>(ez + 9 * R);  // the filaments op's gids
   __shared__ int extent[9];  // 1 + the last valid slot of each staged row
 
   const int row = blockIdx.x;  // iy * nz + iz
@@ -231,6 +291,7 @@ __global__ void row_segment_kernel(const T* __restrict__ mid,
       ex[b * R + k] = h[3 * k];
       ey[b * R + k] = h[3 * k + 1];
       ez[b * R + k] = h[3 * k + 2];
+      if constexpr (Op::kGid) cg[b * R + k] = valid[base + k] ? gid[base + k] : -10;
       if (valid[base + k]) atomicMax(&extent[b], k + 1);
     }
   }
@@ -258,7 +319,11 @@ __global__ void row_segment_kernel(const T* __restrict__ mid,
           const PairGeom<T> g =
               closest(sx, cy[j] - oy, cz[j] - oz, oex, oey, oez, a, ex[j],
                       ey[j], ez[j], eps, noise_c);
-          op(g, oex, oey, oez, acc);
+          if constexpr (Op::kGid) {
+            op(g, cg[self], cg[j], acc);
+          } else {
+            op(g, oex, oey, oez, acc);
+          }
         }
       }
     }
@@ -268,27 +333,51 @@ __global__ void row_segment_kernel(const T* __restrict__ mid,
   }
 }
 
+template <typename T, typename Op>
+int launch(const void* mid, const void* hedge, const void* valid,
+           const void* gid, void* out, int ny, int nz, int R, double lx,
+           double ly, double lz, double eps, double noise_c, const Op& op,
+           void* stream) {
+  const int threads = R >= 256 ? 256 : ((R + 31) / 32) * 32;
+  const size_t smem = static_cast<size_t>(9) * R *
+                      (6 * sizeof(T) + (Op::kGid ? sizeof(int) : 0));
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        row_segment_kernel<T, Op>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // clear it: the next launch must not report it
+      return static_cast<int>(err);
+    }
+  }
+  row_segment_kernel<T, Op><<<ny * nz, threads, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(mid), static_cast<const T*>(hedge),
+      static_cast<const unsigned char*>(valid), static_cast<const int*>(gid),
+      static_cast<T*>(out), ny, nz, R, T(lx), T(1.0 / lx), T(ly), T(lz),
+      T(eps), T(noise_c), op);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_rods(const void* mid, const void* hedge, const void* valid,
                 void* out, int ny, int nz, int R, double lx, double ly,
                 double lz, double two_r, double radius, double coef,
                 double eps, double noise_c, void* stream) {
-  using Op = RodsOp<T>;
-  const int threads = R >= 256 ? 256 : ((R + 31) / 32) * 32;
-  const size_t smem = static_cast<size_t>(54) * R * sizeof(T);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        row_segment_kernel<T, Op>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const Op op{T(two_r), T(radius), T(coef)};
-  row_segment_kernel<T, Op><<<ny * nz, threads, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(mid), static_cast<const T*>(hedge),
-      static_cast<const unsigned char*>(valid), static_cast<T*>(out), ny, nz,
-      R, T(lx), T(1.0 / lx), T(ly), T(lz), T(eps), T(noise_c), op);
-  return static_cast<int>(cudaGetLastError());
+  const RodsOp<T> op{T(two_r), T(radius), T(coef)};
+  return launch<T>(mid, hedge, valid, nullptr, out, ny, nz, R, lx, ly, lz,
+                   eps, noise_c, op, stream);
+}
+
+template <typename T>
+int launch_filaments(const void* mid, const void* hedge, const void* valid,
+                     const void* gid, void* out, int ny, int nz, int R,
+                     double lx, double ly, double lz, double two_r,
+                     double coef, int n_edges, double eps, double noise_c,
+                     void* stream) {
+  const FilamentsOp<T> op{T(two_r), T(coef), n_edges};
+  return launch<T>(mid, hedge, valid, gid, out, ny, nz, R, lx, ly, lz, eps,
+                   noise_c, op, stream);
 }
 
 }  // namespace
@@ -313,6 +402,29 @@ int row_segment_rods_f64(const void* mid, const void* hedge, const void* valid,
                          void* stream) {
   return launch_rods<double>(mid, hedge, valid, out, ny, nz, R, lx, ly, lz,
                              two_r, radius, coef, eps, noise_c, stream);
+}
+
+// gid: (ny, nz, R) int32 segment gids; n_edges: segments per filament.
+int row_segment_filaments_f32(const void* mid, const void* hedge,
+                              const void* valid, const void* gid, void* out,
+                              int ny, int nz, int R, double lx, double ly,
+                              double lz, double two_r, double coef,
+                              int n_edges, double eps, double noise_c,
+                              void* stream) {
+  return launch_filaments<float>(mid, hedge, valid, gid, out, ny, nz, R, lx,
+                                 ly, lz, two_r, coef, n_edges, eps, noise_c,
+                                 stream);
+}
+
+int row_segment_filaments_f64(const void* mid, const void* hedge,
+                              const void* valid, const void* gid, void* out,
+                              int ny, int nz, int R, double lx, double ly,
+                              double lz, double two_r, double coef,
+                              int n_edges, double eps, double noise_c,
+                              void* stream) {
+  return launch_filaments<double>(mid, hedge, valid, gid, out, ny, nz, R, lx,
+                                  ly, lz, two_r, coef, n_edges, eps, noise_c,
+                                  stream);
 }
 
 }  // extern "C"

@@ -1,10 +1,13 @@
 """Batched quaternion algebra, convention w-x-y-z (scalar first).
 
-Port of the part of mundy_tpu/math/quaternion.py that the rods path uses:
-Hamilton products, scalar-first storage, and `quat_rotate(q, v) = q v q*`
-as the active rotation of `v` by `q`. All functions broadcast over leading
-batch axes; quaternions are (..., 4). The arithmetic order is the
-reference's, so float64 results agree to rounding.
+Port of the part of mundy_tpu/math/quaternion.py that the rods and
+filaments paths use: Hamilton products, scalar-first storage, and
+`quat_rotate(q, v) = q v q*` as the active rotation of `v` by `q`. All
+functions broadcast over leading batch axes; quaternions are (..., 4). The
+arithmetic order is the reference's, so float64 results agree to rounding.
+The rod energy (mech/rod.py) is differentiated through quat_normalize, so
+its guard is `torch.maximum`, whose gradient at a tie splits as
+`jnp.maximum`'s does.
 """
 
 from __future__ import annotations
@@ -12,6 +15,12 @@ from __future__ import annotations
 import torch
 
 from mundy_tpu_torch.math.linalg import cross, norm
+
+
+def maximum(x: torch.Tensor, floor: float) -> torch.Tensor:
+    """jnp.maximum(x, floor) for a python floor, gradient included (a 0-d
+    CPU tensor rides along with a CUDA x as a scalar: no device copy)."""
+    return torch.maximum(x, torch.tensor(floor, dtype=x.dtype))
 
 
 def quat_multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
@@ -29,8 +38,13 @@ def quat_multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
     )
 
 
+def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
+    # q * (1, -1, -1, -1), exactly, without a constant on the device
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
+
+
 def quat_normalize(q: torch.Tensor, eps: float = 1e-30) -> torch.Tensor:
-    n = torch.clamp(norm(q), min=eps)
+    n = maximum(norm(q), eps)
     return q / n[..., None]
 
 
@@ -60,3 +74,25 @@ def quat_integrate(q: torch.Tensor, omega: torch.Tensor, dt) -> torch.Tensor:
     """One explicit step of dq/dt = 1/2 omega * q by the exponential map
     (norm-preserving), renormalised."""
     return quat_normalize(quat_multiply(quat_from_omega_dt(omega, dt), q))
+
+
+def quat_from_matrix(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> unit quaternion, branch-free
+    (Shepperd's method: the largest of the four pivots, first on a tie, as
+    jnp.argmax picks)."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw = torch.stack([1.0 + tr, 1.0 + m00 - m11 - m22,
+                      1.0 + m11 - m00 - m22, 1.0 + m22 - m00 - m11], dim=-1)
+    pivot = torch.argmax(qw, dim=-1, keepdim=True)
+    s = torch.sqrt(maximum(torch.gather(qw, -1, pivot)[..., 0], 1e-30)) * 2.0
+    cases = torch.stack([
+        torch.stack([0.25 * s, (m21 - m12) / s, (m02 - m20) / s, (m10 - m01) / s], dim=-1),
+        torch.stack([(m21 - m12) / s, 0.25 * s, (m01 + m10) / s, (m02 + m20) / s], dim=-1),
+        torch.stack([(m02 - m20) / s, (m01 + m10) / s, 0.25 * s, (m12 + m21) / s], dim=-1),
+        torch.stack([(m10 - m01) / s, (m02 + m20) / s, (m12 + m21) / s, 0.25 * s], dim=-1),
+    ], dim=-2)
+    idx = pivot[..., None].expand(pivot.shape[:-1] + (1, 4))
+    return quat_normalize(torch.gather(cases, -2, idx)[..., 0, :])

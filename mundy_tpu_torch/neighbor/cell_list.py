@@ -161,9 +161,12 @@ def _compact_rows(cand: torch.Tensor, ok: torch.Tensor, k: int, empty_marker: in
 
 def neighbor_matrix(pos: torch.Tensor, clist: CellList, search_radius,
                     metric: Optional[Metric] = None, max_neighbors: int = 32,
-                    chunk: int = 4096) -> NeighborMatrix:
+                    chunk: int = 4096,
+                    exclude: Optional[torch.Tensor] = None) -> NeighborMatrix:
     """Per-particle neighbor ids within search_radius_i + search_radius_j
     (self-pairs dropped), the first max_neighbors in 27-cell stencil order.
+    `exclude` is an optional (N, E) int table of particle ids to drop (the
+    reference's ExcludeConnectedEntities filter; -1 excludes nothing).
     Chunked over particles so the (chunk, 27 cap) candidate table stays
     small."""
     n = pos.shape[0]
@@ -174,6 +177,8 @@ def neighbor_matrix(pos: torch.Tensor, clist: CellList, search_radius,
     n_pad = ((n + chunk - 1) // chunk) * chunk
     pos_p = torch.cat([pos, pos.new_zeros((n_pad - n, 3))])
     rad_p = torch.cat([radius, radius.new_zeros((n_pad - n,))])
+    if exclude is not None:
+        excl_p = torch.cat([exclude, exclude.new_full((n_pad - n, exclude.shape[1]), -1)])
     coords_all = _cell_coords(clist.grid, pos_p)
     idx_parts, mask_parts, ovf = [], [], torch.zeros((), dtype=torch.bool, device=dev)
     for start in range(0, n_pad, chunk):
@@ -192,6 +197,8 @@ def neighbor_matrix(pos: torch.Tensor, clist: CellList, search_radius,
         cutoff = r[:, None] + rad_p[cand_idx]
         me = torch.arange(start, start + chunk, dtype=torch.int32, device=dev)
         ok = (cand >= 0) & (d2 <= cutoff * cutoff) & (cand != me[:, None])
+        if exclude is not None:
+            ok &= (cand[:, :, None] != excl_p[sl][:, None, :]).all(dim=-1)
         row_idx, row_ok, count = _compact_rows(cand, ok, max_neighbors, n)
         idx_parts.append(row_idx)
         mask_parts.append(row_ok)

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from mundy_tpu_torch.core.containers import frozen_dataclass, static_field
+from mundy_tpu_torch.geom.distance import segment_closest_planes
 from mundy_tpu_torch.geom.periodicity import Metric
 
 
@@ -294,23 +295,14 @@ def _candidate_planes(pos: torch.Tensor, box: tuple, extra_fields: tuple = ()):
             tuple(torch.cat(a, dim=-1) for a in cand_extras))
 
 
-def _clip(x: torch.Tensor, lo: float, hi) -> torch.Tensor:
-    """jnp.clip(x, lo, hi) with a tensor or scalar upper bound."""
-    x = torch.clamp(x, min=lo)
-    return torch.minimum(x, hi) if isinstance(hi, torch.Tensor) else torch.clamp(x, max=hi)
-
-
 def _segment_pair_chunk(ox, oy, oz, oex, oey, oez, own_scalars,
                         cx, cy_, cz, cex, cey, cez, cand_scalars,
                         out_fn, lx_px):
     """Clamped segment-segment closest points for one y-chunk on component
     planes: own midpoints and half-edges (chunk, nz, R), candidates
-    (chunk, nz, 9R), every per-pair quantity a (chunk, nz, R, 9R) plane. The
-    reference's arithmetic, operation for operation: the edge-clamped
-    Lumelsky solve, then the best of five candidates (the clamped solution
-    and four endpoint projections) by strict `<` on the expanded quadratic,
-    then the coincident-pair noise floor. Returns out_fn's planes summed
-    over the candidate axis."""
+    (chunk, nz, 9R), every per-pair quantity a (chunk, nz, R, 9R) plane
+    (geom/distance.segment_closest_planes, the reference's arithmetic).
+    Returns out_fn's planes summed over the candidate axis."""
     def o(p):  # own plane -> pair block
         return p[..., :, None]
 
@@ -321,85 +313,10 @@ def _segment_pair_chunk(ox, oy, oz, oex, oey, oez, own_scalars,
     if lx_px is not None:
         lx, inv_lx = lx_px
         SX = SX - lx * torch.round(SX * inv_lx)
-    SY = k(cy_) - o(oy)
-    SZ = k(cz) - o(oz)
-    # segment endpoints: own a0/a1 = -/+ E, cand b0/b1 = S -/+ F, so
-    # u = 2E, v = 2F, w = a0 - b0 = F - E - S (componentwise planes)
-    dt = ox.dtype
-    eps = 1e-12 if dt == torch.float64 else 1e-8
-    WX = k(cex) - o(oex) - SX
-    WY = k(cey) - o(oey) - SY
-    WZ = k(cez) - o(oez) - SZ
-    del SX, SY, SZ
-    a = 4.0 * o(oex * oex + oey * oey + oez * oez)
-    c = 4.0 * k(cex * cex + cey * cey + cez * cez)
-    b = 4.0 * (o(oex) * k(cex) + o(oey) * k(cey) + o(oez) * k(cez))
-    d = 2.0 * (o(oex) * WX + o(oey) * WY + o(oez) * WZ)
-    e = 2.0 * (k(cex) * WX + k(cey) * WY + k(cez) * WZ)
-    D = a * c - b * b
-
-    sN = b * e - c * d
-    tN = a * e - b * d
-    sD = torch.where(D > 0, D, 1.0)
-    tD = sD
-    s_lo = sN < 0.0
-    s_hi = sN > sD
-    tN = torch.where(s_lo, e, torch.where(s_hi, e + b, tN))
-    tD = torch.where(s_lo | s_hi, c, tD)
-    sN = _clip(sN, 0.0, sD)
-    t_lo = tN < 0.0
-    t_hi = tN > tD
-    sN = torch.where(t_lo, _clip(-d, 0.0, a),
-                     torch.where(t_hi, _clip(b - d, 0.0, a), sN))
-    sD = torch.where(t_lo | t_hi, torch.clamp(a, min=eps), sD)
-    tN = _clip(tN, 0.0, tD)
-    s = sN / torch.clamp(sD, min=eps)
-    t = tN / torch.clamp(tD, min=eps)
-    del sN, tN, sD, tD, s_lo, s_hi, t_lo, t_hi, D
-
-    # the best of five always-feasible candidates on the expanded quadratic
-    # d2(s,t) = w2 + s^2 a + t^2 c + 2sd - 2te - 2stb (continuous in the
-    # inputs, exact for near-parallel segments)
-    w2 = WX * WX + WY * WY + WZ * WZ
-    inv_a = 1.0 / torch.clamp(a, min=eps)
-    inv_c = 1.0 / torch.clamp(c, min=eps)
-    zero = torch.zeros_like(s)
-    one = torch.ones_like(s)
-    cands = (
-        (zero, _clip(e * inv_c, 0.0, 1.0)),
-        (one, _clip((e + b) * inv_c, 0.0, 1.0)),
-        (_clip(-d * inv_a, 0.0, 1.0), zero),
-        (_clip((b - d) * inv_a, 0.0, 1.0), one),
-    )
-
-    def q(ss, tt):
-        return (w2 + ss * ss * a + tt * tt * c + 2.0 * ss * d
-                - 2.0 * tt * e - 2.0 * ss * tt * b)
-
-    d2_best = q(s, t)
-    for ss, tt in cands:
-        d2c = q(ss, tt)
-        take = d2c < d2_best
-        s = torch.where(take, ss, s)
-        t = torch.where(take, tt, t)
-        d2_best = torch.where(take, d2c, d2_best)
-    del cands, d2_best, zero, one, inv_a, inv_c, b, d, e
-
-    # closest vector own -> cand: c2 - c1 = -(w + s u - t v)
-    DXc = 2.0 * (t * k(cex) - s * o(oex)) - WX
-    DYc = 2.0 * (t * k(cey) - s * o(oey)) - WY
-    DZc = 2.0 * (t * k(cez) - s * o(oez)) - WZ
-    d2 = DXc * DXc + DYc * DYc + DZc * DZc
-    # coincident closest points have no contact normal: an exact zero vector
-    # below the squared machine-eps noise floor of the reconstruction
-    m_eps = float(torch.finfo(dt).eps)
-    noise2 = (32.0 * m_eps) ** 2 * (a + c + w2)
-    clean = d2 > noise2
-    DXc = torch.where(clean, DXc, 0.0)
-    DYc = torch.where(clean, DYc, 0.0)
-    DZc = torch.where(clean, DZc, 0.0)
-    d2 = torch.where(clean, d2, 0.0)
-    args = [s, t, DXc, DYc, DZc, d2]
+    args = list(segment_closest_planes(SX, k(cy_) - o(oy), k(cz) - o(oz),
+                                       o(oex), o(oey), o(oez),
+                                       k(cex), k(cey), k(cez)))
+    del SX
     for own_f, cand_f in zip(own_scalars, cand_scalars):
         args.append(o(own_f))
         args.append(k(cand_f))
@@ -515,6 +432,28 @@ def neighbor_matrix_rows(pos: torch.Tensor, search_radius: float, box_lengths,
     idx = _unsort_rows_to_gid(ids.reshape(-1, max_neighbors), state, n)
     return NeighborMatrix(idx=idx, mask=idx < n,
                           overflow=state.overflow | (count > max_neighbors).any())
+
+
+def rows_extract_feasible(grid: RowGrid, max_neighbors: int, itemsize: int = 4,
+                          hbm_budget_bytes: float = 2.5e9) -> bool:
+    """True when neighbor_matrix_rows can extract at this grid's shape on
+    the grid's device. False means the distribution is too clustered for the
+    row layout (R integrates clustering over the full x axis); callers then
+    use the cell-list builder, whose 3D cells bound occupancy locally.
+
+    On the card: K2 launches at this shape (ops/kernels/row_extract.fits:
+    K within its top-K list, its 9 staged rows within the card's opt-in
+    shared memory per block). This test takes the place of the reference's
+    TPU VMEM envelope (row_extract_vmem_ok). Elsewhere: the reference's test
+    off the TPU, the plain extraction chunking at least one y-plane under
+    the byte budget."""
+    from mundy_tpu_torch.ops.kernels.row_extract import fits
+
+    nz, R = grid.nz, grid.row_capacity
+    dev = grid.origin.device
+    if dev.type == "cuda":
+        return fits(R, max_neighbors, itemsize, dev)
+    return 4 * nz * R * 9 * R * itemsize <= hbm_budget_bytes
 
 
 def moved_beyond_skin(state: RowState, metric: Metric, skin: float) -> torch.Tensor:

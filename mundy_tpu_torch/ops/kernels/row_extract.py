@@ -23,6 +23,25 @@ from mundy_tpu_torch.ops.kernels import _build
 
 _DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 K_MAX = 512  # the kernel's largest top-K list (csrc/row_extract.cu)
+_SMEM_DEFAULT = 48 * 1024  # shared memory a block gets without the opt-in
+
+
+def shared_bytes(R: int, itemsize: int) -> int:
+    """Dynamic shared memory of one block: the 9 staged candidate rows'
+    positions and gids (csrc/row_extract.cu)."""
+    return 9 * R * (3 * itemsize + 4)
+
+
+def fits(R: int, K: int, itemsize: int, device) -> bool:
+    """True when the kernel can launch at row capacity R with K neighbors
+    per slot on the CUDA `device`: K <= K_MAX, and shared_bytes(R,
+    itemsize) within the card's opt-in shared memory per block (asked of
+    the card only past the 48 KB every block gets)."""
+    if K > K_MAX:
+        return False
+    smem = shared_bytes(R, itemsize)
+    return smem <= _SMEM_DEFAULT or (
+        smem <= torch.cuda.get_device_properties(device).shared_memory_per_block_optin)
 
 
 def _check(pos, gid, valid, box, max_neighbors) -> None:
@@ -125,7 +144,7 @@ def row_neighbor_extract(pos: torch.Tensor, gid: torch.Tensor, valid: torch.Tens
     Arguments and results as row_neighbor_extract_plain. A CPU tensor
     computes the plain version. A CUDA tensor launches the kernel (counted
     in `.launches`); it must be contiguous, with int32 gid, bool valid, all
-    three axes periodic, ny, nz >= 5 and max_neighbors <= K_MAX, or the
+    three axes periodic, ny, nz >= 5 and a shape that `fits`, or the
     wrapper raises."""
     _check(pos, gid, valid, box, max_neighbors)
     if pos.device.type == "cpu":
@@ -137,8 +156,12 @@ def row_neighbor_extract(pos: torch.Tensor, gid: torch.Tensor, valid: torch.Tens
         raise NotImplementedError("K2 needs all three axes periodic")
     if pos.shape[0] < 5 or pos.shape[1] < 5:
         raise ValueError("K2 needs ny, nz >= 5")
-    if max_neighbors > K_MAX:
-        raise ValueError(f"K2 keeps at most {K_MAX} neighbors, got {max_neighbors}")
+    R = pos.shape[2]
+    if not fits(R, max_neighbors, pos.element_size(), pos.device):
+        raise ValueError(
+            f"K2 cannot launch at R = {R}, K = {max_neighbors}: it keeps at most "
+            f"{K_MAX} neighbors and stages {shared_bytes(R, pos.element_size())} bytes "
+            "of shared memory, which must lie within the card's opt-in")
     if gid.dtype != torch.int32 or valid.dtype != torch.bool:
         raise TypeError("gid must be int32 and valid bool")
     if not (pos.is_contiguous() and gid.is_contiguous() and valid.is_contiguous()):

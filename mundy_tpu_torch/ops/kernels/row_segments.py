@@ -1,13 +1,16 @@
-"""Kernel K4: segment-segment contact on the row layout, the rods op.
+"""Kernel K4: segment-segment contact on the row layout, two pair ops.
 
-Port of mundy_tpu/ops/pallas/row_segments.py::row_segment_pairs_sym as the
-rods app calls it (force and torque, driver/apps/rods_rows.py). On a CUDA
-tensor the wrapper launches the hand-written kernel of
+Port of mundy_tpu/ops/pallas/row_segments.py::row_segment_pairs_sym as its
+two apps call it: the rods op (force and torque, driver/apps/rods_rows.py),
+`row_segment_pairs_sym`, and the filaments op (the force split to the
+segment's two nodes, adjacent segments of one filament excluded by their
+gids, driver/apps/filaments.py), `row_segment_filaments_sym`. On a CUDA
+tensor each wrapper launches the hand-written kernel of
 csrc/row_segments.cu (one block per row, the 9 image-shifted candidate rows
 staged in shared memory, one-sided register sums up to each row's last
-valid slot; see the note there). On
-a CPU tensor it computes the plain version, `row_segment_pairs_plain`:
-neighbor/rows.pair_accumulate_segments with the rods out_fn, the JAX
+valid slot; see the note there). On a CPU tensor it computes the plain
+version, `row_segment_pairs_plain` or `row_segment_filaments_plain`:
+neighbor/rows.pair_accumulate_segments with the app's out_fn, the JAX
 package's own path for this kernel off the TPU. A CUDA tensor never takes
 the plain version: a failed build or launch raises.
 """
@@ -16,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -90,25 +94,27 @@ def row_segment_pairs_plain(mid: torch.Tensor, half_edges: torch.Tensor, box,
     return torch.stack([fx, fy, fz], dim=-1), torch.stack([tx, ty, tz], dim=-1)
 
 
-def _launch(mid, half_edges, valid, box, radius, e_eff):
+def _launch(op: str, mid, tensors, scalar_types, scalars):
+    """Launch row_segment_<op>_<dtype> of csrc/row_segments.cu on the
+    tensors (then the (ny, nz, R, 6) output), the row shape, the op's
+    scalars and the closest-point constants; returns the output's two
+    (ny, nz, R, 3) halves."""
     lib = _build.load("row_segments")
-    fn = getattr(lib, f"row_segment_rods_{_DTYPES[mid.dtype]}")
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                   + [ctypes.c_double] * 8 + [ctypes.c_void_p])
+    fn = getattr(lib, f"row_segment_{op}_{_DTYPES[mid.dtype]}")
+    fn.argtypes = ([ctypes.c_void_p] * (len(tensors) + 1) + [ctypes.c_int] * 3
+                   + list(scalar_types) + [ctypes.c_double] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     ny, nz, R, _ = mid.shape
     out = torch.empty((ny, nz, R, 6), dtype=mid.dtype, device=mid.device)
-    coef = _hertz_coef(float(radius), float(e_eff), mid.dtype)
     eps = 1e-12 if mid.dtype == torch.float64 else 1e-8
     noise_c = (32.0 * float(torch.finfo(mid.dtype).eps)) ** 2
     with torch.cuda.device(mid.device):
         stream = torch.cuda.current_stream(mid.device).cuda_stream
-        err = fn(mid.data_ptr(), half_edges.data_ptr(), valid.data_ptr(),
-                 out.data_ptr(), ny, nz, R,
-                 float(box[0]), float(box[1]), float(box[2]), 2.0 * radius,
-                 float(radius), coef, eps, noise_c, stream)
+        err = fn(*(t.data_ptr() for t in tensors), out.data_ptr(), ny, nz, R, *scalars,
+                 eps, noise_c, stream)
     if err != 0:
-        raise RuntimeError(f"row_segments kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"row_segments {op} kernel launch failed: CUDA error {err} "
+                           f"(R = {R})")
     return out[..., :3], out[..., 3:]
 
 
@@ -127,10 +133,7 @@ def row_segment_pairs_sym(mid: torch.Tensor, half_edges: torch.Tensor,
     version, which visits every slot and needs no mask (invalid slots add
     exact zeros)."""
     _check(mid, half_edges, box)
-    if valid.shape != mid.shape[:3] or valid.dtype != torch.bool:
-        raise ValueError(f"valid must be a bool {tuple(mid.shape[:3])} mask")
-    if valid.device != mid.device:
-        raise ValueError("mid and valid must lie on one device")
+    _check_rows(mid, valid)
     if mid.device.type == "cpu":
         return row_segment_pairs_plain(mid, half_edges, box, radius, e_eff)
     if mid.device.type != "cuda":
@@ -138,9 +141,100 @@ def row_segment_pairs_sym(mid: torch.Tensor, half_edges: torch.Tensor,
     if not (mid.is_contiguous() and half_edges.is_contiguous()
             and valid.is_contiguous()):
         raise ValueError("mid, half_edges and valid must be contiguous")
-    out = _launch(mid, half_edges, valid, box, radius, e_eff)
+    coef = _hertz_coef(float(radius), float(e_eff), mid.dtype)
+    out = _launch("rods", mid, (mid, half_edges, valid), [ctypes.c_double] * 6,
+                  (*(float(b) for b in box), 2.0 * radius, float(radius), coef))
     row_segment_pairs_sym.launches += 1
     return out
 
 
 row_segment_pairs_sym.launches = 0
+
+
+def _check_rows(mid, valid, gid=None) -> None:
+    if valid.shape != mid.shape[:3] or valid.dtype != torch.bool:
+        raise ValueError(f"valid must be a bool {tuple(mid.shape[:3])} mask")
+    if valid.device != mid.device:
+        raise ValueError("mid and valid must lie on one device")
+    if gid is not None and (gid.shape != mid.shape[:3] or gid.dtype != torch.int32
+                            or gid.device != mid.device):
+        raise ValueError(f"gid must be an int32 {tuple(mid.shape[:3])} tensor "
+                         "on mid's device")
+
+
+def filaments_hertz_coef(radius: float, e_eff: float) -> float:
+    """4/3 E* sqrt(R*) with R* = radius / 2, in float64 on the host: the
+    filaments app passes python floats, so the reference rounds this
+    product to the working dtype once, as a kernel argument is rounded."""
+    return (4.0 / 3.0) * float(e_eff) * math.sqrt(0.5 * float(radius))
+
+
+def row_segment_filaments_plain(mid: torch.Tensor, half_edges: torch.Tensor,
+                                valid: torch.Tensor, gid: torch.Tensor, box,
+                                radius: float, e_eff: float, n_edges: int):
+    """Plain PyTorch version of K4's filaments op (any device): (f_start,
+    f_end), each (ny, nz, R, 3), over the full 9-row stencil, with the gid
+    riding as a float payload (-10 on invalid slots), as in the reference."""
+    _check(mid, half_edges, box)
+    _check_rows(mid, valid, gid)
+    two_r = 2.0 * float(radius)
+    coef = filaments_hertz_coef(radius, e_eff)
+    E = int(n_edges)
+
+    def out_fn(s, t, dx, dy, dz, d2, own_g, cand_g):
+        d2c = torch.clamp(d2, min=1e-24)
+        rinv = torch.rsqrt(d2c)
+        delta = torch.clamp(-(d2c * rinv - two_r), min=0.0)
+        mag = coef * delta * torch.sqrt(delta)
+        # exclude same-filament adjacent segments: |dg| == 1 and the lower
+        # gid not at a filament's last segment
+        dg = cand_g - own_g
+        min_g = torch.minimum(own_g, cand_g)
+        adjacent = ((torch.abs(torch.abs(dg) - 1.0) < 0.5)
+                    & (torch.abs(torch.remainder(min_g, float(E)) - (E - 1)) > 0.5))
+        w = torch.where(adjacent, 0.0, -(mag * rinv))
+        fx, fy, fz = w * dx, w * dy, w * dz
+        ws, we = 1.0 - s, s
+        return (ws * fx, ws * fy, ws * fz, we * fx, we * fy, we * fz)
+
+    gid_f = torch.where(valid, gid.to(mid.dtype), -10.0)
+    boxs = (tuple(float(b) for b in box), (True, True, True))
+    fsx, fsy, fsz, fex, fey, fez = pair_accumulate_segments(
+        mid, boxs, half_edges, out_fn, extra_fields=(gid_f,))
+    return torch.stack([fsx, fsy, fsz], dim=-1), torch.stack([fex, fey, fez], dim=-1)
+
+
+def row_segment_filaments_sym(mid: torch.Tensor, half_edges: torch.Tensor,
+                              valid: torch.Tensor, gid: torch.Tensor, box,
+                              radius: float, e_eff: float, n_edges: int):
+    """Filaments segment contact on the row layout: (f_start, f_end), each
+    (ny, nz, R, 3) in mid's dtype, the contact force on each slot's segment
+    split to its start and end node by the arc parameter of the contact.
+
+    mid, half_edges, valid: as for row_segment_pairs_sym; gid: the
+    (ny, nz, R) int32 segment gids of build_rows; n_edges: segments per
+    filament, so gids g and g + 1 belong to one filament (and do not
+    interact) unless g mod n_edges == n_edges - 1; Hertzian contact with
+    R* = radius / 2 and E* = e_eff. CUDA tensors must be contiguous and
+    launch the kernel (counted in `.launches`), which needs 9 R
+    (6 itemsize + 4) bytes of shared memory per block and raises past the
+    card's opt-in; CPU tensors compute the plain version."""
+    _check(mid, half_edges, box)
+    _check_rows(mid, valid, gid)
+    if mid.device.type == "cpu":
+        return row_segment_filaments_plain(mid, half_edges, valid, gid, box, radius,
+                                           e_eff, n_edges)
+    if mid.device.type != "cuda":
+        raise ValueError(f"no K4 kernel for device {mid.device}")
+    if not (mid.is_contiguous() and half_edges.is_contiguous()
+            and valid.is_contiguous() and gid.is_contiguous()):
+        raise ValueError("mid, half_edges, valid and gid must be contiguous")
+    out = _launch("filaments", mid, (mid, half_edges, valid, gid),
+                  [ctypes.c_double] * 5 + [ctypes.c_int],
+                  (*(float(b) for b in box), 2.0 * float(radius),
+                   filaments_hertz_coef(radius, e_eff), int(n_edges)))
+    row_segment_filaments_sym.launches += 1
+    return out
+
+
+row_segment_filaments_sym.launches = 0

@@ -11,7 +11,8 @@ order); float64 within 1e-12 max(max|f|, 1) (summation order only). K2 and
 K3 compute what their plain versions compute in the same order, so they
 are held to bit equality. K4 rounds every pair quantity as its plain
 version does (no FMA contraction) and sums in another order: float32
-within 1e-5 of max|force| and of max|torque|, float64 within 1e-12 of each.
+within 1e-5 of max|force| and of max|torque| (the rods op) or of max|f| of
+each node (the filaments op), float64 within 1e-12 of each.
 """
 
 import numpy as np
@@ -204,3 +205,164 @@ def test_k4_rows_with_holes(cuda_device):
     for g, r in zip(got, ref):
         scale = r.abs().max().item()
         assert scale > 0 and (g - r).abs().max().item() <= 1e-12 * scale
+
+
+# sha256 (first 16 hex digits) of the rods op's force then torque bytes on
+# test_k4_kernel_matches_plain's inputs, from the rods kernel as built
+# before the filaments op joined its source (NVIDIA H100 80GB HBM3)
+_RODS_SHA = {
+    ("float32", 600): "bbe0c18a1ff39a11", ("float32", 1500): "07339bbab57b29e4",
+    ("float32", 4000): "be679653b566ad0b", ("float64", 600): "fa29f8dfb359b71b",
+    ("float64", 1500): "99f9b2dded6cb7e0", ("float64", 4000): "a1f43ce1c5693484",
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("n,box,align", [(600, 12.8, 8), (1500, 14.5, 1),
+                                         (4000, 8.5, 8)])
+def test_k4_rods_op_outputs_unchanged(cuda_device, dtype, n, box, align):
+    """The filaments op shares the rods op's kernel body: the rods op's
+    outputs stay bit for bit what they were."""
+    import hashlib
+
+    td = _DT[dtype]
+    rng = np.random.default_rng(13)
+    pos = rng.uniform(0, box, (n, 3))
+    axes = rng.normal(size=(n, 3))
+    axes /= np.linalg.norm(axes, axis=1, keepdims=True)
+    pos[1], axes[1] = pos[0], axes[0]
+    grid = tr.make_row_grid([0, 0, 0], [box] * 3, 1.6, n, dtype=td, align=align,
+                            device=cuda_device)
+    ts = tr.build_rows(torch.as_tensor(pos, dtype=td, device=cuda_device),
+                       torch.arange(n, dtype=torch.int32, device=cuda_device), grid)
+    gid = ts.gid.long().clamp(max=n - 1)
+    hedges = torch.where(ts.valid[..., None],
+                         0.4 * torch.as_tensor(axes, dtype=td, device=cuda_device)[gid], 0.0)
+    out = k4.row_segment_pairs_sym(ts.pos, hedges.contiguous(), ts.valid, (box,) * 3, 0.2,
+                                   109.89)
+    digest = hashlib.sha256(b"".join(t.contiguous().cpu().numpy().tobytes()
+                                     for t in out)).hexdigest()[:16]
+    assert digest == _RODS_SHA[(dtype, n)]
+
+
+def _filament_rows(F, M, box, td, dev, seed=19, cutoff=1.8, align=8):
+    """Rows of F random chains of M nodes (unit edges): midpoints,
+    half-edges and gids g = f (M - 1) + k in build_rows' layout."""
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(F, 1, 3)) + 0.3 * rng.normal(size=(F, M - 1, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    start = rng.uniform(0, box, (F, 1, 3))
+    pos = np.concatenate([start, start + np.cumsum(d, axis=1)], axis=1)
+    a, b = pos[:, :-1].reshape(-1, 3), pos[:, 1:].reshape(-1, 3)
+    mid, e = np.mod(0.5 * (a + b), box), 0.5 * (b - a)
+    S = F * (M - 1)
+    grid = tr.make_row_grid([0, 0, 0], [box] * 3, cutoff, S, dtype=td, align=align, device=dev)
+    rows = tr.build_rows(torch.as_tensor(mid, dtype=td, device=dev),
+                         torch.arange(S, dtype=torch.int32, device=dev), grid)
+    gid = rows.gid.long().clamp(max=S - 1)
+    he = torch.where(rows.valid[..., None], torch.as_tensor(e, dtype=td, device=dev)[gid], 0.0)
+    return rows, he.contiguous()
+
+
+def _check_filaments(rows_pos, he, valid, gid, box, E, dtype):
+    args = ((box,) * 3, 0.25, 274.725, E)
+    before = k4.row_segment_filaments_sym.launches
+    got = k4.row_segment_filaments_sym(rows_pos, he, valid, gid, *args)
+    torch.cuda.synchronize()
+    assert k4.row_segment_filaments_sym.launches == before + 1
+    ref = k4.row_segment_filaments_plain(rows_pos, he, valid, gid, *args)
+    for g, r in zip(got, ref):
+        assert bool(torch.isfinite(g).all())
+        scale = r.abs().max().item()
+        assert scale > 0
+        assert (g - r).abs().max().item() <= (1e-12 if dtype == "float64" else 1e-5) * scale
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("F,M,box,align", [(60, 6, 9.5, 8), (120, 7, 16.5, 1),
+                                           (600, 9, 9.5, 8)])
+def test_k4_filaments_kernel_matches_plain(cuda_device, dtype, F, M, box, align):
+    """The filaments op, every slot: align=1 gives nz = 9; F = 600 chains of
+    8 segments in a 5 x 5 row grid give R = 392 > 256, rows longer than one
+    256-thread pass (and past 48 KB of shared memory in both dtypes). Then
+    the last segment is moved onto the first (coincident segments)."""
+    td = _DT[dtype]
+    rows, he = _filament_rows(F, M, box, td, cuda_device, align=align)
+    if F == 600:
+        assert rows.pos.shape[2] > 256
+    if align == 1:
+        assert rows.pos.shape[1] == 9
+    _check_filaments(rows.pos, he, rows.valid, rows.gid, box, M - 1, dtype)
+    # two coincident segments of different filaments
+    S = F * (M - 1)
+    pos, he2 = rows.pos.clone(), he.clone()
+    a = (rows.gid == 0) & rows.valid
+    b = (rows.gid == S - 1) & rows.valid
+    if bool(a.any()) and bool(b.any()):
+        pos[b], he2[b] = pos[a], he2[a]
+        _check_filaments(pos, he2, rows.valid, rows.gid, box, M - 1, dtype)
+
+
+@pytest.mark.cuda
+def test_k4_filaments_rows_with_holes(cuda_device):
+    """Slots permuted within rows (holes before valid slots): the kernel
+    still matches the plain version on the same layout, float64 within
+    1e-12."""
+    rows, he = _filament_rows(60, 6, 9.5, torch.float64, cuda_device)
+    perm = torch.as_tensor(np.random.default_rng(3).permutation(rows.pos.shape[2]),
+                           device=cuda_device)
+    valid = rows.valid[:, :, perm].contiguous()
+    assert bool((~valid[..., :-1] & valid[..., 1:]).any())
+    _check_filaments(rows.pos[:, :, perm].contiguous(), he[:, :, perm].contiguous(), valid,
+                     rows.gid[:, :, perm].contiguous(), 9.5, 5, "float64")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_k4_filaments_adjacency(cuda_device, dtype):
+    """Two touching segments with gids g and g + 1: no force inside one
+    filament (g mod E != E - 1), a push across a filament boundary."""
+    td, box, E = _DT[dtype], 12.0, 4
+    mid = np.array([[6.0, 6.0, 6.0], [6.0, 6.2, 6.0]] + [[1.0 + i, 1.0, 1.0] for i in range(6)])
+    grid = tr.make_row_grid([0, 0, 0], [box] * 3, 1.8, 8, dtype=td, align=1, device=cuda_device)
+    for g0, interacts in ((1, False), (3, True)):
+        gid = torch.tensor([g0, g0 + 1] + [10 + 2 * i for i in range(6)], dtype=torch.int32,
+                           device=cuda_device)
+        rows = tr.build_rows(torch.as_tensor(mid, dtype=td, device=cuda_device), gid, grid)
+        he = torch.where(rows.valid[..., None],
+                         torch.tensor([0.5, 0.0, 0.0], dtype=td, device=cuda_device), 0.0)
+        fs, fe = k4.row_segment_filaments_sym(rows.pos, he.contiguous(), rows.valid, rows.gid,
+                                              (box,) * 3, 0.25, 274.725, E)
+        ref = k4.row_segment_filaments_plain(rows.pos, he, rows.valid, rows.gid, (box,) * 3,
+                                             0.25, 274.725, E)
+        sel = (rows.gid == g0) & rows.valid
+        f = (fs[sel] + fe[sel]).reshape(3)
+        assert (float(f[1]) < -1.0) if interacts else float(f.abs().max()) == 0.0
+        assert torch.equal(fs == 0, ref[0] == 0)
+
+
+@pytest.mark.cuda
+def test_k4_filaments_past_shared_memory_raises(cuda_device):
+    """float64 at R = 504 needs 9 R (6 x 8 + 4) = 235,872 bytes of shared
+    memory, past the H100's 232,448-byte opt-in: the launch fails and the
+    wrapper raises, with no plain fallback; the next launch still works."""
+    rows, he = _filament_rows(60, 6, 9.5, torch.float64, cuda_device)
+    ny, nz, R, _ = rows.pos.shape
+    pad = 504 - R
+
+    def widen(t, fill):
+        return torch.cat([t, t.new_full(t.shape[:2] + (pad,) + t.shape[3:], fill)],
+                         dim=2).contiguous()
+
+    pos = widen(rows.pos, -1e6)
+    optin = torch.cuda.get_device_properties(cuda_device).shared_memory_per_block_optin
+    assert 9 * 504 * 52 > optin
+    before = k4.row_segment_filaments_sym.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        k4.row_segment_filaments_sym(pos, widen(he, 0.0), widen(rows.valid, False),
+                                     widen(rows.gid, 0), (9.5,) * 3, 0.25, 274.725, 5)
+    assert k4.row_segment_filaments_sym.launches == before
+    _check_filaments(rows.pos, he, rows.valid, rows.gid, 9.5, 5, "float64")

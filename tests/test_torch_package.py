@@ -11,6 +11,7 @@ import pytest
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
+from mundy_tpu_torch.driver.apps.filaments import FilamentsConfig, FilamentsSim
 from mundy_tpu_torch.driver.apps.lcp_spheres import LCPSpheresConfig, LCPSpheresSim
 from mundy_tpu_torch.driver.apps.rods import RodsConfig
 from mundy_tpu_torch.driver.apps.rods_rows import RowRodsSim
@@ -86,6 +87,8 @@ def test_entry_points_default_to_the_card():
         LCPSpheresSim(LCPSpheresConfig(num_spheres=100, box_size=16.0))
     with pytest.raises(RuntimeError, match="CUDA"):
         RowRodsSim(RodsConfig(num_rods=100, box_size=24.0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FilamentsSim(FilamentsConfig(num_filaments=8, nodes_per_filament=5, box_size=24.0))
 
 
 def _no_library(monkeypatch, tmp_path):
@@ -135,6 +138,16 @@ def test_k2_refuses_cpu_only_branches_on_cuda_tensors():
             k2.row_neighbor_extract(pos, gid, valid, box, 1.45, k2.K_MAX + 1, 500)
 
 
+def test_k2_launch_envelope():
+    """One envelope for the wrapper and rows_extract_feasible: K past the
+    kernel's list fails before the card is asked, and a block within the
+    48 KB that every block gets needs no opt-in query."""
+    assert k2.shared_bytes(16, 4) == 9 * 16 * (3 * 4 + 4)
+    assert not k2.fits(16, k2.K_MAX + 1, 4, "cuda")
+    assert k2.fits(16, k2.K_MAX, 4, "cuda")
+    assert k2.fits(64, 26, 8, "cuda")  # 9 * 64 * 28 = 16,128 bytes
+
+
 @pytest.mark.parametrize("name", ["row_extract", "seg_onehot"])
 def test_k2_k3_libraries_are_keyed_by_source(name):
     lib = _build.library_path(name)
@@ -179,3 +192,40 @@ def test_k4_library_is_keyed_by_source_and_flags(monkeypatch):
     monkeypatch.setattr(_build, "NVCC_FLAGS",
                         tuple(f for f in _build.NVCC_FLAGS if f != "-fmad=false"))
     assert _build.library_path("row_segments") != lib
+
+
+def test_k4_filaments_cuda_tensors_without_library_raise(monkeypatch, tmp_path):
+    """As for the rods op: a CUDA tensor never takes the plain version, and
+    a non-contiguous or mistyped gid raises before any build."""
+    _no_library(monkeypatch, tmp_path)
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(k4, "row_segment_filaments_plain", no_plain)
+    before = k4.row_segment_filaments_sym.launches
+    with FakeTensorMode():
+        mid = torch.zeros((8, 8, 16, 3), device="cuda")
+        valid = torch.ones((8, 8, 16), dtype=torch.bool, device="cuda")
+        gid = torch.zeros((8, 8, 16), dtype=torch.int32, device="cuda")
+        args = ((24.0,) * 3, 0.25, 500.0, 7)
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            k4.row_segment_filaments_sym(mid, torch.zeros_like(mid), valid, gid, *args)
+        with pytest.raises(ValueError, match="contiguous"):
+            k4.row_segment_filaments_sym(mid, mid, valid, gid.transpose(0, 1), *args)
+        with pytest.raises(ValueError, match="int32"):
+            k4.row_segment_filaments_sym(mid, mid, valid, gid.long(), *args)
+    assert k4.row_segment_filaments_sym.launches == before
+    _build.load.cache_clear()
+
+
+def test_new_modules_import_without_jax():
+    """The filaments slice's modules: rod mechanics, the segment distance
+    and the app, importable and free of JAX (scanned above)."""
+    import importlib
+
+    for name in ("mundy_tpu_torch.mech", "mundy_tpu_torch.mech.rod",
+                 "mundy_tpu_torch.geom.distance", "mundy_tpu_torch.driver.apps.filaments"):
+        mod = importlib.import_module(name)
+        path = pathlib.Path(mod.__file__)
+        assert path in PORT_FILES
