@@ -5,10 +5,12 @@
 Builds the kernels of mundy_tpu_torch/csrc/ and drives BASELINE configs #1
 (the row-grid spheres engine, kernel K1), #2 (the dry LCP spheres line,
 kernels K2 and K3), #3 (the row-engine spherocylinder suspension, kernel
-K4's rods op) and #4 (flexible filaments: K2 in the default engine, K4's
-filaments op in the row engine) through the port's own entry points:
+K4's rods op), #4 (flexible filaments: K2 in the default engine, K4's
+filaments op in the row engine) and #5 (1M-bead chromatin with
+spectral-Ewald Stokes mobility: kernels K5s and K5i, K2 where the rows
+broad phase is feasible) through the port's own entry points:
 
-1. build K1-K4 with nvcc (sm_90a), one process per source, all at once;
+1. build K1-K5 with nvcc (sm_90a), one process per source, all at once;
    print each kernel's registers and spills and the card with its power
    limit;
 2. K1 vs its plain PyTorch version at the 1M-sphere config #1 shape
@@ -63,7 +65,23 @@ filaments op in the row engine) through the port's own entry points:
     launch per broad phase; then torch.profiler over 8 more steps;
 19. the same config with contact_engine="rows": 200 steps with the K4
     filaments count set to 0 just before: one launch per step; then
-    torch.profiler over 8 more steps.
+    torch.profiler over 8 more steps;
+20. K5s and K5i (spectral-Ewald spread and interpolation) vs their plain
+    versions at the config #5 shape: float32 pieces and forces from
+    ChromatinSim.init on examples/chromatin_1m_spectral.yaml (1M beads, G =
+    384, P = 6, m = 8, R as init sizes it), within 1e-5 of max|grid| and of
+    max|u|; index_add_ of the precomputed N P^3 ids and values timed beside
+    K5s as its library yardstick;
+21. config #5 in float64 (2 x 64 beads, box 24, 16 crosslinkers,
+    rpy_spectral with the density split, 40 steps, skin rebuilds) on the
+    card against the CPU: equal rebuilds, overflow flags and binding states
+    at every step, positions within 1e-7; then the same config twice on the
+    card in float32, positions bit-equal (no atomics on the path);
+22. the 1M YAML: a regrow-aware warm-up of 2 steps through run_blocks,
+    then 20 steps of run_block with the K5s/K5i/K2 counts set to 0 just
+    before: one K5s and one K5i launch per step, one K2 launch per rows
+    broad phase, no overflow; each layer of the step timed alone; then
+    torch.profiler over 4 more steps.
 
 Kernel times are medians of CUDA-event timings after a synchronize, kernel
 and plain version alternating. Prints one JSON line of kernel results, then
@@ -86,7 +104,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 N_BIG = 1_000_000
 BIG_STEPS = 300
 RODS_STEPS = 200
-KERNELS = ("row_central", "row_extract", "seg_onehot", "row_segments")
+KERNELS = ("row_central", "row_extract", "seg_onehot", "row_segments", "se_grid")
 # FP32 operations that K4's function needs, counted from the algorithm, not
 # from the kernel (each + - * / min max rint sqrt rsqrt as one; compares and
 # selects not counted; a negation that a subtraction or a swapped cross
@@ -109,6 +127,8 @@ K4_ROD_OPS = 10.0
 # reused; the adjacency test is integer work, not counted
 K4F_OPS = 163.0
 FIL_STEPS = 200
+CHROM_STEPS = 20
+CHROM_SMALL_STEPS = 40
 # published H100 SXM peaks (NVIDIA data sheet): FP32 outside the
 # tensor cores, and HBM bandwidth
 PEAK_FP32 = 67e12
@@ -232,6 +252,186 @@ def profile_window(run, torch, step_ms: float, steps: int = 8) -> None:
     for e in kernels[:8]:
         print(f"      {1e-3 * e.self_device_time_total / steps:8.4f} ms/step  "
               f"{e.count / steps:7.1f} calls/step  {e.key[:90]}", flush=True)
+
+
+def k5_ops(P: int) -> float:
+    """FP32 operations per gridded particle of K5s or K5i at window support
+    P (ES window), counted from the algorithm: floor and fraction per axis
+    (6); 3P window weights at 9 each (offset, / wh, square, 1 -, clamp,
+    sqrt, - 1, x beta, exp); the separable product w_x w_y (P^2) and x w_z
+    (P^3); the weight times each of 3 components (3P^3) and their sums
+    (3P^3). K5i adds its h^3 scale (3), not counted."""
+    return 6.0 + 27.0 * P + P * P + 7.0 * P ** 3
+
+
+def chromatin_phases(torch, dev) -> list:
+    """Phases 20-22: config #5 (chromatin, spectral-Ewald RPY) with K5s and
+    K5i. Returns their entries of the kernels line."""
+    from mundy_tpu_torch.core.config import config_from_dict, load_yaml
+    from mundy_tpu_torch.driver.apps.chromatin import ChromatinConfig, ChromatinSim
+    from mundy_tpu_torch.driver.regrow import run_blocks
+    from mundy_tpu_torch.dynamics.brownian import brownian_velocity_keyed
+    from mundy_tpu_torch.mobility import spectral
+    from mundy_tpu_torch.ops.kernels import row_extract as k2
+    from mundy_tpu_torch.ops.kernels import se_grid as k5
+
+    # ---- 20. K5s and K5i vs plain at the config #5 shape -------------------
+    raw = load_yaml(os.path.join(HERE, "examples", "chromatin_1m_spectral.yaml"))
+    cfg = config_from_dict(ChromatinConfig, raw["params"])
+    t0 = time.perf_counter()
+    sim = ChromatinSim(cfg, device=dev)
+    t1 = time.perf_counter()
+    k2.row_neighbor_extract.launches = 0
+    st = sim.init()
+    torch.cuda.synchronize()
+    k2_init = k2.row_neighbor_extract.launches
+    geom = sim.se_geom
+    print(f"[20] chromatin_1m_spectral.yaml: {sim.N} beads, {sim.X} crosslinkers, "
+          f"ChromatinSim() {t1 - t0:.2f} s, init {time.perf_counter() - t1:.2f} s; G "
+          f"{geom.G}, P {geom.P}, m {geom.m}, se R {geom.R}, hydro cells "
+          f"{sim.hydro_cells_grid.nx}^3 x {sim.hydro_cells_grid.capacity}, split "
+          f"{sim.hydro_split}, contact K {sim.contact_K}, kmc K {sim.kmc_K}, broad "
+          f"phase {sim.broad_phase()} (K2 launches in init {k2_init}), real-space base "
+          f"capacity {sim.hydro_split_grid.capacity if sim.hydro_split else None}, rows "
+          f"slack {sim.rows_slack:.4f}", flush=True)
+    if k2_init == 0 and sim.broad_phase() == "rows":
+        fail("the rows broad phase of init did not launch K2")
+    pieces = spectral.se_bin_geom(geom, st.pos, torch.float32)
+    forces = sim._forces(st)
+    grid_k = k5.se_spread(geom, pieces, forces)
+    grid_p = k5.se_spread_plain(geom, pieces, forces)
+    ugrid = spectral._k_apply(sim.spectral, grid_p).contiguous()
+    u_k = k5.se_interp(geom, pieces, ugrid)
+    u_p = k5.se_interp_plain(geom, pieces, ugrid)
+    torch.cuda.synchronize()
+    s_err = (grid_k - grid_p).abs().max().item()
+    gmax = grid_p.abs().max().item()
+    i_err = (u_k - u_p).abs().max().item()
+    umax = u_p.abs().max().item()
+    perm, _ovf, u, valid, slot_of = pieces
+    n_valid = int(valid.sum())
+    print(f"    {n_valid} binned beads in {perm.shape[0]} tiles of R = {perm.shape[1]}: K5s "
+          f"max|diff| {s_err:.3e} of max|grid| {gmax:.3e}, K5i max|diff| {i_err:.3e} of "
+          f"max|u| {umax:.3e}, overflow {bool(pieces[1])}", flush=True)
+    if not (gmax > 0 and math.isfinite(s_err) and s_err <= 1e-5 * gmax):
+        fail(f"K5s disagrees with its plain version: {s_err} > 1e-5 * {gmax}")
+    if not (umax > 0 and math.isfinite(i_err) and i_err <= 1e-5 * umax):
+        fail(f"K5i disagrees with its plain version: {i_err} > 1e-5 * {umax}")
+    del grid_k, u_k
+    s_ms, s_plain_ms = alternate(lambda: k5.se_spread(geom, pieces, forces),
+                                 lambda: k5.se_spread_plain(geom, pieces, forces),
+                                 torch, 10, 2, rounds=2)
+    i_ms, i_plain_ms = alternate(lambda: k5.se_interp(geom, pieces, ugrid),
+                                 lambda: k5.se_interp_plain(geom, pieces, ugrid),
+                                 torch, 10, 2, rounds=2)
+    # the library yardstick: one index_add_ of the precomputed N P^3
+    # support ids and weighted forces into the flat grid (prepared untimed)
+    sel = valid.reshape(-1).nonzero()[:, 0]
+    idx, wt = k5._support(geom, u.reshape(-1, 3)[sel])
+    vals = (wt[..., None] * forces[perm.reshape(-1)[sel].long()][:, None, None, None, :])
+    idx, vals = idx.reshape(-1), vals.reshape(-1, 3)
+    del wt
+    acc = torch.zeros((geom.G ** 3, 3), device=dev)
+    lib_err = (acc.clone().index_add_(0, idx, vals) - grid_p.reshape(-1, 3)).abs().max().item()
+    s_lib_ms = statistics.median(
+        [cuda_ms(lambda: acc.index_add_(0, idx, vals), torch, 5) for _ in range(3)])
+    del idx, vals, acc
+    # read each occupied slot's u once, perm (K5s) or slot_of and the grid
+    # (K5i) once, the forces once; write the grid (K5s) or u (K5i) once
+    grid_bytes = grid_p.numel() * 4
+    s_bound = bound(n_valid * k5_ops(geom.P),
+                    perm.numel() * 4 + n_valid * 12 + forces.numel() * 4 + grid_bytes)
+    i_bound = bound(n_valid * (k5_ops(geom.P) + 3),
+                    slot_of.numel() * 4 + n_valid * 12 + grid_bytes + u_p.numel() * 4)
+    print(f"    K5s {s_ms:.4f} ms, plain {s_plain_ms:.4f} ms, index_add_ {s_lib_ms:.4f} ms "
+          f"(max|diff| {lib_err:.3e}), bound {s_bound[0]:.4f} ms ({s_bound[1]})", flush=True)
+    print(f"    K5i {i_ms:.4f} ms, plain {i_plain_ms:.4f} ms, bound {i_bound[0]:.4f} ms "
+          f"({i_bound[1]})", flush=True)
+    del grid_p, ugrid, u_p, pieces, forces, sel
+
+    # ---- 21. config #5 in float64, card vs CPU; float32 twice on the card --
+    small = dict(num_chains=2, beads_per_chain=64, bead_radius=0.5, num_crosslinkers=16,
+                 diffusion_coeff=0.05, dt=2e-4, skin=0.1, box_size=24.0,
+                 hydro="rpy_spectral", binding_rate=50.0, unbinding_rate=5.0, chunk=256)
+    traces = {}
+    for name, d in (("card", dev), ("cpu", "cpu")):
+        ssim = ChromatinSim(ChromatinConfig(**small, dtype="float64"), device=d)
+        s = ssim.init()
+        rows_ = []
+        for _ in range(CHROM_SMALL_STEPS):
+            s = ssim.run_block(s, 1)
+            rows_.append((s.rebuild_count, bool(s.overflow), s.xl_state.cpu().tolist()))
+        traces[name] = (rows_, s.pos.cpu(), ssim.hydro_split, ssim.doubly_bound(s))
+    (tg, pg, split, dbound), (tc, pc, _, _) = traces["card"], traces["cpu"]
+    diff = (pg - pc).abs().max().item()
+    print(f"[21] chromatin float64 2 x 64 beads, {CHROM_SMALL_STEPS} steps: rebuilds "
+          f"{tg[-1][0]} (cpu {tc[-1][0]}), split {split}, doubly bound {dbound}, max|pos "
+          f"diff| vs cpu {diff:.3e}", flush=True)
+    if not (tg == tc and diff <= 1e-7 and tg[-1][0] >= 2 and split is not None
+            and dbound > 0 and not tg[-1][1]):
+        fail("the float64 chromatin run on the card disagrees with the CPU run")
+    runs = []
+    for _ in range(2):
+        ssim = ChromatinSim(ChromatinConfig(**small, dtype="float32"), device=dev)
+        runs.append(ssim.run_block(ssim.init(), CHROM_SMALL_STEPS).pos)
+    same = bool(torch.equal(runs[0], runs[1]))
+    print(f"    float32 twice on the card: positions bit-equal {same}", flush=True)
+    if not same:
+        fail("two float32 chromatin runs on the card differ")
+
+    # ---- 22. the 1M YAML through run_blocks and run_block ------------------
+    st = run_blocks(sim, st, 2, 2, log=lambda line: print(f"    {line}", flush=True))
+    torch.cuda.synchronize()
+    rb0 = st.rebuild_count
+    broad = sim.broad_phase()
+    k5.se_spread.launches = k5.se_interp.launches = k2.row_neighbor_extract.launches = 0
+    t0 = time.perf_counter()
+    st = sim.run_block(st, CHROM_STEPS)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    s_launches, i_launches = k5.se_spread.launches, k5.se_interp.launches
+    k2_launches = k2.row_neighbor_extract.launches
+    rebuilds = st.rebuild_count - rb0
+    print(f"[22] 1M chromatin: {CHROM_STEPS} steps in {elapsed:.3f} s = "
+          f"{CHROM_STEPS / elapsed:.4f} steps/s, {1e3 * elapsed / CHROM_STEPS:.3f} ms/step; "
+          f"G {sim.spectral.grid_n}, P {sim.spectral.support}, se R {sim.se_geom.R}, broad "
+          f"phase {broad}, rebuilds {rebuilds}, doubly bound {sim.doubly_bound(st)}/"
+          f"{sim.X}, overflow {bool(st.overflow)}; launches K5s {s_launches}, K5i "
+          f"{i_launches}, K2 {k2_launches}", flush=True)
+    if bool(st.overflow) or not bool(torch.isfinite(st.pos).all()):
+        fail("the 1M chromatin window overflowed or went non-finite")
+    if s_launches != CHROM_STEPS or i_launches != CHROM_STEPS:
+        fail(f"K5s/K5i launched {s_launches}/{i_launches} times in {CHROM_STEPS} steps")
+    if k2_launches != (rebuilds if broad == "rows" else 0):
+        fail(f"K2 launched {k2_launches} times for {rebuilds} {broad} broad phases")
+    # the step's layers alone at the window's final state
+    f = sim._forces(st)
+    pieces = spectral.se_bin_geom(sim.se_geom, st.pos, torch.float32)
+    grid = k5.se_spread(sim.se_geom, pieces, f)
+    parts = (
+        ("kmc", lambda: sim._kmc(st)),
+        ("forces", lambda: sim._forces(st)),
+        ("velocity (binning, cells, real space, wave)", lambda: sim._velocity(st, f)),
+        ("wave (K5s, FFT, K5i)", lambda: spectral.se_wave_apply_dense(
+            sim.spectral, sim.se_geom, st.pos, f, pieces=pieces)),
+        ("FFT mode product", lambda: spectral._k_apply(sim.spectral, grid)),
+        ("noise", lambda: brownian_velocity_keyed(st.key, st.step, sim._gids,
+                                                  cfg.diffusion_coeff, cfg.dt)),
+        ("rebuild (contact + kmc searches)", lambda: sim._rebuild(st)))
+    for name, fn in parts:
+        print(f"    {name}: {cuda_ms(fn, torch, 3):.3f} ms", flush=True)
+    del f, pieces, grid
+    profile_window(lambda n: sim.run_block(st, n), torch, 1e3 * elapsed / CHROM_STEPS,
+                   steps=4)
+    return [
+        {"name": "se_spread", "route": "cuda", "source": "mundy_tpu_torch/csrc/se_grid.cu",
+         "replaces": "mundy_tpu/ops/pallas/se_grid.py:429", "launches": s_launches,
+         "max_abs_err": s_err, "ms": s_ms, "plain_ms": s_plain_ms, "bound_ms": s_bound[0],
+         "bound_by": s_bound[1], "library_ms": s_lib_ms},
+        {"name": "se_interp", "route": "cuda", "source": "mundy_tpu_torch/csrc/se_grid.cu",
+         "replaces": "mundy_tpu/ops/pallas/se_grid.py:486", "launches": i_launches,
+         "max_abs_err": i_err, "ms": i_ms, "plain_ms": i_plain_ms, "bound_ms": i_bound[0],
+         "bound_by": i_bound[1], "library_ms": None}]
 
 
 def main() -> None:
@@ -779,6 +979,9 @@ def main() -> None:
     if k4f_launches != FIL_STEPS:
         fail(f"K4's filaments op launched {k4f_launches} times in {FIL_STEPS} steps")
     profile_window(lambda n: fsim.run_block(fst, n), torch, 1e3 * elapsed / FIL_STEPS)
+    del fsim, fst
+
+    k5_entries = chromatin_phases(torch, dev)
 
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [
@@ -811,7 +1014,7 @@ def main() -> None:
          "replaces": "mundy_tpu/ops/pallas/row_segments.py:227",
          "launches": k4f_launches, "max_abs_err": k4f_err, "ms": k4f_ms,
          "plain_ms": k4f_plain_ms, "bound_ms": k4f_bound[0], "bound_by": k4f_bound[1],
-         "library_ms": None}]}), flush=True)
+         "library_ms": None}] + k5_entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
         flush=True)

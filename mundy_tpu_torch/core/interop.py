@@ -2,7 +2,8 @@
 
 Users and the parity tests start both engines from one state with these
 functions: export the reference's arrays with numpy (`np.asarray`) and hand
-them over. No JAX is imported here.
+them over. Each app builds its own state beside its state class
+(`*_state_from_numpy`) from these pieces. No JAX is imported here.
 """
 
 from __future__ import annotations
@@ -10,8 +11,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mundy_tpu_torch.driver.apps.rods_rows import RowRodsState
-from mundy_tpu_torch.driver.apps.spheres_rows import RowSpheresState
 from mundy_tpu_torch.neighbor.cell_list import NeighborMatrix
 from mundy_tpu_torch.neighbor.rows import RowGrid, RowState
 
@@ -29,7 +28,9 @@ def _t(a, dtype=None, device="cpu"):
     return torch.as_tensor(np.array(a), dtype=dtype, device=device)
 
 
-def _key(key) -> tuple:
+def key_words(key) -> tuple:
+    """The two uint32 words of a raw threefry key (`jax.random.key_data`)
+    as python ints."""
     k0, k1 = (int(w) for w in np.asarray(key, dtype=np.uint32).reshape(-1))
     return k0, k1
 
@@ -52,34 +53,3 @@ def neighbor_matrix_from_numpy(idx, mask, overflow, device="cpu") -> NeighborMat
     """A NeighborMatrix from the reference's idx (N, K), mask and flag."""
     return NeighborMatrix(idx=_t(idx, torch.int32, device), mask=_t(mask, torch.bool, device),
                           overflow=_t(bool(overflow), torch.bool, device))
-
-
-def row_spheres_state_from_numpy(grid: RowGrid, pos, gid, valid, ref_pos,
-                                 rows_overflow, key, step, rebuild_count,
-                                 overflow, device="cpu") -> RowSpheresState:
-    """A RowSpheresState from the reference RowSpheresState's arrays.
-
-    pos/ref_pos: (ny, nz, R, 3); gid: (ny, nz, R) int; valid: (ny, nz, R)
-    bool; rows_overflow: the last build's flag; key: the two uint32 words of
-    the raw threefry key (`jax.random.key_data`); step and rebuild_count:
-    ints; overflow: the state's sticky flag. The positions keep their numpy
-    dtype, which must match the grid's."""
-    rows = row_state_from_numpy(grid, pos, gid, valid, ref_pos, rows_overflow, device)
-    return RowSpheresState(rows=rows, key=_key(key), step=int(step),
-                           rebuild_count=int(rebuild_count),
-                           overflow=_t(bool(overflow), torch.bool, device))
-
-
-def row_rods_state_from_numpy(grid: RowGrid, pos, gid, valid, ref_pos,
-                              rows_overflow, quat, key, step, rebuild_count,
-                              overflow, device="cpu") -> RowRodsState:
-    """A RowRodsState from the reference RowRodsState's arrays: the row
-    fields as for row_spheres_state_from_numpy, and quat, the (ny, nz, R, 4)
-    orientation payload in the positions' dtype."""
-    rows = row_state_from_numpy(grid, pos, gid, valid, ref_pos, rows_overflow, device)
-    quat = _t(quat, device=device)
-    if quat.dtype != rows.pos.dtype:
-        raise TypeError(f"quaternions are {quat.dtype}, positions {rows.pos.dtype}")
-    return RowRodsState(rows=rows, quat=quat, key=_key(key), step=int(step),
-                        rebuild_count=int(rebuild_count),
-                        overflow=_t(bool(overflow), torch.bool, device))

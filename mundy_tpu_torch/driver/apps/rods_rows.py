@@ -21,10 +21,12 @@ from __future__ import annotations
 import math as _math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from mundy_tpu_torch.core.config import validate_config
 from mundy_tpu_torch.core.containers import frozen_dataclass
+from mundy_tpu_torch.core.interop import key_words, row_state_from_numpy
 from mundy_tpu_torch.driver.apps.rods import RodsConfig
 from mundy_tpu_torch.driver.regrow import grow_int, run_blocks
 from mundy_tpu_torch.dynamics.brownian import brownian_velocity_keyed, fold_in
@@ -55,6 +57,21 @@ class RowRodsState:
     step: int
     rebuild_count: int
     overflow: torch.Tensor  # () bool, sticky
+
+
+def row_rods_state_from_numpy(grid: RowGrid, pos, gid, valid, ref_pos,
+                              rows_overflow, quat, key, step, rebuild_count,
+                              overflow, device="cpu") -> RowRodsState:
+    """A RowRodsState from the reference RowRodsState's arrays: the row
+    fields as for spheres_rows.row_spheres_state_from_numpy, and quat, the
+    (ny, nz, R, 4) orientation payload in the positions' dtype."""
+    rows = row_state_from_numpy(grid, pos, gid, valid, ref_pos, rows_overflow, device)
+    quat = torch.as_tensor(np.array(quat), device=device)
+    if quat.dtype != rows.pos.dtype:
+        raise TypeError(f"quaternions are {quat.dtype}, positions {rows.pos.dtype}")
+    return RowRodsState(rows=rows, quat=quat, key=key_words(key), step=int(step),
+                        rebuild_count=int(rebuild_count),
+                        overflow=torch.as_tensor(bool(overflow), device=device))
 
 
 class RowRodsSim:

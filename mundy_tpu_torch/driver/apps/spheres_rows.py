@@ -23,6 +23,7 @@ import torch
 
 from mundy_tpu_torch.core.config import validate_config
 from mundy_tpu_torch.core.containers import frozen_dataclass
+from mundy_tpu_torch.core.interop import key_words, row_state_from_numpy
 from mundy_tpu_torch.driver.apps.spheres import SpheresConfig
 from mundy_tpu_torch.driver.regrow import grow_int, run_blocks
 from mundy_tpu_torch.dynamics.brownian import brownian_velocity_keyed
@@ -49,6 +50,22 @@ class RowSpheresState:
     step: int
     rebuild_count: int
     overflow: torch.Tensor  # () bool, sticky
+
+
+def row_spheres_state_from_numpy(grid: RowGrid, pos, gid, valid, ref_pos,
+                                 rows_overflow, key, step, rebuild_count,
+                                 overflow, device="cpu") -> RowSpheresState:
+    """A RowSpheresState from the reference RowSpheresState's arrays.
+
+    pos/ref_pos: (ny, nz, R, 3); gid: (ny, nz, R) int; valid: (ny, nz, R)
+    bool; rows_overflow: the last build's flag; key: the two uint32 words of
+    the raw threefry key (`jax.random.key_data`); step and rebuild_count:
+    ints; overflow: the state's sticky flag. The positions keep their numpy
+    dtype, which must match the grid's."""
+    rows = row_state_from_numpy(grid, pos, gid, valid, ref_pos, rows_overflow, device)
+    return RowSpheresState(rows=rows, key=key_words(key), step=int(step),
+                           rebuild_count=int(rebuild_count),
+                           overflow=torch.as_tensor(bool(overflow), device=device))
 
 
 class RowSpheresSim:

@@ -1,10 +1,12 @@
 """Dense cell-list broad phase and the pair-list formats.
 
-Port of mundy_tpu/neighbor/cell_list.py (the parts the LCP spheres line
-runs): bin particles into a dense (ncells, capacity) table with one stable
-sort, gather the 27-cell stencil per particle in chunks, keep the first K
-in-cutoff candidates in stencil order, and compact a neighbor matrix into
-the i-sorted ordered pair list of the constraint pipeline. Shapes and
+Port of mundy_tpu/neighbor/cell_list.py (the parts the LCP spheres and
+chromatin lines run): bin particles into a dense (ncells, capacity) table
+with one stable sort, gather the 27-cell stencil per particle in chunks,
+keep the first K in-cutoff candidates in stencil order, gather the raw
+stencil of a few query points (`neighbor_candidates`), and compact a
+neighbor matrix into the i-sorted ordered pair list of the constraint
+pipeline. Shapes and
 capacities are python ints; overflow is a 0-d bool tensor the host reads
 between blocks.
 
@@ -157,6 +159,19 @@ def _compact_rows(cand: torch.Tensor, ok: torch.Tensor, k: int, empty_marker: in
     found = targets <= count[:, None]
     idx = torch.gather(cand, 1, torch.clamp(lo, max=ncand - 1))
     return torch.where(found, idx, empty_marker), found, count
+
+
+def neighbor_candidates(query_pos: torch.Tensor, clist: CellList) -> torch.Tensor:
+    """(Q, 27 cap) int32 candidate ids (-1 = empty) around each query
+    position: the raw 27-cell stencil, no distance filter, no compaction.
+    Every body within one cell edge of a query is present; the caller
+    filters by distance (the KMC candidate search queries only the
+    crosslinker homes, Q << N)."""
+    q = query_pos.shape[0]
+    cap = clist.entries.shape[1]
+    cells27, valid27 = _neighbor_cells_of(clist.grid, _cell_coords(clist.grid, query_pos))
+    cand = torch.where(valid27[..., None], clist.entries[cells27], -1)  # (Q, 27, cap)
+    return cand.reshape(q, 27 * cap)
 
 
 def neighbor_matrix(pos: torch.Tensor, clist: CellList, search_radius,

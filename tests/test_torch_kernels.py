@@ -12,7 +12,9 @@ K3 compute what their plain versions compute in the same order, so they
 are held to bit equality. K4 rounds every pair quantity as its plain
 version does (no FMA contraction) and sums in another order: float32
 within 1e-5 of max|force| and of max|torque| (the rods op) or of max|f| of
-each node (the filaments op), float64 within 1e-12 of each.
+each node (the filaments op), float64 within 1e-12 of each. K5s and K5i
+round each window product as their plain versions do and sum in another
+order: float32 within 1e-5, float64 within 1e-12 of max|grid| and max|u|.
 """
 
 import numpy as np
@@ -23,6 +25,7 @@ from mundy_tpu_torch.neighbor import rows as tr
 from mundy_tpu_torch.ops.kernels import row_central as k1
 from mundy_tpu_torch.ops.kernels import row_extract as k2
 from mundy_tpu_torch.ops.kernels import row_segments as k4
+from mundy_tpu_torch.ops.kernels import se_grid as k5
 from mundy_tpu_torch.ops.kernels import seg_onehot as k3
 
 _DT = {"float32": torch.float32, "float64": torch.float64}
@@ -366,3 +369,97 @@ def test_k4_filaments_past_shared_memory_raises(cuda_device):
                                      widen(rows.gid, 0), (9.5,) * 3, 0.25, 274.725, 5)
     assert k4.row_segment_filaments_sym.launches == before
     _check_filaments(rows.pos, he, rows.valid, rows.gid, 9.5, 5, "float64")
+
+
+def _se_geom(G, P, m, n, kind, slack=1.5, R=None):
+    """A tile geometry at box 24 (ES beta as build_spectral_ewald sets it
+    at sigma = 1.5; the Gaussian at xi = 0.87, eta = 0.5)."""
+    geom = k5.make_se_grid_tiles(G, P, 24.0, 0.87, 0.5, n, capacity_slack=slack, min_m=m,
+                                 kind=kind, beta=0.97 * np.pi * P * (1.0 - 1.0 / 3.0))
+    assert geom.m == m
+    return geom if R is None else geom._replace(R=R)
+
+
+def _se_pieces(geom, n, td, dev, clustered=False, seed=7):
+    rng = np.random.default_rng(seed)
+    if clustered:  # four tight blobs across the periodic faces: full tiles, overflow
+        centers = rng.uniform(0, 24.0, (4, 3))
+        centers[0] = 0.05
+        pos = np.mod(centers[rng.integers(0, 4, n)] + rng.normal(scale=1.2, size=(n, 3)), 24.0)
+    else:
+        pos = rng.uniform(0, 24.0, (n, 3))
+    pieces = k5.se_bin_tiles(geom, torch.as_tensor(pos, dtype=td, device=dev), td)
+    forces = torch.as_tensor(rng.normal(size=(n, 3)), dtype=td, device=dev)
+    return pieces, forces
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("G,P,m,n,kind,clustered,R", [
+    (64, 6, 8, 3000, "es", False, None),
+    (64, 6, 8, 4000, "es", True, None),
+    (48, 6, 16, 3000, "gaussian", False, None),
+    (32, 8, 16, 800, "es", False, None),
+    (16, 6, 16, 300, "es", False, None),
+    (40, 6, 10, 2500, "es", False, None),
+    (64, 6, 8, 6000, "es", True, 520),
+], ids=["uniform", "clustered-overflow", "gaussian-3-tiles", "2-tiles-P8", "1-tile",
+        "m10-two-point-passes", "R520-two-slot-passes"])
+def test_k5_kernels_match_plain(cuda_device, dtype, G, P, m, n, kind, clustered, R):
+    """K5s and K5i against their plain versions on the same binned pieces:
+    every slot's window products round as the plain version's do (no FMA
+    contraction), the sums run in another order, so float32 within 1e-5 and
+    float64 within 1e-12 of max|grid| and of max|u|. The cases reach fewer
+    than three tiles per axis (a neighbour tile visited once), m^3 > 512
+    (two point passes per block), R > 512 (two slot passes per neighbour
+    tile) and tiles that overflow (dropped slots gridded by neither)."""
+    td = _DT[dtype]
+    tol = 1e-12 if dtype == "float64" else 1e-5
+    geom = _se_geom(G, P, m, n, kind, R=R)
+    pieces, forces = _se_pieces(geom, n, td, cuda_device, clustered)
+    if clustered and R is None:
+        assert bool(pieces[1])
+    before = (k5.se_spread.launches, k5.se_interp.launches)
+    grid = k5.se_spread(geom, pieces, forces)
+    ref = k5.se_spread_plain(geom, pieces, forces)
+    u = k5.se_interp(geom, pieces, ref)
+    u_ref = k5.se_interp_plain(geom, pieces, ref)
+    torch.cuda.synchronize()
+    assert (k5.se_spread.launches, k5.se_interp.launches) == (before[0] + 1, before[1] + 1)
+    assert grid.shape == (G, G, G, 3) and u.shape == (n, 3)
+    for got, want in ((grid, ref), (u, u_ref)):
+        assert bool(torch.isfinite(got).all())
+        scale = want.abs().max().item()
+        assert scale > 0
+        assert (got - want).abs().max().item() <= tol * scale
+    dropped = pieces[4] >= pieces[0].numel()
+    assert bool((u[dropped] == 0).all())
+
+
+@pytest.mark.cuda
+def test_k5s_repeats_bit_for_bit(cuda_device):
+    """K5s sums each grid point over the same slots in the same order on
+    every launch (no float atomics): two launches are bit-equal."""
+    geom = _se_geom(64, 6, 8, 4000, "es")
+    pieces, forces = _se_pieces(geom, 4000, torch.float32, cuda_device, clustered=True)
+    assert torch.equal(k5.se_spread(geom, pieces, forces), k5.se_spread(geom, pieces, forces))
+
+
+@pytest.mark.cuda
+def test_k5_refuses_outside_its_envelope(cuda_device):
+    """A tile edge below P/2 + 1 would let a window reach past the
+    neighbouring tiles, and int64 ids or mixed dtypes are not the kernels'
+    inputs: the wrappers raise before any launch, no plain fallback."""
+    geom = _se_geom(64, 6, 8, 1000, "es")
+    pieces, forces = _se_pieces(geom, 1000, torch.float32, cuda_device)
+    before = (k5.se_spread.launches, k5.se_interp.launches)
+    with pytest.raises(ValueError, match="tile edge"):
+        k5.se_spread(geom._replace(P=16), pieces, forces)
+    with pytest.raises(TypeError, match="int32"):
+        k5.se_spread(geom, (pieces[0].long(),) + tuple(pieces[1:]), forces)
+    with pytest.raises(TypeError, match="dtype"):
+        k5.se_spread(geom, pieces, forces.double())
+    with pytest.raises(TypeError, match="int32"):
+        k5.se_interp(geom, tuple(pieces[:4]) + (pieces[4].long(),),
+                     torch.zeros((64, 64, 64, 3), device=cuda_device))
+    assert (k5.se_spread.launches, k5.se_interp.launches) == before

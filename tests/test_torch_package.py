@@ -11,6 +11,7 @@ import pytest
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
+from mundy_tpu_torch.driver.apps.chromatin import ChromatinConfig, ChromatinSim
 from mundy_tpu_torch.driver.apps.filaments import FilamentsConfig, FilamentsSim
 from mundy_tpu_torch.driver.apps.lcp_spheres import LCPSpheresConfig, LCPSpheresSim
 from mundy_tpu_torch.driver.apps.rods import RodsConfig
@@ -21,6 +22,7 @@ from mundy_tpu_torch.ops.kernels import _build
 from mundy_tpu_torch.ops.kernels import row_central as k1
 from mundy_tpu_torch.ops.kernels import row_extract as k2
 from mundy_tpu_torch.ops.kernels import row_segments as k4
+from mundy_tpu_torch.ops.kernels import se_grid as k5
 from mundy_tpu_torch.ops.kernels import seg_onehot as k3
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -89,6 +91,8 @@ def test_entry_points_default_to_the_card():
         RowRodsSim(RodsConfig(num_rods=100, box_size=24.0))
     with pytest.raises(RuntimeError, match="CUDA"):
         FilamentsSim(FilamentsConfig(num_filaments=8, nodes_per_filament=5, box_size=24.0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ChromatinSim(ChromatinConfig(num_chains=2, beads_per_chain=16, num_crosslinkers=4))
 
 
 def _no_library(monkeypatch, tmp_path):
@@ -229,3 +233,77 @@ def test_new_modules_import_without_jax():
         mod = importlib.import_module(name)
         path = pathlib.Path(mod.__file__)
         assert path in PORT_FILES
+
+
+def _se_fake_inputs(geom, n=64):
+    n_tiles = (geom.G // geom.m) ** 3
+    perm = torch.zeros((n_tiles, geom.R), dtype=torch.int32, device="cuda")
+    u = torch.zeros((n_tiles, geom.R, 3), device="cuda")
+    pieces = (perm, torch.zeros((), dtype=torch.bool, device="cuda"), u,
+              torch.zeros((n_tiles, geom.R), dtype=torch.bool, device="cuda"),
+              torch.zeros((n,), dtype=torch.int32, device="cuda"))
+    return pieces, torch.zeros((n, 3), device="cuda")
+
+
+def test_k5_cuda_tensors_without_library_raise(monkeypatch, tmp_path):
+    """As for K1: a CUDA tensor never takes K5s's or K5i's plain version;
+    without a library and a compiler the wrappers raise, and a tile edge
+    below P/2 + 1 raises before any build."""
+    _no_library(monkeypatch, tmp_path)
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(k5, "se_spread_plain", no_plain)
+    monkeypatch.setattr(k5, "se_interp_plain", no_plain)
+    geom = k5.make_se_grid_tiles(32, 6, 12.0, 0.87, 0.0, 64, kind="es", beta=12.2)
+    before = (k5.se_spread.launches, k5.se_interp.launches)
+    with FakeTensorMode():
+        pieces, forces = _se_fake_inputs(geom)
+        grid = torch.zeros((32, 32, 32, 3), device="cuda")
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            k5.se_spread(geom, pieces, forces)
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            k5.se_interp(geom, pieces, grid)
+        with pytest.raises(ValueError, match="tile edge"):
+            k5.se_spread(geom._replace(P=16), pieces, forces)
+        with pytest.raises(ValueError, match="contiguous"):
+            k5.se_spread(geom, pieces, torch.zeros((3, 64), device="cuda").t())
+    assert (k5.se_spread.launches, k5.se_interp.launches) == before
+    _build.load.cache_clear()
+
+
+def test_k5_library_is_keyed_by_source():
+    lib = _build.library_path("se_grid")
+    assert lib.parent == ROOT / "build" / "kernels"
+    assert lib.name.startswith("se_grid_") and lib.suffix == ".so"
+    assert (_build.CSRC / "se_grid.cu").exists()
+
+
+@pytest.mark.parametrize("hydro", ["rpy_periphery", "rpy_periphery_spectral"])
+def test_chromatin_unported_modes_raise(hydro):
+    """The periphery BIE modes and the sharded mode are not ported: they
+    raise, never run something else."""
+    cfg = ChromatinConfig(num_chains=2, beads_per_chain=16, num_crosslinkers=4,
+                          hydro=hydro, periphery_radius=8.0)
+    with pytest.raises(NotImplementedError, match="periphery"):
+        ChromatinSim(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        ChromatinSim(ChromatinConfig(num_chains=2, beads_per_chain=16), device="cpu",
+                     mesh=object())
+
+
+def test_chromatin_slice_modules_import_without_jax():
+    """The chromatin slice's modules, importable and free of JAX (scanned
+    above)."""
+    import importlib
+
+    for name in ("mundy_tpu_torch.math.spacefill", "mundy_tpu_torch.state.world",
+                 "mundy_tpu_torch.state.select", "mundy_tpu_torch.kmc.crosslinkers",
+                 "mundy_tpu_torch.forces.springs", "mundy_tpu_torch.forces.contact",
+                 "mundy_tpu_torch.mobility.rpy", "mundy_tpu_torch.mobility.ewald",
+                 "mundy_tpu_torch.mobility.spectral", "mundy_tpu_torch.neighbor.cells3d",
+                 "mundy_tpu_torch.ops.kernels.se_grid",
+                 "mundy_tpu_torch.driver.apps.chromatin"):
+        mod = importlib.import_module(name)
+        assert pathlib.Path(mod.__file__) in PORT_FILES

@@ -18,9 +18,9 @@ import torch
 from mundy_tpu.driver.apps.rods import RodsConfig as JaxConfig
 from mundy_tpu.driver.apps.rods_rows import RowRodsSim as JaxSim
 from mundy_tpu_torch.core.config import config_from_dict
-from mundy_tpu_torch.core.interop import row_grid_from_numpy, row_rods_state_from_numpy
+from mundy_tpu_torch.core.interop import row_grid_from_numpy
 from mundy_tpu_torch.driver.apps.rods import RodsConfig
-from mundy_tpu_torch.driver.apps.rods_rows import RowRodsSim
+from mundy_tpu_torch.driver.apps.rods_rows import RowRodsSim, row_rods_state_from_numpy
 
 torch.set_num_threads(1)
 

@@ -19,10 +19,9 @@ from mundy_tpu.driver.apps.spheres import SpheresConfig as JaxConfig
 from mundy_tpu.driver.apps.spheres_rows import RowSpheresSim as JaxSim
 from mundy_tpu.neighbor.rows import build_rows
 from mundy_tpu_torch.core.config import config_from_dict
-from mundy_tpu_torch.core.interop import (row_grid_from_numpy,
-                                          row_spheres_state_from_numpy)
+from mundy_tpu_torch.core.interop import row_grid_from_numpy
 from mundy_tpu_torch.driver.apps.spheres import SpheresConfig
-from mundy_tpu_torch.driver.apps.spheres_rows import RowSpheresSim
+from mundy_tpu_torch.driver.apps.spheres_rows import RowSpheresSim, row_spheres_state_from_numpy
 
 torch.set_num_threads(1)
 
