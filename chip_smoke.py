@@ -8,9 +8,11 @@ kernels K2 and K3), #3 (the row-engine spherocylinder suspension, kernel
 K4's rods op), #4 (flexible filaments: K2 in the default engine, K4's
 filaments op in the row engine) and #5 (1M-bead chromatin with
 spectral-Ewald Stokes mobility: kernels K5s and K5i, K2 where the rows
-broad phase is feasible) through the port's own entry points:
+broad phase is feasible), then the polydisperse lines of #1 (kernel K6
+with a radius plane) and #2 (K2's radius variant) and the scalar-mobility
+Delassus applies (kernel K3t) through the port's own entry points:
 
-1. build K1-K5 with nvcc (sm_90a), one process per source, all at once;
+1. build K1-K6 with nvcc (sm_90a), one process per source, all at once;
    print each kernel's registers and spills and the card with its power
    limit;
 2. K1 vs its plain PyTorch version at the 1M-sphere config #1 shape
@@ -81,7 +83,32 @@ broad phase is feasible) through the port's own entry points:
     then 20 steps of run_block with the K5s/K5i/K2 counts set to 0 just
     before: one K5s and one K5i launch per step, one K2 launch per rows
     broad phase, no overflow; each layer of the step timed alone; then
-    torch.profiler over 4 more steps.
+    torch.profiler over 4 more steps;
+23. K6 (masked full-stencil Hertz, the monodisperse law on a constant
+    radius plane) vs its plain version and vs K1 at the 1M config #1
+    shape, each within 5e-5 of max|f| (the bound of
+    tests/test_pallas_row_hertz.py), with K6's, K1's and the plain times
+    and the bound from the occupied pairs and those in contact;
+24. polydisperse config #1 at 1M (polydispersity 0.4, as
+    tests/test_polydisperse.py): K6 with radii vs its plain version
+    at the init shape within 5e-5 of max|f|, then 300 steps of run_block
+    with the K6 count set to 0 just before: one launch per step, no lost
+    sphere, no overflow; then torch.profiler over 8 more steps;
+25. that config in float64 (2000 spheres, 60 steps) on the card against
+    the CPU: equal rebuilds and layout, positions within 1e-7;
+26. K3t vs its plain version at the strided shape of [6]'s final state
+    (within 1e-6 of max|t|), timed beside K3 + the row gather; the
+    local-drag, band and block Delassus applies on one gamma within 1e-5 of
+    max|A gamma|; then resolve_collisions from the step's warm start with
+    each as apply_override: iterations, ms per iteration, max|dgamma|
+    against the band solve, and K3t's launches (iterations + 1);
+27. the polydisperse 1M LCP line (polydispersity 0.5) with [6]'s protocol,
+    the K2 radius and K3 counts set to 0 before the 24-step window: one K2
+    radius-variant launch per broad phase, one K3 launch per step; K2's
+    radius variant vs its plain version at the window's final row shape,
+    ids and counts exactly equal;
+28. that line in float64 (2000 spheres, 30 steps) on the card against the
+    CPU: equal counters at every step, positions within 1e-8.
 
 Kernel times are medians of CUDA-event timings after a synchronize, kernel
 and plain version alternating. Prints one JSON line of kernel results, then
@@ -92,6 +119,7 @@ result, without a CUDA device or without the package beside it.
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import json
 import math
 import os
@@ -104,7 +132,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 N_BIG = 1_000_000
 BIG_STEPS = 300
 RODS_STEPS = 200
-KERNELS = ("row_central", "row_extract", "seg_onehot", "row_segments", "se_grid")
+KERNELS = ("row_central", "row_extract", "seg_onehot", "row_segments", "se_grid",
+           "row_hertz")
 # FP32 operations that K4's function needs, counted from the algorithm, not
 # from the kernel (each + - * / min max rint sqrt rsqrt as one; compares and
 # selects not counted; a negation that a subtraction or a swapped cross
@@ -126,6 +155,21 @@ K4_ROD_OPS = 10.0
 # sums 6, and the partner's split by 1 - t (1 + 6 + 6) with the force
 # reused; the adjacency test is integer work, not counted
 K4F_OPS = 163.0
+# FP32 operations of the Hertzian row kernels, counted from the algorithm,
+# each unordered pair once with both sides' sums. Every occupied pair needs
+# its separation and r2: K1 takes the minimum image on x only (difference, x
+# 1/L, rint, x L, subtract: 5) and two differences on the pre-shifted rows,
+# r2 5; K6 three minimum images 15 and r2 5, and with radii the contact
+# distance ro + rc and its square 2 more. The contact test is a compare, not
+# counted. A pair in contact then needs the clamp, rsqrt and d 3, delta 2,
+# w = coef delta sqrt(delta) / d 4 and both sums as 6 FMAs 12; with radii
+# also ro rc, the clamp, the division, sqrt and its product with coef 5.
+K1_PAIR_OPS = 12.0
+K1_CONTACT_OPS = 21.0
+K6_PAIR_OPS = 20.0
+K6_CONTACT_OPS = 21.0
+K6_RADII_PAIR_OPS = K6_PAIR_OPS + 2.0
+K6_RADII_CONTACT_OPS = K6_CONTACT_OPS + 5.0
 FIL_STEPS = 200
 CHROM_STEPS = 20
 CHROM_SMALL_STEPS = 40
@@ -179,6 +223,32 @@ def stencil_work(valid, torch) -> tuple:
     nine = sum(at(dy, dz) for dy in (-1, 0, 1) for dz in (-1, 0, 1))
     k1_pairs = (occ * half).sum() + (occ * (occ - 1) / 2).sum()
     return float(k1_pairs), float((occ * nine).sum())
+
+
+def contact_pairs(pos, valid, box, radii, torch) -> float:
+    """Unordered pairs in contact on this row layout, by the plain version's
+    pair test: over the full 9-row stencil, the minimum image on every axis,
+    d = r2 rsqrt(r2) < ro + rc, both slots valid; radii: the (ny, nz, R)
+    radius plane. Counted in y-slabs of ~5e7 pair entries."""
+    L = torch.tensor(box, dtype=pos.dtype, device=pos.device)
+    ny, nz, R = valid.shape
+    not_self = ~torch.eye(R, dtype=torch.bool, device=pos.device)
+    step = max(1, int(5e7 // (nz * R * R)))
+    hits = 0
+    for dy in (-1, 0, 1):
+        for dz in (-1, 0, 1):
+            cp, cv, cr = (torch.roll(t, (-dy, -dz), dims=(0, 1)) for t in (pos, valid, radii))
+            for y0 in range(0, ny, step):
+                s = slice(y0, y0 + step)
+                d = cp[s][..., None, :, :] - pos[s][..., :, None, :]
+                d = d - L * torch.round(d / L)
+                r2 = torch.clamp((d * d).sum(-1), min=1e-24)
+                hit = ((r2 * torch.rsqrt(r2) < radii[s][..., :, None] + cr[s][..., None, :])
+                       & valid[s][..., :, None] & cv[s][..., None, :])
+                if (dy, dz) == (0, 0):
+                    hit = hit & not_self
+                hits += int(hit.sum())
+    return hits / 2
 
 
 def cuda_ms(fn, torch, reps: int) -> float:
@@ -434,6 +504,343 @@ def chromatin_phases(torch, dev) -> list:
          "bound_by": i_bound[1], "library_ms": None}]
 
 
+
+
+def polydisperse_phases(torch, dev, lcp_sim, lcp_st) -> list:
+    """Phases 23-28: K6 on config #1's rows and with radii on the
+    polydisperse row engine, K3t and the scalar-mobility Delassus applies at
+    [6]'s final LCP state, and the polydisperse LCP line with K2's radius
+    variant. Returns their entries of the kernels line."""
+    from mundy_tpu_torch.constraints.collision import (
+        active_pair_subset_strided, collision_setup_spheres, make_band_delassus_apply,
+        make_block_delassus_apply, make_local_drag_apply, resolve_collisions)
+    from mundy_tpu_torch.driver.apps.lcp_spheres import LCPSpheresConfig, LCPSpheresSim
+    from mundy_tpu_torch.driver.apps.spheres import SpheresConfig
+    from mundy_tpu_torch.driver.apps.spheres_rows import RowSpheresSim
+    from mundy_tpu_torch.dynamics.brownian import brownian_velocity_keyed
+    from mundy_tpu_torch.neighbor.rows import build_rows, make_row_grid
+    from mundy_tpu_torch.ops.kernels import row_central as k1
+    from mundy_tpu_torch.ops.kernels import row_extract as k2
+    from mundy_tpu_torch.ops.kernels import row_hertz as k6
+    from mundy_tpu_torch.ops.kernels import seg_onehot as k3
+
+    # ---- 23. K6 vs its plain version and K1 at the 1M config #1 shape -----
+    big = bench_config(SpheresConfig, N_BIG)
+    sim = RowSpheresSim(big, device=dev)
+    rows = sim.init().rows
+    args = (rows.pos, rows.valid, sim.box_static[0], big.radius, big.youngs_modulus,
+            big.poissons_ratio)
+    k6.row_hertzian_forces.launches = 0
+    f6 = k6.row_hertzian_forces(*args)
+    f_p = k6.row_hertzian_forces_plain(*args)
+    f1 = k1.row_hertzian_forces_sym(rows.pos, *args[2:])
+    torch.cuda.synchronize()
+    m = rows.valid
+    fmax = f_p[m].abs().max().item()
+    k6_err = (f6 - f_p).abs().max().item()
+    k6_k1 = (f6[m] - f1[m]).abs().max().item()
+    ny, nz, R = m.shape
+    print(f"[23] K6 at (ny, nz, R) = ({ny}, {nz}, {R}): max|diff| {k6_err:.3e} vs plain, "
+          f"{k6_k1:.3e} vs K1, of max|f| {fmax:.3e}, invalid slots zero "
+          f"{bool((f6[~m] == 0).all())}", flush=True)
+    if not (fmax > 0 and k6_err <= 5e-5 * fmax and k6_k1 <= 5e-5 * fmax
+            and bool((f6[~m] == 0).all())):
+        fail(f"K6 disagrees: {k6_err} vs plain, {k6_k1} vs K1, bar 5e-5 * {fmax}")
+    del f6, f_p, f1
+    k6_mono_ms, k6_mono_plain_ms = alternate(lambda: k6.row_hertzian_forces(*args),
+                                             lambda: k6.row_hertzian_forces_plain(*args),
+                                             torch, 10, 2)
+    k1_again_ms = statistics.median(
+        [cuda_ms(lambda: k1.row_hertzian_forces_sym(rows.pos, *args[2:]), torch, 10)
+         for _ in range(3)])
+    # the occupied pairs, each unordered pair once (the half stencil's count),
+    # and those in contact; read pos and valid once, write the forces once
+    pairs = stencil_work(m, torch)[0]
+    contacts = contact_pairs(rows.pos, m, args[2], m.to(rows.pos.dtype) * big.radius, torch)
+    k6_mono_bound = bound(pairs * K6_PAIR_OPS + contacts * K6_CONTACT_OPS,
+                          m.numel() * (12 + 1 + 12))
+    print(f"    K6 {k6_mono_ms:.4f} ms, K1 {k1_again_ms:.4f} ms, plain "
+          f"{k6_mono_plain_ms:.4f} ms, bound {k6_mono_bound[0]:.4f} ms "
+          f"({k6_mono_bound[1]}, {pairs:.0f} pairs, {contacts:.0f} in contact); K6 "
+          f"launches in [23] {k6.row_hertzian_forces.launches} (comparison and timing; no "
+          f"app runs the monodisperse law through K6, [24] counts the path's)", flush=True)
+    del sim, rows, args
+
+    # ---- 24. polydisperse config #1 at 1M through K6 with radii ----------
+    pcfg = dataclasses.replace(big, polydispersity=0.4)
+    psim = RowSpheresSim(pcfg, device=dev)
+    t0 = time.perf_counter()
+    pst = psim.init()
+    torch.cuda.synchronize()
+    rows = pst.rows
+    r_rows = psim.slot_planes(rows)[0]
+    args = (rows.pos, rows.valid, psim.box_static[0], pcfg.radius, pcfg.youngs_modulus,
+            pcfg.poissons_ratio)
+    f6 = k6.row_hertzian_forces(*args, radii=r_rows)
+    f_p = k6.row_hertzian_forces_plain(*args, radii=r_rows)
+    torch.cuda.synchronize()
+    m = rows.valid
+    fmax = f_p[m].abs().max().item()
+    k6_err = max(k6_err, (f6 - f_p).abs().max().item())
+    k6r_err = (f6 - f_p).abs().max().item()
+    ny, nz, R = m.shape
+    print(f"[24] polydisperse config #1 at 1M (p = 0.4): init {time.perf_counter() - t0:.2f} "
+          f"s, cutoff {psim.cutoff:.4f}, (ny, nz, R) = ({ny}, {nz}, {R}); K6 radii max|diff| "
+          f"{k6r_err:.3e} of max|f| {fmax:.3e}", flush=True)
+    if not (fmax > 0 and k6r_err <= 5e-5 * fmax):
+        fail(f"K6 with radii disagrees with its plain version: {k6r_err} > 5e-5 * {fmax}")
+    del f6, f_p
+    k6_ms, k6_plain_ms = alternate(lambda: k6.row_hertzian_forces(*args, radii=r_rows),
+                                   lambda: k6.row_hertzian_forces_plain(*args, radii=r_rows),
+                                   torch, 10, 1, rounds=2)
+    pairs = stencil_work(m, torch)[0]
+    contacts = contact_pairs(rows.pos, m, args[2], r_rows, torch)
+    k6_bound = bound(pairs * K6_RADII_PAIR_OPS + contacts * K6_RADII_CONTACT_OPS,
+                     m.numel() * (12 + 1 + 4 + 12))
+    print(f"    K6 radii {k6_ms:.4f} ms, plain {k6_plain_ms:.4f} ms, bound "
+          f"{k6_bound[0]:.4f} ms ({k6_bound[1]}, {pairs:.0f} pairs, {contacts:.0f} in "
+          f"contact)", flush=True)
+    del rows, args, r_rows
+    pst = psim.run_block(pst, 3)  # warm up
+    torch.cuda.synchronize()
+    rb0 = pst.rebuild_count
+    k6.row_hertzian_forces.launches = 0
+    t0 = time.perf_counter()
+    pst = psim.run_block(pst, BIG_STEPS)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    k6_launches = k6.row_hertzian_forces.launches
+    n_valid = int(pst.rows.valid.sum())
+    print(f"    {BIG_STEPS} steps in {elapsed:.3f} s = {BIG_STEPS / elapsed:.2f} steps/s, "
+          f"{1e3 * elapsed / BIG_STEPS:.3f} ms/step, rebuilds {pst.rebuild_count - rb0}, R "
+          f"{psim.grid.row_capacity}, K6 launches {k6_launches}", flush=True)
+    if n_valid != N_BIG or bool(pst.overflow) or not bool(
+            torch.isfinite(psim.positions(pst)).all()):
+        fail(f"the polydisperse 1M run lost spheres, overflowed or went non-finite "
+             f"(valid {n_valid})")
+    if k6_launches != BIG_STEPS:
+        fail(f"K6 launched {k6_launches} times in {BIG_STEPS} steps")
+    profile_window(lambda n: psim.run_block(pst, n), torch, 1e3 * elapsed / BIG_STEPS)
+    del psim, pst
+
+    # ---- 25. polydisperse config #1 in float64, card vs CPU ----------------
+    small = SpheresConfig(num_spheres=2000, box_size=16.0, diffusion_coeff=0.01, dt=1e-4,
+                          skin=0.1, polydispersity=0.4, dtype="float64")
+    pos0 = torch.rand((2000, 3), dtype=torch.float64,
+                      generator=torch.Generator().manual_seed(25)) * 16.0
+    runs = {}
+    for name, d in (("card", dev), ("cpu", "cpu")):
+        ssim = RowSpheresSim(small, device=d)
+        s = ssim.run_block(ssim.init(pos=pos0, key_words=(0, 25)), 60)
+        runs[name] = (s, ssim.positions(s).cpu(), ssim.max_overlap(s))
+    (sg, pg, og), (sc, pc, oc) = runs["card"], runs["cpu"]
+    diff = (pg - pc).abs().max().item()
+    print(f"[25] polydisperse float64 2000 spheres, 60 steps: rebuilds {sg.rebuild_count} "
+          f"(cpu {sc.rebuild_count}), max|pos diff| vs cpu {diff:.3e}, max overlap "
+          f"{og:.4f} (cpu {oc:.4f})", flush=True)
+    if not (sg.rebuild_count == sc.rebuild_count >= 3 and diff <= 1e-7
+            and torch.equal(sg.rows.gid.cpu(), sc.rows.gid)):
+        fail("the polydisperse float64 run on the card disagrees with the CPU run")
+
+    # ---- 26. K3t and the scalar-mobility Delassus applies at [6]'s state --
+    lcfg, st, lsim = lcp_sim.config, lcp_st, lcp_sim
+    setup = collision_setup_spheres(st.pos, lsim._radius(), st.pairs, lsim.metric)
+    act = active_pair_subset_strided(setup, lsim._dyn_margin(setup), N_BIG, lsim.seg_block,
+                                     lsim.act_window, st.seg_starts, dual_full=st.dual_full,
+                                     prev=(st.prev_cum, st.gamma, lsim.act_window),
+                                     gamma_full=st.gamma_full)
+    nb, W, B = lsim.nb_blocks, lsim.act_window, lsim.seg_block
+    aset = act.setup
+    gam = torch.where(aset.pairs.mask, torch.rand(
+        aset.pairs.i.shape, generator=torch.Generator(dev).manual_seed(26), device=dev), 0.0)
+    g2 = gam.reshape(nb, W).contiguous()
+    n_pl = aset.normals.reshape(nb, W, 3).transpose(1, 2).contiguous()
+    blk = torch.arange(nb, dtype=torch.int32, device=dev)[:, None] * B
+    loc = (aset.pairs.i.reshape(nb, W) - blk).contiguous()
+    t_k = k3.strided_onehot_t(g2, n_pl, loc, B)
+    t_p = k3.strided_t_plain(g2, n_pl, loc, B)
+    torch.cuda.synchronize()
+    k3t_err = (t_k - t_p).abs().max().item()
+    tmax = t_p.abs().max().item()
+    n_act = int(aset.pairs.mask.sum())
+    print(f"[26] K3t at (nb, W, B) = ({nb}, {W}, {B}), {n_act} active pairs: max|diff| "
+          f"{k3t_err:.3e}, max|t| {tmax:.3e}, bit-equal {bool(torch.equal(t_k, t_p))}",
+          flush=True)
+    if not (tmax > 0 and k3t_err <= 1e-6 * tmax):
+        fail(f"K3t disagrees with its plain version: {k3t_err} > 1e-6 * {tmax}")
+
+    def k3_and_gather():  # the reference's fallback with K3: sum, gather, dot
+        F = k3.strided_onehot_segment_sum((-g2[:, None, :] * n_pl).contiguous(), loc, B)
+        lc = torch.where((loc >= 0) & (loc < B), loc.long(), 0)
+        fx, fy, fz = (torch.gather(F[:, c], 1, lc) for c in range(3))
+        return -((n_pl[:, 0] * fx + n_pl[:, 1] * fy) + n_pl[:, 2] * fz)
+
+    k3g_err = (k3_and_gather() - t_p).abs().max().item()
+    k3t_ms, k3t_plain_ms = alternate(lambda: k3.strided_onehot_t(g2, n_pl, loc, B),
+                                     lambda: k3.strided_t_plain(g2, n_pl, loc, B),
+                                     torch, 20, 3)
+    k3g_ms = statistics.median([cuda_ms(k3_and_gather, torch, 20) for _ in range(3)])
+    # (-gamma) n and its sums 6 per active pair, the dot 5 per slot; read
+    # gamma, normals and loc once, write t once
+    k3t_bound = bound(6.0 * n_act + 5.0 * nb * W, nb * W * (4 + 12 + 4 + 4))
+    print(f"    K3t {k3t_ms:.4f} ms, plain {k3t_plain_ms:.4f} ms, K3 + gather {k3g_ms:.4f} "
+          f"ms (max|diff| {k3g_err:.3e}), bound {k3t_bound[0]:.4f} ms ({k3t_bound[1]})",
+          flush=True)
+    del t_k, t_p
+    mob = torch.tensor(1.0 / (6.0 * math.pi * lcfg.viscosity * lcfg.radius), device=dev)
+    applies = {
+        "band": make_band_delassus_apply(aset, act.dual, lcfg.dt, lsim._pair_run_bound(),
+                                         mobility_i=mob, mobility_j=mob),
+        "local": make_local_drag_apply(aset, act.dual, lcfg.dt, mobility_i=mob,
+                                       mobility_j=mob),
+        "block": make_block_delassus_apply(aset, act.dual, lcfg.dt, mobility_i=mob,
+                                           mobility_j=mob)}
+    outs = {k: f(gam) for k, f in applies.items()}
+    amax = outs["band"].abs().max().item()
+    a_err = max((outs[k] - outs["band"]).abs().max().item() for k in ("local", "block"))
+    print(f"    one gamma: local and block applies within {a_err:.3e} of the band apply, "
+          f"max|A gamma| {amax:.3e}", flush=True)
+    if not (amax > 0 and a_err <= 1e-5 * amax):
+        fail(f"the Delassus applies disagree: {a_err} > 1e-5 * {amax}")
+    u_ext = brownian_velocity_keyed(st.key, st.step,
+                                    torch.arange(N_BIG, dtype=torch.int32, device=dev),
+                                    lcfg.diffusion_coeff, lcfg.dt)
+    solves = {}
+    for name, fn in applies.items():
+        torch.cuda.synchronize()
+        k3.strided_onehot_t.launches = 0
+        t0 = time.perf_counter()
+        gamma, _vel, res = resolve_collisions(
+            aset, lsim._mobility, N_BIG, lcfg.dt,
+            max_allowable_overlap=lcfg.max_allowable_overlap,
+            max_iterations=lcfg.max_col_iterations, gamma0=act.gamma0, u_ext=u_ext,
+            alpha0=st.lcp_alpha, apply_override=fn)
+        torch.cuda.synchronize()
+        solves[name] = (gamma, res.num_iters, 1e3 * (time.perf_counter() - t0),
+                        k3.strided_onehot_t.launches)
+    gmax = solves["band"][0].abs().max().item()
+    for name, (gamma, iters, ms, launches) in solves.items():
+        print(f"    resolve_collisions with the {name} apply: {iters} iterations, "
+              f"{ms / max(iters, 1):.4f} ms/iteration ({ms:.3f} ms), max|dgamma| vs band "
+              f"{(gamma - solves['band'][0]).abs().max().item():.3e} of {gmax:.3e}, K3t "
+              f"launches {launches}", flush=True)
+    k3t_launches = solves["local"][3]
+    if k3t_launches != solves["local"][1] + 1:
+        fail(f"K3t launched {k3t_launches} times in {solves['local'][1]} iterations")
+    del applies, outs, solves, setup, act, aset, g2, n_pl, loc, gam, u_ext
+
+    # ---- 27. the polydisperse 1M LCP line (bench.py's protocol) -------------
+    pcfg = dataclasses.replace(lcp_bench_config(LCPSpheresConfig, N_BIG),
+                               polydispersity=0.5)
+    psim = LCPSpheresSim(pcfg, device=dev)
+    t0 = time.perf_counter()
+    pst = psim.init()
+    torch.cuda.synchronize()
+    print(f"[27] polydisperse 1M LCP (p = 0.5) init in {time.perf_counter() - t0:.2f} s: "
+          f"search radius {psim.search_radius:.4f}, pair capacity {psim.pair_capacity}, "
+          f"rows_k {psim.rows_k}, rows_slack {psim.rows_slack:.4f}, act_window "
+          f"{psim.act_window}, active {int(pst.act_count)}", flush=True)
+    for _ in range(3):
+        pst = psim.run_block(pst, 9)
+    pst = pst.replace(overflow=torch.zeros((), dtype=torch.bool, device=dev))
+    pst = psim.run_block(pst, 2, resize=False)
+    torch.cuda.synchronize()
+    if bool(pst.overflow):
+        fail("polydisperse LCP capacities still overflow after the settle+resize blocks")
+    rb0 = pst.rebuild_count
+    window = 24
+    k2.row_neighbor_extract.radius_launches = 0
+    k3.strided_onehot_segment_sum.launches = 0
+    t0 = time.perf_counter()
+    pst = psim.run_block(pst, window, resize=False)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    k2r_launches = k2.row_neighbor_extract.radius_launches
+    k3_launches = k3.strided_onehot_segment_sum.launches
+    rebuilds = pst.rebuild_count - rb0
+    print(f"    {window} steps in {elapsed:.3f} s = {window / elapsed:.3f} steps/s, "
+          f"{1e3 * elapsed / window:.3f} ms/step, lcp_iters {pst.lcp_iters} (max "
+          f"{pst.lcp_iters_max}), active {int(pst.act_count)}, rebuilds {rebuilds}, K2 "
+          f"radius launches {k2r_launches}, K3 launches {k3_launches}", flush=True)
+    if bool(pst.overflow) or not bool(torch.isfinite(pst.pos).all()):
+        fail("the polydisperse 1M LCP window overflowed or went non-finite")
+    if k3_launches != window:
+        fail(f"K3 launched {k3_launches} times in {window} steps")
+    if rebuilds < 1 or k2r_launches != rebuilds:
+        fail(f"K2's radius variant launched {k2r_launches} times for {rebuilds} broad phases")
+    K = min(pcfg.max_neighbors, psim.rows_k)
+    cutoff = 2 * psim.search_radius
+    grid = make_row_grid([0, 0, 0], [pcfg.box_size] * 3, cutoff, N_BIG,
+                         capacity_slack=psim.rows_slack, dtype=torch.float32, align=8,
+                         device=dev)
+    rs = build_rows(pst.pos, torch.arange(N_BIG, dtype=torch.int32, device=dev), grid)
+    sr_rows = torch.where(rs.valid, psim.search_radii[rs.gid.long()], 0.0)
+    k2_args = (rs.pos, rs.gid, rs.valid, ((pcfg.box_size,) * 3, (True,) * 3), cutoff, K,
+               N_BIG)
+    ids_k, cnt_k = k2.row_neighbor_extract(*k2_args, radii=sr_rows)
+    ids_p, cnt_p = k2.row_neighbor_extract_plain(*k2_args, radii=sr_rows)
+    torch.cuda.synchronize()
+    ny, nz, R = rs.valid.shape
+    k2r_mismatch = int((ids_k != ids_p).sum()) + int((cnt_k != cnt_p).sum())
+    k2r_err = max(int((ids_k - ids_p).abs().max()), int((cnt_k - cnt_p).abs().max()))
+    print(f"    K2 radii at (ny, nz, R) = ({ny}, {nz}, {R}), K = {K}: {k2r_mismatch} "
+          f"mismatched ids/counts, max count {int(cnt_p.max())}", flush=True)
+    if k2r_mismatch != 0:
+        fail(f"K2's radius variant disagrees with its plain version in {k2r_mismatch} entries")
+    k2r_ms, k2r_plain_ms = alternate(lambda: k2.row_neighbor_extract(*k2_args, radii=sr_rows),
+                                     lambda: k2.row_neighbor_extract_plain(*k2_args,
+                                                                           radii=sr_rows),
+                                     torch, 10, 1, rounds=2)
+    # K2's 13 per occupied candidate and the per-pair cutoff's add and
+    # square; read pos, gid, valid and the radii once, write ids and counts
+    n_slots = ny * nz * R
+    cands = stencil_work(rs.valid, torch)[1]
+    k2r_bound = bound(cands * 15.0, n_slots * (12 + 4 + 1 + 4) + n_slots * (K + 1) * 4)
+    print(f"    K2 radii {k2r_ms:.4f} ms, plain {k2r_plain_ms:.4f} ms, bound "
+          f"{k2r_bound[0]:.4f} ms ({k2r_bound[1]}, {cands:.0f} candidates)", flush=True)
+    del ids_k, ids_p, cnt_k, cnt_p, rs, sr_rows, psim, pst
+
+    # ---- 28. the polydisperse LCP line in float64, card vs CPU -------------
+    small = dict(num_spheres=2000, box_size=20.0, radius=0.5, dt=1e-3, diffusion_coeff=0.01,
+                 constraint_buffer=0.45, polydispersity=0.5, dtype="float64")
+    pos0 = torch.rand((2000, 3), dtype=torch.float64,
+                      generator=torch.Generator().manual_seed(28)) * 20.0
+    trace = {}
+    for name, d in (("card", dev), ("cpu", "cpu")):
+        ssim = LCPSpheresSim(LCPSpheresConfig(**small), device=d)
+        s = ssim.init(pos=pos0, key_words=(0, 28))
+        rows_ = []
+        for _ in range(30):
+            s = ssim.run_block(s, 1, resize=False)
+            rows_.append((s.lcp_iters, int(s.act_count), int(s.act_block_max),
+                          s.rebuild_count, bool(s.overflow)))
+        trace[name] = (rows_, s.pos.cpu(), ssim.max_overlap(s))
+    diff = (trace["card"][1] - trace["cpu"][1]).abs().max().item()
+    print(f"[28] polydisperse LCP float64 2000 spheres, 30 steps: rebuilds "
+          f"{trace['card'][0][-1][3]} (cpu {trace['cpu'][0][-1][3]}), max|pos diff| vs cpu "
+          f"{diff:.3e}, max overlap {trace['card'][2]:.3e}", flush=True)
+    print(f"    lcp_iters card {[r[0] for r in trace['card'][0]]}", flush=True)
+    if not (trace["card"][0] == trace["cpu"][0] and diff <= 1e-8
+            and trace["card"][0][-1][3] >= 2):
+        fail("the polydisperse float64 LCP run on the card disagrees with the CPU run")
+    return [
+        {"name": "row_hertzian_forces", "route": "cuda",
+         "source": "mundy_tpu_torch/csrc/row_hertz.cu",
+         "replaces": "mundy_tpu/ops/pallas/row_hertz.py:101", "launches": k6_launches,
+         "max_abs_err": k6_err, "ms": k6_ms, "plain_ms": k6_plain_ms, "bound_ms": k6_bound[0],
+         "bound_by": k6_bound[1], "library_ms": None},
+        {"name": "strided_onehot_t", "route": "cuda",
+         "source": "mundy_tpu_torch/csrc/seg_onehot.cu",
+         "replaces": "mundy_tpu/ops/pallas/seg_onehot.py:120", "launches": k3t_launches,
+         "max_abs_err": k3t_err, "ms": k3t_ms, "plain_ms": k3t_plain_ms,
+         "bound_ms": k3t_bound[0], "bound_by": k3t_bound[1], "library_ms": None},
+        {"name": "row_neighbor_extract (search radii)", "route": "cuda",
+         "source": "mundy_tpu_torch/csrc/row_extract.cu",
+         "replaces": "mundy_tpu/ops/pallas/row_extract.py:210", "launches": k2r_launches,
+         "max_abs_err": k2r_err, "ms": k2r_ms, "plain_ms": k2r_plain_ms,
+         "bound_ms": k2r_bound[0], "bound_by": k2r_bound[1], "library_ms": None}]
+
+
 def main() -> None:
     import torch
 
@@ -501,14 +908,15 @@ def main() -> None:
     k1_ms, k1_plain_ms = alternate(
         lambda: k1.row_hertzian_forces_sym(rows.pos, *args),
         lambda: k1.row_hertzian_forces_plain(rows.pos, *args), torch, 10, 2)
-    # the half stencil's occupied pairs at 33 FP32 operations each (x image
-    # 5, dy dz 2, r2 5, clamp, rsqrt, d, delta 2, w 4, and both Newton sums
-    # as 6 FMAs, an FMA counting two as the peak does); read pos once, write
-    # the forces once
+    # the half stencil's occupied pairs at K1_PAIR_OPS each, those in
+    # contact at K1_CONTACT_OPS more; read pos once, write the forces once
     k1_pairs = stencil_work(m, torch)[0]
-    k1_bound = bound(k1_pairs * 33.0, 2 * rows.pos.numel() * 4)
+    k1_contacts = contact_pairs(rows.pos, m, box, m.to(rows.pos.dtype) * big.radius, torch)
+    k1_bound = bound(k1_pairs * K1_PAIR_OPS + k1_contacts * K1_CONTACT_OPS,
+                     2 * rows.pos.numel() * 4)
     print(f"    K1 {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms, bound "
-          f"{k1_bound[0]:.4f} ms ({k1_bound[1]}, {k1_pairs:.0f} pairs)", flush=True)
+          f"{k1_bound[0]:.4f} ms ({k1_bound[1]}, {k1_pairs:.0f} pairs, {k1_contacts:.0f} "
+          f"in contact)", flush=True)
     del f_k, f_p, sim, state, rows
 
     # ---- 3. examples/spheres_10k.yaml, 200 steps ----------------------------
@@ -696,6 +1104,7 @@ def main() -> None:
     print(f"    K3 {k3_ms:.4f} ms, plain {k3_plain_ms:.4f} ms, index_add_ "
           f"{k3_lib_ms:.4f} ms (max|diff| {lib_err:.3e}), bound "
           f"{k3_bound[0]:.4f} ms ({k3_bound[1]})", flush=True)
+    lcp_sim, lcp_st = sim, st  # [26] holds K3t at this state
     del sim, st, setup, act, values, loc, s_k, s_p, acc, vals, flat
 
     # ---- 9. examples/lcp_spheres_100k.yaml ---------------------------------
@@ -982,6 +1391,8 @@ def main() -> None:
     del fsim, fst
 
     k5_entries = chromatin_phases(torch, dev)
+    poly_entries = polydisperse_phases(torch, dev, lcp_sim, lcp_st)
+    del lcp_sim, lcp_st
 
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [
@@ -1014,7 +1425,7 @@ def main() -> None:
          "replaces": "mundy_tpu/ops/pallas/row_segments.py:227",
          "launches": k4f_launches, "max_abs_err": k4f_err, "ms": k4f_ms,
          "plain_ms": k4f_plain_ms, "bound_ms": k4f_bound[0], "bound_by": k4f_bound[1],
-         "library_ms": None}] + k5_entries}), flush=True)
+         "library_ms": None}] + k5_entries + poly_entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
         flush=True)

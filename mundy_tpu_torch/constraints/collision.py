@@ -2,9 +2,11 @@
 
 Port of mundy_tpu/constraints/collision.py, the parts the dry LCP spheres
 line runs: the ordered pair layout (every contact stored as (i, j) and
-(j, i), i-sorted), per-step strided active-set compaction, the banded
-i-side Delassus apply with the dual-slot j-side, and force assembly through
-kernel K3 (ops/segments.segment_sum_strided).
+(j, i), i-sorted), per-step strided active-set compaction, force assembly
+through kernel K3 (ops/segments.segment_sum_strided), and the three
+scalar-mobility Delassus applies with the dual-slot j-side: the banded
+one the app runs, the block-local one through kernel K3t
+(ops/segments.strided_t) and the assembled per-block one.
 
 LCP statement (per the reference): find gamma >= 0 with
     sep_new = sep0 + dt * D^T M D gamma >= 0,  gamma . sep_new = 0.
@@ -24,7 +26,7 @@ from mundy_tpu_torch.geom.periodicity import Metric
 from mundy_tpu_torch.math.convex import PGDConfig, SolveResult, solve_lcp
 from mundy_tpu_torch.neighbor.cell_list import PairList
 from mundy_tpu_torch.neighbor.rows import orthorhombic_lengths
-from mundy_tpu_torch.ops.segments import StridedWindows, segment_sum_strided
+from mundy_tpu_torch.ops.segments import StridedWindows, segment_sum_strided, strided_t
 
 
 def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -258,13 +260,97 @@ def collision_forces(setup: CollisionSetup, gamma: torch.Tensor, n_bodies: int) 
         return segment_sum_strided(-gn, setup.pairs.i, n_bodies, setup.windows)
     raise NotImplementedError("collision_forces needs the strided active layout; "
                               "the windowed and unordered layouts are not ported "
-                              "(ROADMAP queue 1, item 2)")
+                              "(ROADMAP queue 1, item 6)")
 
 
 def _sep_rate(setup: CollisionSetup, vel: torch.Tensor) -> torch.Tensor:
     """sdot = D^T U = -n . (U_i - U_j) (`StkNgpLCP.cpp:635-668`)."""
     dv = _take(vel, setup.pairs.i) - _take(vel, setup.pairs.j)
     return -(setup.normals * dv).sum(-1)
+
+
+def _scalar_mobilities(setup: CollisionSetup, dt, mobility_i, mobility_j):
+    """(c_i, c_j, dt): per-pair or scalar drag mobilities (default 1, fold a
+    constant into dt) and dt as a tensor in the setup's dtype."""
+    ci = 1.0 if mobility_i is None else mobility_i
+    cj = 1.0 if mobility_j is None else mobility_j
+    return ci, cj, torch.as_tensor(dt, dtype=setup.sep0.dtype, device=setup.sep0.device)
+
+
+def make_local_drag_apply(setup: CollisionSetup, dual: torch.Tensor, dt,
+                          mobility_i=None, mobility_j=None):
+    """Block-local Delassus apply for scalar (local-drag) mobility.
+
+    In the ordered layout F_i is block-local (pair (i, j) pushes only on i;
+    its (j, i) duplicate handles j), and the j-side of sdot is the dual
+    pair's i-side:
+        sdot_p = -n_p.(U_i - U_j) = c_i t_p + c_j t_{dual(p)},
+        t_q = -n_q . F_{i(q)}.
+    Kernel K3t computes t (assembly and extraction in one pass, no global
+    (A, 3) gather); one (A,) gather crosses blocks. `mobility_i` and
+    `mobility_j`: per-pair drag mobilities c_{i(p)}, c_{j(p)} ((A,) tensors
+    for polydisperse radii) or scalars. ref: sum_collision_force +
+    compute_the_mobility_problem + compute_rate_of_change_of_sep
+    (`StkNgpLCP.cpp:578-668`) for the dry local-drag mobility."""
+    n_slots = setup.pairs.i.shape[0]
+    ci, cj, dt = _scalar_mobilities(setup, dt, mobility_i, mobility_j)
+    dual_c = torch.clamp(dual, max=n_slots - 1).to(torch.int64)
+
+    def apply_A(gamma):
+        g = torch.where(setup.pairs.mask, gamma, 0.0)
+        t = strided_t(g, setup.normals, setup.pairs.i, setup.windows)
+        return dt * (ci * t + cj * t[dual_c])
+
+    return apply_A
+
+
+def assemble_block_delassus(setup: CollisionSetup) -> torch.Tensor:
+    """(nb, W, W) i-side Delassus diagonal blocks on the strided layout:
+    M[b, p, q] = (i_p == i_q) * (n_p . n_q) over block-local slots p, q.
+    Invalid slots (mask off or id outside the block) zero their row and
+    column; the diagonal carries |n_p|^2 = 1, pair p's own contribution to
+    F_{i(p)}, as in K3t. The active set is fixed across a solve, so M is
+    assembled once per step."""
+    windows = setup.windows
+    B, W, nb = windows.block_bodies, windows.window, windows.nb
+    blk = torch.arange(nb, dtype=torch.int32, device=setup.pairs.i.device)[:, None] * B
+    loc = setup.pairs.i.reshape(nb, W) - blk
+    valid = setup.pairs.mask.reshape(nb, W) & (loc >= 0) & (loc < B)
+    locv = torch.where(valid, loc, -1)
+    eq = ((locv[:, :, None] == locv[:, None, :])
+          & valid[:, :, None] & valid[:, None, :])
+    nrm = setup.normals.reshape(nb, W, 3)
+    dots = (nrm[:, :, None, 0] * nrm[:, None, :, 0]
+            + nrm[:, :, None, 1] * nrm[:, None, :, 1]
+            + nrm[:, :, None, 2] * nrm[:, None, :, 2])
+    return torch.where(eq, dots, 0.0)
+
+
+def make_block_delassus_apply(setup: CollisionSetup, dual: torch.Tensor, dt,
+                              mobility_i=None, mobility_j=None):
+    """Delassus apply through the assembled per-block matrices (scalar
+    mobility): u = blockdiag(M) gamma is the i-side half-apply (u_p = t_p
+    of strided_t), the j-side the dual slot's value:
+        (A gamma)_p = dt * (c_i u_p + c_j u_{dual(p)}).
+    One batched matrix-vector product per iteration, in full precision: a
+    float32 product on the card refuses TF32, whose ~2^-11 operator noise
+    would sit at the BBPGD residual floor."""
+    windows = setup.windows
+    W, nb = windows.window, windows.nb
+    n_slots = nb * W
+    M = assemble_block_delassus(setup)
+    if M.is_cuda and M.dtype == torch.float32 and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("the block Delassus product needs full float32: "
+                           "torch.backends.cuda.matmul.allow_tf32 is on")
+    ci, cj, dt = _scalar_mobilities(setup, dt, mobility_i, mobility_j)
+    dual_c = torch.clamp(dual, max=n_slots - 1).to(torch.int64)
+
+    def apply_A(gamma):
+        g = torch.where(setup.pairs.mask, gamma, 0.0)
+        u = torch.bmm(M, g.reshape(nb, W, 1)).reshape(n_slots)
+        return dt * (ci * u + cj * u[dual_c])
+
+    return apply_A
 
 
 def assemble_band_delassus(setup: CollisionSetup, k_band: int) -> torch.Tensor:
@@ -293,9 +379,7 @@ def make_band_delassus_apply(setup: CollisionSetup, dual: torch.Tensor, dt,
         (A gamma)_p = dt * (c_i u_p + c_j u_{dual(p)})."""
     n_slots = setup.pairs.i.shape[0]
     band = assemble_band_delassus(setup, k_band)
-    ci = 1.0 if mobility_i is None else mobility_i
-    cj = 1.0 if mobility_j is None else mobility_j
-    dt = torch.as_tensor(dt, dtype=setup.sep0.dtype, device=setup.sep0.device)
+    ci, cj, dt = _scalar_mobilities(setup, dt, mobility_i, mobility_j)
     dual_c = torch.clamp(dual, max=n_slots - 1).to(torch.int64)
 
     def apply_A(gamma):

@@ -18,16 +18,21 @@
 //     counts all hits. Output: ids (ny, nz, R, K) int32 padded with n, count
 //     (ny, nz, R) int32; invalid own slots get all-n ids and count 0.
 // With that, ids, order and counts are bit-equal to the plain version.
+// The radius variant (the polydisperse broad phase, kRadii) takes a
+// (ny, nz, R) search-radius plane as well, stages it beside the positions,
+// and tests r2 < (s_own + s_cand) * (s_own + s_cand) in place of cut2, as
+// the plain version computes it; ties and order are unchanged.
 //
 // Design. One thread block per (iy, iz) row. The block stages its 9
 // candidate rows, image-shifted, as structure-of-arrays planes plus their
 // gids in shared memory (9R * 16 B = 13.8 KB in float32 at R = 96, the 1M
-// LCP shape); one thread owns one slot (looping when R > blockDim) and
-// scans all 9R candidates, every read a shared-memory broadcast. Its top-K
-// list is an insertion-sorted array in local memory: the scan visits lanes
-// in increasing order, so a new hit goes after every kept hit of equal r2,
-// and a full list rejects r2 >= its worst at once. Hits are ~7 per slot at
-// the 1M shape, so insertion costs little next to the 9R distances.
+// LCP shape; 9R * 20 B with the radius plane); one thread owns one slot
+// (looping when R > blockDim) and scans all 9R candidates, every read a
+// shared-memory broadcast. Its top-K list is an insertion-sorted array in
+// local memory: the scan visits lanes in increasing order, so a new hit
+// goes after every kept hit of equal r2, and a full list rejects r2 >= its
+// worst at once. Hits are ~7 per slot at the 1M shape, so insertion costs
+// little next to the 9R distances.
 //
 // Dropped from the TPU kernel, because they exist only for the TPU: the
 // nz % 8 requirement, the VMEM z-chunk planner, the unrolled own-slot
@@ -47,10 +52,11 @@ namespace {
 __device__ __forceinline__ float rint_(float x) { return rintf(x); }
 __device__ __forceinline__ double rint_(double x) { return rint(x); }
 
-template <typename T, int KMAX>
+template <typename T, int KMAX, bool kRadii>
 __global__ void row_extract_kernel(const T* __restrict__ pos,
                                    const int* __restrict__ gid,
                                    const bool* __restrict__ valid,
+                                   const T* __restrict__ srad,
                                    int* __restrict__ ids_out,
                                    int* __restrict__ cnt_out, int ny, int nz,
                                    int R, int K, int n, T lx, T inv_lx, T ly,
@@ -59,7 +65,8 @@ __global__ void row_extract_kernel(const T* __restrict__ pos,
   T* cx = reinterpret_cast<T*>(smem_raw);
   T* cy = cx + 9 * R;
   T* cz = cy + 9 * R;
-  int* cg = reinterpret_cast<int*>(cz + 9 * R);
+  T* cs = cz + 9 * R;  // search radii, staged in the radius variant only
+  int* cg = reinterpret_cast<int*>(cs + (kRadii ? 9 * R : 0));
 
   const int row = blockIdx.x;  // iy * nz + iz
   const int iy = row / nz;
@@ -81,6 +88,7 @@ __global__ void row_extract_kernel(const T* __restrict__ pos,
       cy[b * R + k] = src[3 * k + 1] + sy;
       cz[b * R + k] = src[3 * k + 2] + sz;
       cg[b * R + k] = gsrc[k];
+      if constexpr (kRadii) cs[b * R + k] = srad[base * R + k];
     }
   }
   __syncthreads();
@@ -98,6 +106,7 @@ __global__ void row_extract_kernel(const T* __restrict__ pos,
     const T oy = cy[4 * R + i];
     const T oz = cz[4 * R + i];
     const int og = cg[4 * R + i];
+    const T os = kRadii ? cs[4 * R + i] : T(0);
     T best_r2[KMAX];
     int best_lane[KMAX];
     int kept = 0, count = 0;
@@ -107,7 +116,12 @@ __global__ void row_extract_kernel(const T* __restrict__ pos,
       const T dy = cy[j] - oy;
       const T dz = cz[j] - oz;
       const T r2 = (dx * dx + dy * dy) + dz * dz;
-      if (!(r2 < cut2) || cg[j] == og) continue;
+      T pair_cut2 = cut2;
+      if constexpr (kRadii) {
+        const T cut = os + cs[j];
+        pair_cut2 = cut * cut;
+      }
+      if (!(r2 < pair_cut2) || cg[j] == og) continue;
       ++count;
       if (kept == K && !(r2 < best_r2[K - 1])) continue;
       int p = kept < K ? kept++ : K - 1;  // a full list drops its worst
@@ -124,24 +138,29 @@ __global__ void row_extract_kernel(const T* __restrict__ pos,
   }
 }
 
-template <typename T, int KMAX>
-int launch_k(const void* pos, const void* gid, const void* valid, void* ids,
-             void* cnt, int ny, int nz, int R, int K, int n, double lx,
-             double ly, double lz, double cut2, void* stream) {
+template <typename T, int KMAX, bool kRadii>
+int launch_k(const void* pos, const void* gid, const void* valid,
+             const void* srad, void* ids, void* cnt, int ny, int nz, int R,
+             int K, int n, double lx, double ly, double lz, double cut2,
+             void* stream) {
   const int threads = R >= 256 ? 256 : ((R + 31) / 32) * 32;
-  const size_t smem = static_cast<size_t>(9) * R * (3 * sizeof(T) + sizeof(int));
+  const size_t smem = static_cast<size_t>(9) * R *
+                      ((kRadii ? 4 : 3) * sizeof(T) + sizeof(int));
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        row_extract_kernel<T, KMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+        row_extract_kernel<T, KMAX, kRadii>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // clear it: the next launch must not report it
+      return static_cast<int>(err);
+    }
   }
-  row_extract_kernel<T, KMAX><<<ny * nz, threads, smem,
-                                static_cast<cudaStream_t>(stream)>>>(
+  row_extract_kernel<T, KMAX, kRadii><<<ny * nz, threads, smem,
+                                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(pos), static_cast<const int*>(gid),
-      static_cast<const bool*>(valid), static_cast<int*>(ids),
-      static_cast<int*>(cnt), ny, nz, R, K, n, T(lx), T(1.0 / lx), T(ly),
-      T(lz), T(cut2));
+      static_cast<const bool*>(valid), static_cast<const T*>(srad),
+      static_cast<int*>(ids), static_cast<int*>(cnt), ny, nz, R, K, n, T(lx),
+      T(1.0 / lx), T(ly), T(lz), T(cut2));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -149,22 +168,22 @@ int launch_k(const void* pos, const void* gid, const void* valid, void* ids,
 // smallest bucket that holds it. Regrow raises K = min(max_neighbors,
 // rows_k) geometrically; from the defaults (32, 20) it stays <= 512 through
 // six regrows, and a larger K is refused.
-template <typename T>
-int launch(const void* pos, const void* gid, const void* valid, void* ids,
-           void* cnt, int ny, int nz, int R, int K, int n, double lx, double ly,
-           double lz, double cut2, void* stream) {
-  if (K <= 16)
-    return launch_k<T, 16>(pos, gid, valid, ids, cnt, ny, nz, R, K, n, lx, ly, lz, cut2, stream);
-  if (K <= 32)
-    return launch_k<T, 32>(pos, gid, valid, ids, cnt, ny, nz, R, K, n, lx, ly, lz, cut2, stream);
-  if (K <= 64)
-    return launch_k<T, 64>(pos, gid, valid, ids, cnt, ny, nz, R, K, n, lx, ly, lz, cut2, stream);
-  if (K <= 128)
-    return launch_k<T, 128>(pos, gid, valid, ids, cnt, ny, nz, R, K, n, lx, ly, lz, cut2, stream);
-  if (K <= 256)
-    return launch_k<T, 256>(pos, gid, valid, ids, cnt, ny, nz, R, K, n, lx, ly, lz, cut2, stream);
-  if (K <= 512)
-    return launch_k<T, 512>(pos, gid, valid, ids, cnt, ny, nz, R, K, n, lx, ly, lz, cut2, stream);
+template <typename T, bool kRadii>
+int launch(const void* pos, const void* gid, const void* valid,
+           const void* srad, void* ids, void* cnt, int ny, int nz, int R,
+           int K, int n, double lx, double ly, double lz, double cut2,
+           void* stream) {
+#define ROW_EXTRACT_BUCKET(KB)                                                \
+  if (K <= KB)                                                                \
+    return launch_k<T, KB, kRadii>(pos, gid, valid, srad, ids, cnt, ny, nz, R, \
+                                   K, n, lx, ly, lz, cut2, stream);
+  ROW_EXTRACT_BUCKET(16)
+  ROW_EXTRACT_BUCKET(32)
+  ROW_EXTRACT_BUCKET(64)
+  ROW_EXTRACT_BUCKET(128)
+  ROW_EXTRACT_BUCKET(256)
+  ROW_EXTRACT_BUCKET(512)
+#undef ROW_EXTRACT_BUCKET
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -177,16 +196,36 @@ int row_neighbor_extract_f32(const void* pos, const void* gid, const void* valid
                              void* ids, void* cnt, int ny, int nz, int R, int K,
                              int n, double lx, double ly, double lz,
                              double cut2, void* stream) {
-  return launch<float>(pos, gid, valid, ids, cnt, ny, nz, R, K, n, lx, ly, lz,
-                       cut2, stream);
+  return launch<float, false>(pos, gid, valid, nullptr, ids, cnt, ny, nz, R, K,
+                              n, lx, ly, lz, cut2, stream);
 }
 
 int row_neighbor_extract_f64(const void* pos, const void* gid, const void* valid,
                              void* ids, void* cnt, int ny, int nz, int R, int K,
                              int n, double lx, double ly, double lz,
                              double cut2, void* stream) {
-  return launch<double>(pos, gid, valid, ids, cnt, ny, nz, R, K, n, lx, ly, lz,
-                        cut2, stream);
+  return launch<double, false>(pos, gid, valid, nullptr, ids, cnt, ny, nz, R, K,
+                               n, lx, ly, lz, cut2, stream);
+}
+
+// The radius variant: srad is the (ny, nz, R) search-radius plane in the
+// positions' dtype; cut2 is not read.
+int row_neighbor_extract_radii_f32(const void* pos, const void* gid,
+                                   const void* valid, const void* srad,
+                                   void* ids, void* cnt, int ny, int nz, int R,
+                                   int K, int n, double lx, double ly,
+                                   double lz, double cut2, void* stream) {
+  return launch<float, true>(pos, gid, valid, srad, ids, cnt, ny, nz, R, K, n,
+                             lx, ly, lz, cut2, stream);
+}
+
+int row_neighbor_extract_radii_f64(const void* pos, const void* gid,
+                                   const void* valid, const void* srad,
+                                   void* ids, void* cnt, int ny, int nz, int R,
+                                   int K, int n, double lx, double ly,
+                                   double lz, double cut2, void* stream) {
+  return launch<double, true>(pos, gid, valid, srad, ids, cnt, ny, nz, R, K, n,
+                              lx, ly, lz, cut2, stream);
 }
 
 }  // extern "C"

@@ -1,11 +1,14 @@
 """BASELINE config #2: N spheres with LCP non-penetration constraints.
 
 Port of mundy_tpu/driver/apps/lcp_spheres.py with the dry local-drag
-mobility (hydro = "none", monodisperse). Per step: constraints from the
-skin-buffered ordered pair list (signed separation + normals at the current
-positions), strided active-set compaction, matrix-free BBPGD with the
-banded Delassus apply and warm-started multipliers, and an Euler step with
-the constraint velocities plus Brownian drift. A skin trigger rebuilds the
+mobility (hydro = "none"), monodisperse or polydisperse (radii drawn as the
+reference draws them: numpy, seed + 777; per-body search radii in the broad
+phase, per-pair drag mobilities in the Delassus apply). Per step:
+constraints from the skin-buffered ordered pair list (signed separation +
+normals at the current positions), strided active-set compaction,
+matrix-free BBPGD with the banded Delassus apply and warm-started
+multipliers, and an Euler step with the constraint velocities plus
+Brownian drift. A skin trigger rebuilds the
 broad phase: the rows engine with kernel K2 (ops/kernels/row_extract.py)
 when the box holds >= 5 cells per axis, else the cell list. The force
 assembly runs kernel K3 (ops/kernels/seg_onehot.py) once per step.
@@ -40,6 +43,7 @@ from mundy_tpu_torch.constraints.collision import (
 )
 from mundy_tpu_torch.core.config import validate_config
 from mundy_tpu_torch.core.containers import frozen_dataclass
+from mundy_tpu_torch.driver.apps.spheres import polydisperse_radii
 from mundy_tpu_torch.driver.regrow import grow_int, run_blocks
 from mundy_tpu_torch.dynamics.brownian import brownian_velocity_keyed
 from mundy_tpu_torch.dynamics.integrators import euler_step
@@ -64,7 +68,7 @@ class LCPSpheresConfig:
     num_spheres: int = 10_000
     box_size: float = 40.0
     radius: float = 0.5
-    polydispersity: float = 0.0  # r_i = radius * (1 + U(-p, p)); not ported
+    polydispersity: float = 0.0  # r_i = radius * (1 + U(-p, p)), hydro "none" only
     viscosity: float = 1.0
     diffusion_coeff: float = 0.0
     dt: float = 1e-3
@@ -132,14 +136,19 @@ class LCPSpheresSim:
             raise NotImplementedError(
                 f"hydro={c.hydro!r} is not ported yet (ROADMAP queue 1, item 4: "
                 "the LCP hydro modes)")
-        if c.polydispersity > 0:
-            raise NotImplementedError(
-                "polydisperse LCP spheres are not ported yet (ROADMAP queue 1, "
-                "item 2: the polydisperse branch)")
         self.dtype = _DTYPES[c.dtype]
         box = [c.box_size] * 3
         self.metric = periodic(box, dtype=self.dtype, device=self.device)
-        self.search_radius = c.radius + 0.5 * c.constraint_buffer
+        kw = dict(dtype=self.dtype, device=self.device)
+        self.radii = self.search_radii = None
+        if c.polydispersity > 0:
+            rr = polydisperse_radii(c)
+            self.radii = torch.as_tensor(rr, **kw)
+            self.search_radius = float(rr.max()) + 0.5 * c.constraint_buffer
+            self.search_radii = self.radii + torch.tensor(0.5 * c.constraint_buffer, **kw)
+            self.inv_drag = 1.0 / (6.0 * _math.pi * c.viscosity * self.radii)
+        else:
+            self.search_radius = c.radius + 0.5 * c.constraint_buffer
         self.grid = make_cell_grid([0, 0, 0], box, 2 * self.search_radius,
                                    (True,) * 3, self.dtype, device=self.device)
         self.pair_capacity = c.pair_capacity_per_body * c.num_spheres
@@ -173,7 +182,16 @@ class LCPSpheresSim:
                 else c.max_neighbors)
 
     def _radius(self) -> torch.Tensor:
+        """The (N,) radii of a polydisperse system, else the 0-d radius."""
+        if self.radii is not None:
+            return self.radii
         return torch.tensor(self.config.radius, dtype=self.dtype, device=self.device)
+
+    def _search_radii(self) -> torch.Tensor:
+        """The cell-list search radius: per body, or the 0-d one."""
+        if self.search_radii is not None:
+            return self.search_radii
+        return torch.tensor(self.search_radius, dtype=self.dtype, device=self.device)
 
     def _broad_phase(self, pos):
         c = self.config
@@ -181,13 +199,12 @@ class LCPSpheresSim:
             nmat = neighbor_matrix_rows(
                 pos, float(self.search_radius), (c.box_size,) * 3,
                 max_neighbors=min(c.max_neighbors, self.rows_k),
-                capacity_slack=self.rows_slack)
+                capacity_slack=self.rows_slack, search_radii=self.search_radii)
             clist_ovf = torch.zeros((), dtype=torch.bool, device=self.device)
         else:
             clist = build_cell_list(pos, self.grid, c.cell_capacity)
             nmat = neighbor_matrix(
-                pos, clist, torch.tensor(self.search_radius, dtype=self.dtype,
-                                         device=self.device),
+                pos, clist, self._search_radii(),
                 metric=self.metric, max_neighbors=c.max_neighbors,
                 chunk=min(c.chunk, max(256, c.num_spheres)))
             clist_ovf = clist.overflow
@@ -323,6 +340,8 @@ class LCPSpheresSim:
             overflow=state.overflow | ovf)
 
     def _mobility(self, f: torch.Tensor) -> torch.Tensor:
+        if self.radii is not None:
+            return self.inv_drag[:, None] * f
         return local_drag_mobility(f, self.config.radius, self.config.viscosity)
 
     def _dyn_margin(self, setup) -> torch.Tensor:
@@ -345,11 +364,16 @@ class LCPSpheresSim:
             dual_full=state.dual_full,
             prev=(state.prev_cum, state.gamma, self.act_window),
             gamma_full=state.gamma_full)
-        mob = torch.tensor(1.0 / (6.0 * _math.pi * c.viscosity * c.radius),
-                           dtype=self.dtype, device=self.device)
+        if self.radii is not None:
+            nsafe = c.num_spheres - 1
+            mob_i = self.inv_drag[torch.clamp(act.setup.pairs.i, max=nsafe).long()]
+            mob_j = self.inv_drag[torch.clamp(act.setup.pairs.j, max=nsafe).long()]
+        else:
+            mob_i = mob_j = torch.tensor(1.0 / (6.0 * _math.pi * c.viscosity * c.radius),
+                                         dtype=self.dtype, device=self.device)
         apply_band = make_band_delassus_apply(act.setup, act.dual, c.dt,
                                               self._pair_run_bound(),
-                                              mobility_i=mob, mobility_j=mob)
+                                              mobility_i=mob_i, mobility_j=mob_j)
         # Brownian drift is a known velocity: it enters the LCP's constant
         # term so the solve enforces non-penetration of the end-of-step
         # positions
@@ -495,13 +519,11 @@ class LCPSpheresSim:
         c = self.config
         n = c.num_spheres
         clist = build_cell_list(state.pos, self.grid, c.cell_capacity)
-        nmat = neighbor_matrix(state.pos, clist,
-                               torch.tensor(self.search_radius, dtype=self.dtype,
-                                            device=self.device),
+        nmat = neighbor_matrix(state.pos, clist, self._search_radii(),
                                metric=self.metric, max_neighbors=c.max_neighbors,
                                chunk=min(c.chunk, max(256, n)))
         idx = torch.clamp(nmat.idx, max=n - 1).to(torch.int64)
         sep = self.metric.sep(state.pos[:, None, :], state.pos[idx])
-        radius = torch.full((n,), c.radius, dtype=self.dtype, device=self.device)
+        radius = torch.broadcast_to(self._radius(), (n,))
         d = torch.linalg.vector_norm(sep, dim=-1) - radius[:, None] - radius[idx]
         return float(-torch.where(nmat.mask, d, torch.inf).min())

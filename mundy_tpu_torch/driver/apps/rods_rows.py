@@ -89,7 +89,7 @@ class RowRodsSim:
         if c.engine == "nmat" or c.shape == "ellipsoid" or c.friction:
             raise NotImplementedError(
                 "the (N, K) RodsSim engine (engine='nmat', ellipsoids, "
-                "friction) is not ported yet (ROADMAP queue 1, item 3)")
+                "friction) is not ported yet (ROADMAP queue 1, item 7)")
         self.dtype = _DTYPES[c.dtype]
         box = [c.box_size] * 3
         self.metric = periodic(box, dtype=self.dtype, device=self.device)
@@ -104,7 +104,7 @@ class RowRodsSim:
         if self.grid.ny < 5 or self.grid.nz < 5:
             raise NotImplementedError(
                 "boxes with fewer than 5 row cells per axis run on the (N, K) "
-                "RodsSim engine, not ported yet (ROADMAP queue 1, item 3)")
+                "RodsSim engine, not ported yet (ROADMAP queue 1, item 7)")
         self.box_static = orthorhombic_lengths(self.metric)
         a_eff = (0.75 * (0.5 * c.length + c.radius) * c.radius * c.radius) ** (1.0 / 3.0)
         self.inv_drag_t = 1.0 / (6.0 * _math.pi * c.viscosity * a_eff)

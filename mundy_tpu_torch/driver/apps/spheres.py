@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
+
 
 @dataclasses.dataclass
 class SpheresConfig:
@@ -40,3 +42,12 @@ class SpheresConfig:
         assert self.box_size > 4 * (self.radius + self.skin), "box too small"
         assert self.dt > 0 and self.num_steps >= 0
         assert 0.0 <= self.polydispersity < 1.0
+
+
+def polydisperse_radii(config) -> np.ndarray:
+    """(num_spheres,) float64 radii of a polydisperse sphere config (this
+    one or LCPSpheresConfig), drawn as the reference draws them for every
+    engine: numpy's default_rng(seed + 777), radius (1 + p U(-1, 1))."""
+    rng = np.random.default_rng(config.seed + 777)
+    return config.radius * (1.0 + config.polydispersity
+                            * rng.uniform(-1.0, 1.0, config.num_spheres))

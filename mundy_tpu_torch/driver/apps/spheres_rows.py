@@ -4,7 +4,11 @@ Port of mundy_tpu/driver/apps/spheres_rows.py. The state lives in the
 (ny, nz, R) row layout between rebuilds; each step computes Hertzian contact
 forces with kernel K1 (ops/kernels/row_central.py), adds gid-keyed Brownian
 noise, and takes an overdamped Euler step with periodic wrap. A skin
-displacement trigger re-sorts the rows.
+displacement trigger re-sorts the rows. With `polydispersity > 0` the radii
+are drawn as the reference draws them (numpy, seed + 777), the grid cutoff
+covers the largest pair, the forces run through kernel K6 with a radius
+plane (ops/kernels/row_hertz.py) and drag and diffusion scale per sphere,
+their per-slot planes computed once per rebuild.
 
 The control flow is the reference's, step for step: every block begins with
 a rebuild, and the skin test after every inner step ends the inner loop.
@@ -24,7 +28,7 @@ import torch
 from mundy_tpu_torch.core.config import validate_config
 from mundy_tpu_torch.core.containers import frozen_dataclass
 from mundy_tpu_torch.core.interop import key_words, row_state_from_numpy
-from mundy_tpu_torch.driver.apps.spheres import SpheresConfig
+from mundy_tpu_torch.driver.apps.spheres import SpheresConfig, polydisperse_radii
 from mundy_tpu_torch.driver.regrow import grow_int, run_blocks
 from mundy_tpu_torch.dynamics.brownian import brownian_velocity_keyed
 from mundy_tpu_torch.forces.contact import effective_youngs
@@ -38,6 +42,7 @@ from mundy_tpu_torch.neighbor.rows import (
     rows_to_flat,
 )
 from mundy_tpu_torch.ops.kernels.row_central import row_hertzian_forces_sym
+from mundy_tpu_torch.ops.kernels.row_hertz import row_hertzian_forces
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 _CAPACITY_SLACK = 1.9  # row capacity over the mean occupancy, before init right-sizing
@@ -79,14 +84,18 @@ class RowSpheresSim:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("RowSpheresSim(device='cuda') needs a CUDA "
                                "device, and torch sees none")
-        if c.polydispersity > 0:
-            raise NotImplementedError(
-                "polydisperse spheres are not ported yet (ROADMAP queue 1, "
-                "item 1: the polydisperse branch)")
         self.dtype = _DTYPES[c.dtype]
         box = [c.box_size] * 3
         self.metric = periodic(box, dtype=self.dtype, device=self.device)
         self.cutoff = 2 * c.radius + c.skin
+        # polydisperse radii, the reference's draw (seed + 777, as its flat
+        # engine draws them); the cutoff covers the largest pair
+        self.radii = None
+        self._planes = None  # slot_planes' (gid, planes) of the last layout
+        if c.polydispersity > 0:
+            rr = polydisperse_radii(c)
+            self.radii = torch.as_tensor(rr, dtype=self.dtype, device=self.device)
+            self.cutoff = 2 * float(rr.max()) + c.skin
         # align=8 keeps the reference's slot layout (its TPU kernel needs
         # nz % 8 == 0; the CUDA kernel does not)
         self.grid = make_row_grid([0, 0, 0], box, self.cutoff, c.num_spheres,
@@ -96,7 +105,7 @@ class RowSpheresSim:
         if self.grid.ny < 5 or self.grid.nz < 5:
             raise NotImplementedError(
                 "row grids with ny or nz < 5 need the general pair_accumulate, "
-                "not ported yet (ROADMAP queue 1, item 1)")
+                "not ported yet (ROADMAP queue 1, item 6: small boxes)")
         self.box_static = orthorhombic_lengths(self.metric)
         self.inv_drag = 1.0 / (6.0 * _math.pi * c.viscosity * c.radius)
         self.e_eff = effective_youngs(c.youngs_modulus, c.youngs_modulus,
@@ -136,19 +145,52 @@ class RowSpheresSim:
                                step=0, rebuild_count=1, overflow=rows.overflow)
 
     # ------------------------------------------------------------------
+    def _slot_radii(self, rows: RowState) -> torch.Tensor:
+        """(ny, nz, R) radius of each slot's sphere (invalid slots hold
+        gid 0's)."""
+        return self.radii[torch.clamp(rows.gid, max=self.config.num_spheres - 1).long()]
+
+    def slot_planes(self, rows: RowState) -> tuple:
+        """The polydisperse spheres' per-slot planes: (radius, zero on
+        invalid slots; inverse drag (ny, nz, R, 1), zero there; diffusion
+        coefficient D radius / r). They change only with the slot layout, so
+        they are computed once per rebuild and kept for the rows' gid
+        tensor, which every build replaces."""
+        if self._planes is None or self._planes[0] is not rows.gid:
+            c = self.config
+            kw = dict(dtype=self.dtype, device=self.device)
+            r = self._slot_radii(rows)
+            r_safe = torch.clamp(r, min=1e-12)
+            r_rows = torch.where(rows.valid, r, 0.0)
+            inv_drag = torch.where(rows.valid, 1.0 / (6.0 * _math.pi * c.viscosity * r_safe),
+                                   0.0)[..., None]
+            diff = (torch.tensor(c.diffusion_coeff, **kw) * torch.tensor(c.radius, **kw)
+                    / r_safe)
+            self._planes = (rows.gid, (r_rows, inv_drag, diff))
+        return self._planes[1]
+
     def _forces(self, rows: RowState) -> torch.Tensor:
         c = self.config
+        if self.radii is not None:
+            return row_hertzian_forces(rows.pos, rows.valid, self.box_static[0],
+                                       c.radius, c.youngs_modulus, c.poissons_ratio,
+                                       radii=self.slot_planes(rows)[0])
         return row_hertzian_forces_sym(rows.pos, self.box_static[0], c.radius,
                                        c.youngs_modulus, c.poissons_ratio)
 
     def _inner_step(self, state: RowSpheresState) -> RowSpheresState:
         c = self.config
         rows = state.rows
-        vel = self.inv_drag * self._forces(rows)
+        force = self._forces(rows)
+        diff = c.diffusion_coeff
+        if self.radii is not None:
+            _, inv_drag, diff = self.slot_planes(rows)
+            vel = inv_drag * force
+        else:
+            vel = self.inv_drag * force
         if c.diffusion_coeff > 0:
             # gid-keyed counter-based noise: the reference's streams
-            bz = brownian_velocity_keyed(state.key, state.step, rows.gid,
-                                         c.diffusion_coeff, c.dt,
+            bz = brownian_velocity_keyed(state.key, state.step, rows.gid, diff, c.dt,
                                          dtype=self.dtype)
             vel = vel + torch.where(rows.valid[..., None], bz, 0.0)
         new_pos = self.metric.wrap(rows.pos + self.dt * vel)
@@ -211,10 +253,15 @@ class RowSpheresSim:
         return rows_to_flat(state.rows, self.config.num_spheres)
 
     def max_overlap(self, state: RowSpheresState) -> float:
-        """Largest pair overlap 2r - d over the 9-row neighborhood (0 when no
-        pair touches)."""
-        two_r = 2.0 * self.config.radius
+        """Largest pair overlap r_i + r_j - d over the 9-row neighborhood (0
+        when no pair touches), with each sphere's own radius when the
+        spheres are polydisperse."""
         pos, valid = state.rows.pos, state.rows.valid
+        if self.radii is not None:
+            r = self._slot_radii(state.rows)
+        else:
+            r = torch.full(valid.shape, self.config.radius, dtype=pos.dtype,
+                           device=pos.device)
         R = pos.shape[2]
         not_self = ~torch.eye(R, dtype=torch.bool, device=pos.device)
         worst = torch.zeros((), dtype=pos.dtype, device=pos.device)
@@ -222,11 +269,13 @@ class RowSpheresSim:
             for dz in (-1, 0, 1):
                 cand_pos = torch.roll(pos, (-dy, -dz), dims=(0, 1))
                 cand_valid = torch.roll(valid, (-dy, -dz), dims=(0, 1))
+                cand_r = torch.roll(r, (-dy, -dz), dims=(0, 1))
                 d = self.metric.distance(pos[..., :, None, :],
                                          cand_pos[..., None, :, :])
                 mask = valid[..., :, None] & cand_valid[..., None, :]
                 if (dy, dz) == (0, 0):
                     mask = mask & not_self
-                ov = torch.where(mask, two_r - d, -torch.inf)
+                ov = torch.where(mask, r[..., :, None] + cand_r[..., None, :] - d,
+                                 -torch.inf)
                 worst = torch.maximum(worst, ov.max())
         return float(worst)

@@ -81,7 +81,8 @@ def brownian_velocity_keyed(key, step: int, gid: torch.Tensor, diffusion,
     """(..., 3) Brownian velocities keyed by per-entity global id.
 
     key: the run's two uint32 key words (python ints); step: python int;
-    gid: integer tensor of any shape; diffusion: python scalar or 0-d tensor.
+    gid: integer tensor of any shape; diffusion: python scalar, 0-d tensor
+    or a tensor shaped like gid (a per-entity coefficient).
     Entity e draws the threefry blocks A = (gid, 0) and B = (gid, 1) and uses
     words A0, A1, B0, so the stream depends only on (key, step, gid), never
     on where the entity sits in a permuted layout. Normals come from the
@@ -97,4 +98,6 @@ def brownian_velocity_keyed(key, step: int, gid: torch.Tensor, diffusion,
     z = z.reshape(gid.shape + (3,)).to(dtype)
     # a python diffusion gives a 0-d host tensor: no copy to the device
     scale = torch.sqrt(2.0 * torch.as_tensor(diffusion, dtype=dtype) / dt)
+    if scale.ndim:
+        scale = scale[..., None]
     return scale * z

@@ -1,7 +1,8 @@
 """Dense row-grid engine: gather-free neighbor interactions.
 
 Port of the spheres path of mundy_tpu/neighbor/rows.py: the central-force
-engine of config #1 and the neighbor-matrix broad phase of config #2
+engine of config #1 (the half stencil of kernel K1 and the full stencil of
+kernel K6's plain version) and the neighbor-matrix broad phase of config #2
 (`neighbor_matrix_rows`, through kernel K2). Particles live in a
 dense (ny, nz, R) row layout: a row is the full x extent of one (y, z) cell
 column, padded to R slots and sorted by x. The neighbor candidates of a row
@@ -295,6 +296,71 @@ def _candidate_planes(pos: torch.Tensor, box: tuple, extra_fields: tuple = ()):
             tuple(torch.cat(a, dim=-1) for a in cand_extras))
 
 
+def _central_force_chunk(ox, oy, oz, own_extras, cx, cy_, cz, cand_extras,
+                         scalar_fn, images):
+    """Central pair forces f_i = sum_j w * sep for one y-chunk on component
+    planes: own (chunk, nz, R), candidates (chunk, nz, 9R), every pair
+    quantity a (chunk, nz, R, 9R) plane. `images`: per axis (L, 1/L) for a
+    minimum image, or None."""
+    seps = []
+    for c, o, img in ((cx, ox, images[0]), (cy_, oy, images[1]), (cz, oz, images[2])):
+        d = c[..., None, :] - o[..., :, None]
+        if img is not None:
+            d = d - img[0] * torch.round(d * img[1])
+        seps.append(d)
+    DX, DY, DZ = seps
+    args = [DX * DX + DY * DY + DZ * DZ]
+    for own_f, cand_f in zip(own_extras, cand_extras):
+        args.append(own_f[..., :, None])
+        args.append(cand_f[..., None, :])
+    w = scalar_fn(*args)
+    return torch.stack([(w * DX).sum(-1), (w * DY).sum(-1), (w * DZ).sum(-1)], dim=-1)
+
+
+def pair_accumulate_central(pos: torch.Tensor, box: tuple,
+                            scalar_fn: Callable[..., torch.Tensor],
+                            extra_fields: tuple = (),
+                            hbm_budget_bytes: float = 2.5e9) -> torch.Tensor:
+    """Full 9-row-stencil central pair forces f_i = sum_j w_ij * sep_ij on
+    the row layout, sep_ij = pos_j - pos_i (minimum image), w =
+    scalar_fn(r2, own_extra, cand_extra, ...) for each (ny, nz, R) field of
+    `extra_fields` (a per-slot payload such as the mask or the radii).
+
+    pos: (ny, nz, R, 3) from build_rows; scalar_fn vanishes beyond the grid
+    cutoff, is finite at r2 = 0 (self-pairs give w * 0 = 0) and zeroes every
+    pair with an invalid slot (take the mask as a payload). Every off-row
+    pair is evaluated from both sides, so scalar_fn need not be symmetric.
+    Needs a static orthorhombic `box` from orthorhombic_lengths with ny,
+    nz >= 5 on periodic axes. The (R, 9R) pair blocks run in y-slabs whose
+    ~8 live blocks stay within `hbm_budget_bytes`, as the reference sizes
+    them.
+
+    The reference takes the minimum image along x only, on candidate rows
+    pre-shifted to the image nearest the own row; that misses the contacts
+    of a particle that crossed a periodic y or z face since the last
+    rebuild (its slot stays in its old row, its position wraps). This port
+    takes the minimum image on every periodic axis, as kernel K6 does,
+    which finds them. Elsewhere a pre-shifted separation spans at most two
+    row cells (< L/2), so the added images round to zero and the forces are
+    the reference's bit for bit. With every axis imaged a sentinel slot no
+    longer separates itself, hence the mask."""
+    ny, nz, R = pos.shape[:3]
+    lengths, flags = box
+    if (flags[1] and ny < 5) or (flags[2] and nz < 5):
+        raise ValueError("pair_accumulate_central needs ny,nz >= 5 on "
+                         "periodic axes; use pair_accumulate")
+    cx, cy_, cz, cand_extras = _candidate_planes(pos, box, extra_fields)
+    ox, oy, oz = pos[..., 0], pos[..., 1], pos[..., 2]
+    images = tuple((L, 1.0 / L) if p else None for L, p in zip(lengths, flags))
+    bytes_per_row = 8 * nz * R * 9 * R * pos.element_size()
+    chunk_y = max(min(int(hbm_budget_bytes // bytes_per_row), ny), 1)
+    return torch.cat([
+        _central_force_chunk(ox[s], oy[s], oz[s], tuple(f[s] for f in extra_fields),
+                             cx[s], cy_[s], cz[s], tuple(f[s] for f in cand_extras),
+                             scalar_fn, images)
+        for s in (slice(y0, y0 + chunk_y) for y0 in range(0, ny, chunk_y))])
+
+
 def _segment_pair_chunk(ox, oy, oz, oex, oey, oez, own_scalars,
                         cx, cy_, cz, cex, cey, cez, cand_scalars,
                         out_fn, lx_px):
@@ -393,15 +459,18 @@ def neighbor_matrix_rows(pos: torch.Tensor, search_radius: float, box_lengths,
                          origin=(0.0, 0.0, 0.0), max_neighbors: int = 8,
                          capacity_slack: float = 1.9,
                          hbm_budget_bytes: float = 2.5e9,
-                         grid: Optional[RowGrid] = None):
+                         grid: Optional[RowGrid] = None,
+                         search_radii: Optional[torch.Tensor] = None):
     """NeighborMatrix built through the row layout, the fast broad phase.
 
     build_rows, then the K nearest in-cutoff neighbors of every row slot
     (kernel K2, ops/kernels/row_extract.py: distance-sorted, ties to the
     lower candidate lane), then the slot -> gid unsort. Pair cutoff is
-    2 * search_radius (the reference's per-body radii, for polydisperse
-    systems, are not ported). Needs >= 5 cells per periodic y/z axis. Returns NeighborMatrix(idx (N, K) with
-    N marking empty, mask, overflow)."""
+    2 * search_radius or, with `search_radii` (N,) given, the per-pair
+    s_i + s_j (neighbor_matrix's convention; K2's radius variant), and
+    `search_radius` must then be max(search_radii): it sizes the row cells.
+    Needs >= 5 cells per periodic y/z axis. Returns NeighborMatrix(idx
+    (N, K) with N marking empty, mask, overflow)."""
     from mundy_tpu_torch.neighbor.cell_list import NeighborMatrix
     from mundy_tpu_torch.ops.kernels.row_extract import row_neighbor_extract
 
@@ -426,9 +495,14 @@ def neighbor_matrix_rows(pos: torch.Tensor, search_radius: float, box_lengths,
     wrapped = orig + torch.remainder(pos - orig, L)
     pos = torch.where(torch.as_tensor(flags, device=dev), wrapped, pos)
     state = build_rows(pos, torch.arange(n, dtype=torch.int32, device=dev), grid)
+    sr_rows = None
+    if search_radii is not None:
+        sr = torch.as_tensor(search_radii, dtype=dtype, device=dev)
+        sr_rows = torch.where(state.valid,
+                              sr[torch.clamp(state.gid, max=n - 1).long()], 0.0)
     ids, count = row_neighbor_extract(state.pos, state.gid, state.valid,
                                       (lengths, flags), cutoff, max_neighbors, n,
-                                      hbm_budget_bytes=hbm_budget_bytes)
+                                      hbm_budget_bytes=hbm_budget_bytes, radii=sr_rows)
     idx = _unsort_rows_to_gid(ids.reshape(-1, max_neighbors), state, n)
     return NeighborMatrix(idx=idx, mask=idx < n,
                           overflow=state.overflow | (count > max_neighbors).any())

@@ -11,6 +11,12 @@ Both order a slot's neighbors by (r2, candidate lane), which is argmin's
 first-index rule, and compute r2 with the same operations in the same order
 (no fused multiply-add), so ids, order and counts agree bit for bit. A CUDA
 tensor never takes the plain version: a failed build or launch raises.
+
+With a per-slot search-radius plane (`radii`, the polydisperse broad phase)
+the pair cutoff is s_own + s_cand, tested as r2 < (s_own + s_cand)^2 in the
+working dtype by both versions; the kernel stages the plane beside the
+positions (a compile-time variant), and its launches count in
+`.radius_launches`.
 """
 
 from __future__ import annotations
@@ -26,25 +32,26 @@ K_MAX = 512  # the kernel's largest top-K list (csrc/row_extract.cu)
 _SMEM_DEFAULT = 48 * 1024  # shared memory a block gets without the opt-in
 
 
-def shared_bytes(R: int, itemsize: int) -> int:
+def shared_bytes(R: int, itemsize: int, radii: bool = False) -> int:
     """Dynamic shared memory of one block: the 9 staged candidate rows'
-    positions and gids (csrc/row_extract.cu)."""
-    return 9 * R * (3 * itemsize + 4)
+    positions and gids, and their search radii in the radius variant
+    (csrc/row_extract.cu)."""
+    return 9 * R * ((4 if radii else 3) * itemsize + 4)
 
 
-def fits(R: int, K: int, itemsize: int, device) -> bool:
+def fits(R: int, K: int, itemsize: int, device, radii: bool = False) -> bool:
     """True when the kernel can launch at row capacity R with K neighbors
     per slot on the CUDA `device`: K <= K_MAX, and shared_bytes(R,
-    itemsize) within the card's opt-in shared memory per block (asked of
-    the card only past the 48 KB every block gets)."""
+    itemsize, radii) within the card's opt-in shared memory per block
+    (asked of the card only past the 48 KB every block gets)."""
     if K > K_MAX:
         return False
-    smem = shared_bytes(R, itemsize)
+    smem = shared_bytes(R, itemsize, radii)
     return smem <= _SMEM_DEFAULT or (
         smem <= torch.cuda.get_device_properties(device).shared_memory_per_block_optin)
 
 
-def _check(pos, gid, valid, box, max_neighbors) -> None:
+def _check(pos, gid, valid, box, max_neighbors, radii=None) -> None:
     if pos.ndim != 4 or pos.shape[-1] != 3:
         raise ValueError(f"pos must be (ny, nz, R, 3), got {tuple(pos.shape)}")
     if pos.dtype not in _DTYPES:
@@ -55,28 +62,32 @@ def _check(pos, gid, valid, box, max_neighbors) -> None:
         raise ValueError("box must be ((lx, ly, lz), (px, py, pz))")
     if max_neighbors < 1:
         raise ValueError("max_neighbors must be positive")
+    if radii is not None and (radii.shape != pos.shape[:3] or radii.dtype != pos.dtype):
+        raise ValueError(f"radii must be a {tuple(pos.shape[:3])} plane in pos's dtype")
 
 
 def row_neighbor_extract_plain(pos: torch.Tensor, gid: torch.Tensor,
                                valid: torch.Tensor, box, cutoff: float,
                                max_neighbors: int, n: int,
-                               hbm_budget_bytes: float = 2.5e9):
+                               hbm_budget_bytes: float = 2.5e9, radii=None):
     """Plain PyTorch version of K2 (any device).
 
     pos/gid/valid: (ny, nz, R) row layout from build_rows; box: ((lx, ly,
-    lz), (px, py, pz)). Returns (ids (ny, nz, R, K) int32 neighbor gids in
-    (r2, lane) order padded with n, count (ny, nz, R) int32 in-cutoff hits,
-    zero on invalid slots). The (R, 9R) blocks run in y-slabs whose ~4 live
+    lz), (px, py, pz)); radii: an optional (ny, nz, R) search-radius plane
+    (zero on invalid slots) whose per-pair sum replaces `cutoff`. Returns
+    (ids (ny, nz, R, K) int32 neighbor gids in (r2, lane) order padded with
+    n, count (ny, nz, R) int32 in-cutoff hits, zero on invalid slots). The (R, 9R) blocks run in y-slabs whose ~4 live
     blocks stay within `hbm_budget_bytes`."""
     from mundy_tpu_torch.neighbor.rows import _candidate_planes
 
-    _check(pos, gid, valid, box, max_neighbors)
+    _check(pos, gid, valid, box, max_neighbors, radii)
     ny, nz, R, _ = pos.shape
     k_out = max_neighbors
     dtype, dev = pos.dtype, pos.device
     lengths, flags = box
     gid_f = gid.to(dtype)  # gid rides the plane machinery as a float
-    cx, cy_, cz, (cgid,) = _candidate_planes(pos, box, (gid_f,))
+    fields = (gid_f,) if radii is None else (gid_f, radii)
+    cx, cy_, cz, (cgid, *csr) = _candidate_planes(pos, box, fields)
     ox, oy, oz = pos[..., 0], pos[..., 1], pos[..., 2]
     lx, px = lengths[0], flags[0]
     cut2 = torch.tensor(cutoff * cutoff, dtype=dtype, device=dev)
@@ -89,7 +100,12 @@ def row_neighbor_extract_plain(pos: torch.Tensor, gid: torch.Tensor,
         DZ = cz[sl][..., None, :] - oz[sl][..., :, None]
         r2 = DX * DX + DY * DY + DZ * DZ
         del DX, DY, DZ
-        hit = (r2 < cut2) & (cgid[sl][..., None, :] != gid_f[sl][..., :, None])
+        if radii is None:
+            pair_cut2 = cut2
+        else:
+            cut = radii[sl][..., :, None] + csr[0][sl][..., None, :]
+            pair_cut2 = cut * cut
+        hit = (r2 < pair_cut2) & (cgid[sl][..., None, :] != gid_f[sl][..., :, None])
         count = hit.sum(-1, dtype=torch.int32)
         r2m = torch.where(hit, r2, torch.inf)
         del r2, hit
@@ -116,21 +132,24 @@ def row_neighbor_extract_plain(pos: torch.Tensor, gid: torch.Tensor,
     return (torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts]))
 
 
-def _launch(pos, gid, valid, box, cutoff, max_neighbors, n):
+def _launch(pos, gid, valid, box, cutoff, max_neighbors, n, radii):
     lib = _build.load("row_extract")
-    fn = getattr(lib, f"row_neighbor_extract_{_DTYPES[pos.dtype]}")
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+    variant = "" if radii is None else "radii_"
+    fn = getattr(lib, f"row_neighbor_extract_{variant}{_DTYPES[pos.dtype]}")
+    n_ptr = 5 if radii is None else 6
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5
                    + [ctypes.c_double] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     ny, nz, R, _ = pos.shape
     ids = torch.empty((ny, nz, R, max_neighbors), dtype=torch.int32, device=pos.device)
     count = torch.empty((ny, nz, R), dtype=torch.int32, device=pos.device)
+    planes = (pos, gid, valid) if radii is None else (pos, gid, valid, radii)
     (lx, ly, lz), _flags = box
     with torch.cuda.device(pos.device):
         stream = torch.cuda.current_stream(pos.device).cuda_stream
-        err = fn(pos.data_ptr(), gid.data_ptr(), valid.data_ptr(), ids.data_ptr(),
-                 count.data_ptr(), ny, nz, R, max_neighbors, n, float(lx),
-                 float(ly), float(lz), float(cutoff) * float(cutoff), stream)
+        err = fn(*(t.data_ptr() for t in planes), ids.data_ptr(), count.data_ptr(),
+                 ny, nz, R, max_neighbors, n, float(lx), float(ly), float(lz),
+                 float(cutoff) * float(cutoff), stream)
     if err != 0:
         raise RuntimeError(f"row_extract kernel launch failed: CUDA error {err}")
     return ids, count
@@ -138,37 +157,43 @@ def _launch(pos, gid, valid, box, cutoff, max_neighbors, n):
 
 def row_neighbor_extract(pos: torch.Tensor, gid: torch.Tensor, valid: torch.Tensor,
                          box, cutoff: float, max_neighbors: int, n: int,
-                         hbm_budget_bytes: float = 2.5e9):
+                         hbm_budget_bytes: float = 2.5e9, radii=None):
     """K nearest in-cutoff neighbor gids per row slot, plus hit counts.
 
     Arguments and results as row_neighbor_extract_plain. A CPU tensor
     computes the plain version. A CUDA tensor launches the kernel (counted
-    in `.launches`); it must be contiguous, with int32 gid, bool valid, all
-    three axes periodic, ny, nz >= 5 and a shape that `fits`, or the
-    wrapper raises."""
-    _check(pos, gid, valid, box, max_neighbors)
+    in `.launches`, or in `.radius_launches` with a radius plane); it must
+    be contiguous, with int32 gid, bool valid, all three axes periodic,
+    ny, nz >= 5 and a shape that `fits`, or the wrapper raises."""
+    _check(pos, gid, valid, box, max_neighbors, radii)
     if pos.device.type == "cpu":
         return row_neighbor_extract_plain(pos, gid, valid, box, cutoff,
-                                          max_neighbors, n, hbm_budget_bytes)
+                                          max_neighbors, n, hbm_budget_bytes, radii)
     if pos.device.type != "cuda":
         raise ValueError(f"no K2 kernel for device {pos.device}")
     if not all(box[1]):
         raise NotImplementedError("K2 needs all three axes periodic")
     if pos.shape[0] < 5 or pos.shape[1] < 5:
         raise ValueError("K2 needs ny, nz >= 5")
-    R = pos.shape[2]
-    if not fits(R, max_neighbors, pos.element_size(), pos.device):
+    R, itemsize = pos.shape[2], pos.element_size()
+    if not fits(R, max_neighbors, itemsize, pos.device, radii is not None):
         raise ValueError(
             f"K2 cannot launch at R = {R}, K = {max_neighbors}: it keeps at most "
-            f"{K_MAX} neighbors and stages {shared_bytes(R, pos.element_size())} bytes "
-            "of shared memory, which must lie within the card's opt-in")
+            f"{K_MAX} neighbors and stages "
+            f"{shared_bytes(R, itemsize, radii is not None)} bytes of shared memory, "
+            "which must lie within the card's opt-in")
     if gid.dtype != torch.int32 or valid.dtype != torch.bool:
         raise TypeError("gid must be int32 and valid bool")
-    if not (pos.is_contiguous() and gid.is_contiguous() and valid.is_contiguous()):
-        raise ValueError("pos, gid and valid must be contiguous")
-    out = _launch(pos, gid, valid, box, cutoff, max_neighbors, n)
-    row_neighbor_extract.launches += 1
+    planes = (pos, gid, valid) if radii is None else (pos, gid, valid, radii)
+    if not all(t.is_contiguous() for t in planes):
+        raise ValueError("pos, gid, valid and radii must be contiguous")
+    out = _launch(pos, gid, valid, box, cutoff, max_neighbors, n, radii)
+    if radii is None:
+        row_neighbor_extract.launches += 1
+    else:
+        row_neighbor_extract.radius_launches += 1
     return out
 
 
 row_neighbor_extract.launches = 0
+row_neighbor_extract.radius_launches = 0

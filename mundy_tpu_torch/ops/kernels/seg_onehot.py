@@ -1,7 +1,9 @@
-"""Kernel K3: strided-block segmented sum.
+"""Kernels K3 (strided-block segmented sum) and K3t (the fused i-side
+Delassus half-apply).
 
-Port of mundy_tpu/ops/pallas/seg_onehot.py::strided_onehot_segment_sum. On
-a CUDA tensor the wrapper launches the hand-written kernel of
+Port of mundy_tpu/ops/pallas/seg_onehot.py::strided_onehot_segment_sum and
+::strided_onehot_t. For K3, on a CUDA tensor the wrapper launches the
+hand-written kernel of
 csrc/seg_onehot.cu (one block per body block, loc and value tiles in shared
 memory, one thread per local segment summing in slot order; see the note
 there). On a CPU tensor it computes the plain version,
@@ -10,6 +12,11 @@ its slots in increasing w order from zero, which is the order the kernel
 adds in, so the two agree bit for bit. The TPU kernel's bf16 one-hot and
 three-term mantissa split are not carried over. A CUDA tensor never takes
 the plain version: a failed build or launch raises.
+
+K3t (`strided_onehot_t`) is K3's sum of -gamma n kept in shared memory and
+read back per slot, t = -(n . F[loc]), in the same source; its plain
+version, `strided_t_plain`, is K3's plain sum followed by the row gather
+and the dot in the kernel's order, so the two agree bit for bit.
 """
 
 from __future__ import annotations
@@ -95,3 +102,70 @@ def strided_onehot_segment_sum(values: torch.Tensor, loc: torch.Tensor,
 
 
 strided_onehot_segment_sum.launches = 0
+
+
+def _check_t(gamma: torch.Tensor, normals: torch.Tensor, loc: torch.Tensor) -> None:
+    if (normals.ndim != 3 or normals.shape[1] != 3 or gamma.shape != loc.shape
+            or normals.shape[::2] != loc.shape):
+        raise ValueError(f"gamma and loc must be (nb, W) and normals (nb, 3, W), got "
+                         f"{tuple(gamma.shape)}, {tuple(loc.shape)} and "
+                         f"{tuple(normals.shape)}")
+    if normals.dtype not in _DTYPES or gamma.dtype != normals.dtype:
+        raise TypeError(f"gamma and normals must share float32 or float64, got "
+                        f"{gamma.dtype} and {normals.dtype}")
+
+
+def strided_t_plain(gamma: torch.Tensor, normals: torch.Tensor, loc: torch.Tensor,
+                    block_segments: int) -> torch.Tensor:
+    """Plain PyTorch version of K3t (any device): (nb, W) gamma, (nb, 3, W)
+    normals and (nb, W) local ids -> (nb, W) t = -(n . F[loc]) with F the
+    block's K3 sum of (-gamma) n; ids outside [0, B) give t = 0."""
+    _check_t(gamma, normals, loc)
+    B = block_segments
+    F = strided_segment_sum_plain(-gamma[:, None, :] * normals, loc, B)
+    valid = (loc >= 0) & (loc < B)
+    lc = torch.where(valid, loc.to(torch.int64), 0)
+    fx, fy, fz = (torch.gather(F[:, c], 1, lc) for c in range(3))
+    t = -((normals[:, 0] * fx + normals[:, 1] * fy) + normals[:, 2] * fz)
+    return torch.where(valid, t, 0.0)
+
+
+def strided_onehot_t(gamma: torch.Tensor, normals: torch.Tensor, loc: torch.Tensor,
+                     block_segments: int) -> torch.Tensor:
+    """Fused i-side Delassus half-apply -> (nb, W) t in gamma's dtype.
+
+    t_p = -n_p . F_{i(p)} with F_i = sum over the block's pairs p' of body i
+    of -gamma_p' n_p'; ids outside [0, B) give t = 0. A CPU tensor computes
+    the plain version. A CUDA tensor launches the kernel (counted in
+    `.launches`); it needs int32 loc and contiguous inputs, or the wrapper
+    raises."""
+    _check_t(gamma, normals, loc)
+    if gamma.device.type == "cpu":
+        return strided_t_plain(gamma, normals, loc, block_segments)
+    if gamma.device.type != "cuda":
+        raise ValueError(f"no K3t kernel for device {gamma.device}")
+    if loc.dtype != torch.int32:
+        raise TypeError(f"loc must be int32, got {loc.dtype}")
+    if not (gamma.is_contiguous() and normals.is_contiguous() and loc.is_contiguous()):
+        raise ValueError("gamma, normals and loc must be contiguous")
+    if block_segments < 1:
+        raise ValueError("block_segments must be positive")
+    nb, W = gamma.shape
+    t = torch.empty_like(gamma)
+    if nb == 0:
+        return t
+    lib = _build.load("seg_onehot")
+    fn = getattr(lib, f"strided_t_{_DTYPES[gamma.dtype]}")
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(gamma.device):
+        stream = torch.cuda.current_stream(gamma.device).cuda_stream
+        err = fn(gamma.data_ptr(), normals.data_ptr(), loc.data_ptr(), t.data_ptr(),
+                 nb, W, block_segments, stream)
+    if err != 0:
+        raise RuntimeError(f"seg_onehot strided_t kernel launch failed: CUDA error {err}")
+    strided_onehot_t.launches += 1
+    return t
+
+
+strided_onehot_t.launches = 0

@@ -6,8 +6,8 @@ Bodies are partitioned into blocks of B; each block's pairs occupy one
 window of at most W slots. The rebuild-time SegmentWindows find each
 block's window in the sorted pair list (its start and whether it overflows
 W); the per-step StridedWindows put block b's pairs at the static slots
-[b*W, b*W + count_b), which is the layout kernel K3
-(ops/kernels/seg_onehot.py) reduces.
+[b*W, b*W + count_b), which is the layout kernels K3 and K3t
+(ops/kernels/seg_onehot.py) reduce.
 
 The reference's bf16 hi/mid/lo split existed to carry the f32 mantissa
 through the TPU's MXU; here every sum is taken directly in the working
@@ -23,7 +23,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from mundy_tpu_torch.ops.kernels.seg_onehot import strided_onehot_segment_sum
+from mundy_tpu_torch.ops.kernels.seg_onehot import (strided_onehot_segment_sum,
+                                                    strided_onehot_t)
 
 
 class SegmentWindows(NamedTuple):
@@ -86,3 +87,18 @@ def segment_sum_strided(values: torch.Tensor, ids: torch.Tensor, n_segments: int
     out = strided_onehot_segment_sum(v, loc, B)
     return out.transpose(1, 2).reshape(nb * B, D)[:n_segments]
 
+
+def strided_t(gamma: torch.Tensor, normals: torch.Tensor, ids: torch.Tensor,
+              windows: StridedWindows) -> torch.Tensor:
+    """Fused i-side Delassus half-apply on the strided layout -> (nb*W,).
+
+    t_p = -n_p . F_{i(p)} with F the strided assembly of -gamma n: gamma
+    (nb*W,) multipliers, zero on padded slots; normals (nb*W, 3); ids
+    (nb*W,) int32 body ids, block b's slots holding ids in [b*B, (b+1)*B).
+    Runs kernel K3t on (nb, W) and (nb, 3, W) planes; a slot whose id lies
+    outside its block gets t = 0."""
+    B, W, nb = windows.block_bodies, windows.window, windows.nb
+    blk = torch.arange(nb, dtype=torch.int32, device=ids.device)[:, None] * B
+    loc = (ids.reshape(nb, W) - blk).contiguous()
+    n = normals.reshape(nb, W, 3).transpose(1, 2).contiguous()
+    return strided_onehot_t(gamma.reshape(nb, W).contiguous(), n, loc, B).reshape(nb * W)

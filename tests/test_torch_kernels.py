@@ -15,6 +15,12 @@ within 1e-5 of max|force| and of max|torque| (the rods op) or of max|f| of
 each node (the filaments op), float64 within 1e-12 of each. K5s and K5i
 round each window product as their plain versions do and sum in another
 order: float32 within 1e-5, float64 within 1e-12 of max|grid| and max|u|.
+K3t sums, gathers and dots in its plain version's order: bit-equal. K6
+(with a radius plane, or the constant plane it builds without one) sums in
+another order than its plain version, with rsqrt approximations in
+float32: float32 within 5e-5 of max|f|, the bound of
+tests/test_pallas_row_hertz.py, float64 within 1e-12. K2's radius variant
+tests the plain version's per-pair cutoff in its order: bit-equal.
 """
 
 import numpy as np
@@ -24,6 +30,7 @@ import torch
 from mundy_tpu_torch.neighbor import rows as tr
 from mundy_tpu_torch.ops.kernels import row_central as k1
 from mundy_tpu_torch.ops.kernels import row_extract as k2
+from mundy_tpu_torch.ops.kernels import row_hertz as k6
 from mundy_tpu_torch.ops.kernels import row_segments as k4
 from mundy_tpu_torch.ops.kernels import se_grid as k5
 from mundy_tpu_torch.ops.kernels import seg_onehot as k3
@@ -463,3 +470,146 @@ def test_k5_refuses_outside_its_envelope(cuda_device):
         k5.se_interp(geom, tuple(pieces[:4]) + (pieces[4].long(),),
                      torch.zeros((64, 64, 64, 3), device=cuda_device))
     assert (k5.se_spread.launches, k5.se_interp.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("nb,W,B,sort", [(7, 640, 1024, True),
+                                         (5, 2600, 1024, False),
+                                         (3, 300, 200, False)])
+def test_k3t_kernel_matches_plain(cuda_device, dtype, nb, W, B, sort):
+    """K3t is bit-equal to its plain version. W = 2600 spans more than one
+    shared-memory tile (and W = 640 in float64); the unsorted cases scatter
+    ids over [-B/4, 5B/4), some outside [0, B), whose t is 0."""
+    rng = np.random.default_rng(6)
+    loc = rng.integers(-B // 4, B + B // 4, (nb, W))
+    if sort:
+        loc = np.sort(loc, axis=1)
+    td = _DT[dtype]
+    normals = rng.normal(size=(nb, 3, W))
+    normals /= np.linalg.norm(normals, axis=1, keepdims=True)
+    normals = torch.as_tensor(normals, dtype=td, device=cuda_device)
+    gamma = torch.as_tensor(rng.normal(size=(nb, W)), dtype=td, device=cuda_device)
+    loc = torch.as_tensor(loc, dtype=torch.int32, device=cuda_device)
+    before = k3.strided_onehot_t.launches
+    got = k3.strided_onehot_t(gamma, normals, loc, B)
+    torch.cuda.synchronize()
+    assert k3.strided_onehot_t.launches == before + 1
+    ref = k3.strided_t_plain(gamma, normals, loc, B)
+    assert got.shape == (nb, W) and ref.abs().max().item() > 0.5
+    assert torch.equal(got, ref)
+    assert bool((got[(loc < 0) | (loc >= B)] == 0).all())
+
+
+def _poly_radii(ts, n, rng, td, dev):
+    r = torch.as_tensor(0.5 * (1.0 + 0.4 * rng.uniform(-1, 1, n)), dtype=td, device=dev)
+    return torch.where(ts.valid, r[ts.gid.long().clamp(max=n - 1)], 0.0).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("radii", [False, True])
+@pytest.mark.parametrize("n,box,cutoff,align", [(4000, 12.0, 1.4, 8),
+                                                 (3000, 13.0, 1.8, 1),
+                                                 (80000, 40.0, 1.8, 8)])
+def test_k6_kernel_matches_plain(cuda_device, dtype, radii, n, box, cutoff, align):
+    """With and without a radius plane, against the plain version (without
+    one, the plain version's monodisperse law). align=1 gives nz = 7;
+    n = 80000 gives R > 256: rows longer than one 256-thread pass, and in
+    float64 more than 48 KB of shared memory."""
+    td = _DT[dtype]
+    rng = np.random.default_rng(12)
+    ts = _rows(n, box, cutoff, align, td, cuda_device, seed=12)
+    if n == 80000:
+        assert ts.pos.shape[2] > 256
+    r = _poly_radii(ts, n, rng, td, cuda_device) if radii else None
+    args = (ts.pos, ts.valid, (box,) * 3, 0.5, 1000.0, 0.3)
+    before = k6.row_hertzian_forces.launches
+    got = k6.row_hertzian_forces(*args, radii=r)
+    torch.cuda.synchronize()
+    assert k6.row_hertzian_forces.launches == before + 1
+    ref = k6.row_hertzian_forces_plain(*args, radii=r)
+    assert bool(torch.isfinite(got).all())
+    assert bool((got[~ts.valid] == 0).all())
+    fmax = ref.abs().max().item()
+    assert fmax > 1.0
+    err = (got - ref).abs().max().item()
+    assert err <= (1e-12 if dtype == "float64" else 5e-5) * fmax
+    if not radii:  # the same forces as K1's half stencil on these rows
+        f1 = k1.row_hertzian_forces_sym(ts.pos, (box,) * 3, 0.5, 1000.0, 0.3)
+        m = ts.valid
+        assert (got[m] - f1[m]).abs().max().item() <= (
+            1e-12 if dtype == "float64" else 5e-5) * fmax
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radii", [False, True])
+def test_k6_rows_moved_since_the_rebuild(cuda_device, radii):
+    """Every sphere moved by (0.3, 0.3, 0.3) and wrapped, with no rebuild:
+    slots stay in their rows while many positions cross a periodic y or z
+    face. The kernel and its plain version both take the minimum image on
+    all three axes: float64 within 1e-12 of max|f|."""
+    n, box, td = 4000, 12.0, torch.float64
+    rng = np.random.default_rng(15)
+    ts = _rows(n, box, 1.8, 8, td, cuda_device, seed=15)
+    moved = torch.remainder(ts.pos + 0.3, box)
+    pos = torch.where(ts.valid[..., None], moved, ts.pos).contiguous()
+    r = _poly_radii(ts, n, rng, td, cuda_device) if radii else None
+    args = (pos, ts.valid, (box,) * 3, 0.5, 1000.0, 0.3)
+    got = k6.row_hertzian_forces(*args, radii=r)
+    ref = k6.row_hertzian_forces_plain(*args, radii=r)
+    fmax = ref.abs().max().item()
+    assert fmax > 1.0
+    assert (got - ref).abs().max().item() <= 1e-12 * fmax
+
+
+@pytest.mark.cuda
+def test_k6_past_shared_memory_raises(cuda_device):
+    """float64 at R = 648 stages 9 R x 5 x 8 = 233,280 bytes, past the
+    H100's 232,448-byte opt-in: the wrapper raises before any launch, with
+    no plain fallback; float32 at the same R launches."""
+    R = 648
+    optin = torch.cuda.get_device_properties(cuda_device).shared_memory_per_block_optin
+    assert k6.shared_bytes(R, 8) > optin >= k6.shared_bytes(R, 4)
+    pos = torch.full((5, 5, R, 3), 1.0, dtype=torch.float64, device=cuda_device)
+    pos[..., 1] = -1e6
+    valid = torch.zeros((5, 5, R), dtype=torch.bool, device=cuda_device)
+    radii = torch.zeros((5, 5, R), dtype=torch.float64, device=cuda_device)
+    before = k6.row_hertzian_forces.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        k6.row_hertzian_forces(pos, valid, (10.0,) * 3, 0.5, 1000.0, 0.3, radii=radii)
+    assert k6.row_hertzian_forces.launches == before
+    out = k6.row_hertzian_forces(pos.float(), valid, (10.0,) * 3, 0.5, 1000.0, 0.3,
+                                 radii=radii.float())
+    torch.cuda.synchronize()
+    assert k6.row_hertzian_forces.launches == before + 1
+    assert bool((out == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("n,box,align,K", [(6000, 14.5, 8, 20),
+                                           (4000, 13.05, 1, 12),
+                                           (80000, 40.0, 8, 24)])
+def test_k2_radius_variant_matches_plain(cuda_device, dtype, n, box, align, K):
+    """With a per-slot search-radius plane (zero on invalid slots) the
+    pair cutoff is s_own + s_cand: ids, order and counts bit-equal to the
+    plain version, and counted as radius launches."""
+    td = _DT[dtype]
+    rng = np.random.default_rng(14)
+    ts = _rows(n, box, 1.8, align, td, cuda_device, seed=14)
+    sr = torch.as_tensor(rng.uniform(0.3, 0.9, n), dtype=td, device=cuda_device)
+    planes = torch.where(ts.valid, sr[ts.gid.long().clamp(max=n - 1)], 0.0).contiguous()
+    args = (ts.pos, ts.gid, ts.valid, ((box,) * 3, (True,) * 3), 1.8, K, n)
+    before = (k2.row_neighbor_extract.launches, k2.row_neighbor_extract.radius_launches)
+    ids, cnt = k2.row_neighbor_extract(*args, radii=planes)
+    torch.cuda.synchronize()
+    assert (k2.row_neighbor_extract.launches,
+            k2.row_neighbor_extract.radius_launches) == (before[0], before[1] + 1)
+    ids_p, cnt_p = k2.row_neighbor_extract_plain(*args, radii=planes)
+    assert int(cnt_p.max()) > 0
+    assert torch.equal(cnt, cnt_p)
+    assert torch.equal(ids, ids_p)
+    # the radii change the pair set: a uniform cutoff finds another one
+    _, cnt_u = k2.row_neighbor_extract(*args)
+    assert not torch.equal(cnt_u, cnt)

@@ -69,7 +69,7 @@ def test_run_block_trajectory_matches(started):
 
 
 def test_untouched_branches_raise():
+    """The hydro modes are not ported (the polydisperse branch is:
+    tests/test_torch_polydisperse.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LCPSpheresSim(LCPSpheresConfig(**dict(KW, hydro="rpy_neighbors")), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LCPSpheresSim(LCPSpheresConfig(**dict(KW, polydispersity=0.1)), device="cpu")

@@ -21,6 +21,7 @@ from mundy_tpu_torch.driver.apps.spheres_rows import RowSpheresSim
 from mundy_tpu_torch.ops.kernels import _build
 from mundy_tpu_torch.ops.kernels import row_central as k1
 from mundy_tpu_torch.ops.kernels import row_extract as k2
+from mundy_tpu_torch.ops.kernels import row_hertz as k6
 from mundy_tpu_torch.ops.kernels import row_segments as k4
 from mundy_tpu_torch.ops.kernels import se_grid as k5
 from mundy_tpu_torch.ops.kernels import seg_onehot as k3
@@ -307,3 +308,72 @@ def test_chromatin_slice_modules_import_without_jax():
                  "mundy_tpu_torch.driver.apps.chromatin"):
         mod = importlib.import_module(name)
         assert pathlib.Path(mod.__file__) in PORT_FILES
+
+
+def test_polydisperse_sims_default_to_the_card():
+    """The polydisperse branches, like the others, run on the card or raise."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RowSpheresSim(SpheresConfig(num_spheres=100, box_size=16.0, polydispersity=0.4))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LCPSpheresSim(LCPSpheresConfig(num_spheres=100, box_size=16.0, polydispersity=0.5),
+                      device="cuda")
+
+
+def test_k3t_k6_k2_radii_cuda_tensors_without_library_raise(monkeypatch, tmp_path):
+    """As for K1: a CUDA tensor never takes K3t's, K6's (with or without a
+    radius plane) or K2's radius variant's plain version; without a library
+    and a compiler the wrappers raise, and a non-contiguous input raises
+    before any build."""
+    _no_library(monkeypatch, tmp_path)
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(k3, "strided_t_plain", no_plain)
+    monkeypatch.setattr(k6, "row_hertzian_forces_plain", no_plain)
+    monkeypatch.setattr(k2, "row_neighbor_extract_plain", no_plain)
+    before = (k3.strided_onehot_t.launches, k6.row_hertzian_forces.launches,
+              k2.row_neighbor_extract.radius_launches)
+    with FakeTensorMode():
+        gamma = torch.zeros((2, 64), device="cuda")
+        normals = torch.zeros((2, 3, 64), device="cuda")
+        loc = torch.zeros((2, 64), dtype=torch.int32, device="cuda")
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            k3.strided_onehot_t(gamma, normals, loc, 128)
+        with pytest.raises(TypeError, match="int32"):
+            k3.strided_onehot_t(gamma, normals, loc.long(), 128)
+        pos = torch.zeros((8, 8, 16, 3), device="cuda")
+        valid = torch.zeros((8, 8, 16), dtype=torch.bool, device="cuda")
+        radii = torch.zeros((8, 8, 16), device="cuda")
+        for r in (None, radii):
+            with pytest.raises(RuntimeError, match="nvcc not found"):
+                k6.row_hertzian_forces(pos, valid, (12.0,) * 3, 0.5, 1000.0, 0.3, radii=r)
+        with pytest.raises(ValueError, match="contiguous"):
+            k6.row_hertzian_forces(pos, valid, (12.0,) * 3, 0.5, 1000.0, 0.3,
+                                   radii=radii.transpose(0, 1))
+        gid = torch.zeros((8, 8, 16), dtype=torch.int32, device="cuda")
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            k2.row_neighbor_extract(pos, gid, valid, ((12.0,) * 3, (True,) * 3), 1.45, 12,
+                                    500, radii=radii)
+    assert (k3.strided_onehot_t.launches, k6.row_hertzian_forces.launches,
+            k2.row_neighbor_extract.radius_launches) == before
+    _build.load.cache_clear()
+
+
+def test_k6_k2_radius_envelopes():
+    """The shared memory that K6 (positions, mask and radii) and K2's
+    radius variant stage: within the 48 KB every block gets, no card is
+    asked."""
+    assert k6.shared_bytes(96, 4) == 9 * 96 * 5 * 4
+    assert k6.fits(256, 4, "cuda")  # 46,080 bytes
+    assert k2.shared_bytes(96, 4, radii=True) == 9 * 96 * (4 * 4 + 4)
+    assert k2.fits(64, 26, 8, "cuda", radii=True)  # 9 * 64 * 36 = 20,736 bytes
+
+
+def test_k6_library_is_keyed_by_source():
+    lib = _build.library_path("row_hertz")
+    assert lib.parent == ROOT / "build" / "kernels"
+    assert lib.name.startswith("row_hertz_") and lib.suffix == ".so"
+    assert (_build.CSRC / "row_hertz.cu").exists()

@@ -129,5 +129,5 @@ def test_run_from_default_init():
 def test_unported_engines_raise(over):
     """What the reference's configurator sends to the (N, K) RodsSim, and a
     box with fewer than 5 row cells, raise."""
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 3"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 7"):
         RowRodsSim(RodsConfig(**dict(KW, **over)), device="cpu")
