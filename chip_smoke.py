@@ -40,7 +40,8 @@ Delassus applies (kernel K3t) through the port's own entry points:
 11. K4 vs its plain version at the 1M config #3 shape (float32, from
     RowRodsSim.init at 1M rods: examples/rods_100k.yaml's physics and
     volume fraction in a box 10^(1/3) larger), max |diff| within 1e-5 of
-    max|force| and of max|torque|;
+    max|force| and of max|torque|; its bound from the pairs within reach
+    in x and in 3D, both counted and printed;
 12. examples/rods_100k.yaml, all 1000 steps, through load_yaml /
     config_from_dict -> RowRodsSim(...).run(): no rod lost, no overflow,
     finite, unit quaternions within 1e-5;
@@ -48,8 +49,10 @@ Delassus applies (kernel K3t) through the port's own entry points:
     the CPU: equal rebuilds and layout, positions and quaternions (up to
     sign) within 1e-7;
 14. the 1M config #3 through run_block: 3 warm-up steps, then 200 steps
-    with the K4 count set to 0 just before: one K4 launch per step; then
-    one keyed noise call timed alone, and torch.profiler over 8 more steps;
+    with the K4 count set to 0 just before: one K4 launch per step; K4 vs
+    its plain version once more on the final state, whose rows have moved
+    since their last sort (within 1e-5 of each max); then one keyed noise
+    call timed alone, and torch.profiler over 8 more steps;
 15. K4's filaments op vs its plain version at the 2000 x 50 row-engine
     shape (float32, from FilamentsSim(contact_engine="rows").init, the
     reference's benchmark size): f_start and f_end max |diff| within 1e-5
@@ -73,7 +76,7 @@ Delassus applies (kernel K3t) through the port's own entry points:
     ChromatinSim.init on examples/chromatin_1m_spectral.yaml (1M beads, G =
     384, P = 6, m = 8, R as init sizes it), within 1e-5 of max|grid| and of
     max|u|; index_add_ of the precomputed N P^3 ids and values timed beside
-    K5s as its library yardstick;
+    K5s as its library yardstick, and the ratio of the two printed;
 21. config #5 in float64 (2 x 64 beads, box 24, 16 crosslinkers,
     rpy_spectral with the density split, 40 steps, skin rebuilds) on the
     card against the CPU: equal rebuilds, overflow flags and binding states
@@ -138,16 +141,22 @@ KERNELS = ("row_central", "row_extract", "seg_onehot", "row_segments", "se_grid"
 # from the kernel (each + - * / min max rint sqrt rsqrt as one; compares and
 # selects not counted; a negation that a subtraction or a swapped cross
 # product absorbs not counted). Per rod, once: u = 2e (3), a = |u|^2 (5),
-# 1 / max(a, eps) (2). Per occupied pair of the half stencil, both sides'
-# outputs: separation and x minimum image 7, w = (e_j - e_i) - sep 6,
-# b = u.v, d = u.w, e = v.w 15, det and the two numerators 9, the clamped
-# solve 15 (e + b, -d, b - d, four clips, two guarded divisions), the four
-# endpoint candidates 12, the five quadratics 41 (w2 5, 2b 2d 2e 3, the
-# general one 11 in Horner form, its 0 and 1 operands folded in the others:
-# q(0,t) 4, q(s,0) 4, q(1,t) 7, q(s,1) 7), closest vector, d2 and noise floor
-# 20, the own side's Hertz push, arm, torque and sums 39, the partner's arm
-# (reusing radius D / dist), torque and sums 23
+# 1 / max(a, eps) (2); the rods op's |e| for the reach (2 more, 0.00003 ms
+# at 1M) is left out. Per unordered pair within reach in x (the reach test,
+# what a pair out of reach needs): separation and x minimum image 7, s^2 5,
+# reach (|e_i| + |e_j|) + 2r 2, its square and margin 2. Per unordered pair
+# within reach in 3D (a pair that may touch), both sides' outputs:
+# separation and x minimum image 7 (shared with the reach test, counted
+# there too), w = (e_j - e_i) - sep 6, b = u.v, d = u.w, e = v.w 15, det
+# and the two numerators 9, the clamped solve 15 (e + b, -d, b - d, four
+# clips, two guarded divisions), the four endpoint candidates 12, the five
+# quadratics 41 (w2 5, 2b 2d 2e 3, the general one 11 in Horner form, its 0
+# and 1 operands folded in the others: q(0,t) 4, q(s,0) 4, q(1,t) 7,
+# q(s,1) 7), closest vector, d2 and noise floor 20, the own side's Hertz
+# push, arm, torque and sums 39, the partner's arm (reusing radius D /
+# dist), torque and sums 23
 K4_OPS = 187.0
+K4_REACH_OPS = 16.0
 K4_ROD_OPS = 10.0
 # K4's filaments op: the same closest points (125 of the 187), then the own
 # side's Hertz push (d2 clamp, rsqrt, dist, dist - 2r, clamp, coef delta,
@@ -251,6 +260,35 @@ def contact_pairs(pos, valid, box, radii, torch) -> float:
     return hits / 2
 
 
+def reach_pairs(pos, hedges, valid, box, radius, k4, torch) -> tuple:
+    """Unordered pairs of valid rods on this row layout that the rods
+    kernel's reach test (k4.segment_reach) keeps, over the full 9-row
+    stencil with the minimum image on every axis: (within reach in x alone,
+    within reach in 3D). Counted in y-slabs of ~5e7 pair entries."""
+    L = torch.tensor(box, dtype=pos.dtype, device=pos.device)
+    lens = k4.half_edge_lengths(hedges)
+    ny, nz, R = valid.shape
+    not_self = ~torch.eye(R, dtype=torch.bool, device=pos.device)
+    step = max(1, int(5e7 // (nz * R * R)))
+    in_x = in_3d = 0
+    for dy in (-1, 0, 1):
+        for dz in (-1, 0, 1):
+            cp, cv, cl = (torch.roll(t, (-dy, -dz), dims=(0, 1)) for t in (pos, valid, lens))
+            for y0 in range(0, ny, step):
+                s = slice(y0, y0 + step)
+                d = cp[s][..., None, :, :] - pos[s][..., :, None, :]
+                d = d - L * torch.round(d / L)
+                sx, sy, sz = d.unbind(-1)
+                lo, lc = lens[s][..., :, None], cl[s][..., None, :]
+                pair = valid[s][..., :, None] & cv[s][..., None, :]
+                if (dy, dz) == (0, 0):
+                    pair = pair & not_self
+                zero = torch.zeros_like(sx)
+                in_x += int((pair & k4.segment_reach(sx, zero, zero, lo, lc, radius)).sum())
+                in_3d += int((pair & k4.segment_reach(sx, sy, sz, lo, lc, radius)).sum())
+    return in_x / 2, in_3d / 2
+
+
 def cuda_ms(fn, torch, reps: int) -> float:
     """Median device time of fn() in ms (CUDA events after a synchronize)."""
     times = []
@@ -334,9 +372,10 @@ def k5_ops(P: int) -> float:
     return 6.0 + 27.0 * P + P * P + 7.0 * P ** 3
 
 
-def chromatin_phases(torch, dev) -> list:
+def chromatin_phases(torch, dev, card: str) -> list:
     """Phases 20-22: config #5 (chromatin, spectral-Ewald RPY) with K5s and
-    K5i. Returns their entries of the kernels line."""
+    K5i, times printed with `card` (name and power limit). Returns their
+    entries of the kernels line."""
     from mundy_tpu_torch.core.config import config_from_dict, load_yaml
     from mundy_tpu_torch.driver.apps.chromatin import ChromatinConfig, ChromatinSim
     from mundy_tpu_torch.driver.regrow import run_blocks
@@ -414,7 +453,8 @@ def chromatin_phases(torch, dev) -> list:
     i_bound = bound(n_valid * (k5_ops(geom.P) + 3),
                     slot_of.numel() * 4 + n_valid * 12 + grid_bytes + u_p.numel() * 4)
     print(f"    K5s {s_ms:.4f} ms, plain {s_plain_ms:.4f} ms, index_add_ {s_lib_ms:.4f} ms "
-          f"(max|diff| {lib_err:.3e}), bound {s_bound[0]:.4f} ms ({s_bound[1]})", flush=True)
+          f"(max|diff| {lib_err:.3e}; K5s / index_add_ {s_ms / s_lib_ms:.4f}), bound "
+          f"{s_bound[0]:.4f} ms ({s_bound[1]}, {s_ms / s_bound[0]:.1f}x); {card}", flush=True)
     print(f"    K5i {i_ms:.4f} ms, plain {i_plain_ms:.4f} ms, bound {i_bound[0]:.4f} ms "
           f"({i_bound[1]})", flush=True)
     del grid_p, ugrid, u_p, pieces, forces, sel
@@ -881,7 +921,8 @@ def main() -> None:
                              text=True, check=True, timeout=60)
     except (OSError, subprocess.SubprocessError) as e:
         fail(f"nvidia-smi could not read the card's power limit: {e}")
-    print(f"card: {smi.stdout.strip().splitlines()[0]}", flush=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(f"card: {card}", flush=True)
     t_start = time.perf_counter()
 
     # ---- 1. build ---------------------------------------------------------
@@ -1168,8 +1209,8 @@ def main() -> None:
     ny, nz, R = rows.valid.shape
     print(f"[11] K4 at (ny, nz, R) = ({ny}, {nz}, {R}), box {big_rods.box_size:.4f}, "
           f"{int(rows.valid.sum())} valid slots: force max|diff| {errs[0]:.3e} of "
-          f"max {maxs[0]:.3e}, torque max|diff| {errs[1]:.3e} of max {maxs[1]:.3e}, "
-          f"dynamic shared memory {54 * R * 4} B", flush=True)
+          f"max {maxs[0]:.3e}, torque max|diff| {errs[1]:.3e} of max {maxs[1]:.3e}",
+          flush=True)
     # each pair's arithmetic is the plain version's (no FMA contraction):
     # only the order of the candidate sums differs
     if not all(m > 0 and math.isfinite(e) and e <= 1e-5 * m for e, m in zip(errs, maxs)):
@@ -1177,14 +1218,22 @@ def main() -> None:
     k4_ms, k4_plain_ms = alternate(k4_kernel,
                                    lambda: k4.row_segment_pairs_plain(*k4_args),
                                    torch, 5, 1, rounds=2)
-    # the occupied half-stencil pairs at K4_OPS each and the rods at
-    # K4_ROD_OPS; read the midpoints and half-edges once, write force and
-    # torque once
-    k4_pairs = stencil_work(rows.valid, torch)[0]
-    k4_bound = bound(k4_pairs * K4_OPS + float(rows.valid.sum()) * K4_ROD_OPS,
-                     (2 + 2) * rows.pos.numel() * 4)
-    print(f"    K4 {k4_ms:.4f} ms, plain {k4_plain_ms:.4f} ms, bound "
-          f"{k4_bound[0]:.4f} ms ({k4_bound[1]}, {k4_pairs:.0f} pairs)", flush=True)
+    # the pairs within reach in x at K4_REACH_OPS, those within reach in 3D
+    # at K4_OPS and the rods at K4_ROD_OPS; read valid on every slot and the
+    # midpoints and half-edges of the valid slots once (a padded slot's
+    # outputs are exact zeros that depend on valid alone), write force and
+    # torque on every slot once
+    k4_in_x, k4_in_3d = reach_pairs(rows.pos, k4_args[1], rows.valid, k4_args[2],
+                                    big_rods.radius, k4, torch)
+    n_rods = float(rows.valid.sum())
+    k4_flops = k4_in_x * K4_REACH_OPS + k4_in_3d * K4_OPS + n_rods * K4_ROD_OPS
+    k4_bytes = rows.valid.numel() * (1 + 24) + n_rods * (12 + 12)
+    k4_bound = bound(k4_flops, k4_bytes)
+    print(f"    K4 {k4_ms:.4f} ms, plain {k4_plain_ms:.4f} ms, bound {k4_bound[0]:.4f} ms "
+          f"({k4_bound[1]}; operations {1e3 * k4_flops / PEAK_FP32:.4f} ms, "
+          f"{k4_bytes / 1e6:.1f} MB {1e3 * k4_bytes / PEAK_BYTES:.4f} ms), "
+          f"{k4_ms / k4_bound[0]:.1f}x the bound; {k4_in_x:.0f} pairs within reach in x, "
+          f"{k4_in_3d:.0f} in 3D; {card}", flush=True)
     del out_k, out_p, k4_args, k4_kernel, rows
 
     # ---- 12. examples/rods_100k.yaml, 1000 steps ----------------------------
@@ -1242,7 +1291,7 @@ def main() -> None:
     print(f"[14] 1M config #3: {RODS_STEPS} steps in {elapsed:.3f} s = "
           f"{RODS_STEPS / elapsed:.3f} steps/s, {1e3 * elapsed / RODS_STEPS:.3f} "
           f"ms/step, rebuilds/step {rebuilds / RODS_STEPS:.4f}, R "
-          f"{rsim.grid.row_capacity}, K4 launches {k4_launches}", flush=True)
+          f"{rsim.grid.row_capacity}, K4 launches {k4_launches}; {card}", flush=True)
     if not bool(torch.isfinite(rsim.positions(rst)).all()):
         fail("non-finite positions in the 1M rods run")
     if int(rst.rows.valid.sum()) != N_BIG or bool(rst.overflow):
@@ -1251,6 +1300,25 @@ def main() -> None:
         fail("no rebuild in the 1M rods window")
     if k4_launches != RODS_STEPS:
         fail(f"K4 launched {k4_launches} times in {RODS_STEPS} steps")
+    # K4 on the final state: the rods moved since the last sort of the rows
+    rows = rst.rows
+    fin_args = (rows.pos, rsim.half_edges(rows, rst.quat), rsim.box_static[0],
+                big_rods.radius, rsim.e_eff)
+    out_k = k4.row_segment_pairs_sym(*fin_args[:2], rows.valid, *fin_args[2:])
+    out_p = k4.row_segment_pairs_plain(*fin_args)
+    torch.cuda.synchronize()
+    fin_errs = [(g - r).abs().max().item() for g, r in zip(out_k, out_p)]
+    fin_maxs = [r.abs().max().item() for r in out_p]
+    x = torch.where(rows.valid, rows.pos[..., 0], float("nan"))
+    unsorted = int((x[..., 1:] < x[..., :-1]).sum())
+    print(f"    K4 on the final state ({unsorted} neighbouring valid slots out of x "
+          f"order): force max|diff| {fin_errs[0]:.3e} of max {fin_maxs[0]:.3e}, torque "
+          f"max|diff| {fin_errs[1]:.3e} of max {fin_maxs[1]:.3e}", flush=True)
+    if not all(m > 0 and math.isfinite(e) and e <= 1e-5 * m
+               for e, m in zip(fin_errs, fin_maxs)):
+        fail(f"K4 disagrees with its plain version on the final state: {fin_errs} vs "
+             f"1e-5 * {fin_maxs}")
+    del out_k, out_p, fin_args, rows, x
     # one of the step's two keyed noise calls at this row shape, alone
     noise_ms = statistics.median([cuda_ms(
         lambda: brownian_velocity_keyed(rst.key, rst.step, rst.rows.gid,
@@ -1390,7 +1458,7 @@ def main() -> None:
     profile_window(lambda n: fsim.run_block(fst, n), torch, 1e3 * elapsed / FIL_STEPS)
     del fsim, fst
 
-    k5_entries = chromatin_phases(torch, dev)
+    k5_entries = chromatin_phases(torch, dev, card)
     poly_entries = polydisperse_phases(torch, dev, lcp_sim, lcp_st)
     del lcp_sim, lcp_st
 

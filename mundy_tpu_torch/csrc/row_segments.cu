@@ -35,55 +35,104 @@
 //
 // Arithmetic. Like every kernel of the package, the file is built with
 // -fmad=false (ops/kernels/_build.py): no product and sum contract into an
-// FMA, so every product and sum rounds on its own, in the plain version's order,
-// exactly as its separate elementwise passes round them. So the closest
-// point choice (the five-way tie-break and the noise floor) is the plain
-// version's, and only the summation order over candidates differs. The own
-// slot of the centre row is skipped: the plain version gives that self pair
-// an exact zero through the noise floor. float64 uses the double rsqrt,
-// sqrt and division.
+// FMA, so every product and sum rounds on its own, in the plain version's
+// order, exactly as its separate elementwise passes round them. So the
+// closest point choice (the five-way tie-break and the noise floor) is the
+// plain version's, and only the summation order over candidates differs.
+// The own slot of the centre row is skipped: the plain version gives that
+// self pair an exact zero through the noise floor. float64 uses the double
+// rsqrt, sqrt and division.
 //
-// Design. One thread block per (iy, iz) row. The block stages its 9
+// Staging, both ops. One thread block per (iy, iz) row stages its 9
 // candidate rows as structure-of-arrays planes in shared memory: midpoint
-// x, y, z (image-shifted) and half-edge x, y, z, 6 values x 9R slots (33 KB
-// in float32 at R = 152, 66 KB in float64, where the dynamic shared-memory
-// opt-in above 48 KB is taken), plus the gid plane for the filaments op
-// (9R (6 itemsize + 4) bytes: 183 KB in float32 at R = 728, float64 fits
-// up to R = 496), and each row's
+// x, y, z (image-shifted) and half-edge x, y, z. Past the card's opt-in
+// shared memory the launch fails and its error is returned; there is no
+// fallback.
+//
+// The filaments op keeps the full-scan body (row_segment_kernel): 6
+// values x 9R slots plus the gid plane (9R (6 itemsize + 4) bytes: 183 KB
+// in float32 at R = 728, float64 fits up to R = 496) and each row's
 // extent, 1 + its last valid slot (its occupancy, as build_rows packs valid
 // slots first). One thread owns one slot (looping when R > blockDim) and
-// sums its six outputs in
-// registers over the candidates within the 9 extents, one-sidedly: every
-// off-row pair is evaluated from both sides, and the result is
-// deterministic with no atomic sums and no second pass. Slots past the extents
-// hold the sentinel and add exact zeros, so the plain version, which visits
-// all 9R, gives the same sums. All threads read the same candidate at once,
-// a shared-memory broadcast. What a pair contributes, how many outputs
-// there are and whether the gid plane is staged are the compile-time Op of
-// one kernel body (`if constexpr` keeps the rods op's instantiation free of
-// the gid plane). Past the card's opt-in shared memory the launch fails
-// and its error is returned; there is no fallback.
+// sums its six outputs in registers over the candidates within the 9
+// extents, one-sidedly: every off-row pair is evaluated from both sides,
+// with no atomic sums and no second pass. Slots past the extents hold the
+// sentinel and add exact zeros. All threads read the same candidate at
+// once, a shared-memory broadcast.
+//
+// The rods op (row_rods_kernel). At config #3's 1M rods a row holds ~97
+// rods spread over lx = 301.62 (rows span the box in x), so of the ~870
+// valid candidates of an own rod only ~15 lie within reach in x and ~2.4
+// in 3D. The kernel visits those, not the rest:
+//   * staging adds a seventh plane, |e| per slot, and per chunk of 32 slots
+//     of a staged row the least and greatest x of its valid slots and their
+//     greatest |e| (a warp reduction). Rods move between rebuilds, so the
+//     rows are only roughly sorted in x; the chunk bounds are taken from the
+//     current positions, so the window is exact either way. Shared memory
+//     per block (rods_smem): (63 R + 27 ceil(R/32) + 192 nw) itemsize +
+//     512 nw + R bytes with nw = min(ceil(R/32), 16) warps, so the largest
+//     row the H100's 232,448-byte opt-in takes is R = 826 in float32 and
+//     R = 402 in float64 (47 KB at config #3's R = 160 in float32);
+//   * a warp takes 32 own slots, one at a time. Its lanes test the 9 rows'
+//     chunks against the own rod (chunk_visit: the chunk's x range under the
+//     minimum image, as the pair test takes it, against the chunk's reach;
+//     a chunk spanning lx/2 or more is always visited), then each visited
+//     chunk's 32 candidates against the reach test: skip the pair when
+//     s2 > ((|e_own| + |e_cand|) + 2r)^2 (1 + 2^-10), in the working dtype;
+//   * lanes busy: the pairs that pass go to the warp's ring of 64 entries in
+//     (own, row, slot) order, by ballot; every 32 the lanes evaluate 32 pairs
+//     at once (closest points and the op), then each own slot's lane adds
+//     its pairs' outputs in ring order. A warp per own slot with a shuffle
+//     reduction would run closest() for ~2.4 passing lanes of 32; the ring
+//     runs it at full width, and closest() is most of a pair's cost;
+//   * each own slot's sum is then the old kernel's sequence of terms, rows
+//     and slots in order, with only exact-zero terms left out: adding +-0 to
+//     a sum that starts at +0 changes nothing, so the outputs are bit for bit
+//     the full scan's, and two launches are bit-equal.
+// Why a skipped pair adds an exact zero. Let L = |e_own| + |e_cand| and S the
+// centre separation the kernel computes (x minimum image taken). Every point
+// of a segment lies within |e| of its centre, so any two points of the pair
+// are at least |S| - L apart. The test's own rounding (s2, the lengths, the
+// products: a few u, u = 2^-24 in float32, 2^-53 in float64) leaves a skipped
+// pair with |S| >= (L + 2r)(1 + d), d = 4.8e-4. closest() turns the same S
+// and half-edges into the vector between two points of the segments at its
+// (s, t) in [0, 1]: w = (e_cand - e_own) - S, then 2(t e_cand - s e_own) - w,
+// each rounding within u of its operands, and dist = d2c rsqrt(d2c) adds a
+// few ulp more (rsqrtf is within 2 ulp), so the computed dist is at least
+// |S| - L - 16u (|S| + 2L) >= |S| - L - 48u |S|. With |S| >= (L + 2r)(1 + d),
+// |S| - L - 2r >= |S| d / (1 + d) > 48u |S| as long as d > 48u (1 + d), which
+// holds with a factor above 100 in float32. So dist - 2r rounds to >= 0,
+// delta = max(-(dist - 2r), 0) = 0, mag = 0, and the force and torque are
+// signed zeros (as they are where the noise floor zeroes D). The chunk test
+// skips only chunks all of whose pairs the pair test skips: rounding is
+// monotonic, so within one image every valid slot's computed x separation
+// lies between those of the chunk's least and greatest x, and s2 >= sx^2.
+// The CPU tests hold the plain version to exact zeros on every pair that
+// ops/kernels/row_segments.segment_reach (this test, operation for
+// operation) rejects.
 //
 // Dropped from the TPU kernel, because they exist only for the TPU: the
 // half stencil with its partner planes rolled outside the kernel, the
 // nz % 8 requirement, the VMEM z-chunk planner and the lane-concatenated
 // (nz, 5R) scratch.
 //
-// Bound: the rods op needs about 187 FP32 operations per occupied pair of
-// the half stencil, both sides' outputs (counted from the algorithm in
-// chip_smoke.py, K4_OPS, with per-rod quantities hoisted), the filaments op
-// about 163 (K4F_OPS), and no memory traffic beyond reading the mask of
-// every slot and the payload of the occupied ones once and writing the sums
-// once. The FP32 rate bounds both: the rods op at 1M rods, and the
-// filaments op at 2000 x 50, whose 15.7M pairs outweigh its 77 MB even on
-// rows 3% occupied (98k of 3M slots). This kernel does about 220 per
-// ordered pair for the rods op (closest points 178, the Hertz push and
-// torque 41): it recomputes per-rod quantities, evaluates the endpoint
-// quadratics in full, and takes every off-row pair twice. The filaments
-// op's time is set by its fullest rows: straight chains along x put a whole
-// filament in one row (R = 728 at 2000 x 50 for a mean occupancy of 24),
-// and one block per row leaves those few blocks as the tail; spreading a
-// row's work over several blocks is later work.
+// Bound. The rods op at 1M rods is bound by bytes: 67 MB, the valid byte
+// and the outputs of every slot and the midpoints and half-edges of the
+// valid slots (0.020 ms at 3.35 TB/s), against FP32 operations
+// counted from the algorithm (chip_smoke.py): the reach test for every
+// unordered pair within reach in x (K4_REACH_OPS), the closest points,
+// push and both sides' torques for every pair within reach in 3D (K4_OPS,
+// 187), and per rod its hoisted quantities (K4_ROD_OPS). What this kernel
+// does beyond that: it stages each row 9 times (once per neighbouring
+// block, from L2), tests ~10 chunks of 32 per own rod (a chunk spans ~100
+// of x, the reach 2.5), and takes every pair from both sides. The
+// filaments op needs about 163 operations per occupied half-stencil pair
+// (K4F_OPS) and is bound by them at 2000 x 50, whose 15.7M pairs outweigh
+// its 77 MB even on rows 3% occupied (98k of 3M slots); it does about 220
+// per ordered pair, and its time is set by its fullest rows: straight
+// chains along x put a whole filament in one row (R = 728 at 2000 x 50 for
+// a mean occupancy of 24), and one block per row leaves those few blocks
+// as the tail.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -96,6 +145,14 @@ __device__ __forceinline__ float rsqrt_(float x) { return rsqrtf(x); }
 __device__ __forceinline__ double rsqrt_(double x) { return rsqrt(x); }
 __device__ __forceinline__ float sqrt_(float x) { return sqrtf(x); }
 __device__ __forceinline__ double sqrt_(double x) { return sqrt(x); }
+template <typename T>
+__device__ __forceinline__ T inf_();
+template <>
+__device__ __forceinline__ float inf_<float>() { return __int_as_float(0x7f800000); }
+template <>
+__device__ __forceinline__ double inf_<double>() {
+  return __longlong_as_double(0x7ff0000000000000LL);
+}
 
 // jnp.clip(x, lo, hi) = minimum(maximum(x, lo), hi)
 template <typename T>
@@ -110,7 +167,7 @@ struct PairGeom {
 };
 
 // Clamped segment-segment closest points, operation for operation as
-// neighbor/rows._segment_pair_chunk. (sx, sy, sz): candidate midpoint minus
+// neighbor/rows.segment_pair_terms. (sx, sy, sz): candidate midpoint minus
 // own midpoint (minimum image); (oex..), (cex..): half-edges; a: the own
 // 4 |e|^2.
 template <typename T>
@@ -190,8 +247,6 @@ __device__ __forceinline__ PairGeom<T> closest(T sx, T sy, T sz, T oex,
 // closest vector and its torque about the own centre.
 template <typename T>
 struct RodsOp {
-  static constexpr int kOut = 6;
-  static constexpr bool kGid = false;
   T two_r, radius, coef;  // coef = 4/3 E* sqrt(R*), rounded as the plain version
 
   __device__ __forceinline__ void operator()(const PairGeom<T>& g, T oex,
@@ -222,8 +277,6 @@ struct RodsOp {
 // segment's start (1 - s) and end (s) nodes.
 template <typename T>
 struct FilamentsOp {
-  static constexpr int kOut = 6;
-  static constexpr bool kGid = true;
   T two_r, coef;  // coef = 4/3 E* sqrt(R*), rounded as the plain version
   int n_edges;    // segments per filament
 
@@ -249,14 +302,14 @@ struct FilamentsOp {
   }
 };
 
-template <typename T, typename Op>
+template <typename T>
 __global__ void row_segment_kernel(const T* __restrict__ mid,
                                    const T* __restrict__ hedge,
                                    const unsigned char* __restrict__ valid,
                                    const int* __restrict__ gid,
                                    T* __restrict__ out, int ny, int nz, int R,
                                    T lx, T inv_lx, T ly, T lz, T eps,
-                                   T noise_c, Op op) {
+                                   T noise_c, FilamentsOp<T> op) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* cx = reinterpret_cast<T*>(smem_raw);
   T* cy = cx + 9 * R;
@@ -264,7 +317,7 @@ __global__ void row_segment_kernel(const T* __restrict__ mid,
   T* ex = cz + 9 * R;
   T* ey = ex + 9 * R;
   T* ez = ey + 9 * R;
-  int* cg = reinterpret_cast<int*>(ez + 9 * R);  // the filaments op's gids
+  int* cg = reinterpret_cast<int*>(ez + 9 * R);  // segment gids
   __shared__ int extent[9];  // 1 + the last valid slot of each staged row
 
   const int row = blockIdx.x;  // iy * nz + iz
@@ -291,7 +344,7 @@ __global__ void row_segment_kernel(const T* __restrict__ mid,
       ex[b * R + k] = h[3 * k];
       ey[b * R + k] = h[3 * k + 1];
       ez[b * R + k] = h[3 * k + 2];
-      if constexpr (Op::kGid) cg[b * R + k] = valid[base + k] ? gid[base + k] : -10;
+      cg[b * R + k] = valid[base + k] ? gid[base + k] : -10;
       if (valid[base + k]) atomicMax(&extent[b], k + 1);
     }
   }
@@ -302,9 +355,9 @@ __global__ void row_segment_kernel(const T* __restrict__ mid,
   // sentinels it coincides with or lies beyond the cutoff of, so their
   // contributions and outputs are exact zeros, which the loops skip.
   for (int i = threadIdx.x; i < R; i += blockDim.x) {
-    T acc[Op::kOut];
+    T acc[6];
 #pragma unroll
-    for (int k = 0; k < Op::kOut; ++k) acc[k] = T(0);
+    for (int k = 0; k < 6; ++k) acc[k] = T(0);
     if (i < extent[4]) {
       const int self = 4 * R + i;  // own row = centre block, unshifted
       const T ox = cx[self], oy = cy[self], oz = cz[self];
@@ -319,54 +372,248 @@ __global__ void row_segment_kernel(const T* __restrict__ mid,
           const PairGeom<T> g =
               closest(sx, cy[j] - oy, cz[j] - oz, oex, oey, oez, a, ex[j],
                       ey[j], ez[j], eps, noise_c);
-          if constexpr (Op::kGid) {
-            op(g, cg[self], cg[j], acc);
-          } else {
-            op(g, oex, oey, oez, acc);
-          }
+          op(g, cg[self], cg[j], acc);
         }
       }
     }
-    T* o = out + (static_cast<size_t>(row) * R + i) * Op::kOut;
+    T* o = out + (static_cast<size_t>(row) * R + i) * 6;
 #pragma unroll
-    for (int k = 0; k < Op::kOut; ++k) o[k] = acc[k];
+    for (int k = 0; k < 6; ++k) o[k] = acc[k];
   }
 }
 
-template <typename T, typename Op>
-int launch(const void* mid, const void* hedge, const void* valid,
-           const void* gid, void* out, int ny, int nz, int R, double lx,
-           double ly, double lz, double eps, double noise_c, const Op& op,
-           void* stream) {
-  const int threads = R >= 256 ? 256 : ((R + 31) / 32) * 32;
-  const size_t smem = static_cast<size_t>(9) * R *
-                      (6 * sizeof(T) + (Op::kGid ? sizeof(int) : 0));
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        row_segment_kernel<T, Op>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) {
-      cudaGetLastError();  // clear it: the next launch must not report it
-      return static_cast<int>(err);
+// ---- the rods op: only the candidates within reach ---------------------
+
+constexpr int CH = 32;    // slots per chunk of a staged row (one warp)
+constexpr int QCAP = 64;  // entries of a warp's ring of passing pairs
+constexpr int MAX_WARPS = 16;
+
+// Does chunk [a, b] (the x range of its valid slots; a > b when it has
+// none) come within reach of an own slot at ox? rc2 is the chunk's squared
+// reach times the margin, as the pair test computes it. The minimum image
+// of a - ox and b - ox is taken as the pair test takes it, and rounding is
+// monotonic, so every valid slot's computed x separation lies in [sa, sb]
+// (one image) or in [sa, lx/2] and [-lx/2, sb] (one flip): the least |sx|
+// bounds each pair's s2 from below, and a chunk left out holds only pairs
+// the pair test would skip.
+template <typename T>
+__device__ __forceinline__ bool chunk_visit(T a, T b, T ox, T rc2, T lx, T inv_lx) {
+  if (!(a <= b)) return false;
+  if (!(b - a < T(0.5) * lx)) return true;
+  const T da = a - ox;
+  const T ka = rint_(da * inv_lx);
+  const T sa = da - lx * ka;
+  const T db = b - ox;
+  const T kb = rint_(db * inv_lx);
+  const T sb = db - lx * kb;
+  T m = T(0);
+  if (ka == kb) {
+    m = sa > T(0) ? sa : (sb < T(0) ? -sb : T(0));
+  } else if (kb == ka + T(1)) {
+    m = fmin(fmax(sa, T(0)), fmax(-sb, T(0)));
+  }
+  return !(m * m > rc2);
+}
+
+template <typename T>
+__global__ void row_rods_kernel(const T* __restrict__ mid, const T* __restrict__ hedge,
+                                const unsigned char* __restrict__ valid,
+                                T* __restrict__ out, int ny, int nz, int R, T lx,
+                                T inv_lx, T ly, T lz, T eps, T noise_c, T margin,
+                                RodsOp<T> op) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nc = (R + CH - 1) / CH;  // chunks per staged row
+  const int nw = blockDim.x >> 5;
+  T* cx = reinterpret_cast<T*>(smem_raw);
+  T* cy = cx + 9 * R;
+  T* cz = cy + 9 * R;
+  T* ex = cz + 9 * R;
+  T* ey = ex + 9 * R;
+  T* ez = ey + 9 * R;
+  T* el = ez + 9 * R;      // |half-edge|
+  T* clo = el + 9 * R;     // [9 nc] least x of each chunk's valid slots
+  T* chi = clo + 9 * nc;   // greatest x
+  T* cel = chi + 9 * nc;   // greatest |half-edge|
+  T* res = cel + 9 * nc;   // [nw][32][6] drained pair outputs
+  int* ring = reinterpret_cast<int*>(res + nw * 32 * 6);  // [nw][QCAP] own k, cand j
+  unsigned char* own_ok = reinterpret_cast<unsigned char*>(ring + nw * QCAP * 2);  // [R]
+
+  const int row = blockIdx.x;  // iy * nz + iz
+  const int iy = row / nz;
+  const int iz = row - iy * nz;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+
+  // Stage the 9 candidate rows, one chunk per warp at a time; block b =
+  // (dy + 1) * 3 + (dz + 1), the order of rows._candidate_planes.
+  for (int q = warp; q < 9 * nc; q += nw) {
+    const int b = q / nc;
+    const int k = (q - b * nc) * CH + lane;
+    int jy = iy + b / 3 - 1;
+    int jz = iz + b % 3 - 1;
+    T sy = T(0), sz = T(0);
+    if (jy >= ny) { jy -= ny; sy = ly; } else if (jy < 0) { jy += ny; sy = -ly; }
+    if (jz >= nz) { jz -= nz; sz = lz; } else if (jz < 0) { jz += nz; sz = -lz; }
+    const size_t base = (static_cast<size_t>(jy) * nz + jz) * R;
+    bool v = false;
+    T x = T(0), len = T(0);
+    if (k < R) {
+      const T* m = mid + (base + k) * 3;
+      const T* h = hedge + (base + k) * 3;
+      x = m[0];
+      const T hx = h[0], hy = h[1], hz = h[2];
+      len = sqrt_((hx * hx + hy * hy) + hz * hz);
+      cx[b * R + k] = x;
+      cy[b * R + k] = m[1] + sy;
+      cz[b * R + k] = m[2] + sz;
+      ex[b * R + k] = hx;
+      ey[b * R + k] = hy;
+      ez[b * R + k] = hz;
+      el[b * R + k] = len;
+      v = valid[base + k] != 0;
+      if (b == 4) own_ok[k] = v;
+    }
+    T lo = v ? x : inf_<T>(), hi = v ? x : -inf_<T>(), le = v ? len : T(0);
+    for (int o = 16; o > 0; o >>= 1) {
+      lo = fmin(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+      hi = fmax(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+      le = fmax(le, __shfl_xor_sync(0xffffffffu, le, o));
+    }
+    if (lane == 0) {
+      clo[q] = lo;
+      chi[q] = hi;
+      cel[q] = le;
     }
   }
-  row_segment_kernel<T, Op><<<ny * nz, threads, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(mid), static_cast<const T*>(hedge),
-      static_cast<const unsigned char*>(valid), static_cast<const int*>(gid),
-      static_cast<T*>(out), ny, nz, R, T(lx), T(1.0 / lx), T(ly), T(lz),
-      T(eps), T(noise_c), op);
-  return static_cast<int>(cudaGetLastError());
+  __syncthreads();
+
+  // Each warp takes own slots o = o0 + warp + nw k, k < 32, one at a time;
+  // lane k keeps the sums of its own slot k. The lanes test a visited
+  // chunk's candidates against the own slot, and the pairs that pass go to
+  // the warp's ring in (own, row, chunk, slot) order; 32 at a time the lanes
+  // evaluate them (closest points and the op), and each own slot adds its
+  // pairs' outputs in ring order.
+  T* wres = res + warp * 32 * 6;
+  int* ring_k = ring + warp * QCAP * 2;
+  int* ring_j = ring_k + QCAP;
+  const T two_r = op.two_r;
+  for (int o0 = 0; o0 < R; o0 += 32 * nw) {
+    T acc[6];
+#pragma unroll
+    for (int c = 0; c < 6; ++c) acc[c] = T(0);
+    int head = 0, qn = 0;
+
+    auto drain = [&](int cnt) {
+      __syncwarp();
+      T r[6];
+#pragma unroll
+      for (int c = 0; c < 6; ++c) r[c] = T(0);
+      if (lane < cnt) {
+        const int e = (head + lane) & (QCAP - 1);
+        const int self = 4 * R + o0 + warp + nw * ring_k[e];
+        const int j = ring_j[e];
+        const T oex = ex[self], oey = ey[self], oez = ez[self];
+        const T a = T(4) * ((oex * oex + oey * oey) + oez * oez);
+        T sx = cx[j] - cx[self];
+        sx = sx - lx * rint_(sx * inv_lx);
+        const PairGeom<T> g = closest(sx, cy[j] - cy[self], cz[j] - cz[self], oex, oey, oez,
+                                      a, ex[j], ey[j], ez[j], eps, noise_c);
+        op(g, oex, oey, oez, r);
+      }
+#pragma unroll
+      for (int c = 0; c < 6; ++c) wres[lane * 6 + c] = r[c];
+      __syncwarp();
+      for (int q = 0; q < cnt; ++q) {
+        if (ring_k[(head + q) & (QCAP - 1)] == lane) {
+#pragma unroll
+          for (int c = 0; c < 6; ++c) acc[c] += wres[q * 6 + c];
+        }
+      }
+      __syncwarp();
+      head = (head + cnt) & (QCAP - 1);
+      qn -= cnt;
+    };
+
+    for (int k = 0; k < 32; ++k) {
+      const int o = o0 + warp + nw * k;
+      if (o >= R) break;
+      if (!own_ok[o]) continue;  // a sentinel: its outputs are exact zeros
+      const int self = 4 * R + o;
+      const T ox = cx[self], oy = cy[self], oz = cz[self], ol = el[self];
+      for (int q0 = 0; q0 < 9 * nc; q0 += 32) {
+        const int qv = q0 + lane;
+        bool vis = false;
+        if (qv < 9 * nc) {
+          const T rc = (ol + cel[qv]) + two_r;
+          vis = chunk_visit(clo[qv], chi[qv], ox, rc * rc * margin, lx, inv_lx);
+        }
+        unsigned todo = __ballot_sync(0xffffffffu, vis);
+        while (todo) {
+          const int q = q0 + __ffs(todo) - 1;
+          todo &= todo - 1;
+          const int b = q / nc;
+          const int kk = (q - b * nc) * CH + lane;
+          const int j = b * R + kk;
+          bool pass = false;
+          if (kk < R && j != self) {  // the reach test
+            T sx = cx[j] - ox;
+            sx = sx - lx * rint_(sx * inv_lx);
+            const T sy = cy[j] - oy, sz = cz[j] - oz;
+            const T s2 = (sx * sx + sy * sy) + sz * sz;
+            const T reach = (ol + el[j]) + two_r;
+            pass = !(s2 > reach * reach * margin);
+          }
+          const unsigned passed = __ballot_sync(0xffffffffu, pass);
+          if (pass) {
+            const int e = (head + qn + __popc(passed & ((1u << lane) - 1u))) & (QCAP - 1);
+            ring_k[e] = k;
+            ring_j[e] = j;
+          }
+          qn += __popc(passed);
+          if (qn >= 32) drain(32);
+        }
+      }
+    }
+    drain(qn);
+    const int o = o0 + warp + nw * lane;
+    if (o < R) {
+      T* dst = out + (static_cast<size_t>(row) * R + o) * 6;
+#pragma unroll
+      for (int c = 0; c < 6; ++c) dst[c] = acc[c];
+    }
+  }
+}
+
+template <typename T>
+size_t rods_smem(int R, int nw) {
+  const int nc = (R + CH - 1) / CH;
+  return static_cast<size_t>(7 * 9 * R + 3 * 9 * nc + nw * 32 * 6) * sizeof(T) +
+         static_cast<size_t>(nw) * QCAP * 2 * sizeof(int) + R;
 }
 
 template <typename T>
 int launch_rods(const void* mid, const void* hedge, const void* valid,
                 void* out, int ny, int nz, int R, double lx, double ly,
                 double lz, double two_r, double radius, double coef,
-                double eps, double noise_c, void* stream) {
+                double margin, double eps, double noise_c, void* stream) {
   const RodsOp<T> op{T(two_r), T(radius), T(coef)};
-  return launch<T>(mid, hedge, valid, nullptr, out, ny, nz, R, lx, ly, lz,
-                   eps, noise_c, op, stream);
+  const int want = (R + 31) / 32;
+  const int nw = want < MAX_WARPS ? want : MAX_WARPS;
+  const size_t smem = rods_smem<T>(R, nw);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        row_rods_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // clear it: the next launch must not report it
+      return static_cast<int>(err);
+    }
+  }
+  row_rods_kernel<T><<<ny * nz, 32 * nw, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(mid), static_cast<const T*>(hedge),
+      static_cast<const unsigned char*>(valid), static_cast<T*>(out), ny, nz, R, T(lx),
+      T(1.0 / lx), T(ly), T(lz), T(eps), T(noise_c), T(margin), op);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -376,32 +623,48 @@ int launch_filaments(const void* mid, const void* hedge, const void* valid,
                      double coef, int n_edges, double eps, double noise_c,
                      void* stream) {
   const FilamentsOp<T> op{T(two_r), T(coef), n_edges};
-  return launch<T>(mid, hedge, valid, gid, out, ny, nz, R, lx, ly, lz, eps,
-                   noise_c, op, stream);
+  const int threads = R >= 256 ? 256 : ((R + 31) / 32) * 32;
+  const size_t smem = static_cast<size_t>(9) * R * (6 * sizeof(T) + sizeof(int));
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        row_segment_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // clear it: the next launch must not report it
+      return static_cast<int>(err);
+    }
+  }
+  row_segment_kernel<T><<<ny * nz, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(mid), static_cast<const T*>(hedge),
+      static_cast<const unsigned char*>(valid), static_cast<const int*>(gid),
+      static_cast<T*>(out), ny, nz, R, T(lx), T(1.0 / lx), T(ly), T(lz),
+      T(eps), T(noise_c), op);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// valid: (ny, nz, R) bytes, nonzero where a slot holds a rod. Returns
+// valid: (ny, nz, R) bytes, nonzero where a slot holds a rod; margin: the
+// reach test's factor 1 + 2^-10 on the squared reach. Returns
 // cudaGetLastError() after the launch (0 = launched).
 int row_segment_rods_f32(const void* mid, const void* hedge, const void* valid,
                          void* out, int ny, int nz, int R, double lx,
                          double ly, double lz, double two_r, double radius,
-                         double coef, double eps, double noise_c,
-                         void* stream) {
+                         double coef, double margin, double eps,
+                         double noise_c, void* stream) {
   return launch_rods<float>(mid, hedge, valid, out, ny, nz, R, lx, ly, lz,
-                            two_r, radius, coef, eps, noise_c, stream);
+                            two_r, radius, coef, margin, eps, noise_c, stream);
 }
 
 int row_segment_rods_f64(const void* mid, const void* hedge, const void* valid,
                          void* out, int ny, int nz, int R, double lx,
                          double ly, double lz, double two_r, double radius,
-                         double coef, double eps, double noise_c,
-                         void* stream) {
+                         double coef, double margin, double eps,
+                         double noise_c, void* stream) {
   return launch_rods<double>(mid, hedge, valid, out, ny, nz, R, lx, ly, lz,
-                             two_r, radius, coef, eps, noise_c, stream);
+                             two_r, radius, coef, margin, eps, noise_c, stream);
 }
 
 // gid: (ny, nz, R) int32 segment gids; n_edges: segments per filament.

@@ -12,21 +12,45 @@
 // the transpose, times the quadrature cell volume h^3. Window: ES (exp of a
 // semicircle, zero outside |d| < P/2) or the truncated Gaussian.
 //
-// K5s design: output-stationary gather, no float atomics. One thread block
-// per tile, one thread per grid point of the tile (m^3 = 512 at m = 8). The
-// block walks the slots of the tile and of its distinct neighbour tiles as
-// one list in a fixed order, a block-width batch at a time (27 R slots in
-// ceil(27 R / 512) batches, so the dependent perm -> u -> force loads and
-// the block syncs are paid per batch, not per neighbour tile), keeps those
-// whose support meets the tile (an ordered block compaction: ballot and a
-// warp scan), stages their P weights per axis, the offset of their support
-// and their force in shared memory, and every thread adds the staged slots
-// that cover its point, in list order. Each
-// point's sum runs over the same slots in the same order on every run, so
+// K5s design: output-stationary gather, no float atomics, two kernels per
+// call (one se_spread launch). A pre-pass, one warp per tile, writes each
+// tile's extent, 1 + its last occupied slot (se_bin_tiles packs occupied
+// slots first, so the extent is the tile's count, at most R), read from perm
+// on the device. Then one thread block per tile, whose threads each own a
+// run of LZ = 4 grid points along z (m^2 ceil(m/4) threads, 128 at m = 8).
+// The block walks the occupied slots of its tile and of the distinct
+// neighbour tiles as one list (tiles (a, b, c) in lexicographic order, slots
+// in order, each tile up to its extent: ~256 candidates at config #5's 9.5
+// beads per tile), a block-width batch at a time. A candidate is kept when
+// its support meets the tile; the kept ones are compacted in list order
+// (ballot, per-warp counts, two barriers per batch). Once per flush, one
+// thread per (kept slot, axis) evaluates the slot's P window weights and
+// stores them tile-relative: m weights per axis (padded to a multiple of
+// 4), zero where the support misses the tile, and the slot's force. Every
+// thread then adds the staged slots to its run of points, in list order:
+// one product w_x w_y per staged slot, skipped where it is zero, then LZ
+// products with w_z into LZ x 3 register sums. A skipped term is an exact
+// zero, and adding +-0 to a sum that starts at +0 leaves it unchanged, so
+// each point's sum is the plain version's set of terms in a fixed order:
 // the grid repeats bit for bit, and a point is written once, by its own
-// tile: no slab buffer and no fold pass. A slot's support stays inside the
-// 27 tiles around its own when m >= P/2 + 1 (one grid point of slack for
-// the rounding between the binning and floor(u)); the wrapper checks it.
+// tile, with no slab buffer and no fold pass. A slot's support stays inside
+// the 27 tiles around its own when m >= P/2 + 1 (one grid point of slack for
+// the rounding between the binning and floor(u)) and P <= G; the wrapper
+// checks both.
+//
+// What bounds K5s on this card, and what the design does about it. The
+// grid written once (680 MB at G = 384) bounds it by bytes; the work in the
+// way was a walk over padding. (1) Padding: the walk stops at each tile's
+// extent, not at R (~256 of 2808 candidate slots at config #5). (2) Serial
+// load chains: perm and u are loaded together, and only the kept slots
+// gather their force, once per flush; a batch is one ballot and two
+// barriers, not three. (3) Wasted tests: a thread owns a line of points, so
+// the in-support test is one product per staged slot and line instead of
+// three integer tests per point, and a staged slot's window is evaluated
+// once per tile that keeps it, not per point. (4) Occupancy: 128 threads
+// and 15 KB of shared memory per block at m = 8 (float32; was 512 threads
+// and 74 KB), so 9 blocks share an SM instead of 3 (its 56 registers a
+// thread bound it there).
 //
 // K5i design: one thread per particle gathers its P^3 x 3 grid values
 // through slot_of (the unsort is the gather), weights them and scales by
@@ -39,8 +63,9 @@
 // Bound: the grid written (K5s) or read (K5i) once is 12 G^3 bytes
 // (680 MB at G = 384, 0.20 ms at 3.35 TB/s) against ~1.7 GFLOP for 1M
 // particles at P = 6, so both are bound by bytes. K5s re-reads its staged
-// slots from shared memory for every point of the tile; K5i reads each grid
-// value up to ~P^3 / m^3-fold from L2 through neighbouring particles.
+// slots from shared memory for every run of LZ points of the tile; K5i reads
+// each grid value up to ~P^3 / m^3-fold from L2 through neighbouring
+// particles.
 //
 // Built with -fmad=false like every kernel of the package, so each window
 // product rounds as the plain version's (ops/kernels/se_grid.py) does; the
@@ -74,139 +99,205 @@ __device__ __forceinline__ T window_weight(T d, const Window& w) {
   return T(w.pref) * exp(-T(w.c) * dx * dx);
 }
 
-// Ordered compaction of one flag per thread over the block: returns the
-// thread's rank among the flagged threads below it and sets `total`. Every
-// thread of the block must call it (blockDim a multiple of 32).
-__device__ int block_rank(bool flag, int* warp_sums, int& total) {
+constexpr int LZ = 4;  // grid points of a z-line per K5s thread
+
+// One warp per tile: 1 + the last occupied slot of each tile (0 if empty).
+__global__ void se_tile_extent_kernel(const int* __restrict__ perm, int* __restrict__ ext,
+                                      int n, int n_tiles, int R) {
+  const int tile = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  const unsigned ballot = __ballot_sync(0xffffffffu, flag);
-  const int in_warp = __popc(ballot & ((1u << lane) - 1u));
-  if (lane == 0) warp_sums[warp] = __popc(ballot);
-  __syncthreads();
-  if (warp == 0) {
-    int v = lane < nw ? warp_sums[lane] : 0;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, v, o);
-      if (lane >= o) v += y;
-    }
-    if (lane < nw) warp_sums[lane] = v;  // inclusive prefix over warps
+  if (tile >= n_tiles) return;  // the whole warp
+  const int* p = perm + static_cast<size_t>(tile) * R;
+  int e = 0;
+  for (int r0 = 0; r0 < R; r0 += 32) {
+    const int r = r0 + lane;
+    const unsigned occ = __ballot_sync(0xffffffffu, r < R && p[r] < n);
+    if (occ) e = r0 + 32 - __clz(occ);
   }
-  __syncthreads();
-  const int before = warp == 0 ? 0 : warp_sums[warp - 1];
-  total = warp_sums[nw - 1];
-  __syncthreads();  // warp_sums is reused by the next call
-  return before + in_warp;
+  if (lane == 0) ext[tile] = e;
+}
+
+template <typename T>
+struct Quad {
+  T v[4];
+};
+
+__device__ __forceinline__ Quad<float> load4(const float* p) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  return {{q.x, q.y, q.z, q.w}};
+}
+
+__device__ __forceinline__ Quad<double> load4(const double* p) {
+  const double2 a = reinterpret_cast<const double2*>(p)[0];
+  const double2 b = reinterpret_cast<const double2*>(p)[1];
+  return {{a.x, a.y, b.x, b.y}};
+}
+
+// Bytes of shared memory per staged slot: 3 mp tile-relative weights, the
+// force padded to 4, the slot and the particle id.
+template <typename T>
+size_t spread_slot_bytes(int mp) {
+  return static_cast<size_t>(3 * mp + 4) * sizeof(T) + 2 * sizeof(int);
 }
 
 template <typename T>
 __global__ void se_spread_kernel(const T* __restrict__ u, const int* __restrict__ perm,
-                                 const T* __restrict__ forces, T* __restrict__ grid,
-                                 int n, int G, int m, int P, int R, int nt1, int cap,
-                                 Window win) {
+                                 const T* __restrict__ forces, const int* __restrict__ ext,
+                                 T* __restrict__ grid, int n, int G, int m, int mp, int P,
+                                 int R, int nt1, int cap, Window win) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ int warp_sums[32];
-  T* sw = reinterpret_cast<T*>(smem_raw);  // [3][cap][P] window weights
-  T* sf = sw + 3 * cap * P;                // [cap][3] forces
-  int* srel = reinterpret_cast<int*>(sf + 3 * cap);  // [cap][3] support offsets
+  T* sw = reinterpret_cast<T*>(smem_raw);           // [cap][3][mp] weights
+  T* sf = sw + static_cast<size_t>(cap) * 3 * mp;  // [cap][4] forces
+  int* sslot = reinterpret_cast<int*>(sf + 4 * static_cast<size_t>(cap));  // [cap]
+  int* spid = sslot + cap;                                                  // [cap]
+  __shared__ int s_tile[27];     // the distinct neighbour tiles
+  __shared__ int s_pre[28];      // exclusive prefix of their extents
+  __shared__ int s_wsum[32];     // kept candidates per warp
 
   const int t = blockIdx.x;
   const int tc[3] = {t / (nt1 * nt1), (t / nt1) % nt1, t % nt1};
-  const int m3 = m * m * m;
   const int half = P / 2 - 1;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
   // distinct neighbour-tile offsets per axis (fewer than 3 tiles per axis
   // would visit one tile twice)
   const int noff = nt1 >= 3 ? 3 : nt1;
   const int off0 = nt1 >= 3 ? -1 : 0;
-  const int n_cand = noff * noff * noff * R;
+  const int n_nb = noff * noff * noff;
 
-  for (int p0 = 0; p0 < m3; p0 += blockDim.x) {
-    const int p = p0 + threadIdx.x;
-    const bool own = p < m3;
-    const int lx = own ? p / (m * m) : 0;
-    const int ly = own ? (p / m) % m : 0;
-    const int lz = own ? p % m : 0;
-    T ax = T(0), ay = T(0), az = T(0);
+  if (warp == 0) {
+    int c = 0;
+    if (lane < n_nb) {
+      const int nx = (tc[0] + off0 + lane / (noff * noff) + nt1) % nt1;
+      const int ny = (tc[1] + off0 + (lane / noff) % noff + nt1) % nt1;
+      const int nz = (tc[2] + off0 + lane % noff + nt1) % nt1;
+      const int nb = (nx * nt1 + ny) * nt1 + nz;
+      s_tile[lane] = nb;
+      c = ext[nb];
+    }
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, c, o);
+      if (lane >= o) c += y;
+    }
+    if (lane < n_nb) s_pre[lane + 1] = c;
+    if (lane == 0) s_pre[0] = 0;
+  }
+  __syncthreads();
+  const int total = s_pre[n_nb];
+  const int nseg = mp / LZ;
+  const int items = m * m * nseg;
+
+  for (int it0 = 0; it0 < items; it0 += blockDim.x) {
+    const int item = it0 + threadIdx.x;
+    const bool own = item < items;
+    const int line = own ? item / nseg : 0;
+    const int z0 = own ? (item - line * nseg) * LZ : 0;
+    const int lx = line / m;
+    const int ly = line - lx * m;
+    T acc[LZ][3];
+#pragma unroll
+    for (int k = 0; k < LZ; ++k) acc[k][0] = acc[k][1] = acc[k][2] = T(0);
     int cnt = 0;  // staged slots (the same value in every thread)
 
+    // weights of the staged slots, then their sums into this thread's run
     auto flush = [&]() {
+      for (int q = threadIdx.x; q < 3 * cnt; q += blockDim.x) {
+        const int e = q / 3;
+        const int d = q - 3 * e;
+        const size_t s = static_cast<size_t>(sslot[e]);
+        const T ud = u[3 * s + d];
+        const T fl = floor(ud);
+        const T frac = ud - fl;
+        int rel = (static_cast<int>(fl) - half - tc[d] * m) % G;
+        rel += rel < 0 ? G : 0;
+        T* w = sw + (static_cast<size_t>(e) * 3 + d) * mp;
+        for (int l = 0; l < mp; ++l) {
+          int k = l - rel;  // support point k lands on tile point l
+          k += k < 0 ? G : 0;
+          w[l] = (l < m && k < P) ? window_weight(T(k - half) - frac, win) : T(0);
+        }
+        if (d == 0) {
+          const size_t pid = static_cast<size_t>(spid[e]);
+          sf[4 * e] = forces[3 * pid];
+          sf[4 * e + 1] = forces[3 * pid + 1];
+          sf[4 * e + 2] = forces[3 * pid + 2];
+          sf[4 * e + 3] = T(0);
+        }
+      }
+      __syncthreads();
       if (own) {
         for (int j = 0; j < cnt; ++j) {
-          int ox = lx - srel[3 * j];
-          int oy = ly - srel[3 * j + 1];
-          int oz = lz - srel[3 * j + 2];
-          ox += ox < 0 ? G : 0;
-          oy += oy < 0 ? G : 0;
-          oz += oz < 0 ? G : 0;
-          if (ox >= P || oy >= P || oz >= P) continue;
-          T w = sw[j * P + ox] * sw[(cap + j) * P + oy];
-          w = w * sw[(2 * cap + j) * P + oz];
-          ax += w * sf[3 * j];
-          ay += w * sf[3 * j + 1];
-          az += w * sf[3 * j + 2];
+          const T* w = sw + static_cast<size_t>(j) * 3 * mp;
+          const T wxy = w[lx] * w[mp + ly];
+          if (wxy == T(0)) continue;  // an exact-zero term
+          const Quad<T> wz = load4(w + 2 * mp + z0);
+          const Quad<T> f = load4(sf + 4 * j);
+#pragma unroll
+          for (int k = 0; k < LZ; ++k) {
+            const T wt = wxy * wz.v[k];
+            acc[k][0] += wt * f.v[0];
+            acc[k][1] += wt * f.v[1];
+            acc[k][2] += wt * f.v[2];
+          }
         }
       }
     };
 
-    // the neighbour tiles' slots as one list, (tile a, b, c, slot r) in
-    // lexicographic order, walked a block-width batch at a time
-    for (int i0 = 0; i0 < n_cand; i0 += blockDim.x) {
+    for (int i0 = 0; i0 < total; i0 += blockDim.x) {
       const int i = i0 + threadIdx.x;
-      size_t s = 0;
-      int pid = n;
-      if (i < n_cand) {
-        const int nb = i / R;
-        const int nx = (tc[0] + off0 + nb / (noff * noff) + nt1) % nt1;
-        const int ny = (tc[1] + off0 + (nb / noff) % noff + nt1) % nt1;
-        const int nz = (tc[2] + off0 + nb % noff + nt1) % nt1;
-        s = static_cast<size_t>((nx * nt1 + ny) * nt1 + nz) * R + (i - nb * R);
+      bool flag = false;
+      int s = 0, pid = n;
+      if (i < total) {
+        int nb = 0;
+        while (s_pre[nb + 1] <= i) ++nb;
+        s = s_tile[nb] * R + (i - s_pre[nb]);
         pid = perm[s];
-      }
-      bool flag = pid < n;
-      int rel[3] = {0, 0, 0};
-      T frac[3] = {T(0), T(0), T(0)};
-      if (flag) {
-        for (int d = 0; d < 3; ++d) {
-          const T ud = u[3 * s + d];
-          const T fl = floor(ud);
-          frac[d] = ud - fl;
-          int rr = (static_cast<int>(fl) - half - tc[d] * m) % G;
-          rr += rr < 0 ? G : 0;
-          rel[d] = rr;
-          flag = flag && (rr < m || rr > G - P);
+        flag = true;
+        for (int d = 0; d < 3; ++d) {  // does the support meet the tile?
+          const int fl = static_cast<int>(floor(u[3 * static_cast<size_t>(s) + d]));
+          int rel = (fl - half - tc[d] * m) % G;
+          rel += rel < 0 ? G : 0;
+          flag = flag && (rel < m || rel > G - P);
         }
+        flag = flag && pid < n;
       }
-      int total;
-      const int rank = block_rank(flag, warp_sums, total);
-      if (cnt + total > cap) {  // block-uniform: no room for this batch
+      const unsigned kept = __ballot_sync(0xffffffffu, flag);
+      if (lane == 0) s_wsum[warp] = __popc(kept);
+      __syncthreads();
+      int before = 0, batch = 0;
+      for (int w2 = 0; w2 < nw; ++w2) {
+        const int v = s_wsum[w2];
+        before += w2 < warp ? v : 0;
+        batch += v;
+      }
+      if (cnt + batch > cap) {  // block-uniform: no room for this batch
         flush();
         __syncthreads();
         cnt = 0;
       }
       if (flag) {
-        const int e = cnt + rank;
-        for (int d = 0; d < 3; ++d) {
-          srel[3 * e + d] = rel[d];
-          for (int k = 0; k < P; ++k) {
-            const T off = T(k - half);
-            sw[(d * cap + e) * P + k] = window_weight(off - frac[d], win);
-          }
-          sf[3 * e + d] = forces[3 * static_cast<size_t>(pid) + d];
-        }
+        const int e = cnt + before + __popc(kept & ((1u << lane) - 1u));
+        sslot[e] = s;
+        spid[e] = pid;
       }
-      cnt += total;
+      cnt += batch;
       __syncthreads();
     }
     flush();
     if (own) {
       const size_t g = ((static_cast<size_t>(tc[0] * m + lx) * G + (tc[1] * m + ly)) * G
-                        + (tc[2] * m + lz)) * 3;
-      grid[g] = ax;
-      grid[g + 1] = ay;
-      grid[g + 2] = az;
+                        + (tc[2] * m + z0)) * 3;
+#pragma unroll
+      for (int k = 0; k < LZ; ++k) {
+        if (z0 + k < m) {
+          grid[g + 3 * k] = acc[k][0];
+          grid[g + 3 * k + 1] = acc[k][1];
+          grid[g + 3 * k + 2] = acc[k][2];
+        }
+      }
     }
-    __syncthreads();  // the staged slots are reused by the next point pass
+    __syncthreads();  // the staged slots are reused by the next pass
   }
 }
 
@@ -266,30 +357,37 @@ Window make_window(int kind, double beta, double wh, double c, double h, double 
 }
 
 template <typename T>
-size_t spread_smem(int cap, int P) {
-  return static_cast<size_t>(cap) * (3 * P * sizeof(T) + 3 * sizeof(T) + 3 * sizeof(int));
-}
-
-template <typename T>
-int launch_spread(const void* u, const void* perm, const void* forces, void* grid, int n,
-                  int G, int m, int P, int R, int kind, double beta, double wh, double c,
-                  double h, double pref, void* stream) {
+int launch_spread(const void* u, const void* perm, const void* forces, void* ext,
+                  void* grid, int n, int G, int m, int P, int R, int kind, double beta,
+                  double wh, double c, double h, double pref, void* stream) {
   if (P < 1 || P > MAX_P) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nt1 = G / m;
-  const int m3 = m * m * m;
-  const int threads = m3 >= 512 ? 512 : ((m3 + 31) / 32) * 32;
-  // staged slots between flushes (>= one batch; 768 x 228 B fits float64
-  // at P = 8 in the 227 KB a block may opt into)
-  const int cap = threads + threads / 2;
-  const size_t smem = spread_smem<T>(cap, P);
-  cudaError_t err = cudaFuncSetAttribute(se_spread_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  se_spread_kernel<T><<<nt1 * nt1 * nt1, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const int n_tiles = nt1 * nt1 * nt1;
+  se_tile_extent_kernel<<<(n_tiles + 7) / 8, 256, 0, st>>>(static_cast<const int*>(perm),
+                                                           static_cast<int*>(ext), n,
+                                                           n_tiles, R);
+  const int mp = (m + LZ - 1) / LZ * LZ;
+  const int items = m * m * (mp / LZ);
+  // one thread per run of LZ points (up to 512, looping over passes), and
+  // room for one batch of kept slots after a flush, within 200 KB
+  int threads = items >= 512 ? 512 : (items + 31) / 32 * 32;
+  while (threads > 32 && threads * spread_slot_bytes<T>(mp) > 200 * 1024) threads -= 32;
+  const int cap = threads;
+  const size_t smem = cap * spread_slot_bytes<T>(mp);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        se_spread_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // clear it: the next launch must not report it
+      return static_cast<int>(err);
+    }
+  }
+  se_spread_kernel<T><<<n_tiles, threads, smem, st>>>(
       static_cast<const T*>(u), static_cast<const int*>(perm),
-      static_cast<const T*>(forces), static_cast<T*>(grid), n, G, m, P, R, nt1, cap,
-      make_window(kind, beta, wh, c, h, pref));
+      static_cast<const T*>(forces), static_cast<const int*>(ext), static_cast<T*>(grid), n,
+      G, m, mp, P, R, nt1, cap, make_window(kind, beta, wh, c, h, pref));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -312,18 +410,19 @@ int launch_interp(const void* u, const void* slot_of, const void* grid, void* ou
 extern "C" {
 
 // Each returns cudaGetLastError() after the launch (0 = launched).
-int se_spread_f32(const void* u, const void* perm, const void* forces, void* grid, int n,
-                  int G, int m, int P, int R, int kind, double beta, double wh, double c,
-                  double h, double pref, void* stream) {
-  return launch_spread<float>(u, perm, forces, grid, n, G, m, P, R, kind, beta, wh, c, h,
-                              pref, stream);
+// ext: (n_tiles,) int32 scratch for the tile extents.
+int se_spread_f32(const void* u, const void* perm, const void* forces, void* ext, void* grid,
+                  int n, int G, int m, int P, int R, int kind, double beta, double wh,
+                  double c, double h, double pref, void* stream) {
+  return launch_spread<float>(u, perm, forces, ext, grid, n, G, m, P, R, kind, beta, wh, c,
+                              h, pref, stream);
 }
 
-int se_spread_f64(const void* u, const void* perm, const void* forces, void* grid, int n,
-                  int G, int m, int P, int R, int kind, double beta, double wh, double c,
-                  double h, double pref, void* stream) {
-  return launch_spread<double>(u, perm, forces, grid, n, G, m, P, R, kind, beta, wh, c, h,
-                               pref, stream);
+int se_spread_f64(const void* u, const void* perm, const void* forces, void* ext, void* grid,
+                  int n, int G, int m, int P, int R, int kind, double beta, double wh,
+                  double c, double h, double pref, void* stream) {
+  return launch_spread<double>(u, perm, forces, ext, grid, n, G, m, P, R, kind, beta, wh, c,
+                               h, pref, stream);
 }
 
 int se_interp_f32(const void* u, const void* slot_of, const void* grid, void* out, int n,

@@ -2,7 +2,7 @@
 
 Port of `segment_closest_planes` from mundy_tpu/geom/distance.py, the one
 distance function the rods and filaments paths run (the row narrow phase,
-neighbor/rows._segment_pair_chunk, and the filaments neighbor-matrix narrow
+neighbor/rows.segment_pair_terms, and the filaments neighbor-matrix narrow
 phase). The other distance functions wait for their callers.
 """
 

@@ -361,32 +361,39 @@ def pair_accumulate_central(pos: torch.Tensor, box: tuple,
         for s in (slice(y0, y0 + chunk_y) for y0 in range(0, ny, chunk_y))])
 
 
-def _segment_pair_chunk(ox, oy, oz, oex, oey, oez, own_scalars,
-                        cx, cy_, cz, cex, cey, cez, cand_scalars,
-                        out_fn, lx_px):
-    """Clamped segment-segment closest points for one y-chunk on component
-    planes: own midpoints and half-edges (chunk, nz, R), candidates
-    (chunk, nz, 9R), every per-pair quantity a (chunk, nz, R, 9R) plane
-    (geom/distance.segment_closest_planes, the reference's arithmetic).
-    Returns out_fn's planes summed over the candidate axis."""
+def segment_pair_terms(ox, oy, oz, oex, oey, oez, own_scalars,
+                       cx, cy_, cz, cex, cey, cez, cand_scalars,
+                       out_fn, lx_px):
+    """Clamped segment-segment closest points on component planes: own
+    midpoints and half-edges (..., R), candidates (..., 9R), every per-pair
+    quantity a (..., R, 9R) plane (geom/distance.segment_closest_planes,
+    the reference's arithmetic). Returns the centre separations (sx, sy,
+    sz), cand - own with the x minimum image when lx_px = (lx, 1/lx), and
+    out_fn's per-pair planes, unsummed."""
     def o(p):  # own plane -> pair block
         return p[..., :, None]
 
     def k(p):  # cand plane -> pair block
         return p[..., None, :]
 
-    SX = k(cx) - o(ox)               # cand mid - own mid (minimum image)
+    SX = k(cx) - o(ox)
     if lx_px is not None:
         lx, inv_lx = lx_px
         SX = SX - lx * torch.round(SX * inv_lx)
-    args = list(segment_closest_planes(SX, k(cy_) - o(oy), k(cz) - o(oz),
-                                       o(oex), o(oey), o(oez),
+    SY, SZ = k(cy_) - o(oy), k(cz) - o(oz)
+    args = list(segment_closest_planes(SX, SY, SZ, o(oex), o(oey), o(oez),
                                        k(cex), k(cey), k(cez)))
-    del SX
     for own_f, cand_f in zip(own_scalars, cand_scalars):
         args.append(o(own_f))
         args.append(k(cand_f))
-    return tuple(ov.sum(-1) for ov in out_fn(*args))
+    return (SX, SY, SZ), out_fn(*args)
+
+
+def _segment_pair_chunk(*planes):
+    """segment_pair_terms for one y-chunk, (chunk, nz, R) own planes and
+    (chunk, nz, 9R) candidates, its out_fn planes summed over the candidate
+    axis."""
+    return tuple(ov.sum(-1) for ov in segment_pair_terms(*planes)[1])
 
 
 def pair_accumulate_segments(

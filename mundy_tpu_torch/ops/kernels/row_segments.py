@@ -5,14 +5,17 @@ two apps call it: the rods op (force and torque, driver/apps/rods_rows.py),
 `row_segment_pairs_sym`, and the filaments op (the force split to the
 segment's two nodes, adjacent segments of one filament excluded by their
 gids, driver/apps/filaments.py), `row_segment_filaments_sym`. On a CUDA
-tensor each wrapper launches the hand-written kernel of
-csrc/row_segments.cu (one block per row, the 9 image-shifted candidate rows
-staged in shared memory, one-sided register sums up to each row's last
-valid slot; see the note there). On a CPU tensor it computes the plain
-version, `row_segment_pairs_plain` or `row_segment_filaments_plain`:
-neighbor/rows.pair_accumulate_segments with the app's out_fn, the JAX
-package's own path for this kernel off the TPU. A CUDA tensor never takes
-the plain version: a failed build or launch raises.
+tensor each wrapper launches a hand-written kernel of csrc/row_segments.cu
+(one block per row, the 9 image-shifted candidate rows staged in shared
+memory, one-sided sums; see the note there). The rods op visits only the
+chunks of a row whose x range comes within reach of the own rod and
+evaluates only the pairs that pass `segment_reach`; the filaments op sums
+every candidate up to each row's last valid slot. On a CPU tensor a wrapper
+computes the plain version, `row_segment_pairs_plain` or
+`row_segment_filaments_plain`: neighbor/rows.pair_accumulate_segments with
+the app's out_fn, the JAX package's own path for this kernel off the TPU.
+A CUDA tensor never takes the plain version: a failed build or launch
+raises.
 """
 
 from __future__ import annotations
@@ -28,6 +31,9 @@ from mundy_tpu_torch.neighbor.rows import pair_accumulate_segments
 from mundy_tpu_torch.ops.kernels import _build
 
 _DTYPES = {torch.float32: "f32", torch.float64: "f64"}
+# the rods kernel's factor on the squared reach (exact in both dtypes; the
+# note of csrc/row_segments.cu shows it covers the rounding of a pair)
+REACH_MARGIN = 1.0 + 2.0 ** -10
 
 
 def _check(mid: torch.Tensor, half_edges: torch.Tensor, box) -> None:
@@ -64,12 +70,10 @@ def _hertz_coef(radius: float, e_eff: float, dtype) -> float:
     return float((4.0 / 3.0) * e * torch.sqrt(r_eff))
 
 
-def row_segment_pairs_plain(mid: torch.Tensor, half_edges: torch.Tensor, box,
-                            radius: float, e_eff: float):
-    """Plain PyTorch version of K4 (any device): (force, torque), each
-    (ny, nz, R, 3), over the full 9-row stencil."""
-    _check(mid, half_edges, box)
-    two_r, r_eff, e = _consts(radius, e_eff, mid.dtype, mid.device)
+def rods_out_fn(radius: float, e_eff: float, dtype, device):
+    """The rods op's out_fn for pair_accumulate_segments (per-pair planes
+    in, the force and torque components on the own rod out)."""
+    two_r, r_eff, e = _consts(radius, e_eff, dtype, device)
 
     def out_fn(s, t, dx, dy, dz, d2, oex, _cex, oey, _cey, oez, _cez):
         d2c = torch.clamp(d2, min=1e-24)
@@ -87,11 +91,39 @@ def row_segment_pairs_plain(mid: torch.Tensor, half_edges: torch.Tensor, box,
         pz = u2 * oez + rr * dz
         return (fx, fy, fz, py * fz - pz * fy, pz * fx - px * fz, px * fy - py * fx)
 
+    return out_fn
+
+
+def row_segment_pairs_plain(mid: torch.Tensor, half_edges: torch.Tensor, box,
+                            radius: float, e_eff: float):
+    """Plain PyTorch version of K4 (any device): (force, torque), each
+    (ny, nz, R, 3), over the full 9-row stencil."""
+    _check(mid, half_edges, box)
     boxs = (tuple(float(b) for b in box), (True, True, True))
     hx, hy, hz = half_edges[..., 0], half_edges[..., 1], half_edges[..., 2]
     fx, fy, fz, tx, ty, tz = pair_accumulate_segments(
-        mid, boxs, half_edges, out_fn, extra_fields=(hx, hy, hz))
+        mid, boxs, half_edges, rods_out_fn(radius, e_eff, mid.dtype, mid.device),
+        extra_fields=(hx, hy, hz))
     return torch.stack([fx, fy, fz], dim=-1), torch.stack([tx, ty, tz], dim=-1)
+
+
+def half_edge_lengths(half_edges: torch.Tensor) -> torch.Tensor:
+    """|e| per slot, rounded as the rods kernel rounds it."""
+    hx, hy, hz = half_edges[..., 0], half_edges[..., 1], half_edges[..., 2]
+    return torch.sqrt((hx * hx + hy * hy) + hz * hz)
+
+
+def segment_reach(sx, sy, sz, len_own, len_cand, radius: float) -> torch.Tensor:
+    """The rods kernel's reach test, operation for operation in the inputs'
+    dtype: True where it evaluates a pair of centre separation (sx, sy, sz)
+    (x minimum image taken) and half-edge lengths len_own, len_cand (from
+    half_edge_lengths), s2 <= ((len_own + len_cand) + 2 radius)^2
+    REACH_MARGIN. A pair it rejects cannot touch, and the plain version
+    gives it an exactly zero force and torque."""
+    two_r = torch.tensor(2.0 * radius, dtype=sx.dtype, device=sx.device)
+    s2 = (sx * sx + sy * sy) + sz * sz
+    reach = (len_own + len_cand) + two_r
+    return ~(s2 > reach * reach * REACH_MARGIN)
 
 
 def _launch(op: str, mid, tensors, scalar_types, scalars):
@@ -128,10 +160,12 @@ def row_segment_pairs_sym(mid: torch.Tensor, half_edges: torch.Tensor,
     on invalid slots; valid: the (ny, nz, R) bool mask of build_rows; box:
     the three periodic box lengths; Hertzian contact with R* = radius / 2
     and E* = e_eff between the rods' closest points. CUDA tensors must be
-    contiguous and launch the kernel (counted in `.launches`), which stops
-    each row's loops at its last valid slot; CPU tensors compute the plain
-    version, which visits every slot and needs no mask (invalid slots add
-    exact zeros)."""
+    contiguous and launch the kernel (counted in `.launches`), which
+    evaluates only the valid pairs that pass `segment_reach` and raises
+    past the card's shared-memory opt-in (R = 826 in float32, 402 in
+    float64 on an H100; the note of csrc/row_segments.cu); CPU tensors
+    compute the plain version, which visits every slot and needs no mask
+    (invalid slots and pairs out of reach add exact zeros)."""
     _check(mid, half_edges, box)
     _check_rows(mid, valid)
     if mid.device.type == "cpu":
@@ -142,8 +176,9 @@ def row_segment_pairs_sym(mid: torch.Tensor, half_edges: torch.Tensor,
             and valid.is_contiguous()):
         raise ValueError("mid, half_edges and valid must be contiguous")
     coef = _hertz_coef(float(radius), float(e_eff), mid.dtype)
-    out = _launch("rods", mid, (mid, half_edges, valid), [ctypes.c_double] * 6,
-                  (*(float(b) for b in box), 2.0 * radius, float(radius), coef))
+    out = _launch("rods", mid, (mid, half_edges, valid), [ctypes.c_double] * 7,
+                  (*(float(b) for b in box), 2.0 * radius, float(radius), coef,
+                   REACH_MARGIN))
     row_segment_pairs_sym.launches += 1
     return out
 

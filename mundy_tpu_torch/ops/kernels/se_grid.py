@@ -10,8 +10,9 @@ at offsets -(P/2 - 1) .. P/2 from floor(u), wrapped periodically, and
 interpolation is the transpose, times h^3.
 
 On a CUDA tensor `se_spread` and `se_interp` launch the hand-written
-kernels of csrc/se_grid.cu (K5s an output-stationary gather per tile, no
-float atomics; K5i one thread per particle; see the note there). On a CPU
+kernels of csrc/se_grid.cu (K5s an output-stationary gather per tile over
+the occupied slots of the 27 tiles around it, no float atomics; K5i one
+thread per particle; see the note there). On a CPU
 tensor they compute the plain versions, `se_spread_plain` and
 `se_interp_plain`: the P-point scatter (`index_add_`, deterministic on the
 CPU) and gather of the reference's spectral.se_spread / se_interpolate
@@ -193,10 +194,13 @@ def _check(geom: SEGridTiles, pieces) -> None:
 def _check_cuda(geom: SEGridTiles, tensors) -> None:
     """The kernels' envelope: support within the 27 tiles around a slot's
     own (m >= P/2 + 1, one grid point of slack for the rounding between the
-    binning and floor(u)), P <= MAX_P, int32 ids, contiguous inputs."""
+    binning and floor(u)), P <= MAX_P and P <= G, int32 ids, contiguous
+    inputs."""
     if geom.m < geom.P // 2 + 1:
         raise ValueError(f"tile edge m = {geom.m} < P/2 + 1 = {geom.P // 2 + 1}: a slot's "
                          "window would reach past the neighbouring tiles")
+    if geom.P > geom.G:
+        raise ValueError(f"window support P = {geom.P} wider than the grid G = {geom.G}")
     if not 1 <= geom.P <= MAX_P:
         raise ValueError(f"window support P = {geom.P} outside the kernels' 1..{MAX_P}")
     if geom.kind not in ("es", "gaussian"):
@@ -215,9 +219,10 @@ def _window_args(geom: SEGridTiles):
 def se_spread(geom: SEGridTiles, pieces, forces: torch.Tensor) -> torch.Tensor:
     """Kernel K5s: (G, G, G, 3) spread grid in forces' dtype from the binned
     `pieces` (se_bin_tiles) and the (N, 3) forces. A CPU tensor computes the
-    plain version. A CUDA tensor launches the kernel (counted in
-    `.launches`): int32 perm, u and forces of one dtype, contiguous, within
-    the envelope of `_check_cuda`, or the wrapper raises."""
+    plain version. A CUDA tensor launches the kernel (its extent pre-pass
+    and the gather, counted once in `.launches`): int32 perm, u and forces
+    of one dtype, contiguous, within the envelope of `_check_cuda`, or the
+    wrapper raises."""
     _check(geom, pieces)
     perm, _ovf, u, _valid, _slot_of = pieces
     if forces.device.type == "cpu":
@@ -229,15 +234,17 @@ def se_spread(geom: SEGridTiles, pieces, forces: torch.Tensor) -> torch.Tensor:
         raise TypeError("K5s needs int32 perm and (N, 3) forces in u's dtype")
     G = geom.G
     grid = torch.empty((G, G, G, 3), dtype=forces.dtype, device=forces.device)
+    ext = torch.empty(perm.shape[0], dtype=torch.int32, device=forces.device)  # scratch
     lib = _build.load("se_grid")
     fn = getattr(lib, f"se_spread_{_DTYPES[forces.dtype]}")
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_double] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_double] * 5
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     with torch.cuda.device(forces.device):
         stream = torch.cuda.current_stream(forces.device).cuda_stream
-        err = fn(u.data_ptr(), perm.data_ptr(), forces.data_ptr(), grid.data_ptr(),
-                 forces.shape[0], G, geom.m, geom.P, geom.R, *_window_args(geom), stream)
+        err = fn(u.data_ptr(), perm.data_ptr(), forces.data_ptr(), ext.data_ptr(),
+                 grid.data_ptr(), forces.shape[0], G, geom.m, geom.P, geom.R,
+                 *_window_args(geom), stream)
     if err != 0:
         raise RuntimeError(f"se_grid spread kernel launch failed: CUDA error {err}")
     se_spread.launches += 1

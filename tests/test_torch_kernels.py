@@ -152,74 +152,180 @@ def test_k2_refuses_cpu_only_branches(cuda_device):
     assert k2.row_neighbor_extract.launches == before
 
 
+def _random_rods(n, box, seed):
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(0, box, (n, 3))
+    axes = rng.normal(size=(n, 3))
+    axes /= np.linalg.norm(axes, axis=1, keepdims=True)
+    return pos, axes, rng
+
+
+def _rods_rows(pos, axes, box, td, dev, align=8):
+    """Rows of rods of half-length 0.4 (cutoff 1.6) and their half-edges."""
+    n = pos.shape[0]
+    grid = tr.make_row_grid([0, 0, 0], [box] * 3, 1.6, n, dtype=td, align=align, device=dev)
+    ts = tr.build_rows(torch.as_tensor(pos, dtype=td, device=dev),
+                       torch.arange(n, dtype=torch.int32, device=dev), grid)
+    gid = ts.gid.long().clamp(max=n - 1)
+    hedges = torch.where(ts.valid[..., None],
+                         0.4 * torch.as_tensor(axes, dtype=td, device=dev)[gid], 0.0)
+    return ts, hedges.contiguous()
+
+
+def _check_rods(mid, hedges, valid, box, dtype):
+    """The rods kernel against its plain version (float32 within 1e-5,
+    float64 within 1e-12 of max|force| and of max|torque|), and a second
+    launch bit-equal to the first."""
+    args = ((box,) * 3, 0.2, 109.89)
+    before = k4.row_segment_pairs_sym.launches
+    got = k4.row_segment_pairs_sym(mid, hedges, valid, *args)
+    again = k4.row_segment_pairs_sym(mid, hedges, valid, *args)
+    torch.cuda.synchronize()
+    assert k4.row_segment_pairs_sym.launches == before + 2
+    ref = k4.row_segment_pairs_plain(mid, hedges, *args)
+    for g, a, r in zip(got, again, ref):
+        assert torch.equal(g, a)
+        assert bool(torch.isfinite(g).all())
+        scale = r.abs().max().item()
+        assert scale > 0
+        assert (g - r).abs().max().item() <= (1e-12 if dtype == "float64" else 1e-5) * scale
+    return got
+
+
+def _matches_plain_rows(n, box, align, td, dev):
+    """test_k4_kernel_matches_plain's rods: rods 0 and 1 coincide."""
+    pos, axes, _ = _random_rods(n, box, 13)
+    pos[1], axes[1] = pos[0], axes[0]
+    return _rods_rows(pos, axes, box, td, dev, align=align)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("n,box,align", [(600, 12.8, 8), (1500, 14.5, 1),
                                          (4000, 8.5, 8)])
 def test_k4_kernel_matches_plain(cuda_device, dtype, n, box, align):
-    """Rods force and torque, every slot (invalid ones included). align=1
-    gives nz = 9; n = 4000 in a 5 x 5 row grid gives R = 312: rows longer
-    than one 256-thread pass, and more than 48 KB of shared memory in both
-    dtypes. Rods 0 and 1 coincide (one midpoint, one axis)."""
-    td = _DT[dtype]
-    rng = np.random.default_rng(13)
-    pos = rng.uniform(0, box, (n, 3))
-    axes = rng.normal(size=(n, 3))
-    axes /= np.linalg.norm(axes, axis=1, keepdims=True)
-    pos[1], axes[1] = pos[0], axes[0]
-    grid = tr.make_row_grid([0, 0, 0], [box] * 3, 1.6, n, dtype=td, align=align,
-                            device=cuda_device)
-    ts = tr.build_rows(torch.as_tensor(pos, dtype=td, device=cuda_device),
-                       torch.arange(n, dtype=torch.int32, device=cuda_device), grid)
+    """Rods force and torque, every slot (invalid ones included), and a
+    repeat bit-equal. align=1 gives nz = 9; n = 4000 in a 5 x 5 row grid
+    gives R = 312: rows longer than 256 threads, and more than 48 KB of
+    shared memory in both dtypes. Rods 0 and 1 coincide (one midpoint, one
+    axis)."""
+    ts, hedges = _matches_plain_rows(n, box, align, _DT[dtype], cuda_device)
     if align == 1:
         assert ts.pos.shape[1] == 9
     if n == 4000:
         assert ts.pos.shape[2] > 256
-    gid = ts.gid.long().clamp(max=n - 1)
-    hedges = torch.where(ts.valid[..., None],
-                         0.4 * torch.as_tensor(axes, dtype=td, device=cuda_device)[gid], 0.0)
-    args = (ts.pos, hedges.contiguous(), (box,) * 3, 0.2, 109.89)
-    before = k4.row_segment_pairs_sym.launches
-    got = k4.row_segment_pairs_sym(ts.pos, args[1], ts.valid, *args[2:])
-    torch.cuda.synchronize()
-    assert k4.row_segment_pairs_sym.launches == before + 1
-    ref = k4.row_segment_pairs_plain(*args)
-    for g, r in zip(got, ref):
-        assert bool(torch.isfinite(g).all())
-        scale = r.abs().max().item()
-        assert scale > 0
-        assert (g - r).abs().max().item() <= (1e-12 if dtype == "float64" else 1e-5) * scale
+    _check_rods(ts.pos, hedges, ts.valid, box, dtype)
 
 
 @pytest.mark.cuda
 def test_k4_rows_with_holes(cuda_device):
-    """The kernel stops each row at its last valid slot; with the slots of
-    every row permuted (holes before valid slots) it still matches the plain
-    version on the same layout, float64 within 1e-12 of max|out|."""
-    n, box, td = 600, 12.8, torch.float64
-    rng = np.random.default_rng(17)
-    pos = rng.uniform(0, box, (n, 3))
+    """With the slots of every row permuted (holes before valid slots) the
+    kernel still matches the plain version on the same layout, float64
+    within 1e-12 of max|out|."""
+    n, box = 600, 12.8
+    pos, axes, rng = _random_rods(n, box, 17)
+    ts, hedges = _rods_rows(pos, axes, box, torch.float64, cuda_device)
+    perm = torch.as_tensor(rng.permutation(ts.pos.shape[2]), device=cuda_device)
+    valid = ts.valid[:, :, perm].contiguous()
+    assert bool((~valid[..., :-1] & valid[..., 1:]).any())  # a hole before a rod
+    _check_rods(ts.pos[:, :, perm].contiguous(), hedges[:, :, perm].contiguous(), valid, box,
+                "float64")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("n,box", [(600, 12.8), (4000, 20.0)])
+def test_k4_rods_rows_moved_since_the_rebuild(cuda_device, dtype, n, box):
+    """Rods moved along x after build_rows (up to 2.5 reaches, wrapped into
+    the box), so the rows are no longer sorted in x and some chunks span the
+    box: the x window bounds each chunk by its current positions and still
+    matches the plain version."""
+    td = _DT[dtype]
+    pos, axes, rng = _random_rods(n, box, 29)
+    ts, hedges = _rods_rows(pos, axes, box, td, cuda_device)
+    shift = torch.as_tensor(rng.uniform(-3.0, 3.0, ts.valid.shape), dtype=td,
+                            device=cuda_device)
+    mid = ts.pos.clone()
+    mid[..., 0] = torch.where(ts.valid, torch.remainder(mid[..., 0] + shift, box), mid[..., 0])
+    x = torch.where(ts.valid, mid[..., 0], float("nan"))
+    assert bool((x[..., 1:] < x[..., :-1]).any())  # no longer sorted
+    _check_rods(mid.contiguous(), hedges, ts.valid, box, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_k4_rods_reach_margin_and_x_wrap(cuda_device, dtype):
+    """Collinear pairs (reach 2 |e| + 2r = 1.2) just inside contact, just
+    inside the reach margin and just outside it, the same across the x
+    wrap, and a coincident pair, among random rods: the kernel matches the
+    plain version and pushes exactly the pairs in contact."""
+    n, box, td = 600, 12.8, _DT[dtype]
+    rng = np.random.default_rng(23)
+    pos = rng.uniform(0, box, (4 * n, 3))
+    d = np.abs(pos[:, 1] - pos[:, 2])
+    pos = pos[np.minimum(d, box - d) > 2.5][:n]  # no random rod reaches y = z
     axes = rng.normal(size=(n, 3))
     axes /= np.linalg.norm(axes, axis=1, keepdims=True)
-    grid = tr.make_row_grid([0, 0, 0], [box] * 3, 1.6, n, dtype=td, device=cuda_device)
-    ts = tr.build_rows(torch.as_tensor(pos, dtype=td, device=cuda_device),
-                       torch.arange(n, dtype=torch.int32, device=cuda_device), grid)
-    perm = torch.as_tensor(rng.permutation(ts.pos.shape[2]), device=cuda_device)
-    mid, valid, gid = ts.pos[:, :, perm], ts.valid[:, :, perm], ts.gid[:, :, perm]
-    assert bool((~valid[..., :-1] & valid[..., 1:]).any())  # a hole before a rod
-    hedges = torch.where(valid[..., None], 0.4 * torch.as_tensor(
-        axes, dtype=td, device=cuda_device)[gid.long().clamp(max=n - 1)], 0.0)
-    mid, hedges, valid = mid.contiguous(), hedges.contiguous(), valid.contiguous()
-    got = k4.row_segment_pairs_sym(mid, hedges, valid, (box,) * 3, 0.2, 109.89)
-    ref = k4.row_segment_pairs_plain(mid, hedges, (box,) * 3, 0.2, 109.89)
-    for g, r in zip(got, ref):
-        scale = r.abs().max().item()
-        assert scale > 0 and (g - r).abs().max().item() <= 1e-12 * scale
+    reach = 1.2
+    placed = [(2.0, 2.0 + reach * (1 - 1e-3), 1.0, True),
+              (2.0, 2.0 + reach * (1 + 2e-4), 2.6, False),
+              (2.0, 2.0 + reach * (1 + 2e-3), 4.2, False),
+              (0.05, 0.05 - reach * (1 - 1e-3) + box, 5.8, True),
+              (0.05, 0.05 - reach * (1 + 2e-4) + box, 7.4, False),
+              (0.05, 0.05 - reach * (1 + 2e-3) + box, 9.0, False),
+              (9.0, 9.0, 10.6, False)]  # coincident
+    for i, (xo, xc, yz, _) in enumerate(placed):
+        pos[2 * i], pos[2 * i + 1] = [xo, yz, yz], [xc, yz, yz]
+        axes[2 * i] = axes[2 * i + 1] = [1.0, 0.0, 0.0]
+    ts, hedges = _rods_rows(pos, axes, box, td, cuda_device)
+    force, _ = _check_rods(ts.pos, hedges, ts.valid, box, dtype)
+    flat = tr.rows_to_flat(ts.replace(pos=force), n)
+    for i, (_, _, _, touch) in enumerate(placed):
+        assert bool((flat[2 * i].abs().max() > 0)) == touch
+        assert bool((flat[2 * i + 1].abs().max() > 0)) == touch
+
+
+def _rods_smem(R, itemsize):
+    """The rods kernel's shared memory per block (rods_smem of
+    csrc/row_segments.cu): seven planes of 9 R slots, three per chunk of
+    32, each warp's 32 drained outputs and 64-entry ring, one byte per own
+    slot."""
+    nc = -(-R // 32)
+    nw = min(nc, 16)
+    return (63 * R + 27 * nc + 192 * nw) * itemsize + 512 * nw + R
+
+
+@pytest.mark.cuda
+def test_k4_rods_past_shared_memory_raises(cuda_device):
+    """float64 at R = 416 needs 239,512 bytes of shared memory, past the
+    H100's 232,448-byte opt-in (the largest float64 row is R = 402): the
+    launch fails and the wrapper raises, with no plain fallback and no
+    launch counted; float32 at the same R launches and matches the plain
+    version."""
+    n, box = 600, 12.8
+    pos, axes, _ = _random_rods(n, box, 31)
+    ts, hedges = _rods_rows(pos, axes, box, torch.float64, cuda_device)
+    R = 416
+    pad = R - ts.pos.shape[2]
+    optin = torch.cuda.get_device_properties(cuda_device).shared_memory_per_block_optin
+    assert _rods_smem(R, 8) > optin >= _rods_smem(402, 8)
+    assert _rods_smem(R, 4) <= optin
+
+    def widen(t, fill):
+        return torch.cat([t, t.new_full(t.shape[:2] + (pad,) + t.shape[3:], fill)],
+                         dim=2).contiguous()
+
+    mid, he, valid = widen(ts.pos, -1e6), widen(hedges, 0.0), widen(ts.valid, False)
+    before = k4.row_segment_pairs_sym.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        k4.row_segment_pairs_sym(mid, he, valid, (box,) * 3, 0.2, 109.89)
+    assert k4.row_segment_pairs_sym.launches == before
+    _check_rods(mid.float(), he.float(), valid, box, "float32")
 
 
 # sha256 (first 16 hex digits) of the rods op's force then torque bytes on
-# test_k4_kernel_matches_plain's inputs, from the rods kernel as built
-# before the filaments op joined its source (NVIDIA H100 80GB HBM3)
+# test_k4_kernel_matches_plain's inputs, from the full-scan rods kernel as
+# built before the filaments op joined its source (NVIDIA H100 80GB HBM3)
 _RODS_SHA = {
     ("float32", 600): "bbe0c18a1ff39a11", ("float32", 1500): "07339bbab57b29e4",
     ("float32", 4000): "be679653b566ad0b", ("float64", 600): "fa29f8dfb359b71b",
@@ -232,25 +338,13 @@ _RODS_SHA = {
 @pytest.mark.parametrize("n,box,align", [(600, 12.8, 8), (1500, 14.5, 1),
                                          (4000, 8.5, 8)])
 def test_k4_rods_op_outputs_unchanged(cuda_device, dtype, n, box, align):
-    """The filaments op shares the rods op's kernel body: the rods op's
-    outputs stay bit for bit what they were."""
+    """The rods kernel leaves out only pairs out of reach, whose terms are
+    exact zeros, and keeps the full scan's order: its outputs stay bit for
+    bit the full scan's."""
     import hashlib
 
-    td = _DT[dtype]
-    rng = np.random.default_rng(13)
-    pos = rng.uniform(0, box, (n, 3))
-    axes = rng.normal(size=(n, 3))
-    axes /= np.linalg.norm(axes, axis=1, keepdims=True)
-    pos[1], axes[1] = pos[0], axes[0]
-    grid = tr.make_row_grid([0, 0, 0], [box] * 3, 1.6, n, dtype=td, align=align,
-                            device=cuda_device)
-    ts = tr.build_rows(torch.as_tensor(pos, dtype=td, device=cuda_device),
-                       torch.arange(n, dtype=torch.int32, device=cuda_device), grid)
-    gid = ts.gid.long().clamp(max=n - 1)
-    hedges = torch.where(ts.valid[..., None],
-                         0.4 * torch.as_tensor(axes, dtype=td, device=cuda_device)[gid], 0.0)
-    out = k4.row_segment_pairs_sym(ts.pos, hedges.contiguous(), ts.valid, (box,) * 3, 0.2,
-                                   109.89)
+    ts, hedges = _matches_plain_rows(n, box, align, _DT[dtype], cuda_device)
+    out = k4.row_segment_pairs_sym(ts.pos, hedges, ts.valid, (box,) * 3, 0.2, 109.89)
     digest = hashlib.sha256(b"".join(t.contiguous().cpu().numpy().tobytes()
                                      for t in out)).hexdigest()[:16]
     assert digest == _RODS_SHA[(dtype, n)]
@@ -273,6 +367,37 @@ def _filament_rows(F, M, box, td, dev, seed=19, cutoff=1.8, align=8):
     gid = rows.gid.long().clamp(max=S - 1)
     he = torch.where(rows.valid[..., None], torch.as_tensor(e, dtype=td, device=dev)[gid], 0.0)
     return rows, he.contiguous()
+
+
+def _filaments_digest(dtype, F, M, box, align, dev):
+    """sha256 (first 16 hex digits) of the filaments op's f_start then f_end
+    bytes on test_k4_filaments_kernel_matches_plain's inputs."""
+    import hashlib
+
+    rows, he = _filament_rows(F, M, box, _DT[dtype], dev, align=align)
+    out = k4.row_segment_filaments_sym(rows.pos, he, rows.valid, rows.gid, (box,) * 3, 0.25,
+                                       274.725, M - 1)
+    return hashlib.sha256(b"".join(t.contiguous().cpu().numpy().tobytes()
+                                   for t in out)).hexdigest()[:16]
+
+
+# _filaments_digest from the filaments op as built before the rods op took
+# its own kernel body (NVIDIA H100 80GB HBM3)
+_FIL_SHA = {
+    ("float32", 60): "255f0a5e0a1b53f6", ("float32", 120): "5fe88a0aad12d308",
+    ("float32", 600): "229268dc501838c8", ("float64", 60): "df30ad7fe768cacb",
+    ("float64", 120): "4a47d8f3d4c25244", ("float64", 600): "88d60c882229d788",
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("F,M,box,align", [(60, 6, 9.5, 8), (120, 7, 16.5, 1),
+                                           (600, 9, 9.5, 8)])
+def test_k4_filaments_op_outputs_unchanged(cuda_device, dtype, F, M, box, align):
+    """The rods op has a kernel body of its own; the filaments op keeps
+    the full scan, bit for bit."""
+    assert _filaments_digest(dtype, F, M, box, align, cuda_device) == _FIL_SHA[(dtype, F)]
 
 
 def _check_filaments(rows_pos, he, valid, gid, box, E, dtype):
@@ -453,10 +578,38 @@ def test_k5s_repeats_bit_for_bit(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_k5s_full_tiles_beside_empty_ones(cuda_device, dtype):
+    """Tiles in a checkerboard: every even tile full (count = R = 16, three
+    beads more in one, which overflow), every odd tile empty, so each walk
+    meets extents R and 0 side by side. Within 1e-5 (float32) or 1e-12
+    (float64) of max|grid|, and a second launch bit-equal."""
+    td, R, nt1, edge = _DT[dtype], 16, 8, 3.0  # box 24, G = 64, m = 8
+    rng = np.random.default_rng(31)
+    t = np.stack(np.meshgrid(*(np.arange(nt1),) * 3, indexing="ij"), -1).reshape(-1, 3)
+    even = t[t.sum(1) % 2 == 0]
+    corners = np.concatenate([np.repeat(even, R, 0), np.zeros((3, 3))]) * edge
+    pos = corners + rng.uniform(0.0, edge, corners.shape)
+    geom = _se_geom(64, 6, 8, pos.shape[0], "es", R=R)
+    pieces = k5.se_bin_tiles(geom, torch.as_tensor(pos, dtype=td, device=cuda_device), td)
+    forces = torch.as_tensor(rng.normal(size=pos.shape), dtype=td, device=cuda_device)
+    count = pieces[3].sum(1).cpu().numpy()
+    assert bool(pieces[1]) and set(count.tolist()) == {0, R}
+    grid = k5.se_spread(geom, pieces, forces)
+    ref = k5.se_spread_plain(geom, pieces, forces)
+    assert torch.equal(grid, k5.se_spread(geom, pieces, forces))
+    scale = ref.abs().max().item()
+    assert scale > 0
+    tol = 1e-12 if dtype == "float64" else 1e-5
+    assert (grid - ref).abs().max().item() <= tol * scale
+
+
+@pytest.mark.cuda
 def test_k5_refuses_outside_its_envelope(cuda_device):
     """A tile edge below P/2 + 1 would let a window reach past the
-    neighbouring tiles, and int64 ids or mixed dtypes are not the kernels'
-    inputs: the wrappers raise before any launch, no plain fallback."""
+    neighbouring tiles, a window wider than the grid would meet a point
+    twice, and int64 ids or mixed dtypes are not the kernels' inputs: the
+    wrappers raise before any launch, no plain fallback."""
     geom = _se_geom(64, 6, 8, 1000, "es")
     pieces, forces = _se_pieces(geom, 1000, torch.float32, cuda_device)
     before = (k5.se_spread.launches, k5.se_interp.launches)
@@ -469,6 +622,10 @@ def test_k5_refuses_outside_its_envelope(cuda_device):
     with pytest.raises(TypeError, match="int32"):
         k5.se_interp(geom, tuple(pieces[:4]) + (pieces[4].long(),),
                      torch.zeros((64, 64, 64, 3), device=cuda_device))
+    narrow = _se_geom(10, 12, 10, 200, "es")  # P > G: a window wraps onto itself
+    npieces, nforces = _se_pieces(narrow, 200, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="wider than the grid"):
+        k5.se_spread(narrow, npieces, nforces)
     assert (k5.se_spread.launches, k5.se_interp.launches) == before
 
 

@@ -8,7 +8,9 @@ same operations and differ only in the order of the candidate sums.
 float32 is held against the TPU kernel itself in interpret mode within
 5e-4 of the max, the bound of tests/test_pallas_row_segments.py (rsqrt and
 summation order). The CUDA kernel is held against this plain version on the
-card, in tests/test_torch_kernels.py.
+card, in tests/test_torch_kernels.py. The rods kernel evaluates only the
+pairs that pass `segment_reach`; every pair the test rejects is held here
+to an exactly zero force and torque in the plain version, in both dtypes.
 """
 
 import jax
@@ -204,3 +206,60 @@ def test_wrapper_checks():
         k4.row_segment_pairs_sym(pos, pos, valid[:, :, :8], (10.0,) * 3, 0.25, 500.0)
     with pytest.raises(ValueError, match="bool"):
         k4.row_segment_pairs_sym(pos, pos, valid.int(), (10.0,) * 3, 0.25, 500.0)
+
+
+def _pair_planes(ts, hedges, box, dtype):
+    """Every (own slot, candidate) pair of the 9-row stencil, through the
+    plain version's own segment_pair_terms: the rods op's six outputs per
+    pair (..., 6), the kernel's reach test, and the own and candidate gids
+    (-1 on invalid slots)."""
+    td = _DT[dtype][1]
+    he = torch.as_tensor(hedges, dtype=td)
+    hx, hy, hz = he.unbind(-1)
+    lens = k4.half_edge_lengths(he)
+    gid = torch.where(ts.valid, ts.gid, -1).to(td)
+    cx, cy, cz, (cex, cey, cez, cl, cg) = tr._candidate_planes(
+        ts.pos, ((box,) * 3, (True,) * 3), (hx, hy, hz, lens, gid))
+    ox, oy, oz = ts.pos.unbind(-1)
+    (sx, sy, sz), out = tr.segment_pair_terms(
+        ox, oy, oz, hx, hy, hz, (hx, hy, hz), cx, cy, cz, cex, cey, cez,
+        (cex, cey, cez), k4.rods_out_fn(RADIUS, E_EFF, td, "cpu"), (box, 1.0 / box))
+    keep = k4.segment_reach(sx, sy, sz, lens[..., :, None], cl[..., None, :], RADIUS)
+    return (torch.stack(torch.broadcast_tensors(*out), -1), keep,
+            gid[..., :, None].expand_as(keep), cg[..., None, :].expand_as(keep))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_reach_rejects_only_pairs_that_add_zero(dtype):
+    """The rods kernel skips a pair when segment_reach rejects it; the plain
+    version gives every such pair an exactly zero force and torque. On 600
+    random rods plus collinear pairs (reach 2 |e| + 2r = 1.2) placed just
+    inside contact, just inside the margin (kept, no contact) and just
+    outside it (rejected), the same across the x wrap, and a coincident
+    pair."""
+    n, box = 600, 12.8
+    rng = np.random.default_rng(23)
+    pos = rng.uniform(0, box, (n, 3))
+    axes = _unit(rng, n)
+    reach = 2 * 0.5 * LENGTH + 2 * RADIUS
+    # (own x, candidate x, y = z, in contact, kept by the reach test)
+    placed = [(2.0, 2.0 + reach * (1 - 1e-3), 2.0, True, True),
+              (2.0, 2.0 + reach * (1 + 2e-4), 3.6, False, True),
+              (2.0, 2.0 + reach * (1 + 2e-3), 5.2, False, False),
+              (0.05, 0.05 - reach * (1 - 1e-3) + box, 6.8, True, True),
+              (0.05, 0.05 - reach * (1 + 2e-4) + box, 8.4, False, True),
+              (0.05, 0.05 - reach * (1 + 2e-3) + box, 10.0, False, False),
+              (9.0, 9.0, 11.6, False, True)]  # coincident
+    for i, (xo, xc, yz, _, _) in enumerate(placed):
+        pos[2 * i], pos[2 * i + 1] = [xo, yz, yz], [xc, yz, yz]
+        axes[2 * i] = axes[2 * i + 1] = [1.0, 0.0, 0.0]
+    _, ts, hedges, box = _setup(dtype, n=n, box=box, pos=pos, axes=axes)
+    out, keep, og, cg = _pair_planes(ts, hedges, box, dtype)
+    assert bool((out[~keep] == 0).all())
+    assert 0.5 < float((~keep).double().mean()) < 1.0
+    assert bool((out[keep].abs().amax(-1) > 0).any())
+    for i, (_, _, _, touch, kept) in enumerate(placed):
+        pair = (og == 2 * i) & (cg == 2 * i + 1)
+        assert int(pair.sum()) == 1
+        assert bool(keep[pair]) == kept
+        assert bool((out[pair].abs().max() > 0)) == touch
