@@ -16,13 +16,16 @@ Delassus applies (kernel K3t) through the port's own entry points:
    print each kernel's registers and spills and the card with its power
    limit;
 2. K1 vs its plain PyTorch version at the 1M-sphere config #1 shape
-   (float32, max |diff| over valid slots <= 2e-5 max|f|);
+   (float32, with the valid mask as the step passes it, max |diff| over
+   valid slots <= 2e-5 max|f|); its bound from the pairs within the early
+   stop's cut in x and those in contact, both counted and printed;
 3. examples/spheres_10k.yaml for 200 steps through load_yaml /
    config_from_dict -> RowSpheresSim(...).run();
 4. config #1 in float64 (2000 spheres, 60 steps) on the card against the
    same run on the CPU, which takes the plain versions;
 5. the 1M config #1 (phi = 0.05) for 300 steps through run_block, with the
-   K1 count set to 0 just before: one K1 launch per step;
+   K1 count set to 0 just before: one K1 launch per step; then
+   torch.profiler over 8 more steps;
 6. the 1M LCP bench protocol of bench.py:39-74: init, 3 settle blocks of 9
    steps, a 2-step block at fixed capacities that must not overflow, then a
    24-step timed window with the K2/K3 counts set to 0 just before: one K3
@@ -56,7 +59,8 @@ Delassus applies (kernel K3t) through the port's own entry points:
 15. K4's filaments op vs its plain version at the 2000 x 50 row-engine
     shape (float32, from FilamentsSim(contact_engine="rows").init, the
     reference's benchmark size): f_start and f_end max |diff| within 1e-5
-    of their max;
+    of their max; its bound from the pairs within reach in x and in 3D,
+    both counted and printed;
 16. examples/filaments_sperm.yaml, all 1000 steps, through load_yaml /
     config_from_dict -> FilamentsSim(...).run() (float64, the active wave,
     the cell-list neighbor matrix): no overflow, finite, unit edge
@@ -158,21 +162,25 @@ KERNELS = ("row_central", "row_extract", "seg_onehot", "row_segments", "se_grid"
 K4_OPS = 187.0
 K4_REACH_OPS = 16.0
 K4_ROD_OPS = 10.0
-# K4's filaments op: the same closest points (125 of the 187), then the own
+# K4's filaments op, per unordered pair within reach in 3D (the reach test
+# and the per-segment work as the rods op's): the same closest points (125
+# of the 187), then the own
 # side's Hertz push (d2 clamp, rsqrt, dist, dist - 2r, clamp, coef delta,
 # sqrt, product, mag / dist: 9), force 3, 1 - s 1, the node split 6 and
 # sums 6, and the partner's split by 1 - t (1 + 6 + 6) with the force
 # reused; the adjacency test is integer work, not counted
 K4F_OPS = 163.0
 # FP32 operations of the Hertzian row kernels, counted from the algorithm,
-# each unordered pair once with both sides' sums. Every occupied pair needs
-# its separation and r2: K1 takes the minimum image on x only (difference, x
-# 1/L, rint, x L, subtract: 5) and two differences on the pre-shifted rows,
-# r2 5; K6 three minimum images 15 and r2 5, and with radii the contact
-# distance ro + rc and its square 2 more. The contact test is a compare, not
-# counted. A pair in contact then needs the clamp, rsqrt and d 3, delta 2,
-# w = coef delta sqrt(delta) / d 4 and both sums as 6 FMAs 12; with radii
-# also ro rc, the clamp, the division, sqrt and its product with coef 5.
+# each unordered pair once with both sides' sums. A pair needs its
+# separation and r2 (K1: every occupied pair within its early stop's cut in
+# x, the others being out of contact on x alone; K6: every occupied pair):
+# K1 takes the minimum image on x only (difference, x 1/L, rint, x L,
+# subtract: 5) and two differences on the pre-shifted rows, r2 5; K6 three
+# minimum images 15 and r2 5, and with radii the contact distance ro + rc
+# and its square 2 more. The contact test is a compare, not counted. A pair
+# in contact then needs the clamp, rsqrt and d 3, delta 2, w = coef delta
+# sqrt(delta) / d 4 and both sums as 6 FMAs 12; with radii also ro rc, the
+# clamp, the division, sqrt and its product with coef 5.
 K1_PAIR_OPS = 12.0
 K1_CONTACT_OPS = 21.0
 K6_PAIR_OPS = 20.0
@@ -287,6 +295,31 @@ def reach_pairs(pos, hedges, valid, box, radius, k4, torch) -> tuple:
                 in_x += int((pair & k4.segment_reach(sx, zero, zero, lo, lc, radius)).sum())
                 in_3d += int((pair & k4.segment_reach(sx, sy, sz, lo, lc, radius)).sum())
     return in_x / 2, in_3d / 2
+
+
+def cut_pairs_in_x(pos, valid, box, radius, k1, torch) -> float:
+    """Unordered pairs of valid spheres on this row layout whose x
+    separation alone K1's early stop (k1.contact_reach on dx^2) keeps, over
+    the full 9-row stencil with the x minimum image. Counted in y-slabs of
+    ~5e7 pair entries."""
+    ny, nz, R = valid.shape
+    lx = float(box[0])
+    not_self = ~torch.eye(R, dtype=torch.bool, device=pos.device)
+    step = max(1, int(5e7 // (nz * R * R)))
+    hits = 0
+    for dy in (-1, 0, 1):
+        for dz in (-1, 0, 1):
+            cx, cv = (torch.roll(t, (-dy, -dz), dims=(0, 1)) for t in (pos[..., 0], valid))
+            for y0 in range(0, ny, step):
+                s = slice(y0, y0 + step)
+                dx = cx[s][..., None, :] - pos[s][..., :, None, 0]
+                dx = dx - lx * torch.round(dx / lx)
+                hit = (k1.contact_reach(dx * dx, radius) & valid[s][..., :, None]
+                       & cv[s][..., None, :])
+                if (dy, dz) == (0, 0):
+                    hit = hit & not_self
+                hits += int(hit.sum())
+    return hits / 2
 
 
 def cuda_ms(fn, torch, reps: int) -> float:
@@ -573,7 +606,7 @@ def polydisperse_phases(torch, dev, lcp_sim, lcp_st) -> list:
     k6.row_hertzian_forces.launches = 0
     f6 = k6.row_hertzian_forces(*args)
     f_p = k6.row_hertzian_forces_plain(*args)
-    f1 = k1.row_hertzian_forces_sym(rows.pos, *args[2:])
+    f1 = k1.row_hertzian_forces_sym(rows.pos, *args[2:], valid=rows.valid)
     torch.cuda.synchronize()
     m = rows.valid
     fmax = f_p[m].abs().max().item()
@@ -591,7 +624,8 @@ def polydisperse_phases(torch, dev, lcp_sim, lcp_st) -> list:
                                              lambda: k6.row_hertzian_forces_plain(*args),
                                              torch, 10, 2)
     k1_again_ms = statistics.median(
-        [cuda_ms(lambda: k1.row_hertzian_forces_sym(rows.pos, *args[2:]), torch, 10)
+        [cuda_ms(lambda: k1.row_hertzian_forces_sym(rows.pos, *args[2:], valid=rows.valid),
+                 torch, 10)
          for _ in range(3)])
     # the occupied pairs, each unordered pair once (the half stencil's count),
     # and those in contact; read pos and valid once, write the forces once
@@ -935,30 +969,40 @@ def main() -> None:
     rows = state.rows
     box = sim.box_static[0]
     args = (box, big.radius, big.youngs_modulus, big.poissons_ratio)
-    f_k = k1.row_hertzian_forces_sym(rows.pos, *args)
+    f_k = k1.row_hertzian_forces_sym(rows.pos, *args, valid=rows.valid)  # as the step calls it
+    f_n = k1.row_hertzian_forces_sym(rows.pos, *args)  # the reference's signature
     f_p = k1.row_hertzian_forces_plain(rows.pos, *args)
     torch.cuda.synchronize()
     m = rows.valid
     k1_err = (f_k[m] - f_p[m]).abs().max().item()
     fmax = f_p[m].abs().max().item()
+    same = bool(torch.equal(f_k, f_n))
     ny, nz, R = rows.valid.shape
     print(f"[2] K1 at (ny, nz, R) = ({ny}, {nz}, {R}), {int(m.sum())} valid "
-          f"slots: max|diff| {k1_err:.3e}, max|f| {fmax:.3e}", flush=True)
-    if not (fmax > 0 and math.isfinite(k1_err) and k1_err <= 2e-5 * fmax):
-        fail(f"K1 disagrees with its plain version: {k1_err} > 2e-5 * {fmax}")
+          f"slots: max|diff| {k1_err:.3e}, max|f| {fmax:.3e}; without the mask bit-equal "
+          f"{same}", flush=True)
+    if not (fmax > 0 and math.isfinite(k1_err) and k1_err <= 2e-5 * fmax and same):
+        fail(f"K1 disagrees with its plain version ({k1_err} > 2e-5 * {fmax}) or without "
+             f"the mask (bit-equal {same})")
     k1_ms, k1_plain_ms = alternate(
-        lambda: k1.row_hertzian_forces_sym(rows.pos, *args),
+        lambda: k1.row_hertzian_forces_sym(rows.pos, *args, valid=rows.valid),
         lambda: k1.row_hertzian_forces_plain(rows.pos, *args), torch, 10, 2)
-    # the half stencil's occupied pairs at K1_PAIR_OPS each, those in
-    # contact at K1_CONTACT_OPS more; read pos once, write the forces once
-    k1_pairs = stencil_work(m, torch)[0]
+    # the occupied pairs within the early stop's cut in x at K1_PAIR_OPS
+    # each, those in contact at K1_CONTACT_OPS more; read valid on every slot
+    # and the occupied slots' positions once (a padded slot's forces are +0
+    # from valid alone), write the forces on every slot once
+    k1_in_x = cut_pairs_in_x(rows.pos, m, box, big.radius, k1, torch)
     k1_contacts = contact_pairs(rows.pos, m, box, m.to(rows.pos.dtype) * big.radius, torch)
-    k1_bound = bound(k1_pairs * K1_PAIR_OPS + k1_contacts * K1_CONTACT_OPS,
-                     2 * rows.pos.numel() * 4)
+    k1_flops = k1_in_x * K1_PAIR_OPS + k1_contacts * K1_CONTACT_OPS
+    k1_bytes = m.numel() * (1 + 12) + int(m.sum()) * 12
+    k1_bound = bound(k1_flops, k1_bytes)
     print(f"    K1 {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms, bound "
-          f"{k1_bound[0]:.4f} ms ({k1_bound[1]}, {k1_pairs:.0f} pairs, {k1_contacts:.0f} "
-          f"in contact)", flush=True)
-    del f_k, f_p, sim, state, rows
+          f"{k1_bound[0]:.4f} ms ({k1_bound[1]}; operations {1e3 * k1_flops / PEAK_FP32:.4f} "
+          f"ms, {k1_bytes / 1e6:.1f} MB {1e3 * k1_bytes / PEAK_BYTES:.4f} ms), "
+          f"{k1_ms / k1_bound[0]:.1f}x the bound; {k1_in_x:.0f} pairs within the cut in x, "
+          f"{k1_contacts:.0f} in contact (occupied half-stencil pairs "
+          f"{stencil_work(m, torch)[0]:.0f}); {card}", flush=True)
+    del f_k, f_n, f_p, sim, state, rows
 
     # ---- 3. examples/spheres_10k.yaml, 200 steps ----------------------------
     raw = load_yaml(os.path.join(HERE, "examples", "spheres_10k.yaml"))
@@ -1022,6 +1066,7 @@ def main() -> None:
         fail("no rebuild in the 1M window")
     if k1_launches != BIG_STEPS:
         fail(f"K1 launched {k1_launches} times in {BIG_STEPS} steps")
+    profile_window(lambda n: sim.run_block(st, n), torch, 1e3 * elapsed / BIG_STEPS)
     del sim, st, pos
 
     # ---- 6. the 1M LCP bench protocol (bench.py:39-74) ---------------------
@@ -1346,28 +1391,31 @@ def main() -> None:
     ny, nz, R = rows.valid.shape
     print(f"[15] K4 filaments op at (ny, nz, R) = ({ny}, {nz}, {R}), "
           f"{int(rows.valid.sum())} segments: f_start max|diff| {errs[0]:.3e} of max "
-          f"{maxs[0]:.3e}, f_end max|diff| {errs[1]:.3e} of max {maxs[1]:.3e}, dynamic "
-          f"shared memory {9 * R * (6 * 4 + 4)} B", flush=True)
+          f"{maxs[0]:.3e}, f_end max|diff| {errs[1]:.3e} of max {maxs[1]:.3e}, max "
+          f"occupancy {int(rows.valid.sum(-1).max())}", flush=True)
     if not all(m > 0 and math.isfinite(e) and e <= 1e-5 * m for e, m in zip(errs, maxs)):
         fail(f"K4's filaments op disagrees with its plain version: {errs} vs 1e-5 * {maxs}")
     del out_k, out_p
     k4f_ms, k4f_plain_ms = alternate(lambda: k4.row_segment_filaments_sym(*k4f_args),
                                      lambda: k4.row_segment_filaments_plain(*k4f_args),
                                      torch, 5, 1, rounds=1)
-    # the occupied half-stencil pairs at K4F_OPS each and the segments at
-    # K4_ROD_OPS; read valid on every slot and the midpoints, half-edges and
-    # gids of the occupied slots once (a padded slot's outputs are exact
-    # zeros that depend on valid alone), write the two node forces on every
-    # slot once
-    k4f_pairs = stencil_work(rows.valid, torch)[0]
+    # the pairs within reach in x at K4_REACH_OPS, those within reach in 3D
+    # at K4F_OPS and the segments at K4_ROD_OPS; read valid on every slot and
+    # the midpoints, half-edges and gids of the occupied slots once (a padded
+    # slot's outputs are exact zeros that depend on valid alone), write the
+    # two node forces on every slot once
+    k4f_in_x, k4f_in_3d = reach_pairs(k4f_args[0], k4f_args[1], rows.valid, k4f_args[4],
+                                      k4f_args[5], k4, torch)
     n_seg = float(rows.valid.sum())
-    k4f_flops = k4f_pairs * K4F_OPS + n_seg * K4_ROD_OPS
+    k4f_flops = k4f_in_x * K4_REACH_OPS + k4f_in_3d * K4F_OPS + n_seg * K4_ROD_OPS
     k4f_bytes = rows.valid.numel() * (1 + 24) + n_seg * (12 + 12 + 4)
     k4f_bound = bound(k4f_flops, k4f_bytes)
     print(f"    K4 filaments {k4f_ms:.4f} ms, plain {k4f_plain_ms:.4f} ms, bound "
-          f"{k4f_bound[0]:.4f} ms ({k4f_bound[1]}, {k4f_pairs:.0f} pairs; operations "
+          f"{k4f_bound[0]:.4f} ms ({k4f_bound[1]}; operations "
           f"{1e3 * k4f_flops / PEAK_FP32:.4f} ms, {k4f_bytes / 1e6:.1f} MB "
-          f"{1e3 * k4f_bytes / PEAK_BYTES:.4f} ms)", flush=True)
+          f"{1e3 * k4f_bytes / PEAK_BYTES:.4f} ms), {k4f_ms / k4f_bound[0]:.1f}x the bound; "
+          f"{k4f_in_x:.0f} pairs within reach in x, {k4f_in_3d:.0f} in 3D (occupied "
+          f"half-stencil pairs {stencil_work(rows.valid, torch)[0]:.0f}); {card}", flush=True)
     del k4f_args, rows
 
     # ---- 16. examples/filaments_sperm.yaml, 1000 steps ---------------------

@@ -43,24 +43,44 @@
 // self pair an exact zero through the noise floor. float64 uses the double
 // rsqrt, sqrt and division.
 //
-// Staging, both ops. One thread block per (iy, iz) row stages its 9
-// candidate rows as structure-of-arrays planes in shared memory: midpoint
-// x, y, z (image-shifted) and half-edge x, y, z. Past the card's opt-in
-// shared memory the launch fails and its error is returned; there is no
-// fallback.
+// The filaments op (seg_pack_kernel, then row_filaments_kernel). At 2000 x 50
+// filaments (64 x 64 rows of R = 728 in a box of 120) the rows hold 98k
+// segments, a mean of 24 per row, but straight chains along x put a whole
+// filament into one row (up to ~640). The first design gave each row one
+// block, staged all 9 candidate rows in shared memory (183 KB at R = 728,
+// one block per SM) and ran closest() on every own slot against every slot
+// within the 9 extents: the few full rows formed the tail, and at a reach of
+// ~1.5 in a row spanning x = 120 nearly every pair it evaluated was out of
+// reach. This design:
+//   * a pre-pass, one warp per chunk of 32 slots of a row, packs each slot
+//     of an occupied chunk as one 16-byte entry in float32 (midpoint x, y, z
+//     and |e|, or -1 where the slot holds no segment) and writes the chunk's
+//     bounds (least and greatest x of its segments, their greatest |e|) to a
+//     scratch the wrapper allocates; no host read sizes anything;
+//   * the pair kernel gives 4 warps to each chunk of 32 own slots of a row,
+//     8 own slots each, so a full row is served by up to 4 ceil(R / 32)
+//     warps and a warp whose chunk is empty writes its zeros and stops (on
+//     the card, 1 or 2 warps per chunk ran slower: a warp serves its own
+//     slots one after another); Candidates are read from
+//     the packed scratch through the L1 cache, not staged, so shared memory
+//     holds only each warp's ring and drained outputs (5 KB per block of 4
+//     warps in float32, 8 KB in float64) and no R runs out of it;
+//   * the rest is the rods op's design (below): chunk x-window, reach test
+//     with the margin 1 + 2^-10, passing pairs to a 64-entry ring in (own,
+//     row, chunk, slot) order, drained 32 at a time, and each own slot's sum
+//     in ring order; only valid pairs reach the op, which tests adjacency on
+//     the int32 gids.
+// Each own slot's sum is the full scan's sequence of terms with only
+// exact-zero terms left out, so the outputs stay bit for bit the first
+// design's (pinned digests in tests/test_torch_kernels.py). The rods op keeps
+// its staged body: run on this packed body in a trial on the card, it was
+// slower at config #3's 1M rods, whose rows are evenly filled.
 //
-// The filaments op keeps the full-scan body (row_segment_kernel): 6
-// values x 9R slots plus the gid plane (9R (6 itemsize + 4) bytes: 183 KB
-// in float32 at R = 728, float64 fits up to R = 496) and each row's
-// extent, 1 + its last valid slot (its occupancy, as build_rows packs valid
-// slots first). One thread owns one slot (looping when R > blockDim) and
-// sums its six outputs in registers over the candidates within the 9
-// extents, one-sidedly: every off-row pair is evaluated from both sides,
-// with no atomic sums and no second pass. Slots past the extents hold the
-// sentinel and add exact zeros. All threads read the same candidate at
-// once, a shared-memory broadcast.
-//
-// The rods op (row_rods_kernel). At config #3's 1M rods a row holds ~97
+// The rods op (row_rods_kernel). One thread block per (iy, iz) row stages
+// its 9 candidate rows as structure-of-arrays planes in shared memory:
+// midpoint x, y, z (image-shifted) and half-edge x, y, z; past the card's
+// opt-in shared memory the launch fails and its error is returned, with no
+// fallback. At config #3's 1M rods a row holds ~97
 // rods spread over lx = 301.62 (rows span the box in x), so of the ~870
 // valid candidates of an own rod only ~15 lie within reach in x and ~2.4
 // in 3D. The kernel visits those, not the rest:
@@ -103,36 +123,40 @@
 // |S| - L - 2r >= |S| d / (1 + d) > 48u |S| as long as d > 48u (1 + d), which
 // holds with a factor above 100 in float32. So dist - 2r rounds to >= 0,
 // delta = max(-(dist - 2r), 0) = 0, mag = 0, and the force and torque are
-// signed zeros (as they are where the noise floor zeroes D). The chunk test
+// signed zeros (as they are where the noise floor zeroes D). In the
+// filaments op the same delta = 0 gives mag = 0 and w = -(0 rinv) = -0 (or
+// +0 between adjacent segments), and the node split keeps a signed zero:
+// (1 - s) w D and s w D with s in [0, 1]. The chunk test
 // skips only chunks all of whose pairs the pair test skips: rounding is
 // monotonic, so within one image every valid slot's computed x separation
 // lies between those of the chunk's least and greatest x, and s2 >= sx^2.
 // The CPU tests hold the plain version to exact zeros on every pair that
 // ops/kernels/row_segments.segment_reach (this test, operation for
-// operation) rejects.
+// operation) rejects, for the rods op and for the filaments op (adjacent
+// pairs included).
 //
 // Dropped from the TPU kernel, because they exist only for the TPU: the
 // half stencil with its partner planes rolled outside the kernel, the
 // nz % 8 requirement, the VMEM z-chunk planner and the lane-concatenated
 // (nz, 5R) scratch.
 //
-// Bound. The rods op at 1M rods is bound by bytes: 67 MB, the valid byte
-// and the outputs of every slot and the midpoints and half-edges of the
-// valid slots (0.020 ms at 3.35 TB/s), against FP32 operations
-// counted from the algorithm (chip_smoke.py): the reach test for every
-// unordered pair within reach in x (K4_REACH_OPS), the closest points,
-// push and both sides' torques for every pair within reach in 3D (K4_OPS,
-// 187), and per rod its hoisted quantities (K4_ROD_OPS). What this kernel
-// does beyond that: it stages each row 9 times (once per neighbouring
-// block, from L2), tests ~10 chunks of 32 per own rod (a chunk spans ~100
-// of x, the reach 2.5), and takes every pair from both sides. The
-// filaments op needs about 163 operations per occupied half-stencil pair
-// (K4F_OPS) and is bound by them at 2000 x 50, whose 15.7M pairs outweigh
-// its 77 MB even on rows 3% occupied (98k of 3M slots); it does about 220
-// per ordered pair, and its time is set by its fullest rows: straight
-// chains along x put a whole filament in one row (R = 728 at 2000 x 50 for
-// a mean occupancy of 24), and one block per row leaves those few blocks
-// as the tail.
+// Bound. Both ops are counted from the algorithm (chip_smoke.py): the reach
+// test for every unordered pair within reach in x (K4_REACH_OPS), the
+// closest points and the op's outputs for every pair within reach in 3D
+// (K4_OPS, 187, both sides' torques; K4F_OPS, 163, both sides' node
+// splits), and per segment its hoisted quantities (K4_ROD_OPS); bytes from
+// occupancy (the valid byte and the outputs of every slot, the payload of
+// the valid slots once). The rods op at 1M rods is bound by bytes: 67 MB
+// (0.020 ms at 3.35 TB/s). What it does beyond that: it stages each row 9
+// times (once per neighbouring block, from L2), tests ~10 chunks of 32 per
+// own rod (a chunk spans ~100 of x, the reach 2.5), and takes every pair from
+// both sides. The filaments op at 2000 x 50 is bound by bytes too: 77 MB
+// (0.023 ms) against 0.6M unordered pairs within reach in x and 0.12M in 3D
+// (0.0005 ms of operations). Beyond that (0.51 ms, ~22x; the first design
+// took 10.16 ms) it reads every slot of an occupied chunk in the pre-pass,
+// tests 9 ceil(R / 32) = 207 chunks per own segment, serves a
+// warp's own segments one after another, and takes every pair from both
+// sides.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -301,86 +325,6 @@ struct FilamentsOp {
     acc[5] += we * fz;
   }
 };
-
-template <typename T>
-__global__ void row_segment_kernel(const T* __restrict__ mid,
-                                   const T* __restrict__ hedge,
-                                   const unsigned char* __restrict__ valid,
-                                   const int* __restrict__ gid,
-                                   T* __restrict__ out, int ny, int nz, int R,
-                                   T lx, T inv_lx, T ly, T lz, T eps,
-                                   T noise_c, FilamentsOp<T> op) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* cx = reinterpret_cast<T*>(smem_raw);
-  T* cy = cx + 9 * R;
-  T* cz = cy + 9 * R;
-  T* ex = cz + 9 * R;
-  T* ey = ex + 9 * R;
-  T* ez = ey + 9 * R;
-  int* cg = reinterpret_cast<int*>(ez + 9 * R);  // segment gids
-  __shared__ int extent[9];  // 1 + the last valid slot of each staged row
-
-  const int row = blockIdx.x;  // iy * nz + iz
-  const int iy = row / nz;
-  const int iz = row - iy * nz;
-  if (threadIdx.x < 9) extent[threadIdx.x] = 0;
-  __syncthreads();
-
-  // Stage the 9 candidate rows; block b = (dy + 1) * 3 + (dz + 1), the
-  // order of rows._candidate_planes.
-  for (int b = 0; b < 9; ++b) {
-    int jy = iy + b / 3 - 1;
-    int jz = iz + b % 3 - 1;
-    T sy = T(0), sz = T(0);
-    if (jy >= ny) { jy -= ny; sy = ly; } else if (jy < 0) { jy += ny; sy = -ly; }
-    if (jz >= nz) { jz -= nz; sz = lz; } else if (jz < 0) { jz += nz; sz = -lz; }
-    const size_t base = (static_cast<size_t>(jy) * nz + jz) * R;
-    const T* m = mid + base * 3;
-    const T* h = hedge + base * 3;
-    for (int k = threadIdx.x; k < R; k += blockDim.x) {
-      cx[b * R + k] = m[3 * k];
-      cy[b * R + k] = m[3 * k + 1] + sy;
-      cz[b * R + k] = m[3 * k + 2] + sz;
-      ex[b * R + k] = h[3 * k];
-      ey[b * R + k] = h[3 * k + 1];
-      ez[b * R + k] = h[3 * k + 2];
-      cg[b * R + k] = valid[base + k] ? gid[base + k] : -10;
-      if (valid[base + k]) atomicMax(&extent[b], k + 1);
-    }
-  }
-  __syncthreads();
-
-  // Slots past a row's extent hold the sentinel: as candidates they are
-  // beyond every cutoff of a valid slot, and an own sentinel meets only
-  // sentinels it coincides with or lies beyond the cutoff of, so their
-  // contributions and outputs are exact zeros, which the loops skip.
-  for (int i = threadIdx.x; i < R; i += blockDim.x) {
-    T acc[6];
-#pragma unroll
-    for (int k = 0; k < 6; ++k) acc[k] = T(0);
-    if (i < extent[4]) {
-      const int self = 4 * R + i;  // own row = centre block, unshifted
-      const T ox = cx[self], oy = cy[self], oz = cz[self];
-      const T oex = ex[self], oey = ey[self], oez = ez[self];
-      const T a = T(4) * ((oex * oex + oey * oey) + oez * oez);
-      for (int b = 0; b < 9; ++b) {
-        const int end = b * R + extent[b];
-        for (int j = b * R; j < end; ++j) {
-          if (j == self) continue;
-          T sx = cx[j] - ox;
-          sx = sx - lx * rint_(sx * inv_lx);
-          const PairGeom<T> g =
-              closest(sx, cy[j] - oy, cz[j] - oz, oex, oey, oez, a, ex[j],
-                      ey[j], ez[j], eps, noise_c);
-          op(g, cg[self], cg[j], acc);
-        }
-      }
-    }
-    T* o = out + (static_cast<size_t>(row) * R + i) * 6;
-#pragma unroll
-    for (int k = 0; k < 6; ++k) o[k] = acc[k];
-  }
-}
 
 // ---- the rods op: only the candidates within reach ---------------------
 
@@ -616,29 +560,268 @@ int launch_rods(const void* mid, const void* hedge, const void* valid,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the filaments op: packed rows, warps per own chunk ----------------
+
+constexpr int WPB = 4;    // warps per block of the packed body
+constexpr int SPLIT = 4;  // warps that share the own slots of one chunk
+constexpr int KS = CH / SPLIT;  // own slots per warp
+
+// One packed slot: midpoint x, y, z (unshifted) and |half-edge|, or -1 where
+// the slot holds no segment. One 16-byte load in float32.
 template <typename T>
-int launch_filaments(const void* mid, const void* hedge, const void* valid,
-                     const void* gid, void* out, int ny, int nz, int R,
-                     double lx, double ly, double lz, double two_r,
-                     double coef, int n_edges, double eps, double noise_c,
-                     void* stream) {
-  const FilamentsOp<T> op{T(two_r), T(coef), n_edges};
-  const int threads = R >= 256 ? 256 : ((R + 31) / 32) * 32;
-  const size_t smem = static_cast<size_t>(9) * R * (6 * sizeof(T) + sizeof(int));
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        row_segment_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) {
-      cudaGetLastError();  // clear it: the next launch must not report it
-      return static_cast<int>(err);
+struct alignas(4 * sizeof(T)) Packed {
+  T x, y, z, len;
+};
+
+// The candidate row of stencil block b = (dy + 1) * 3 + (dz + 1) around
+// (iy, iz), wrapped, and the image shift of its y and z.
+template <typename T>
+struct StencilRow {
+  int row;
+  T sy, sz;
+};
+
+template <typename T>
+__device__ __forceinline__ StencilRow<T> stencil_row(int iy, int iz, int b, int ny, int nz,
+                                                     T ly, T lz) {
+  int jy = iy + b / 3 - 1;
+  int jz = iz + b % 3 - 1;
+  T sy = T(0), sz = T(0);
+  if (jy >= ny) { jy -= ny; sy = ly; } else if (jy < 0) { jy += ny; sy = -ly; }
+  if (jz >= nz) { jz -= nz; sz = lz; } else if (jz < 0) { jz += nz; sz = -lz; }
+  return StencilRow<T>{jy * nz + jz, sy, sz};
+}
+
+// Pre-pass, one warp per chunk of CH slots of a row: the packed slots and
+// the chunk's bounds (least and greatest x of its occupied slots, their
+// greatest |half-edge|; +inf, -inf, 0 when it has none). An empty chunk is
+// never visited, so its packed slots are not written.
+template <typename T>
+__global__ void seg_pack_kernel(const T* __restrict__ mid, const T* __restrict__ hedge,
+                                const unsigned char* __restrict__ valid,
+                                Packed<T>* __restrict__ packed, T* __restrict__ bounds,
+                                int n_items, int R) {
+  const int item = blockIdx.x * WPB + (threadIdx.x >> 5);
+  if (item >= n_items) return;
+  const int lane = threadIdx.x & 31;
+  const int nc = (R + CH - 1) / CH;
+  const int row = item / nc;
+  const int k = (item - row * nc) * CH + lane;
+  const size_t slot = static_cast<size_t>(row) * R + k;
+  bool v = false;
+  T x = T(0), y = T(0), z = T(0), len = T(0);
+  if (k < R) {
+    v = valid[slot] != 0;
+    const T* m = mid + slot * 3;
+    const T* h = hedge + slot * 3;
+    x = m[0];
+    y = m[1];
+    z = m[2];
+    const T hx = h[0], hy = h[1], hz = h[2];
+    len = sqrt_((hx * hx + hy * hy) + hz * hz);
+  }
+  T lo = v ? x : inf_<T>(), hi = v ? x : -inf_<T>(), le = v ? len : T(0);
+  for (int o = 16; o > 0; o >>= 1) {
+    lo = fmin(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = fmax(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+    le = fmax(le, __shfl_xor_sync(0xffffffffu, le, o));
+  }
+  if (lo <= hi && k < R) packed[slot] = Packed<T>{x, y, z, v ? len : T(-1)};
+  if (lane == 0) {
+    bounds[3 * item] = lo;
+    bounds[3 * item + 1] = hi;
+    bounds[3 * item + 2] = le;
+  }
+}
+
+// The filaments op over the packed rows. SPLIT warps share the CH own
+// slots of one chunk of one row, KS each (so a full row is served by many
+// warps, and a warp whose chunk is empty writes its zeros and stops), one
+// own slot at a time; lane k keeps the sums of own slot k. Its lanes test
+// the 9 rows'
+// chunks against the own segment (chunk_visit), then each visited chunk's
+// CH candidates against the reach test; the pairs that pass go to the
+// warp's ring in (own, row, chunk, slot) order, and 32 at a time the lanes
+// evaluate them (closest points and the op), after which each own slot adds
+// its pairs' outputs in ring order.
+template <typename T>
+__global__ void row_filaments_kernel(const T* __restrict__ hedge,
+                                     const int* __restrict__ gid,
+                                     const Packed<T>* __restrict__ packed,
+                                     const T* __restrict__ bounds, T* __restrict__ out, int ny,
+                                     int nz, int R, T lx, T inv_lx, T ly, T lz, T eps,
+                                     T noise_c, T margin, FilamentsOp<T> op) {
+  __shared__ int ring_all[WPB][2 * QCAP];     // own k, then candidate b R + slot
+  __shared__ T res_all[WPB][32 * 6];          // drained pair outputs
+  const int nc = (R + CH - 1) / CH;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int item = blockIdx.x * WPB + warp;
+  if (item >= ny * nz * nc * SPLIT) return;
+  const int chunk = item / SPLIT;  // row * nc + own chunk
+  const int row = chunk / nc;
+  const int oc = chunk - row * nc;
+  const int iy = row / nz;
+  const int iz = row - iy * nz;
+  const int o_lane = oc * CH + lane;
+  // this warp's own slots: lanes [k0, k0 + KS) of the chunk
+  const int k0 = (item - chunk * SPLIT) * KS;
+  const bool in_part = lane >= k0 && lane < k0 + KS && o_lane < R;
+  T* dst = out + (static_cast<size_t>(row) * R + o_lane) * 6;
+  if (!(bounds[3 * chunk] <= bounds[3 * chunk + 1])) {  // no own segment here
+    if (in_part) {
+#pragma unroll
+      for (int c = 0; c < 6; ++c) dst[c] = T(0);
+    }
+    return;
+  }
+
+  // own slot o_lane, as the full scan staged it (y and z plus a zero shift)
+  const size_t own_slot = static_cast<size_t>(row) * R + o_lane;
+  bool own_ok = false;
+  T ox = T(0), oy = T(0), oz = T(0), ol = T(0), oex = T(0), oey = T(0), oez = T(0);
+  int og = 0;
+  if (in_part) {
+    const Packed<T> p = packed[own_slot];
+    own_ok = p.len >= T(0);
+    if (own_ok) {
+      ox = p.x;
+      oy = p.y + T(0);
+      oz = p.z + T(0);
+      ol = p.len;
+      oex = hedge[own_slot * 3];
+      oey = hedge[own_slot * 3 + 1];
+      oez = hedge[own_slot * 3 + 2];
+      og = gid[own_slot];
     }
   }
-  row_segment_kernel<T><<<ny * nz, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const unsigned own_mask = __ballot_sync(0xffffffffu, own_ok);
+
+  int* ring_k = ring_all[warp];
+  int* ring_j = ring_k + QCAP;
+  T* wres = res_all[warp];
+  const T two_r = op.two_r;
+  T acc[6];
+#pragma unroll
+  for (int c = 0; c < 6; ++c) acc[c] = T(0);
+  int head = 0, qn = 0;
+
+  auto drain = [&](int cnt) {
+    __syncwarp();
+    const int e = (head + lane) & (QCAP - 1);
+    const int src = lane < cnt ? ring_k[e] : 0;
+    const T px = __shfl_sync(0xffffffffu, ox, src);
+    const T py = __shfl_sync(0xffffffffu, oy, src);
+    const T pz = __shfl_sync(0xffffffffu, oz, src);
+    const T pex = __shfl_sync(0xffffffffu, oex, src);
+    const T pey = __shfl_sync(0xffffffffu, oey, src);
+    const T pez = __shfl_sync(0xffffffffu, oez, src);
+    const int pg = __shfl_sync(0xffffffffu, og, src);
+    T r[6];
+#pragma unroll
+    for (int c = 0; c < 6; ++c) r[c] = T(0);
+    if (lane < cnt) {
+      const int j = ring_j[e];
+      const int b = j / R;
+      const int kk = j - b * R;
+      const StencilRow<T> sr = stencil_row(iy, iz, b, ny, nz, ly, lz);
+      const size_t cs = static_cast<size_t>(sr.row) * R + kk;
+      const Packed<T> p = packed[cs];
+      const T a = T(4) * ((pex * pex + pey * pey) + pez * pez);
+      T sx = p.x - px;
+      sx = sx - lx * rint_(sx * inv_lx);
+      const PairGeom<T> g = closest(sx, (p.y + sr.sy) - py, (p.z + sr.sz) - pz, pex, pey,
+                                    pez, a, hedge[cs * 3], hedge[cs * 3 + 1],
+                                    hedge[cs * 3 + 2], eps, noise_c);
+      op(g, pg, gid[cs], r);
+    }
+#pragma unroll
+    for (int c = 0; c < 6; ++c) wres[lane * 6 + c] = r[c];
+    __syncwarp();
+    for (int q = 0; q < cnt; ++q) {
+      if (ring_k[(head + q) & (QCAP - 1)] == lane) {
+#pragma unroll
+        for (int c = 0; c < 6; ++c) acc[c] += wres[q * 6 + c];
+      }
+    }
+    __syncwarp();
+    head = (head + cnt) & (QCAP - 1);
+    qn -= cnt;
+  };
+
+  for (unsigned todo_own = own_mask; todo_own; todo_own &= todo_own - 1) {
+    const int k = __ffs(todo_own) - 1;  // own slots in order; padded ones add nothing
+    const int o = oc * CH + k;
+    const T kx = __shfl_sync(0xffffffffu, ox, k);
+    const T ky = __shfl_sync(0xffffffffu, oy, k);
+    const T kz = __shfl_sync(0xffffffffu, oz, k);
+    const T kl = __shfl_sync(0xffffffffu, ol, k);
+    for (int q0 = 0; q0 < 9 * nc; q0 += 32) {
+      const int qv = q0 + lane;
+      bool vis = false;
+      if (qv < 9 * nc) {
+        const int b = qv / nc;
+        const StencilRow<T> sr = stencil_row(iy, iz, b, ny, nz, ly, lz);
+        const T* cb = bounds + 3 * (static_cast<size_t>(sr.row) * nc + (qv - b * nc));
+        const T rc = (kl + cb[2]) + two_r;
+        vis = chunk_visit(cb[0], cb[1], kx, rc * rc * margin, lx, inv_lx);
+      }
+      unsigned todo = __ballot_sync(0xffffffffu, vis);
+      while (todo) {
+        const int q = q0 + __ffs(todo) - 1;
+        todo &= todo - 1;
+        const int b = q / nc;
+        const int kk = (q - b * nc) * CH + lane;
+        const StencilRow<T> sr = stencil_row(iy, iz, b, ny, nz, ly, lz);
+        bool pass = false;
+        if (kk < R && !(b == 4 && kk == o)) {  // the reach test
+          const Packed<T> p = packed[static_cast<size_t>(sr.row) * R + kk];
+          if (p.len >= T(0)) {
+            T sx = p.x - kx;
+            sx = sx - lx * rint_(sx * inv_lx);
+            const T sy = (p.y + sr.sy) - ky, sz = (p.z + sr.sz) - kz;
+            const T s2 = (sx * sx + sy * sy) + sz * sz;
+            const T reach = (kl + p.len) + two_r;
+            pass = !(s2 > reach * reach * margin);
+          }
+        }
+        const unsigned passed = __ballot_sync(0xffffffffu, pass);
+        if (pass) {
+          const int e = (head + qn + __popc(passed & ((1u << lane) - 1u))) & (QCAP - 1);
+          ring_k[e] = k;
+          ring_j[e] = b * R + kk;
+        }
+        qn += __popc(passed);
+        if (qn >= 32) drain(32);
+      }
+    }
+  }
+  drain(qn);
+  if (in_part) {
+#pragma unroll
+    for (int c = 0; c < 6; ++c) dst[c] = acc[c];
+  }
+}
+
+template <typename T>
+int launch_filaments(const void* mid, const void* hedge, const void* valid, const void* gid,
+                     void* packed, void* bounds, void* out, int ny, int nz, int R, double lx,
+                     double ly, double lz, double two_r, double coef, int n_edges,
+                     double margin, double eps, double noise_c, void* stream) {
+  const FilamentsOp<T> op{T(two_r), T(coef), n_edges};
+  const int n_items = ny * nz * ((R + CH - 1) / CH);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  seg_pack_kernel<T><<<(n_items + WPB - 1) / WPB, 32 * WPB, 0, s>>>(
       static_cast<const T*>(mid), static_cast<const T*>(hedge),
-      static_cast<const unsigned char*>(valid), static_cast<const int*>(gid),
-      static_cast<T*>(out), ny, nz, R, T(lx), T(1.0 / lx), T(ly), T(lz),
-      T(eps), T(noise_c), op);
+      static_cast<const unsigned char*>(valid), static_cast<Packed<T>*>(packed),
+      static_cast<T*>(bounds), n_items, R);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  row_filaments_kernel<T><<<(n_items * SPLIT + WPB - 1) / WPB, 32 * WPB, 0, s>>>(
+      static_cast<const T*>(hedge), static_cast<const int*>(gid),
+      static_cast<const Packed<T>*>(packed),
+      static_cast<const T*>(bounds), static_cast<T*>(out), ny, nz, R, T(lx), T(1.0 / lx),
+      T(ly), T(lz), T(eps), T(noise_c), T(margin), op);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -667,27 +850,27 @@ int row_segment_rods_f64(const void* mid, const void* hedge, const void* valid,
                              two_r, radius, coef, margin, eps, noise_c, stream);
 }
 
-// gid: (ny, nz, R) int32 segment gids; n_edges: segments per filament.
-int row_segment_filaments_f32(const void* mid, const void* hedge,
-                              const void* valid, const void* gid, void* out,
-                              int ny, int nz, int R, double lx, double ly,
-                              double lz, double two_r, double coef,
-                              int n_edges, double eps, double noise_c,
-                              void* stream) {
-  return launch_filaments<float>(mid, hedge, valid, gid, out, ny, nz, R, lx,
-                                 ly, lz, two_r, coef, n_edges, eps, noise_c,
-                                 stream);
+// gid: (ny, nz, R) int32 segment gids; n_edges: segments per filament;
+// packed: (ny, nz, R) scratch of 4 values per slot; bounds: scratch of 3
+// values per chunk of 32 slots (ceil(R / 32) per row); margin: the reach
+// test's factor 1 + 2^-10 on the squared reach. Returns cudaGetLastError()
+// after the two launches (0 = launched).
+int row_segment_filaments_f32(const void* mid, const void* hedge, const void* valid,
+                              const void* gid, void* packed, void* bounds, void* out,
+                              int ny, int nz, int R, double lx, double ly, double lz,
+                              double two_r, double coef, int n_edges, double margin,
+                              double eps, double noise_c, void* stream) {
+  return launch_filaments<float>(mid, hedge, valid, gid, packed, bounds, out, ny, nz, R, lx,
+                                 ly, lz, two_r, coef, n_edges, margin, eps, noise_c, stream);
 }
 
-int row_segment_filaments_f64(const void* mid, const void* hedge,
-                              const void* valid, const void* gid, void* out,
-                              int ny, int nz, int R, double lx, double ly,
-                              double lz, double two_r, double coef,
-                              int n_edges, double eps, double noise_c,
-                              void* stream) {
-  return launch_filaments<double>(mid, hedge, valid, gid, out, ny, nz, R, lx,
-                                  ly, lz, two_r, coef, n_edges, eps, noise_c,
-                                  stream);
+int row_segment_filaments_f64(const void* mid, const void* hedge, const void* valid,
+                              const void* gid, void* packed, void* bounds, void* out,
+                              int ny, int nz, int R, double lx, double ly, double lz,
+                              double two_r, double coef, int n_edges, double margin,
+                              double eps, double noise_c, void* stream) {
+  return launch_filaments<double>(mid, hedge, valid, gid, packed, bounds, out, ny, nz, R, lx,
+                                  ly, lz, two_r, coef, n_edges, margin, eps, noise_c, stream);
 }
 
 }  // extern "C"

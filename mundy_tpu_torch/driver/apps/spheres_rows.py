@@ -176,7 +176,8 @@ class RowSpheresSim:
                                        c.radius, c.youngs_modulus, c.poissons_ratio,
                                        radii=self.slot_planes(rows)[0])
         return row_hertzian_forces_sym(rows.pos, self.box_static[0], c.radius,
-                                       c.youngs_modulus, c.poissons_ratio)
+                                       c.youngs_modulus, c.poissons_ratio,
+                                       valid=rows.valid)
 
     def _inner_step(self, state: RowSpheresState) -> RowSpheresState:
         c = self.config

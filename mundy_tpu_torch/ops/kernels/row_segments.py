@@ -6,11 +6,12 @@ two apps call it: the rods op (force and torque, driver/apps/rods_rows.py),
 segment's two nodes, adjacent segments of one filament excluded by their
 gids, driver/apps/filaments.py), `row_segment_filaments_sym`. On a CUDA
 tensor each wrapper launches a hand-written kernel of csrc/row_segments.cu
-(one block per row, the 9 image-shifted candidate rows staged in shared
-memory, one-sided sums; see the note there). The rods op visits only the
-chunks of a row whose x range comes within reach of the own rod and
-evaluates only the pairs that pass `segment_reach`; the filaments op sums
-every candidate up to each row's last valid slot. On a CPU tensor a wrapper
+(one-sided sums over the 9 image-shifted candidate rows; see the note
+there). Both ops visit only the chunks of a row whose x range comes within
+reach of the own segment and evaluate only the pairs that pass
+`segment_reach`: the rods op with one block per row and its 9 candidate
+rows staged in shared memory, the filaments op with one warp per chunk of
+32 own slots over rows packed by a pre-pass. On a CPU tensor a wrapper
 computes the plain version, `row_segment_pairs_plain` or
 `row_segment_filaments_plain`: neighbor/rows.pair_accumulate_segments with
 the app's out_fn, the JAX package's own path for this kernel off the TPU.
@@ -126,6 +127,14 @@ def segment_reach(sx, sy, sz, len_own, len_cand, radius: float) -> torch.Tensor:
     return ~(s2 > reach * reach * REACH_MARGIN)
 
 
+def _scratch(mid):
+    """The packed body's scratch: 4 values per slot (midpoint and |e|) and 3
+    per chunk of 32 slots of a row (its x range and greatest |e|)."""
+    ny, nz, R, _ = mid.shape
+    return (torch.empty((ny, nz, R, 4), dtype=mid.dtype, device=mid.device),
+            torch.empty((ny, nz, -(-R // 32), 3), dtype=mid.dtype, device=mid.device))
+
+
 def _launch(op: str, mid, tensors, scalar_types, scalars):
     """Launch row_segment_<op>_<dtype> of csrc/row_segments.cu on the
     tensors (then the (ny, nz, R, 6) output), the row shape, the op's
@@ -204,14 +213,10 @@ def filaments_hertz_coef(radius: float, e_eff: float) -> float:
     return (4.0 / 3.0) * float(e_eff) * math.sqrt(0.5 * float(radius))
 
 
-def row_segment_filaments_plain(mid: torch.Tensor, half_edges: torch.Tensor,
-                                valid: torch.Tensor, gid: torch.Tensor, box,
-                                radius: float, e_eff: float, n_edges: int):
-    """Plain PyTorch version of K4's filaments op (any device): (f_start,
-    f_end), each (ny, nz, R, 3), over the full 9-row stencil, with the gid
-    riding as a float payload (-10 on invalid slots), as in the reference."""
-    _check(mid, half_edges, box)
-    _check_rows(mid, valid, gid)
+def filaments_out_fn(radius: float, e_eff: float, n_edges: int):
+    """The filaments op's out_fn for pair_accumulate_segments (per-pair
+    planes and the float gid payloads in, the start- and end-node force
+    components on the own segment out)."""
     two_r = 2.0 * float(radius)
     coef = filaments_hertz_coef(radius, e_eff)
     E = int(n_edges)
@@ -232,10 +237,22 @@ def row_segment_filaments_plain(mid: torch.Tensor, half_edges: torch.Tensor,
         ws, we = 1.0 - s, s
         return (ws * fx, ws * fy, ws * fz, we * fx, we * fy, we * fz)
 
+    return out_fn
+
+
+def row_segment_filaments_plain(mid: torch.Tensor, half_edges: torch.Tensor,
+                                valid: torch.Tensor, gid: torch.Tensor, box,
+                                radius: float, e_eff: float, n_edges: int):
+    """Plain PyTorch version of K4's filaments op (any device): (f_start,
+    f_end), each (ny, nz, R, 3), over the full 9-row stencil, with the gid
+    riding as a float payload (-10 on invalid slots), as in the reference."""
+    _check(mid, half_edges, box)
+    _check_rows(mid, valid, gid)
     gid_f = torch.where(valid, gid.to(mid.dtype), -10.0)
     boxs = (tuple(float(b) for b in box), (True, True, True))
     fsx, fsy, fsz, fex, fey, fez = pair_accumulate_segments(
-        mid, boxs, half_edges, out_fn, extra_fields=(gid_f,))
+        mid, boxs, half_edges, filaments_out_fn(radius, e_eff, n_edges),
+        extra_fields=(gid_f,))
     return torch.stack([fsx, fsy, fsz], dim=-1), torch.stack([fex, fey, fez], dim=-1)
 
 
@@ -251,9 +268,10 @@ def row_segment_filaments_sym(mid: torch.Tensor, half_edges: torch.Tensor,
     filament, so gids g and g + 1 belong to one filament (and do not
     interact) unless g mod n_edges == n_edges - 1; Hertzian contact with
     R* = radius / 2 and E* = e_eff. CUDA tensors must be contiguous and
-    launch the kernel (counted in `.launches`), which needs 9 R
-    (6 itemsize + 4) bytes of shared memory per block and raises past the
-    card's opt-in; CPU tensors compute the plain version."""
+    launch the kernel (counted in `.launches`; a pre-pass packs the rows into
+    a scratch of 4 R + 3 ceil(R / 32) values per row, and the pair kernel
+    uses a fixed 5 KB of shared memory per block, 8 KB in float64, whatever
+    R); CPU tensors compute the plain version."""
     _check(mid, half_edges, box)
     _check_rows(mid, valid, gid)
     if mid.device.type == "cpu":
@@ -264,10 +282,10 @@ def row_segment_filaments_sym(mid: torch.Tensor, half_edges: torch.Tensor,
     if not (mid.is_contiguous() and half_edges.is_contiguous()
             and valid.is_contiguous() and gid.is_contiguous()):
         raise ValueError("mid, half_edges, valid and gid must be contiguous")
-    out = _launch("filaments", mid, (mid, half_edges, valid, gid),
-                  [ctypes.c_double] * 5 + [ctypes.c_int],
+    out = _launch("filaments", mid, (mid, half_edges, valid, gid, *_scratch(mid)),
+                  [ctypes.c_double] * 5 + [ctypes.c_int, ctypes.c_double],
                   (*(float(b) for b in box), 2.0 * float(radius),
-                   filaments_hertz_coef(radius, e_eff), int(n_edges)))
+                   filaments_hertz_coef(radius, e_eff), int(n_edges), REACH_MARGIN))
     row_segment_filaments_sym.launches += 1
     return out
 

@@ -75,6 +75,149 @@ def test_k1_kernel_matches_plain(cuda_device, dtype, n, box, cutoff, align):
     assert err <= (1e-12 if dtype == "float64" else 2e-5) * max(fmax, 1.0)
 
 
+def _k1_digest(dtype, n, box, cutoff, align, dev):
+    """sha256 (first 16 hex digits) of K1's output bytes, every slot, on
+    test_k1_kernel_matches_plain's inputs."""
+    import hashlib
+
+    ts = _rows(n, box, cutoff, align, _DT[dtype], dev)
+    got = k1.row_hertzian_forces_sym(ts.pos, (box,) * 3, 0.5, 1000.0, 0.3, valid=ts.valid)
+    no_mask = k1.row_hertzian_forces_sym(ts.pos, (box,) * 3, 0.5, 1000.0, 0.3)
+    assert torch.equal(got, no_mask)  # the reference's signature, every slot occupied
+    return hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+# _k1_digest from K1's first design, which summed every one of the 9 R
+# candidates of every slot (NVIDIA H100 80GB HBM3)
+_K1_SHA = {
+    ("float32", 4000): "e861999d92032719", ("float32", 3000): "be044a99534f04b6",
+    ("float32", 80000): "c09bff87aaf0730d", ("float64", 4000): "15984f9ba777b605",
+    ("float64", 3000): "bce1caaf3b3830e6", ("float64", 80000): "84835b2365211d89",
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("n,box,cutoff,align", [(4000, 12.0, 1.4, 8),
+                                                 (3000, 13.0, 1.4, 1),
+                                                 (80000, 40.0, 1.4, 8)])
+def test_k1_outputs_unchanged(cuda_device, dtype, n, box, cutoff, align):
+    """K1 leaves out padded slots, chunks out of reach in x and pairs out of
+    contact, whose terms are exact zeros, and keeps the full scan's order:
+    its outputs, padded slots included, stay bit for bit the full scan's."""
+    assert _k1_digest(dtype, n, box, cutoff, align, cuda_device) == _K1_SHA[(dtype, n)]
+
+
+def _check_k1(pos, valid, box, dtype):
+    """K1 with the mask against its plain version (the bounds of
+    test_k1_kernel_matches_plain) and against itself without the mask and on
+    a second launch, bit for bit."""
+    args = ((box,) * 3, 0.5, 1000.0, 0.3)
+    before = k1.row_hertzian_forces_sym.launches
+    got = k1.row_hertzian_forces_sym(pos, *args, valid=valid)
+    again = k1.row_hertzian_forces_sym(pos, *args, valid=valid)
+    no_mask = k1.row_hertzian_forces_sym(pos, *args)
+    torch.cuda.synchronize()
+    assert k1.row_hertzian_forces_sym.launches == before + 3
+    assert torch.equal(got, again) and torch.equal(got, no_mask)
+    ref = k1.row_hertzian_forces_plain(pos, *args)
+    assert bool(torch.isfinite(got).all())
+    assert bool((got[~valid] == 0).all())
+    fmax = ref[valid].abs().max().item()
+    assert fmax > 0
+    err = (got[valid] - ref[valid]).abs().max().item()
+    assert err <= (1e-12 if dtype == "float64" else 2e-5) * max(fmax, 1.0)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("n,box", [(4000, 12.0), (80000, 40.0)])
+def test_k1_rows_moved_since_the_rebuild(cuda_device, dtype, n, box):
+    """Spheres moved along x after build_rows (up to 1.2 contact distances,
+    wrapped into the box) and the slots of every row permuted (holes before
+    occupied slots): the rows are no longer sorted in x, and the x window
+    bounds each chunk by its current positions. n = 80000 fills rows of R =
+    288 with ~140 spheres, several warps of own slots per row."""
+    td = _DT[dtype]
+    ts = _rows(n, box, 1.4, 8, td, cuda_device)
+    rng = np.random.default_rng(37)
+    shift = torch.as_tensor(rng.uniform(-1.2, 1.2, ts.valid.shape), dtype=td,
+                            device=cuda_device)
+    pos = ts.pos.clone()
+    pos[..., 0] = torch.where(ts.valid, torch.remainder(pos[..., 0] + shift, box), pos[..., 0])
+    perm = torch.as_tensor(rng.permutation(pos.shape[2]), device=cuda_device)
+    pos, valid = pos[:, :, perm].contiguous(), ts.valid[:, :, perm].contiguous()
+    x = torch.where(valid, pos[..., 0], float("nan"))
+    assert bool((x[..., 1:] < x[..., :-1]).any())  # no longer sorted
+    assert bool((~valid[..., :-1] & valid[..., 1:]).any())  # a hole before a sphere
+    if n == 80000:
+        assert int(valid.sum(-1).max()) > 128
+    _check_k1(pos, valid, box, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_k1_contact_margin_and_x_wrap(cuda_device, dtype):
+    """Pairs along x just inside contact (2r = 1), just inside the early
+    stop's margin and just outside it, the same across the x wrap, and a
+    coincident pair, among random spheres: the kernel matches the plain
+    version and pushes exactly the pairs in contact."""
+    n, box, td = 1500, 12.0, _DT[dtype]
+    rng = np.random.default_rng(43)
+    pos = rng.uniform(0, box, (4 * n, 3))
+    d = np.abs(pos[:, 1] - pos[:, 2])
+    pos = pos[np.minimum(d, box - d) > 1.5][:n]  # no random sphere reaches y = z
+    placed = [(2.0, 2.0 + (1 - 1e-3), 1.0, True),
+              (2.0, 2.0 + (1 + 2e-4), 2.5, False),
+              (2.0, 2.0 + (1 + 2e-3), 4.0, False),
+              (0.05, 0.05 - (1 - 1e-3) + box, 5.5, True),
+              (0.05, 0.05 - (1 + 2e-4) + box, 7.0, False),
+              (0.05, 0.05 - (1 + 2e-3) + box, 8.5, False),
+              (9.0, 9.0, 10.0, False)]  # coincident
+    for i, (xo, xc, yz, _) in enumerate(placed):
+        pos[2 * i], pos[2 * i + 1] = [xo, yz, yz], [xc, yz, yz]
+    grid = tr.make_row_grid([0, 0, 0], [box] * 3, 1.4, n, dtype=td, align=8,
+                            device=cuda_device)
+    ts = tr.build_rows(torch.as_tensor(pos, dtype=td, device=cuda_device),
+                       torch.arange(n, dtype=torch.int32, device=cuda_device), grid)
+    force = _check_k1(ts.pos, ts.valid, box, dtype)
+    flat = tr.rows_to_flat(ts.replace(pos=force), n)
+    for i, (_, _, _, touch) in enumerate(placed):
+        assert bool(flat[2 * i].abs().max() > 0) == touch
+        assert bool(flat[2 * i + 1].abs().max() > 0) == touch
+
+
+@pytest.mark.cuda
+def test_k1_past_shared_memory_raises(cuda_device):
+    """float64 at R = 800 needs (36 R + 18 ceil(R / 32)) 8 + 4 R = 237,200
+    bytes of shared memory, past the H100's 232,448-byte opt-in (the largest
+    float64 row is R = 783): the launch fails and the wrapper raises, with
+    no plain fallback and no launch counted; float32 at the same R launches
+    and matches the plain version."""
+    ts = _rows(4000, 12.0, 1.4, 8, torch.float64, cuda_device)
+    R = 800
+    pad = R - ts.pos.shape[2]
+    optin = torch.cuda.get_device_properties(cuda_device).shared_memory_per_block_optin
+
+    def smem(R, itemsize):
+        return (36 * R + 18 * -(-R // 32)) * itemsize + 4 * R
+
+    assert smem(R, 8) > optin >= smem(783, 8)
+    assert smem(R, 4) <= optin
+
+    def widen(t, fill):
+        return torch.cat([t, t.new_full(t.shape[:2] + (pad,) + t.shape[3:], fill)],
+                         dim=2).contiguous()
+
+    pos, valid = widen(ts.pos, -1e6), widen(ts.valid, False)
+    before = k1.row_hertzian_forces_sym.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        k1.row_hertzian_forces_sym(pos, (12.0,) * 3, 0.5, 1000.0, 0.3, valid=valid)
+    assert k1.row_hertzian_forces_sym.launches == before
+    _check_k1(pos.float(), valid, 12.0, "float32")
+
+
 def _rows(n, box, cutoff, align, td, dev, seed=11):
     rng = np.random.default_rng(seed)
     grid = tr.make_row_grid([0, 0, 0], [box] * 3, cutoff, n, dtype=td,
@@ -381,8 +524,8 @@ def _filaments_digest(dtype, F, M, box, align, dev):
                                    for t in out)).hexdigest()[:16]
 
 
-# _filaments_digest from the filaments op as built before the rods op took
-# its own kernel body (NVIDIA H100 80GB HBM3)
+# _filaments_digest from the filaments op's full scan, as built before the
+# rods op took its own kernel body (NVIDIA H100 80GB HBM3)
 _FIL_SHA = {
     ("float32", 60): "255f0a5e0a1b53f6", ("float32", 120): "5fe88a0aad12d308",
     ("float32", 600): "229268dc501838c8", ("float64", 60): "df30ad7fe768cacb",
@@ -395,8 +538,9 @@ _FIL_SHA = {
 @pytest.mark.parametrize("F,M,box,align", [(60, 6, 9.5, 8), (120, 7, 16.5, 1),
                                            (600, 9, 9.5, 8)])
 def test_k4_filaments_op_outputs_unchanged(cuda_device, dtype, F, M, box, align):
-    """The rods op has a kernel body of its own; the filaments op keeps
-    the full scan, bit for bit."""
+    """The filaments op leaves out only chunks and pairs out of reach, whose
+    terms are exact zeros, and keeps the full scan's order: its outputs stay
+    bit for bit the full scan's."""
     assert _filaments_digest(dtype, F, M, box, align, cuda_device) == _FIL_SHA[(dtype, F)]
 
 
@@ -404,10 +548,12 @@ def _check_filaments(rows_pos, he, valid, gid, box, E, dtype):
     args = ((box,) * 3, 0.25, 274.725, E)
     before = k4.row_segment_filaments_sym.launches
     got = k4.row_segment_filaments_sym(rows_pos, he, valid, gid, *args)
+    again = k4.row_segment_filaments_sym(rows_pos, he, valid, gid, *args)
     torch.cuda.synchronize()
-    assert k4.row_segment_filaments_sym.launches == before + 1
+    assert k4.row_segment_filaments_sym.launches == before + 2
     ref = k4.row_segment_filaments_plain(rows_pos, he, valid, gid, *args)
-    for g, r in zip(got, ref):
+    for g, a, r in zip(got, again, ref):
+        assert torch.equal(g, a)
         assert bool(torch.isfinite(g).all())
         scale = r.abs().max().item()
         assert scale > 0
@@ -480,27 +626,115 @@ def test_k4_filaments_adjacency(cuda_device, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_k4_filaments_rows_moved_since_the_rebuild(cuda_device, dtype):
+    """Segments moved along x after build_rows (up to 2.5 reaches, wrapped
+    into the box), so the rows are no longer sorted in x and chunks span the
+    box; F = 600 chains in a 5 x 5 row grid fill rows of R = 392 with up to
+    ~190 segments, several warps of own slots per row."""
+    td = _DT[dtype]
+    rows, he = _filament_rows(600, 9, 9.5, td, cuda_device)
+    shift = torch.as_tensor(np.random.default_rng(47).uniform(-3.75, 3.75, rows.valid.shape),
+                            dtype=td, device=cuda_device)
+    mid = rows.pos.clone()
+    mid[..., 0] = torch.where(rows.valid, torch.remainder(mid[..., 0] + shift, 9.5), mid[..., 0])
+    x = torch.where(rows.valid, mid[..., 0], float("nan"))
+    assert bool((x[..., 1:] < x[..., :-1]).any())
+    assert int(rows.valid.sum(-1).max()) > 128
+    _check_filaments(mid.contiguous(), he, rows.valid, rows.gid, 9.5, 8, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_k4_filaments_full_row_and_x_wrap(cuda_device, dtype):
+    """Straight chains along x in one row (as config #4 lays them), so one
+    row holds ~5 warps of own segments beside rows of a few, and collinear
+    pairs of segments of two filaments (reach 2 |e| + 2r = 1.5) just inside
+    contact, just inside the reach margin and just outside it, the same
+    across the x wrap: the kernel matches the plain version and pushes
+    exactly the pairs in contact."""
+    td, box, E = _DT[dtype], 30.0, 10
+    rng = np.random.default_rng(53)
+    mid, he = [], []
+    for f in range(16):  # 16 straight chains along x at y, z in one row cell
+        y0, z0 = 10.0 + 0.1 * (f % 4), 10.0 + 0.1 * (f // 4)
+        x0 = rng.uniform(0, box)
+        for k in range(E):
+            mid.append([(x0 + k + 0.5) % box, y0, z0])
+            he.append([0.5, 0.0, 0.0])
+    reach = 1.5
+    placed = [(2.0, 2.0 + reach * (1 - 1e-3), 2.0, True),
+              (2.0, 2.0 + reach * (1 + 2e-4), 4.5, False),
+              (2.0, 2.0 + reach * (1 + 2e-3), 7.0, False),
+              (0.05, 0.05 - reach * (1 - 1e-3) + box, 14.5, True),
+              (0.05, 0.05 - reach * (1 + 2e-4) + box, 17.0, False),
+              (0.05, 0.05 - reach * (1 + 2e-3) + box, 19.5, False)]
+    lines = np.asarray([[yz, yz + 3.0] for _, _, yz, _ in placed])
+    while len(mid) < 16 * E + 30 * E:  # random chains away from the placed pieces
+        start = rng.uniform(0, box, 3)
+        d = rng.normal(size=3)
+        d /= np.linalg.norm(d)
+        chain = np.mod(start + (np.arange(E)[:, None] + 0.5) * d, box)
+        gap = np.abs(chain[:, None, 1:] - lines[None])
+        if (np.linalg.norm(np.minimum(gap, box - gap), axis=-1) < 2.5).any():
+            continue
+        mid.extend(chain)
+        he.extend([0.5 * d] * E)
+    first = len(mid)
+    for xo, xc, yz, _ in placed:  # one-segment pieces of two filaments
+        for x in (xo, xc):
+            mid.append([x, yz, yz + 3.0])
+            he.append([0.5, 0.0, 0.0])
+    mid, he = np.asarray(mid), np.asarray(he)
+    S = mid.shape[0]
+    grid = tr.make_row_grid([0, 0, 0], [box] * 3, 1.8, S, dtype=td, align=8, device=cuda_device)
+    grid = grid.replace(row_capacity=192)
+    rows = tr.build_rows(torch.as_tensor(mid, dtype=td, device=cuda_device),
+                         torch.arange(S, dtype=torch.int32, device=cuda_device), grid)
+    gid = rows.gid.long().clamp(max=S - 1)
+    he_rows = torch.where(rows.valid[..., None],
+                          torch.as_tensor(he, dtype=td, device=cuda_device)[gid], 0.0)
+    assert int(rows.valid.sum()) == S and int(rows.valid.sum(-1).max()) > 128
+    # the placed pieces' gids first + 2i and first + 2i + 1 would be one
+    # filament's neighbours: move the first of each past S
+    gid_map = torch.arange(S, dtype=torch.int32, device=cuda_device)
+    gid_map[first::2] += S  # placed pieces: no two gids one apart
+    new_gid = torch.where(rows.valid, gid_map[gid], rows.gid).contiguous()
+    fs, fe = _check_filaments(rows.pos, he_rows.contiguous(), rows.valid, new_gid, box, E,
+                              dtype)
+    f = tr.rows_to_flat(rows.replace(pos=fs + fe), S)
+    for i, (_, _, _, touch) in enumerate(placed):
+        assert bool(f[first + 2 * i].abs().max() > 0) == touch
+        assert bool(f[first + 2 * i + 1].abs().max() > 0) == touch
+
+
+@pytest.mark.cuda
 def test_k4_filaments_past_shared_memory_raises(cuda_device):
-    """float64 at R = 504 needs 9 R (6 x 8 + 4) = 235,872 bytes of shared
-    memory, past the H100's 232,448-byte opt-in: the launch fails and the
-    wrapper raises, with no plain fallback; the next launch still works."""
+    """The first design needed 9 R (6 x 8 + 4) bytes of shared memory and
+    raised past the opt-in (R = 504 in float64). The kernel reads packed
+    rows and keeps a fixed 8 KB per block in float64, so a row of R = 1504
+    (271 KB of the old staging) launches: its valid slots get bit for bit
+    the outputs of the narrow rows, its padding +0."""
     rows, he = _filament_rows(60, 6, 9.5, torch.float64, cuda_device)
     ny, nz, R, _ = rows.pos.shape
-    pad = 504 - R
+    pad = 1504 - R
 
     def widen(t, fill):
         return torch.cat([t, t.new_full(t.shape[:2] + (pad,) + t.shape[3:], fill)],
                          dim=2).contiguous()
 
-    pos = widen(rows.pos, -1e6)
     optin = torch.cuda.get_device_properties(cuda_device).shared_memory_per_block_optin
-    assert 9 * 504 * 52 > optin
+    assert 9 * 1504 * 52 > optin
+    narrow = _check_filaments(rows.pos, he, rows.valid, rows.gid, 9.5, 5, "float64")
     before = k4.row_segment_filaments_sym.launches
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        k4.row_segment_filaments_sym(pos, widen(he, 0.0), widen(rows.valid, False),
-                                     widen(rows.gid, 0), (9.5,) * 3, 0.25, 274.725, 5)
-    assert k4.row_segment_filaments_sym.launches == before
-    _check_filaments(rows.pos, he, rows.valid, rows.gid, 9.5, 5, "float64")
+    wide = k4.row_segment_filaments_sym(widen(rows.pos, -1e6), widen(he, 0.0),
+                                        widen(rows.valid, False), widen(rows.gid, 0),
+                                        (9.5,) * 3, 0.25, 274.725, 5)
+    torch.cuda.synchronize()
+    assert k4.row_segment_filaments_sym.launches == before + 1
+    for n_out, w_out in zip(narrow, wide):
+        assert torch.equal(w_out[:, :, :R], n_out)
+        assert bool((w_out[:, :, R:] == 0).all())
 
 
 def _se_geom(G, P, m, n, kind, slack=1.5, R=None):

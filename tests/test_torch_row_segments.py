@@ -263,3 +263,76 @@ def test_reach_rejects_only_pairs_that_add_zero(dtype):
         assert int(pair.sum()) == 1
         assert bool(keep[pair]) == kept
         assert bool((out[pair].abs().max() > 0)) == touch
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_reach_rejects_only_filament_pairs_that_add_zero(dtype):
+    """The filaments op skips a pair when segment_reach (with the filaments
+    radius) rejects it; the plain version's filaments out_fn gives every
+    such pair exactly zero node forces. On 40 random chains of 7 unit
+    segments plus collinear pairs (reach 2 |e| + 2r = 1.5) just inside
+    contact, just inside the margin and just outside it, across the x wrap
+    too, each once between two filaments and once between adjacent
+    segments of one filament, and a coincident pair."""
+    td = _DT[dtype][1]
+    radius, e_eff, E, box = 0.25, 274.725, 6, 14.0
+    rng = np.random.default_rng(41)
+    F = 40
+    d = rng.normal(size=(F, 1, 3)) + 0.3 * rng.normal(size=(F, E, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    start = rng.uniform(0, box, (F, 1, 3))
+    nodes = np.concatenate([start, start + np.cumsum(d, axis=1)], axis=1)
+    mid = np.mod(0.5 * (nodes[:, :-1] + nodes[:, 1:]), box).reshape(-1, 3)
+    he = (0.5 * (nodes[:, 1:] - nodes[:, :-1])).reshape(-1, 3)
+    reach = 2 * 0.5 + 2 * radius
+    # (own x, candidate x, in contact, kept by the reach test)
+    placed = [(2.0, 2.0 + reach * (1 - 1e-3), True, True),
+              (2.0, 2.0 + reach * (1 + 2e-4), False, True),
+              (2.0, 2.0 + reach * (1 + 2e-3), False, False),
+              (0.05, 0.05 - reach * (1 - 1e-3) + box, True, True),
+              (0.05, 0.05 - reach * (1 + 2e-4) + box, False, True),
+              (0.05, 0.05 - reach * (1 + 2e-3) + box, False, False),
+              (9.0, 9.0, False, True)]  # coincident
+    S = F * E
+    # pair i takes segments 2i, 2i + 1: gids 2i, 2i + 1 (adjacent in one
+    # filament) for even i; for odd i the second takes the gid of a far
+    # segment (two filaments)
+    gid = np.arange(S)
+    for i, (xo, xc, _, _) in enumerate(placed):
+        yz = 0.5 + (box - 1.0) * i / len(placed)
+        mid[2 * i], mid[2 * i + 1] = [xo, yz, yz], [xc, yz, yz]
+        he[2 * i] = he[2 * i + 1] = [0.5, 0.0, 0.0]
+        if i % 2:
+            far = S - 1 - 2 * i
+            gid[2 * i + 1], gid[far] = gid[far], gid[2 * i + 1]
+    tg = tr.make_row_grid([0, 0, 0], [box] * 3, 1.8, S, dtype=td, align=1)
+    ts = tr.build_rows(torch.as_tensor(mid, dtype=td), torch.as_tensor(gid, dtype=torch.int32),
+                       tg)
+    by_gid = {int(g): k for k, g in enumerate(gid)}
+    slot_seg = torch.as_tensor([by_gid[int(g)] for g in ts.gid.flatten()],
+                               dtype=torch.long).reshape(ts.gid.shape)
+    he_rows = torch.where(ts.valid[..., None], torch.as_tensor(he, dtype=td)[slot_seg], 0.0)
+    hx, hy, hz = he_rows.unbind(-1)
+    lens = k4.half_edge_lengths(he_rows)
+    g_f = torch.where(ts.valid, ts.gid.to(td), -10.0)
+    cx, cy, cz, (cex, cey, cez, cl, cg) = tr._candidate_planes(
+        ts.pos, ((box,) * 3, (True,) * 3), (hx, hy, hz, lens, g_f))
+    ox, oy, oz = ts.pos.unbind(-1)
+    (sx, sy, sz), out = tr.segment_pair_terms(
+        ox, oy, oz, hx, hy, hz, (g_f,), cx, cy, cz, cex, cey, cez, (cg,),
+        k4.filaments_out_fn(radius, e_eff, E), (box, 1.0 / box))
+    out = torch.stack(torch.broadcast_tensors(*out), -1)
+    keep = k4.segment_reach(sx, sy, sz, lens[..., :, None], cl[..., None, :], radius)
+    assert bool((out[~keep] == 0).all())
+    og = g_f[..., :, None].expand_as(keep)
+    cg = cg[..., None, :].expand_as(keep)
+    both = (og >= 0) & (cg >= 0)
+    assert 0.5 < float((~keep[both]).double().mean()) < 1.0
+    assert bool((out[keep & both].abs().amax(-1) > 0).any())
+    for i, (_, _, touch, kept) in enumerate(placed):
+        pair = (og == int(gid[2 * i])) & (cg == int(gid[2 * i + 1]))
+        assert int(pair.sum()) == 1
+        assert bool(keep[pair]) == kept
+        adjacent = abs(int(gid[2 * i + 1]) - int(gid[2 * i])) == 1
+        assert adjacent == (i % 2 == 0)
+        assert bool(out[pair].abs().max() > 0) == (touch and not adjacent)

@@ -142,3 +142,70 @@ def test_k1_rejects_small_grids():
     pos = torch.zeros((4, 8, 16, 3))
     with pytest.raises(ValueError):
         k1.row_hertzian_forces_sym(pos, (10.0,) * 3, 0.5, 1000.0, 0.3)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_k1_early_stop_rejects_only_pairs_that_add_zero(dtype):
+    """K1 stops a pair when contact_reach rejects its r2; the plain version
+    gives every such pair an exactly zero force. On 600 random spheres plus
+    pairs along x a few ulp either side of contact (2r = 1) and of the
+    early stop's cut (2r)^2 (1 + 2^-10), the same across the x wrap, and a
+    coincident pair, over the full 9-row stencil."""
+    td = _DT[dtype][1]
+    n, box, radius = 600, 9.0, 0.5
+    rng = np.random.default_rng(31)
+    pos = rng.uniform(0, box, (n, 3))
+    eps = float(torch.finfo(td).eps)
+    cut = float(torch.sqrt(torch.tensor(1.0, dtype=td) * k1.REACH_MARGIN))
+    # (own x, candidate x, in contact (None: within rounding of 2r), kept by
+    # the early stop)
+    placed = [(2.0, 2.999, True, True), (0.25, 0.25 - 0.999 + box, True, True),
+              (7.0, 7.0, False, True)]  # the last pair coincident
+    for k in (-3, -1, 1, 3):
+        placed.append((2.0, 3.0 + 4 * k * eps, None if k < 0 else False, True))
+        placed.append((0.25, 0.25 - (1.0 + 4 * k * eps) + box, None if k < 0 else False,
+                       True))
+        placed.append((5.0, 5.0 + cut * (1 + 8 * k * eps), False, k < 0))
+    for i, (xo, xc, _, _) in enumerate(placed):
+        yz = 0.3 + (box - 0.6) * i / len(placed)
+        pos[2 * i], pos[2 * i + 1] = [xo, yz, yz], [xc, yz, yz]
+    tg = tr.make_row_grid([0, 0, 0], [box] * 3, 1.4, n, dtype=td, align=1)
+    ts = tr.build_rows(torch.as_tensor(pos, dtype=td), torch.arange(n, dtype=torch.int32), tg)
+    gid = torch.where(ts.valid, ts.gid, -1).to(td)
+    cx, cy, cz, (cg,) = tr._candidate_planes(ts.pos, ((box,) * 3, (True,) * 3), (gid,))
+    ox, oy, oz = ts.pos.unbind(-1)
+    # the plain version's pair arithmetic (rows._central_force_chunk_sym)
+    dx = cx[..., None, :] - ox[..., :, None]
+    dx = dx - box * torch.round(dx * (1.0 / box))
+    dy = cy[..., None, :] - oy[..., :, None]
+    dz = cz[..., None, :] - oz[..., :, None]
+    r2 = dx * dx + dy * dy + dz * dz
+    w = k1.hertz_scalar_fn(radius, 1000.0, 0.3, td, "cpu")(r2)
+    terms = torch.stack([w * dx, w * dy, w * dz], dim=-1)
+    keep = k1.contact_reach(r2, radius)
+    assert bool((terms[~keep] == 0).all())
+    og = gid[..., :, None].expand_as(keep)
+    cg = cg[..., None, :].expand_as(keep)
+    both = (og >= 0) & (cg >= 0)
+    assert 0.9 < float((~keep[both]).double().mean()) < 1.0
+    assert bool((terms[keep & both].abs().amax(-1) > 0).any())
+    for i, (_, _, touch, kept) in enumerate(placed):
+        pair = (og == 2 * i) & (cg == 2 * i + 1)
+        assert int(pair.sum()) == 1
+        assert bool(keep[pair]) == kept
+        if touch is not None:
+            assert bool(terms[pair].abs().max() > 0) == touch
+
+
+def test_k1_mask_is_checked_and_optional():
+    """The mask the app passes must be build_rows' (ny, nz, R) bool mask;
+    on the CPU the wrapper computes the plain version with or without it."""
+    _, ts = _built(2000, 16.0, 1.05, "float64", seed=4)
+    args = ((16.0,) * 3, 0.5, 1000.0, 0.3)
+    with pytest.raises(ValueError, match="valid"):
+        k1.row_hertzian_forces_sym(ts.pos, *args, valid=ts.valid[..., :-1])
+    with pytest.raises(ValueError, match="valid"):
+        k1.row_hertzian_forces_sym(ts.pos, *args, valid=ts.valid.int())
+    got = k1.row_hertzian_forces_sym(ts.pos, *args, valid=ts.valid)
+    assert torch.equal(got, k1.row_hertzian_forces_sym(ts.pos, *args))
+    assert bool((got[~ts.valid] == 0).all())
