@@ -79,8 +79,10 @@ Delassus applies (kernel K3t) through the port's own entry points:
     versions at the config #5 shape: float32 pieces and forces from
     ChromatinSim.init on examples/chromatin_1m_spectral.yaml (1M beads, G =
     384, P = 6, m = 8, R as init sizes it), within 1e-5 of max|grid| and of
-    max|u|; index_add_ of the precomputed N P^3 ids and values timed beside
-    K5s as its library yardstick, and the ratio of the two printed;
+    max|u|, K5i on the inverse FFT's planar layout as the wave apply passes
+    it, and bit-equal on a second launch; index_add_ of the precomputed N
+    P^3 ids and values timed beside K5s as its library yardstick, and the
+    ratio of the two printed;
 21. config #5 in float64 (2 x 64 beads, box 24, 16 crosslinkers,
     rpy_spectral with the density split, 40 steps, skin rebuilds) on the
     card against the CPU: equal rebuilds, overflow flags and binding states
@@ -94,11 +96,13 @@ Delassus applies (kernel K3t) through the port's own entry points:
 23. K6 (masked full-stencil Hertz, the monodisperse law on a constant
     radius plane) vs its plain version and vs K1 at the 1M config #1
     shape, each within 5e-5 of max|f| (the bound of
-    tests/test_pallas_row_hertz.py), with K6's, K1's and the plain times
-    and the bound from the occupied pairs and those in contact;
+    tests/test_pallas_row_hertz.py), and bit-equal on a second launch, with
+    K6's, K1's and the plain times and the bound from the pairs within
+    their contact distance in x and those in contact;
 24. polydisperse config #1 at 1M (polydispersity 0.4, as
     tests/test_polydisperse.py): K6 with radii vs its plain version
-    at the init shape within 5e-5 of max|f|, then 300 steps of run_block
+    at the init shape within 5e-5 of max|f| and bit-equal on a second
+    launch, timed, its bound counted as [23]'s, then 300 steps of run_block
     with the K6 count set to 0 just before: one launch per step, no lost
     sphere, no overflow; then torch.profiler over 8 more steps;
 25. that config in float64 (2000 spheres, 60 steps) on the card against
@@ -172,20 +176,23 @@ K4_ROD_OPS = 10.0
 K4F_OPS = 163.0
 # FP32 operations of the Hertzian row kernels, counted from the algorithm,
 # each unordered pair once with both sides' sums. A pair needs its
-# separation and r2 (K1: every occupied pair within its early stop's cut in
-# x, the others being out of contact on x alone; K6: every occupied pair):
-# K1 takes the minimum image on x only (difference, x 1/L, rint, x L,
-# subtract: 5) and two differences on the pre-shifted rows, r2 5; K6 three
-# minimum images 15 and r2 5, and with radii the contact distance ro + rc
-# and its square 2 more. The contact test is a compare, not counted. A pair
-# in contact then needs the clamp, rsqrt and d 3, delta 2, w = coef delta
-# sqrt(delta) / d 4 and both sums as 6 FMAs 12; with radii also ro rc, the
-# clamp, the division, sqrt and its product with coef 5.
+# separation and r2 to be rejected; the others are out of contact on x
+# alone and need nothing. K1 takes the minimum image on x only (difference,
+# x 1/L, rint, x L, subtract: 5) and two differences on the pre-shifted
+# rows, r2 5: 12 per occupied pair within its early stop's cut in x. K6
+# takes three minimum images 15 and r2 5 (K6_PAIR_OPS); an occupied pair
+# within its own contact distance in x pays K1's 12 (K6_REACH_OPS) and,
+# with radii, ro + rc and its square 2 more, a pair in contact the other 8.
+# The contact test is a compare, not counted. A pair in contact then needs
+# the clamp, rsqrt and d 3, delta 2, w = coef delta sqrt(delta) / d 4 and
+# both sums as 6 FMAs 12; with radii also ro rc, the clamp, the division,
+# sqrt and its product with coef 5.
 K1_PAIR_OPS = 12.0
 K1_CONTACT_OPS = 21.0
 K6_PAIR_OPS = 20.0
-K6_CONTACT_OPS = 21.0
-K6_RADII_PAIR_OPS = K6_PAIR_OPS + 2.0
+K6_REACH_OPS = 12.0
+K6_CONTACT_OPS = K6_PAIR_OPS - K6_REACH_OPS + 21.0
+K6_RADII_REACH_OPS = K6_REACH_OPS + 2.0
 K6_RADII_CONTACT_OPS = K6_CONTACT_OPS + 5.0
 FIL_STEPS = 200
 CHROM_STEPS = 20
@@ -297,11 +304,12 @@ def reach_pairs(pos, hedges, valid, box, radius, k4, torch) -> tuple:
     return in_x / 2, in_3d / 2
 
 
-def cut_pairs_in_x(pos, valid, box, radius, k1, torch) -> float:
+def cut_pairs_in_x(pos, valid, box, radii, reach, torch) -> float:
     """Unordered pairs of valid spheres on this row layout whose x
-    separation alone K1's early stop (k1.contact_reach on dx^2) keeps, over
-    the full 9-row stencil with the x minimum image. Counted in y-slabs of
-    ~5e7 pair entries."""
+    separation alone a kernel's early stop keeps, reach(dx^2, own radius,
+    candidate radius) (row_central.contact_reach for K1, row_hertz's for
+    K6), over the full 9-row stencil with the x minimum image; radii: the
+    (ny, nz, R) radius plane. Counted in y-slabs of ~5e7 pair entries."""
     ny, nz, R = valid.shape
     lx = float(box[0])
     not_self = ~torch.eye(R, dtype=torch.bool, device=pos.device)
@@ -309,13 +317,14 @@ def cut_pairs_in_x(pos, valid, box, radius, k1, torch) -> float:
     hits = 0
     for dy in (-1, 0, 1):
         for dz in (-1, 0, 1):
-            cx, cv = (torch.roll(t, (-dy, -dz), dims=(0, 1)) for t in (pos[..., 0], valid))
+            cx, cv, cr = (torch.roll(t, (-dy, -dz), dims=(0, 1))
+                          for t in (pos[..., 0], valid, radii))
             for y0 in range(0, ny, step):
                 s = slice(y0, y0 + step)
                 dx = cx[s][..., None, :] - pos[s][..., :, None, 0]
                 dx = dx - lx * torch.round(dx / lx)
-                hit = (k1.contact_reach(dx * dx, radius) & valid[s][..., :, None]
-                       & cv[s][..., None, :])
+                hit = (reach(dx * dx, radii[s][..., :, None], cr[s][..., None, :])
+                       & valid[s][..., :, None] & cv[s][..., None, :])
                 if (dy, dz) == (0, 0):
                     hit = hit & not_self
                 hits += int(hit.sum())
@@ -442,8 +451,9 @@ def chromatin_phases(torch, dev, card: str) -> list:
     forces = sim._forces(st)
     grid_k = k5.se_spread(geom, pieces, forces)
     grid_p = k5.se_spread_plain(geom, pieces, forces)
-    ugrid = spectral._k_apply(sim.spectral, grid_p).contiguous()
+    ugrid = spectral._k_apply(sim.spectral, grid_p)  # as the wave apply passes it
     u_k = k5.se_interp(geom, pieces, ugrid)
+    i_same = bool(torch.equal(u_k, k5.se_interp(geom, pieces, ugrid)))
     u_p = k5.se_interp_plain(geom, pieces, ugrid)
     torch.cuda.synchronize()
     s_err = (grid_k - grid_p).abs().max().item()
@@ -454,12 +464,14 @@ def chromatin_phases(torch, dev, card: str) -> list:
     n_valid = int(valid.sum())
     print(f"    {n_valid} binned beads in {perm.shape[0]} tiles of R = {perm.shape[1]}: K5s "
           f"max|diff| {s_err:.3e} of max|grid| {gmax:.3e}, K5i max|diff| {i_err:.3e} of "
-          f"max|u| {umax:.3e}, overflow {bool(pieces[1])}", flush=True)
+          f"max|u| {umax:.3e} on the inverse FFT's layout (strides {ugrid.stride()}, a "
+          f"second launch bit-equal {i_same}), overflow {bool(pieces[1])}", flush=True)
     if not (gmax > 0 and math.isfinite(s_err) and s_err <= 1e-5 * gmax):
         fail(f"K5s disagrees with its plain version: {s_err} > 1e-5 * {gmax}")
-    if not (umax > 0 and math.isfinite(i_err) and i_err <= 1e-5 * umax):
-        fail(f"K5i disagrees with its plain version: {i_err} > 1e-5 * {umax}")
-    del grid_k, u_k
+    if not (umax > 0 and math.isfinite(i_err) and i_err <= 1e-5 * umax and i_same):
+        fail(f"K5i disagrees with its plain version ({i_err} > 1e-5 * {umax}) or with "
+             f"itself (repeat bit-equal {i_same})")
+    del grid_k
     s_ms, s_plain_ms = alternate(lambda: k5.se_spread(geom, pieces, forces),
                                  lambda: k5.se_spread_plain(geom, pieces, forces),
                                  torch, 10, 2, rounds=2)
@@ -489,8 +501,8 @@ def chromatin_phases(torch, dev, card: str) -> list:
           f"(max|diff| {lib_err:.3e}; K5s / index_add_ {s_ms / s_lib_ms:.4f}), bound "
           f"{s_bound[0]:.4f} ms ({s_bound[1]}, {s_ms / s_bound[0]:.1f}x); {card}", flush=True)
     print(f"    K5i {i_ms:.4f} ms, plain {i_plain_ms:.4f} ms, bound {i_bound[0]:.4f} ms "
-          f"({i_bound[1]})", flush=True)
-    del grid_p, ugrid, u_p, pieces, forces, sel
+          f"({i_bound[1]}, {i_ms / i_bound[0]:.1f}x); {card}", flush=True)
+    del grid_p, ugrid, u_k, u_p, pieces, forces, sel
 
     # ---- 21. config #5 in float64, card vs CPU; float32 twice on the card --
     small = dict(num_chains=2, beads_per_chain=64, bead_radius=0.5, num_crosslinkers=16,
@@ -540,7 +552,7 @@ def chromatin_phases(torch, dev, card: str) -> list:
           f"G {sim.spectral.grid_n}, P {sim.spectral.support}, se R {sim.se_geom.R}, broad "
           f"phase {broad}, rebuilds {rebuilds}, doubly bound {sim.doubly_bound(st)}/"
           f"{sim.X}, overflow {bool(st.overflow)}; launches K5s {s_launches}, K5i "
-          f"{i_launches}, K2 {k2_launches}", flush=True)
+          f"{i_launches}, K2 {k2_launches}; {card}", flush=True)
     if bool(st.overflow) or not bool(torch.isfinite(st.pos).all()):
         fail("the 1M chromatin window overflowed or went non-finite")
     if s_launches != CHROM_STEPS or i_launches != CHROM_STEPS:
@@ -561,6 +573,7 @@ def chromatin_phases(torch, dev, card: str) -> list:
         ("noise", lambda: brownian_velocity_keyed(st.key, st.step, sim._gids,
                                                   cfg.diffusion_coeff, cfg.dt)),
         ("rebuild (contact + kmc searches)", lambda: sim._rebuild(st)))
+    print(f"    the step's layers alone at the window's final state ({card}):", flush=True)
     for name, fn in parts:
         print(f"    {name}: {cuda_ms(fn, torch, 3):.3f} ms", flush=True)
     del f, pieces, grid
@@ -579,11 +592,12 @@ def chromatin_phases(torch, dev, card: str) -> list:
 
 
 
-def polydisperse_phases(torch, dev, lcp_sim, lcp_st) -> list:
+def polydisperse_phases(torch, dev, lcp_sim, lcp_st, card: str) -> list:
     """Phases 23-28: K6 on config #1's rows and with radii on the
     polydisperse row engine, K3t and the scalar-mobility Delassus applies at
     [6]'s final LCP state, and the polydisperse LCP line with K2's radius
-    variant. Returns their entries of the kernels line."""
+    variant, K6's times printed with `card` (name and power limit). Returns
+    their entries of the kernels line."""
     from mundy_tpu_torch.constraints.collision import (
         active_pair_subset_strided, collision_setup_spheres, make_band_delassus_apply,
         make_block_delassus_apply, make_local_drag_apply, resolve_collisions)
@@ -605,6 +619,7 @@ def polydisperse_phases(torch, dev, lcp_sim, lcp_st) -> list:
             big.poissons_ratio)
     k6.row_hertzian_forces.launches = 0
     f6 = k6.row_hertzian_forces(*args)
+    same = bool(torch.equal(f6, k6.row_hertzian_forces(*args)))
     f_p = k6.row_hertzian_forces_plain(*args)
     f1 = k1.row_hertzian_forces_sym(rows.pos, *args[2:], valid=rows.valid)
     torch.cuda.synchronize()
@@ -615,10 +630,11 @@ def polydisperse_phases(torch, dev, lcp_sim, lcp_st) -> list:
     ny, nz, R = m.shape
     print(f"[23] K6 at (ny, nz, R) = ({ny}, {nz}, {R}): max|diff| {k6_err:.3e} vs plain, "
           f"{k6_k1:.3e} vs K1, of max|f| {fmax:.3e}, invalid slots zero "
-          f"{bool((f6[~m] == 0).all())}", flush=True)
+          f"{bool((f6[~m] == 0).all())}, a second launch bit-equal {same}", flush=True)
     if not (fmax > 0 and k6_err <= 5e-5 * fmax and k6_k1 <= 5e-5 * fmax
-            and bool((f6[~m] == 0).all())):
-        fail(f"K6 disagrees: {k6_err} vs plain, {k6_k1} vs K1, bar 5e-5 * {fmax}")
+            and bool((f6[~m] == 0).all()) and same):
+        fail(f"K6 disagrees: {k6_err} vs plain, {k6_k1} vs K1, bar 5e-5 * {fmax}, "
+             f"repeat bit-equal {same}")
     del f6, f_p, f1
     k6_mono_ms, k6_mono_plain_ms = alternate(lambda: k6.row_hertzian_forces(*args),
                                              lambda: k6.row_hertzian_forces_plain(*args),
@@ -627,17 +643,21 @@ def polydisperse_phases(torch, dev, lcp_sim, lcp_st) -> list:
         [cuda_ms(lambda: k1.row_hertzian_forces_sym(rows.pos, *args[2:], valid=rows.valid),
                  torch, 10)
          for _ in range(3)])
-    # the occupied pairs, each unordered pair once (the half stencil's count),
-    # and those in contact; read pos and valid once, write the forces once
-    pairs = stencil_work(m, torch)[0]
-    contacts = contact_pairs(rows.pos, m, args[2], m.to(rows.pos.dtype) * big.radius, torch)
-    k6_mono_bound = bound(pairs * K6_PAIR_OPS + contacts * K6_CONTACT_OPS,
-                          m.numel() * (12 + 1 + 12))
+    # the occupied pairs within their contact distance in x at K6_REACH_OPS,
+    # those in contact at K6_CONTACT_OPS more; read valid on every slot and
+    # the occupied slots' positions once, write the forces on every slot once
+    plane = m.to(rows.pos.dtype) * big.radius
+    in_x = cut_pairs_in_x(rows.pos, m, args[2], plane, k6.contact_reach, torch)
+    contacts = contact_pairs(rows.pos, m, args[2], plane, torch)
+    k6_mono_bytes = m.numel() * (1 + 12) + int(m.sum()) * 12
+    k6_mono_bound = bound(in_x * K6_REACH_OPS + contacts * K6_CONTACT_OPS, k6_mono_bytes)
     print(f"    K6 {k6_mono_ms:.4f} ms, K1 {k1_again_ms:.4f} ms, plain "
           f"{k6_mono_plain_ms:.4f} ms, bound {k6_mono_bound[0]:.4f} ms "
-          f"({k6_mono_bound[1]}, {pairs:.0f} pairs, {contacts:.0f} in contact); K6 "
-          f"launches in [23] {k6.row_hertzian_forces.launches} (comparison and timing; no "
-          f"app runs the monodisperse law through K6, [24] counts the path's)", flush=True)
+          f"({k6_mono_bound[1]}, {k6_mono_bytes / 1e6:.1f} MB; {in_x:.0f} pairs within reach "
+          f"in x, {contacts:.0f} in contact), {k6_mono_ms / k6_mono_bound[0]:.1f}x the bound; "
+          f"K6 launches in [23] {k6.row_hertzian_forces.launches} (comparison and timing; no "
+          f"app runs the monodisperse law through K6, [24] counts the path's); {card}",
+          flush=True)
     del sim, rows, args
 
     # ---- 24. polydisperse config #1 at 1M through K6 with radii ----------
@@ -651,6 +671,7 @@ def polydisperse_phases(torch, dev, lcp_sim, lcp_st) -> list:
     args = (rows.pos, rows.valid, psim.box_static[0], pcfg.radius, pcfg.youngs_modulus,
             pcfg.poissons_ratio)
     f6 = k6.row_hertzian_forces(*args, radii=r_rows)
+    same = bool(torch.equal(f6, k6.row_hertzian_forces(*args, radii=r_rows)))
     f_p = k6.row_hertzian_forces_plain(*args, radii=r_rows)
     torch.cuda.synchronize()
     m = rows.valid
@@ -660,20 +681,27 @@ def polydisperse_phases(torch, dev, lcp_sim, lcp_st) -> list:
     ny, nz, R = m.shape
     print(f"[24] polydisperse config #1 at 1M (p = 0.4): init {time.perf_counter() - t0:.2f} "
           f"s, cutoff {psim.cutoff:.4f}, (ny, nz, R) = ({ny}, {nz}, {R}); K6 radii max|diff| "
-          f"{k6r_err:.3e} of max|f| {fmax:.3e}", flush=True)
-    if not (fmax > 0 and k6r_err <= 5e-5 * fmax):
-        fail(f"K6 with radii disagrees with its plain version: {k6r_err} > 5e-5 * {fmax}")
+          f"{k6r_err:.3e} of max|f| {fmax:.3e}, a second launch bit-equal {same}", flush=True)
+    if not (fmax > 0 and k6r_err <= 5e-5 * fmax and same):
+        fail(f"K6 with radii disagrees with its plain version ({k6r_err} > 5e-5 * {fmax}) "
+             f"or with itself (repeat bit-equal {same})")
     del f6, f_p
     k6_ms, k6_plain_ms = alternate(lambda: k6.row_hertzian_forces(*args, radii=r_rows),
                                    lambda: k6.row_hertzian_forces_plain(*args, radii=r_rows),
                                    torch, 10, 1, rounds=2)
-    pairs = stencil_work(m, torch)[0]
+    # the occupied pairs within their own contact distance in x at
+    # K6_RADII_REACH_OPS, those in contact at K6_RADII_CONTACT_OPS more; read
+    # valid on every slot and the occupied slots' positions and radii once,
+    # write the forces on every slot once
+    in_x = cut_pairs_in_x(rows.pos, m, args[2], r_rows, k6.contact_reach, torch)
     contacts = contact_pairs(rows.pos, m, args[2], r_rows, torch)
-    k6_bound = bound(pairs * K6_RADII_PAIR_OPS + contacts * K6_RADII_CONTACT_OPS,
-                     m.numel() * (12 + 1 + 4 + 12))
+    k6_bytes = m.numel() * (1 + 12) + int(m.sum()) * (12 + 4)
+    k6_bound = bound(in_x * K6_RADII_REACH_OPS + contacts * K6_RADII_CONTACT_OPS, k6_bytes)
     print(f"    K6 radii {k6_ms:.4f} ms, plain {k6_plain_ms:.4f} ms, bound "
-          f"{k6_bound[0]:.4f} ms ({k6_bound[1]}, {pairs:.0f} pairs, {contacts:.0f} in "
-          f"contact)", flush=True)
+          f"{k6_bound[0]:.4f} ms ({k6_bound[1]}, {k6_bytes / 1e6:.1f} MB; {in_x:.0f} pairs "
+          f"within reach in x, {contacts:.0f} in contact; occupied pairs "
+          f"{stencil_work(m, torch)[0]:.0f}), {k6_ms / k6_bound[0]:.1f}x the bound; {card}",
+          flush=True)
     del rows, args, r_rows
     pst = psim.run_block(pst, 3)  # warm up
     torch.cuda.synchronize()
@@ -687,7 +715,7 @@ def polydisperse_phases(torch, dev, lcp_sim, lcp_st) -> list:
     n_valid = int(pst.rows.valid.sum())
     print(f"    {BIG_STEPS} steps in {elapsed:.3f} s = {BIG_STEPS / elapsed:.2f} steps/s, "
           f"{1e3 * elapsed / BIG_STEPS:.3f} ms/step, rebuilds {pst.rebuild_count - rb0}, R "
-          f"{psim.grid.row_capacity}, K6 launches {k6_launches}", flush=True)
+          f"{psim.grid.row_capacity}, K6 launches {k6_launches}; {card}", flush=True)
     if n_valid != N_BIG or bool(pst.overflow) or not bool(
             torch.isfinite(psim.positions(pst)).all()):
         fail(f"the polydisperse 1M run lost spheres, overflowed or went non-finite "
@@ -991,7 +1019,8 @@ def main() -> None:
     # each, those in contact at K1_CONTACT_OPS more; read valid on every slot
     # and the occupied slots' positions once (a padded slot's forces are +0
     # from valid alone), write the forces on every slot once
-    k1_in_x = cut_pairs_in_x(rows.pos, m, box, big.radius, k1, torch)
+    k1_in_x = cut_pairs_in_x(rows.pos, m, box, m.to(rows.pos.dtype) * big.radius,
+                             lambda dx2, ro, rc: k1.contact_reach(dx2, big.radius), torch)
     k1_contacts = contact_pairs(rows.pos, m, box, m.to(rows.pos.dtype) * big.radius, torch)
     k1_flops = k1_in_x * K1_PAIR_OPS + k1_contacts * K1_CONTACT_OPS
     k1_bytes = m.numel() * (1 + 12) + int(m.sum()) * 12
@@ -1507,7 +1536,7 @@ def main() -> None:
     del fsim, fst
 
     k5_entries = chromatin_phases(torch, dev, card)
-    poly_entries = polydisperse_phases(torch, dev, lcp_sim, lcp_st)
+    poly_entries = polydisperse_phases(torch, dev, lcp_sim, lcp_st, card)
     del lcp_sim, lcp_st
 
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

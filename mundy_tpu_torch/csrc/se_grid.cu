@@ -52,9 +52,38 @@
 // and 74 KB), so 9 blocks share an SM instead of 3 (its 56 registers a
 // thread bound it there).
 //
-// K5i design: one thread per particle gathers its P^3 x 3 grid values
-// through slot_of (the unsort is the gather), weights them and scales by
-// h^3.
+// K5i design. The first design gave each particle one thread, in gid
+// order, that gathered its P^3 x 3 grid values from device memory (216 x 3
+// scalar loads at P = 6, the 32 lanes of a warp on 32 unrelated z-runs) and
+// read the grid in C order, so the wave apply copied the inverse FFT's
+// planar output first (680 MB each way at G = 384). This design reads the
+// grid where it lies and from shared memory:
+//   * layout: the grid as three (G, G, G) planes, the channel axis
+//     outermost, as the inverse FFT of the wave apply leaves it (the
+//     wrapper raises on any other strides), so the wave apply passes that
+//     output as it comes;
+//   * order: one block per run of tz tiles along z (tz <= 4 dividing G/m;
+//     their slots are one run of perm), which walks the occupied slots of
+//     those tiles in slot order (a per-tile extent, then a prefix) and
+//     writes each result to out[perm[s]]: beads of neighbouring tiles share
+//     most of their support;
+//   * staging: for a batch of up to 128 slots, one thread per (slot, axis)
+//     computes the P window weights and the support start once (one
+//     wrapped start per axis, not a % per point), the block takes the
+//     bounding box of the starts and copies the box, P points wider, into
+//     shared memory with cp.async: a warp per (channel, x) plane, its lanes
+//     on consecutive z (16-byte copies where the planes keep them aligned),
+//     every copy in flight at once; x-slabs of at most 12 KB in turn (in
+//     trials on the card, smaller buffers and so more blocks per SM ran
+//     faster, and so did 4 tiles per block against 1, 2 and 8, and 128
+//     threads against 256);
+//   * sums: one thread per (slot, channel) adds the slot's P^3 terms in the
+//     first design's order, a, b, c nested, each product rounded as there
+//     (no FMA), carried across x-slabs in shared memory, and scales by h^3:
+//     every output is bit for bit the first design's, and two launches are
+//     bit-equal (no atomics). A particle that binning dropped gets zero.
+// A batch whose box will not fit (slots far outside their tiles, which the
+// binning does not give) is redone slot by slot, each box P wide.
 //
 // Dropped from the TPU kernels: the row slabs with their XPAD wrap pad and
 // pl.ds rank-1 updates, the roll-based _combine_axis / _extract_axis folds,
@@ -63,9 +92,12 @@
 // Bound: the grid written (K5s) or read (K5i) once is 12 G^3 bytes
 // (680 MB at G = 384, 0.20 ms at 3.35 TB/s) against ~1.7 GFLOP for 1M
 // particles at P = 6, so both are bound by bytes. K5s re-reads its staged
-// slots from shared memory for every run of LZ points of the tile; K5i reads
-// each grid value up to ~P^3 / m^3-fold from L2 through neighbouring
-// particles.
+// slots from shared memory for every run of LZ points of the tile; K5i
+// stages each grid value ~(13/8)^2 (37/32)-fold from L2 (the boxes of
+// neighbouring blocks overlap by P - 1 points) and gathers its sums from
+// shared memory with bank conflicts (32 lanes on ~11 slots at unrelated
+// points); its phases (extents, weights, staging, sums) run in turn within a
+// block, so its time follows the blocks an SM holds.
 //
 // Built with -fmad=false like every kernel of the package, so each window
 // product rounds as the plain version's (ops/kernels/se_grid.py) does; the
@@ -301,48 +333,243 @@ __global__ void se_spread_kernel(const T* __restrict__ u, const int* __restrict_
   }
 }
 
-template <typename T>
-__global__ void se_interp_kernel(const T* __restrict__ u, const int* __restrict__ slot_of,
-                                 const T* __restrict__ grid, T* __restrict__ out, int n,
-                                 int n_slots, int G, int P, Window win, T h3) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int s = slot_of[i];
-  T ax = T(0), ay = T(0), az = T(0);
-  if (s < n_slots) {
-    const int half = P / 2 - 1;
-    T w[3][MAX_P];
-    int b0[3];
-    for (int d = 0; d < 3; ++d) {
-      const T ud = u[3 * static_cast<size_t>(s) + d];
-      const T fl = floor(ud);
-      const T frac = ud - fl;
-      b0[d] = static_cast<int>(fl) - half;
-      for (int k = 0; k < P; ++k) w[d][k] = window_weight(T(k - half) - frac, win);
+constexpr int WB = 128;    // K5i: slots per batch (weights, starts, sums in shared memory)
+constexpr int TZ_MAX = 4;  // K5i: most tiles per block along z
+
+__device__ __forceinline__ int wrap_(int x, int G) {
+  x %= G;
+  return x < 0 ? x + G : x;
+}
+
+// One value global -> shared without registers (cp.async, sm_80+); the
+// copies land by cp_async_wait_all.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+               "l"(__cvta_generic_to_global(src)), "n"(BYTES)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// One block per tz tiles along z; PC > 0 fixes the window support P at
+// compile time.
+template <typename T, int PC>
+__global__ void se_interp_kernel(const T* __restrict__ u, const int* __restrict__ perm,
+                                 const int* __restrict__ slot_of, const T* __restrict__ grid,
+                                 T* __restrict__ out, int n, int n_slots, int G, int m,
+                                 int P_rt, int R, int nt1, int tz, int cap, Window win,
+                                 T h3) {
+  const int P = PC > 0 ? PC : P_rt;
+  // entries of an offset table, the widest box edge in x and y; even, so
+  // the staged values after the table stay 16-byte aligned
+  const int tbl = (3 * m + P + 1) & ~1;
+  // 16-byte copies along z where the planes keep them aligned
+  constexpr int V = 16 / sizeof(T);
+  const bool vec = G % V == 0 && reinterpret_cast<size_t>(grid) % 16 == 0;
+  const long long cs = static_cast<long long>(G) * G * G;  // channel stride
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  long long* poff = reinterpret_cast<long long*>(smem_raw);  // [3 tbl] (channel, x) planes
+  T* sg = reinterpret_cast<T*>(poff + 3 * tbl);              // [cap] staged grid values
+  T* sw = sg + cap;                                          // [WB][3][P] window weights
+  T* sacc = sw + WB * 3 * P;                                 // [WB][3] sums across x-slabs
+  int* srel = reinterpret_cast<int*>(sacc + WB * 3);  // [WB][3] support starts
+  int* spid = srel + 3 * WB;                          // [WB] particle id, -1 if empty
+  int* yoff = spid + WB;                              // [tbl] y offsets
+  __shared__ int s_box[6];           // least and greatest support start per axis
+  __shared__ int s_pre[TZ_MAX + 1];  // exclusive prefix of the tiles' extents
+
+  // the particles that binning dropped get zero (every block a share)
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
+    if (slot_of[i] >= n_slots) {
+      out[3 * static_cast<size_t>(i)] = T(0);
+      out[3 * static_cast<size_t>(i) + 1] = T(0);
+      out[3 * static_cast<size_t>(i) + 2] = T(0);
     }
-    for (int a = 0; a < P; ++a) {
-      int gx = (b0[0] + a) % G;
-      gx += gx < 0 ? G : 0;
-      for (int b = 0; b < P; ++b) {
-        int gy = (b0[1] + b) % G;
-        gy += gy < 0 ? G : 0;
-        const T wxy = w[0][a] * w[1][b];
-        const size_t row = (static_cast<size_t>(gx) * G + gy) * G;
-        for (int c = 0; c < P; ++c) {
-          int gz = (b0[2] + c) % G;
-          gz += gz < 0 ? G : 0;
-          const T wt = wxy * w[2][c];
-          const T* v = grid + (row + gz) * 3;
-          ax += wt * v[0];
-          ay += wt * v[1];
-          az += wt * v[2];
+  }
+
+  // tiles t0 .. t0 + tz - 1 share x and y (tz divides nt1): their slots
+  // are one run of perm
+  const int t0 = blockIdx.x * tz;
+  const int org[3] = {t0 / (nt1 * nt1) * m, t0 / nt1 % nt1 * m, t0 % nt1 * m};
+  const int span[3] = {m, m, tz * m};
+  const int* bperm = perm + static_cast<size_t>(t0) * R;
+  if (threadIdx.x <= tz) s_pre[threadIdx.x] = 0;
+  __syncthreads();
+  // extents, 1 + the last occupied slot of each tile: an occupied slot
+  // whose next slot in its tile is empty; four loads in flight per thread
+  for (int q0 = threadIdx.x; q0 < tz * R; q0 += 4 * blockDim.x) {
+    int here[4], next[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int q = q0 + k * blockDim.x;
+      here[k] = q < tz * R ? bperm[q] : n;
+      next[k] = q < tz * R && (q + 1) % R != 0 ? bperm[q + 1] : n;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int q = q0 + k * blockDim.x;
+      if (here[k] < n && next[k] >= n) atomicMax(&s_pre[q / R + 1], q % R + 1);
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < tz; ++k) s_pre[k + 1] += s_pre[k];
+  }
+  const int half = P / 2 - 1;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  int step = WB;  // slots per batch; 1 once a batch's box is too wide to stage
+  for (int b0 = 0;;) {
+    __syncthreads();  // the prefix is written, the last batch is done
+    const int total = s_pre[tz];
+    if (b0 >= total) break;
+    const int nbat = min(step, total - b0);
+    if (threadIdx.x < 3) {
+      s_box[threadIdx.x] = 0x7fffffff;
+      s_box[3 + threadIdx.x] = -0x7fffffff;
+    }
+    __syncthreads();
+    for (int q0 = 0; q0 < 3 * nbat; q0 += blockDim.x) {  // whole warps: they reduce the box
+      const int q = q0 + threadIdx.x;
+      const int e = q / 3;
+      const int d = q - 3 * e;
+      int rel = 0;
+      bool occupied = false;
+      if (q < 3 * nbat) {
+        const int i = b0 + e;
+        int k = 0;
+        while (s_pre[k + 1] <= i) ++k;
+        const size_t slot = static_cast<size_t>(t0 + k) * R + (i - s_pre[k]);
+        const int pid = perm[slot];
+        const T ud = u[3 * slot + d];  // finite on an empty slot too; not used there
+        if (d == 0) spid[e] = pid < n ? pid : -1;
+        sacc[q] = T(0);
+        occupied = pid < n;
+        if (occupied) {
+          const T fl = floor(ud);
+          const T frac = ud - fl;
+          rel = wrap_(static_cast<int>(fl) - half - org[d], G);
+          if (rel >= (G + span[d]) / 2) rel -= G;  // just below the tiles: negative
+          srel[q] = rel;
+          T* w = sw + q * P;
+          for (int c = 0; c < P; ++c) w[c] = window_weight(T(c - half) - frac, win);
+        }
+      }
+      for (int dd = 0; dd < 3; ++dd) {
+        const bool mine = occupied && d == dd;
+        const int mn = __reduce_min_sync(0xffffffffu, mine ? rel : 0x7fffffff);
+        const int mx = __reduce_max_sync(0xffffffffu, mine ? rel : -0x7fffffff);
+        if (lane == 0 && mn <= mx) {
+          atomicMin(&s_box[dd], mn);
+          atomicMax(&s_box[3 + dd], mx);
         }
       }
     }
+    __syncthreads();
+    const int lo[3] = {s_box[0], s_box[1], s_box[2]};
+    if (lo[0] > s_box[3]) {  // no occupied slot in this batch
+      b0 += nbat;
+      continue;
+    }
+    const int E[3] = {s_box[3] - lo[0] + P, s_box[4] - lo[1] + P, s_box[5] - lo[2] + P};
+    // a box too wide for the buffer or the offset tables (slots far outside
+    // their tiles): redo this batch slot by slot, each box P wide
+    const int zb = wrap_(org[2] + lo[2], G);  // grid z of the box's first point
+    const int zs = vec ? zb % V : 0;            // its staged z: rows start aligned
+    const int E2s = vec ? (zs + E[2] + V - 1) / V * V : E[2];  // staged row length
+    if ((3 * E[1] * E2s > cap || E[0] > tbl || E[1] > tbl) && nbat > 1) {
+      step = 1;
+      continue;
+    }
+    const int X = min(E[0], cap / (3 * E[1] * E2s));  // x-planes per slab
+    for (int k = threadIdx.x; k < E[1]; k += blockDim.x) {
+      yoff[k] = wrap_(org[1] + lo[1] + k, G) * G;
+    }
+    for (int xs = 0; xs < E[0]; xs += X) {
+      const int nx = min(X, E[0] - xs);
+      __syncthreads();  // the last slab's sums are done
+      for (int pl = threadIdx.x; pl < 3 * nx; pl += blockDim.x) {
+        const int ch = pl / nx;
+        poff[pl] = ch * cs +
+                   static_cast<long long>(wrap_(org[0] + lo[0] + xs + pl - ch * nx, G)) * G * G;
+      }
+      __syncthreads();
+      // stage the slab: a warp per plane (channel, x) of E1 rows along z,
+      // its lanes on consecutive points (16 bytes each where the planes
+      // keep them aligned), every copy in flight at once
+      for (int pl = warp; pl < 3 * nx; pl += nw) {
+        const T* gplane = grid + poff[pl];
+        T* splane = sg + static_cast<size_t>(pl) * E[1] * E2s;
+        const int w = vec ? V : 1;  // points per copy
+        const int nv = E2s / w;     // copies per row
+        int iy = 0, iv = lane;
+        while (iv >= nv) {
+          iv -= nv;
+          ++iy;
+        }
+        for (int j = lane; j < E[1] * nv; j += 32) {
+          int gz = zb - zs + iv * w;
+          if (gz >= G) gz = gz - G < G ? gz - G : gz % G;
+          if (vec) {
+            cp_async<16>(splane + j * V, gplane + yoff[iy] + gz);
+          } else {
+            cp_async<sizeof(T)>(splane + j, gplane + yoff[iy] + gz);
+          }
+          iv += 32;
+          while (iv >= nv) {
+            iv -= nv;
+            ++iy;
+          }
+        }
+      }
+      cp_async_wait_all();
+      __syncthreads();
+      // one thread per (slot, channel): the reference's order, a, b, c nested
+      for (int q = threadIdx.x; q < 3 * nbat; q += blockDim.x) {
+        const int e = q / 3;
+        const int ch = q - 3 * e;
+        if (spid[e] < 0) continue;
+        const int ia = srel[3 * e] - lo[0] - xs;  // slab x of support point a = 0
+        const int a0 = max(0, -ia);
+        const int a1 = min(P, nx - ia);
+        if (a0 >= a1) continue;
+        const int ib = srel[3 * e + 1] - lo[1];
+        const int ic = srel[3 * e + 2] - lo[2] + zs;
+        const T* wx = sw + 3 * e * P;
+        const T* wy = wx + P;
+        T wz[PC > 0 ? PC : MAX_P];
+#pragma unroll
+        for (int c = 0; c < P; ++c) wz[c] = wy[P + c];
+        const T* plane = sg + static_cast<size_t>(ch) * nx * E[1] * E2s;
+        T acc = sacc[q];
+        for (int a = a0; a < a1; ++a) {
+          const T wa = wx[a];
+          const T* va = plane + ((ia + a) * E[1] + ib) * E2s + ic;
+          for (int b = 0; b < P; ++b) {
+            const T wxy = wa * wy[b];
+            const T* vb = va + b * E2s;
+#pragma unroll
+            for (int c = 0; c < P; ++c) {
+              const T wt = wxy * wz[c];
+              acc += wt * vb[c];
+            }
+          }
+        }
+        sacc[q] = acc;
+      }
+    }
+    __syncthreads();
+    for (int q = threadIdx.x; q < 3 * nbat; q += blockDim.x) {
+      const int pid = spid[q / 3];
+      if (pid >= 0) out[3 * static_cast<size_t>(pid) + q % 3] = sacc[q] * h3;
+    }
+    b0 += nbat;
   }
-  out[3 * static_cast<size_t>(i)] = ax * h3;
-  out[3 * static_cast<size_t>(i) + 1] = ay * h3;
-  out[3 * static_cast<size_t>(i) + 2] = az * h3;
 }
 
 Window make_window(int kind, double beta, double wh, double c, double h, double pref) {
@@ -391,18 +618,56 @@ int launch_spread(const void* u, const void* perm, const void* forces, void* ext
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_interp(const void* u, const void* slot_of, const void* grid, void* out, int n,
-                  int n_slots, int G, int P, int kind, double beta, double wh, double c,
-                  double h, double pref, double h3, void* stream) {
-  if (P < 1 || P > MAX_P) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = 256;
-  const int blocks = (n + threads - 1) / threads;
-  se_interp_kernel<T><<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(u), static_cast<const int*>(slot_of),
-      static_cast<const T*>(grid), static_cast<T*>(out), n, n_slots, G, P,
-      make_window(kind, beta, wh, c, h, pref), static_cast<T>(h3));
+template <typename T, int PC>
+int launch_interp_p(const void* u, const void* perm, const void* slot_of, const void* grid,
+                    void* out, int n, int n_slots, int G, int m, int P, int R,
+                    const Window& win, double h3, void* stream) {
+  const int nt1 = G / m;
+  int tz = TZ_MAX;  // tiles per block along z: the most that divide nt1
+  while (nt1 % tz != 0) --tz;
+  // staged values: the box of a block's tiles, at most 12 KB of them (x-slabs
+  // stage a wider box in turn: in trials on the card smaller buffers, and so
+  // more blocks per SM, ran faster), and at least one x-plane of the widest
+  // box that slots within a grid point of their tiles span, rows aligned
+  const long long v = 16 / sizeof(T);
+  const long long plane = 3LL * (m + P + 1) * (tz * m + P + 1 + 2 * v);
+  const long long box = plane * (m + P + 1);
+  const long long budget = 12 * 1024 / sizeof(T);
+  const int cap = static_cast<int>(box < budget ? box : (plane > budget ? plane : budget));
+  const int tbl = (3 * m + P + 1) & ~1;
+  const size_t smem = static_cast<size_t>(3 * tbl) * sizeof(long long) +
+                      static_cast<size_t>(cap + WB * 3 * P + WB * 3) * sizeof(T) +
+                      static_cast<size_t>(4 * WB + tbl) * sizeof(int);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        se_interp_kernel<T, PC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // clear it: the next launch must not report it
+      return static_cast<int>(err);
+    }
+  }
+  se_interp_kernel<T, PC><<<nt1 * nt1 * nt1 / tz, 128, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(u), static_cast<const int*>(perm),
+      static_cast<const int*>(slot_of), static_cast<const T*>(grid), static_cast<T*>(out), n,
+      n_slots, G, m, P, R, nt1, tz, cap, win, static_cast<T>(h3));
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_interp(const void* u, const void* perm, const void* slot_of, const void* grid,
+                  void* out, int n, int n_slots, int G, int m, int P, int R, int kind,
+                  double beta, double wh, double c, double h, double pref, double h3,
+                  void* stream) {
+  if (P < 1 || P > MAX_P) return static_cast<int>(cudaErrorInvalidValue);
+  const Window win = make_window(kind, beta, wh, c, h, pref);
+  if (P == 6) {
+    return launch_interp_p<T, 6>(u, perm, slot_of, grid, out, n, n_slots, G, m, P, R,
+                                 win, h3, stream);
+  }
+  return launch_interp_p<T, 0>(u, perm, slot_of, grid, out, n, n_slots, G, m, P, R,
+                               win, h3, stream);
 }
 
 }  // namespace
@@ -425,18 +690,22 @@ int se_spread_f64(const void* u, const void* perm, const void* forces, void* ext
                                h, pref, stream);
 }
 
-int se_interp_f32(const void* u, const void* slot_of, const void* grid, void* out, int n,
-                  int n_slots, int G, int P, int kind, double beta, double wh, double c,
-                  double h, double pref, double h3, void* stream) {
-  return launch_interp<float>(u, slot_of, grid, out, n, n_slots, G, P, kind, beta, wh, c, h,
-                              pref, h3, stream);
+// grid: (G, G, G, 3) values as three (G, G, G) planes, the channel axis
+// outermost: element strides (G^2, G, 1, G^3).
+int se_interp_f32(const void* u, const void* perm, const void* slot_of, const void* grid,
+                  void* out, int n, int n_slots, int G, int m, int P, int R, int kind,
+                  double beta, double wh, double c, double h, double pref, double h3,
+                  void* stream) {
+  return launch_interp<float>(u, perm, slot_of, grid, out, n, n_slots, G, m, P, R,
+                              kind, beta, wh, c, h, pref, h3, stream);
 }
 
-int se_interp_f64(const void* u, const void* slot_of, const void* grid, void* out, int n,
-                  int n_slots, int G, int P, int kind, double beta, double wh, double c,
-                  double h, double pref, double h3, void* stream) {
-  return launch_interp<double>(u, slot_of, grid, out, n, n_slots, G, P, kind, beta, wh, c,
-                               h, pref, h3, stream);
+int se_interp_f64(const void* u, const void* perm, const void* slot_of, const void* grid,
+                  void* out, int n, int n_slots, int G, int m, int P, int R, int kind,
+                  double beta, double wh, double c, double h, double pref, double h3,
+                  void* stream) {
+  return launch_interp<double>(u, perm, slot_of, grid, out, n, n_slots, G, m, P, R,
+                               kind, beta, wh, c, h, pref, h3, stream);
 }
 
 }  // extern "C"

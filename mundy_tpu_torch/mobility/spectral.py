@@ -204,7 +204,7 @@ def se_wave_apply_dense(op: SpectralEwaldRPY, geom: SEGridTiles, pos: torch.Tens
         pieces = se_bin_geom(geom, pos, forces.dtype)
     grid = se_spread(geom, pieces, forces)
     ugrid = _k_apply(op, grid)  # the inverse FFT's strides: the channel axis outermost
-    u = se_interp(geom, pieces, ugrid.to(forces.dtype).contiguous())
+    u = se_interp(geom, pieces, ugrid.to(forces.dtype))  # K5i reads that layout
     return u, pieces[1]
 
 

@@ -296,12 +296,13 @@ def _candidate_planes(pos: torch.Tensor, box: tuple, extra_fields: tuple = ()):
             tuple(torch.cat(a, dim=-1) for a in cand_extras))
 
 
-def _central_force_chunk(ox, oy, oz, own_extras, cx, cy_, cz, cand_extras,
-                         scalar_fn, images):
-    """Central pair forces f_i = sum_j w * sep for one y-chunk on component
-    planes: own (chunk, nz, R), candidates (chunk, nz, 9R), every pair
-    quantity a (chunk, nz, R, 9R) plane. `images`: per axis (L, 1/L) for a
-    minimum image, or None."""
+def central_pair_terms(ox, oy, oz, own_extras, cx, cy_, cz, cand_extras,
+                       scalar_fn, images):
+    """The central pair arithmetic on component planes: own (..., R),
+    candidates (..., 9R), every pair quantity a (..., R, 9R) plane.
+    `images`: per axis (L, 1/L) for a minimum image, or None. Returns the
+    separations (DX, DY, DZ), cand - own, their r2 and the weights w =
+    scalar_fn(r2, own_extra, cand_extra, ...), unsummed."""
     seps = []
     for c, o, img in ((cx, ox, images[0]), (cy_, oy, images[1]), (cz, oz, images[2])):
         d = c[..., None, :] - o[..., :, None]
@@ -309,11 +310,19 @@ def _central_force_chunk(ox, oy, oz, own_extras, cx, cy_, cz, cand_extras,
             d = d - img[0] * torch.round(d * img[1])
         seps.append(d)
     DX, DY, DZ = seps
-    args = [DX * DX + DY * DY + DZ * DZ]
+    r2 = DX * DX + DY * DY + DZ * DZ
+    args = [r2]
     for own_f, cand_f in zip(own_extras, cand_extras):
         args.append(own_f[..., :, None])
         args.append(cand_f[..., None, :])
-    w = scalar_fn(*args)
+    return DX, DY, DZ, r2, scalar_fn(*args)
+
+
+def _central_force_chunk(*planes):
+    """Central pair forces f_i = sum_j w * sep for one y-chunk:
+    central_pair_terms on (chunk, nz, R) own and (chunk, nz, 9R) candidate
+    planes, summed over the candidate axis."""
+    DX, DY, DZ, _r2, w = central_pair_terms(*planes)
     return torch.stack([(w * DX).sum(-1), (w * DY).sum(-1), (w * DZ).sum(-1)], dim=-1)
 
 

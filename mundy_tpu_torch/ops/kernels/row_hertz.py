@@ -2,12 +2,13 @@
 
 Port of mundy_tpu/ops/pallas/row_hertz.py::row_hertzian_forces, with the
 radius plane that the polydisperse row engine needs. On a CUDA tensor the
-wrapper launches the hand-written kernel of csrc/row_hertz.cu (K1's design:
-one block per row, the 9 candidate rows, their masks and radii staged in
-shared memory, one-sided register sums; see the note there); with no radius
-plane it hands the kernel a constant one, on which the polydisperse law is
-the monodisperse law. On a CPU tensor it
-computes the plain version, `row_hertzian_forces_plain`:
+wrapper launches the hand-written kernel of csrc/row_hertz.cu (one block per
+row, the occupied slots of the 9 candidate rows packed in shared memory, a
+group of 8 lanes per own sphere visiting the chunks within reach in x,
+pairs out of contact stopped before their square roots; see the note
+there); with no radius plane it hands the kernel a constant one, on which
+the polydisperse law is the monodisperse law. On a CPU tensor it computes
+the plain version, `row_hertzian_forces_plain`:
 neighbor/rows.pair_accumulate_central with the Hertzian scalar law, the
 JAX package's own non-TPU force for this kernel (its test holds K6 to it
 within 5e-5 of max|f|), with the mask riding as a payload plane and, given
@@ -27,12 +28,18 @@ from mundy_tpu_torch.ops.kernels import _build
 
 _DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 _SMEM_DEFAULT = 48 * 1024  # shared memory a block gets without the opt-in
+# the kernel's factor on the squared contact distance of its early stop
+# (exact in both dtypes; the note of csrc/row_hertz.cu shows it covers the
+# rounding of a pair)
+REACH_MARGIN = 1.0 + 2.0 ** -10
 
 
 def shared_bytes(R: int, itemsize: int) -> int:
-    """Dynamic shared memory of one block: the 9 staged candidate rows'
-    positions, masks and radii (csrc/row_hertz.cu)."""
-    return 9 * R * 5 * itemsize
+    """Dynamic shared memory of one block (csrc/row_hertz.cu): the packed
+    x, y, z, radius entries of the 9 candidate rows, the x bounds and
+    greatest radius of each chunk of 8 of them, the own slots and the 9
+    counts."""
+    return (36 * R + 36 * -(-R // 8)) * itemsize + 4 * R + 36
 
 
 def fits(R: int, itemsize: int, device) -> bool:
@@ -63,14 +70,21 @@ def _e_eff(youngs: float, poisson: float) -> float:
     return youngs / (2.0 * (1.0 - poisson * poisson))
 
 
-def row_hertzian_forces_plain(pos: torch.Tensor, valid: torch.Tensor, box,
-                              radius: float, youngs: float, poisson: float,
-                              radii=None) -> torch.Tensor:
-    """Plain PyTorch version of K6 (any device): (ny, nz, R, 3) forces,
-    pair_accumulate_central with the mask (and the radii) as payloads: the
-    minimum image on all three axes, as K6 takes it."""
-    _check(pos, valid, box, radii)
-    kw = dict(dtype=pos.dtype, device=pos.device)
+def contact_reach(r2: torch.Tensor, ro: torch.Tensor, rc: torch.Tensor) -> torch.Tensor:
+    """The kernel's early stop, operation for operation in r2's dtype: True
+    where it goes on past a pair's squared separation r2, r2 <= (ro + rc)^2
+    REACH_MARGIN with each operation rounded on its own. A pair it rejects
+    is out of contact, and the plain version gives it an exactly zero
+    force."""
+    s = ro + rc
+    return r2 <= s * s * REACH_MARGIN
+
+
+def hertz_scalar_fn(radius: float, youngs: float, poisson: float, dtype, device):
+    """The plain version's pair law: w(r2, own mask, candidate mask[, own
+    radius, candidate radius]) with f_i = sum_j w sep_ij; with no radii the
+    monodisperse law at `radius`."""
+    kw = dict(dtype=dtype, device=device)
     two_r = torch.tensor(2.0 * radius, **kw)
     r_eff = torch.tensor(0.5 * radius, **kw)
     e_eff = torch.tensor(_e_eff(youngs, poisson), **kw)
@@ -87,15 +101,27 @@ def row_hertzian_forces_plain(pos: torch.Tensor, valid: torch.Tensor, box,
             mag = hertzian_pair_force(d - two_r, r_eff, e_eff)
         return torch.where((ov * cv) > 0.5, -mag * rinv, 0.0)
 
+    return scalar_fn
+
+
+def row_hertzian_forces_plain(pos: torch.Tensor, valid: torch.Tensor, box,
+                              radius: float, youngs: float, poisson: float,
+                              radii=None) -> torch.Tensor:
+    """Plain PyTorch version of K6 (any device): (ny, nz, R, 3) forces,
+    pair_accumulate_central with the mask (and the radii) as payloads: the
+    minimum image on all three axes, as K6 takes it."""
+    _check(pos, valid, box, radii)
     fields = (valid.to(pos.dtype),) + (() if radii is None else (radii,))
     boxs = (tuple(float(b) for b in box), (True, True, True))
-    return pair_accumulate_central(pos, boxs, scalar_fn, extra_fields=fields)
+    return pair_accumulate_central(
+        pos, boxs, hertz_scalar_fn(radius, youngs, poisson, pos.dtype, pos.device),
+        extra_fields=fields)
 
 
 def _launch(pos, valid, radii, box, youngs, poisson) -> torch.Tensor:
     lib = _build.load("row_hertz")
     fn = getattr(lib, f"row_hertzian_forces_{_DTYPES[pos.dtype]}")
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_double] * 4
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_double] * 5
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     ny, nz, R, _ = pos.shape
@@ -104,7 +130,7 @@ def _launch(pos, valid, radii, box, youngs, poisson) -> torch.Tensor:
     with torch.cuda.device(pos.device):
         stream = torch.cuda.current_stream(pos.device).cuda_stream
         err = fn(pos.data_ptr(), valid.data_ptr(), radii.data_ptr(), out.data_ptr(), ny, nz,
-                 R, float(box[0]), float(box[1]), float(box[2]), coef, stream)
+                 R, float(box[0]), float(box[1]), float(box[2]), coef, REACH_MARGIN, stream)
     if err != 0:
         raise RuntimeError(f"row_hertz kernel launch failed: CUDA error {err} (R = {R})")
     return out
@@ -123,8 +149,9 @@ def row_hertzian_forces(pos: torch.Tensor, valid: torch.Tensor, box, radius: flo
     law, R* = ro rc / max(ro + rc, 1e-12) and contact at ro + rc. A CUDA
     tensor must be contiguous and launches the kernel (counted in
     `.launches`), with a constant radius plane when `radii` is None; its
-    9 R x 5 values of shared memory must lie within the card's opt-in. A
-    CPU tensor computes the plain version."""
+    shared memory (`shared_bytes`; largest R 1400 in float32 and 708 in
+    float64 on an H100) must lie within the card's opt-in. A CPU tensor
+    computes the plain version."""
     _check(pos, valid, box, radii)
     if pos.device.type == "cpu":
         return row_hertzian_forces_plain(pos, valid, box, radius, youngs, poisson, radii)

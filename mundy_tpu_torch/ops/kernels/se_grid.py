@@ -12,7 +12,8 @@ interpolation is the transpose, times h^3.
 On a CUDA tensor `se_spread` and `se_interp` launch the hand-written
 kernels of csrc/se_grid.cu (K5s an output-stationary gather per tile over
 the occupied slots of the 27 tiles around it, no float atomics; K5i one
-thread per particle; see the note there). On a CPU
+block per tile that stages its slots' box of the grid in shared memory and
+reads the inverse FFT's planar layout; see the note there). On a CPU
 tensor they compute the plain versions, `se_spread_plain` and
 `se_interp_plain`: the P-point scatter (`index_add_`, deterministic on the
 CPU) and gather of the reference's spectral.se_spread / se_interpolate
@@ -160,12 +161,14 @@ def se_spread_plain(geom: SEGridTiles, pieces, forces: torch.Tensor) -> torch.Te
 def se_interp_plain(geom: SEGridTiles, pieces, grid: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of K5i (any device): each particle's P^3 x 3
     gather from its slot, weighted and summed, times h^3; (N, 3) in grid's
-    dtype, zero for a particle that binning dropped."""
+    dtype, zero for a particle that binning dropped. The grid lies in K5i's
+    layout (`check_grid`)."""
     G = geom.G
     _perm, _ovf, u, _valid, slot_of = pieces
+    check_grid(geom, grid)
     n = slot_of.shape[0]
     n_slots = u.shape[0] * u.shape[1]
-    flat = grid.reshape(-1, 3)
+    flat = grid.reshape(-1, 3)  # a copy of a planar grid
     u_flat = u.reshape(-1, 3)
     out = grid.new_zeros((n, 3))
     for i0 in range(0, n, _PLAIN_CHUNK):
@@ -251,35 +254,49 @@ def se_spread(geom: SEGridTiles, pieces, forces: torch.Tensor) -> torch.Tensor:
     return grid
 
 
+def check_grid(geom: SEGridTiles, grid: torch.Tensor) -> None:
+    """Raises unless the grid lies as K5i reads it: (G, G, G, 3) as three
+    (G, G, G) planes, the channel axis outermost (element strides (G^2, G,
+    1, G^3)), as the inverse FFT of mobility/spectral._k_apply returns it."""
+    G = geom.G
+    if tuple(grid.shape) != (G, G, G, 3):
+        raise ValueError(f"the grid must be ({G}, {G}, {G}, 3), got {tuple(grid.shape)}")
+    if grid.stride() != (G * G, G, 1, G ** 3):
+        raise ValueError(f"K5i reads a grid as three planes, the channel axis outermost "
+                         f"(strides {(G * G, G, 1, G ** 3)}); got strides {grid.stride()}")
+
+
 def se_interp(geom: SEGridTiles, pieces, grid: torch.Tensor) -> torch.Tensor:
     """Kernel K5i: (N, 3) velocities interpolated from the (G, G, G, 3) grid
-    at the binned particles, times h^3, unsorted through slot_of; zero for a
-    particle that binning dropped. A CPU tensor computes the plain version.
-    A CUDA tensor launches the kernel (counted in `.launches`) under the
-    same conditions as se_spread."""
+    at the binned particles, times h^3, unsorted through perm; zero for a
+    particle that binning dropped. The grid lies as three planes, the
+    channel axis outermost (`check_grid`). A CPU tensor computes the plain
+    version. A CUDA tensor launches the kernel (counted in `.launches`)
+    under the same conditions as se_spread."""
     _check(geom, pieces)
-    _perm, _ovf, u, _valid, slot_of = pieces
+    perm, _ovf, u, _valid, slot_of = pieces
+    check_grid(geom, grid)
     if grid.device.type == "cpu":
         return se_interp_plain(geom, pieces, grid)
     if grid.device.type != "cuda":
         raise ValueError(f"no K5i kernel for device {grid.device}")
-    _check_cuda(geom, (slot_of, u, grid))
+    _check_cuda(geom, (perm, slot_of, u))
+    if perm.dtype != torch.int32 or slot_of.dtype != torch.int32 or grid.dtype != u.dtype:
+        raise TypeError("K5i needs int32 perm and slot_of and a grid in u's dtype")
     G = geom.G
-    if slot_of.dtype != torch.int32 or grid.dtype != u.dtype or grid.shape != (G, G, G, 3):
-        raise TypeError("K5i needs int32 slot_of and a (G, G, G, 3) grid in u's dtype")
     n = slot_of.shape[0]
     out = torch.empty((n, 3), dtype=grid.dtype, device=grid.device)
     h = geom.box / G
     lib = _build.load("se_grid")
     fn = getattr(lib, f"se_interp_{_DTYPES[grid.dtype]}")
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_double] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_double] * 6
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     with torch.cuda.device(grid.device):
         stream = torch.cuda.current_stream(grid.device).cuda_stream
-        err = fn(u.data_ptr(), slot_of.data_ptr(), grid.data_ptr(), out.data_ptr(), n,
-                 u.shape[0] * u.shape[1], G, geom.P, *_window_args(geom), h * h * h,
-                 stream)
+        err = fn(u.data_ptr(), perm.data_ptr(), slot_of.data_ptr(), grid.data_ptr(),
+                 out.data_ptr(), n, u.shape[0] * u.shape[1], G, geom.m, geom.P, geom.R,
+                 *_window_args(geom), h * h * h, stream)
     if err != 0:
         raise RuntimeError(f"se_grid interp kernel launch failed: CUDA error {err}")
     se_interp.launches += 1

@@ -788,8 +788,8 @@ def test_k5_kernels_match_plain(cuda_device, dtype, G, P, m, n, kind, clustered,
     before = (k5.se_spread.launches, k5.se_interp.launches)
     grid = k5.se_spread(geom, pieces, forces)
     ref = k5.se_spread_plain(geom, pieces, forces)
-    u = k5.se_interp(geom, pieces, ref)
-    u_ref = k5.se_interp_plain(geom, pieces, ref)
+    u = k5.se_interp(geom, pieces, _planar(ref))
+    u_ref = k5.se_interp_plain(geom, pieces, _planar(ref))
     torch.cuda.synchronize()
     assert (k5.se_spread.launches, k5.se_interp.launches) == (before[0] + 1, before[1] + 1)
     assert grid.shape == (G, G, G, 3) and u.shape == (n, 3)
@@ -809,6 +809,114 @@ def test_k5s_repeats_bit_for_bit(cuda_device):
     geom = _se_geom(64, 6, 8, 4000, "es")
     pieces, forces = _se_pieces(geom, 4000, torch.float32, cuda_device, clustered=True)
     assert torch.equal(k5.se_spread(geom, pieces, forces), k5.se_spread(geom, pieces, forces))
+
+
+def _planar(grid):
+    """The grid as three (G, G, G) planes, the channel axis outermost: the
+    strides of the inverse FFT's output in mobility/spectral._k_apply."""
+    return grid.permute(3, 0, 1, 2).contiguous().permute(1, 2, 3, 0)
+
+
+_K5I_CASES = {"uniform": (64, 6, 8, 3000, "es", False),
+              "clustered-overflow": (64, 6, 8, 4000, "es", True)}
+
+
+def _k5i_inputs(dtype, case, dev):
+    G, P, m, n, kind, clustered = _K5I_CASES[case]
+    td = _DT[dtype]
+    geom = _se_geom(G, P, m, n, kind)
+    pieces, _ = _se_pieces(geom, n, td, dev, clustered)
+    grid = torch.as_tensor(np.random.default_rng(41).normal(size=(G, G, G, 3)), dtype=td,
+                           device=dev)
+    return geom, pieces, _planar(grid)
+
+
+def _k5i_digest(dtype, case, dev):
+    """sha256 (first 16 hex digits) of K5i's output bytes on a seeded grid,
+    at two cases of test_k5_kernels_match_plain. The first design read the
+    same values in C order."""
+    import hashlib
+
+    geom, pieces, grid = _k5i_inputs(dtype, case, dev)
+    return hashlib.sha256(k5.se_interp(geom, pieces, grid).cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+# _k5i_digest from K5i's first design, one thread per particle in gid
+# order (NVIDIA H100 80GB HBM3)
+_K5I_SHA = {
+    ("float32", "uniform"): "007ea10fe7ad0bf4", ("float32", "clustered-overflow"): "ae2a49195784cdf0",
+    ("float64", "uniform"): "be0f879d8efddafc", ("float64", "clustered-overflow"): "9772a276383d67ad",
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("case", ["uniform", "clustered-overflow"])
+def test_k5i_outputs_unchanged(cuda_device, dtype, case):
+    """K5i stages each tile's box of the grid and gives each (slot,
+    channel) one thread that sums the reference's terms in its order (a, b,
+    c nested, no FMA): its outputs stay bit for bit the first design's."""
+    assert _k5i_digest(dtype, case, cuda_device) == _K5I_SHA[(dtype, case)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("case", ["uniform", "clustered-overflow"])
+def test_k5i_reads_the_planar_layout(cuda_device, dtype, case):
+    """The inverse FFT's layout (three planes, the channel axis outermost,
+    as the wave apply passes it) against the plain version on the same
+    grid (within 1e-5 of max|u| in float32, 1e-12 in float64); any other
+    strides, C order among them, raise, with no launch counted."""
+    geom, pieces, grid = _k5i_inputs(dtype, case, cuda_device)
+    assert grid.stride() == (64 * 64, 64, 1, 64 ** 3)
+    before = k5.se_interp.launches
+    u = k5.se_interp(geom, pieces, grid)
+    torch.cuda.synchronize()
+    assert k5.se_interp.launches == before + 1
+    u_ref = k5.se_interp_plain(geom, pieces, grid)
+    scale = u_ref.abs().max().item()
+    assert scale > 0
+    assert (u - u_ref).abs().max().item() <= (1e-12 if dtype == "float64" else 1e-5) * scale
+    for other in (grid.contiguous(), grid.transpose(0, 1)):
+        with pytest.raises(ValueError, match="strides"):
+            k5.se_interp(geom, pieces, other)
+    assert k5.se_interp.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_k5i_slots_far_from_their_tiles(cuda_device, dtype):
+    """Slots of every 7th tile moved 20 and 27.5 grid points from it in x
+    and y (the binning never gives that; a caller may): a block whose box of
+    supports would not fit its buffer or offset tables redoes its slots one
+    by one. Against the plain version (1e-5 of max|u| in float32, 1e-12 in
+    float64) and bit-equal on a second launch."""
+    geom, (perm, ovf, u, valid, slot_of), grid = _k5i_inputs(dtype, "uniform", cuda_device)
+    far = torch.zeros(perm.shape[0], dtype=torch.bool, device=cuda_device)
+    far[::7] = True
+    far = far[:, None] & valid
+    u = u.clone()
+    for axis, shift in ((0, 20.0), (1, 27.5)):
+        u[..., axis] = torch.where(far, torch.remainder(u[..., axis] + shift, geom.G),
+                                   u[..., axis])
+    pieces = (perm, ovf, u.contiguous(), valid, slot_of)
+    got = k5.se_interp(geom, pieces, grid)
+    ref = k5.se_interp_plain(geom, pieces, grid)
+    scale = ref.abs().max().item()
+    assert scale > 0
+    assert (got - ref).abs().max().item() <= (1e-12 if dtype == "float64" else 1e-5) * scale
+    assert torch.equal(got, k5.se_interp(geom, pieces, grid))
+
+
+@pytest.mark.cuda
+def test_k5i_repeats_bit_for_bit(cuda_device):
+    """Each velocity is one thread's sum in a fixed order (no float
+    atomics): two launches are bit-equal, dropped particles zero."""
+    geom, pieces, grid = _k5i_inputs("float32", "clustered-overflow", cuda_device)
+    u = k5.se_interp(geom, pieces, grid)
+    assert torch.equal(u, k5.se_interp(geom, pieces, grid))
+    dropped = pieces[4] >= pieces[0].numel()
+    assert bool(dropped.any()) and bool((u[dropped] == 0).all())
 
 
 @pytest.mark.cuda
@@ -855,7 +963,7 @@ def test_k5_refuses_outside_its_envelope(cuda_device):
         k5.se_spread(geom, pieces, forces.double())
     with pytest.raises(TypeError, match="int32"):
         k5.se_interp(geom, tuple(pieces[:4]) + (pieces[4].long(),),
-                     torch.zeros((64, 64, 64, 3), device=cuda_device))
+                     _planar(torch.zeros((64, 64, 64, 3), device=cuda_device)))
     narrow = _se_geom(10, 12, 10, 200, "es")  # P > G: a window wraps onto itself
     npieces, nforces = _se_pieces(narrow, 200, torch.float32, cuda_device)
     with pytest.raises(ValueError, match="wider than the grid"):
@@ -954,14 +1062,100 @@ def test_k6_rows_moved_since_the_rebuild(cuda_device, radii):
     assert (got - ref).abs().max().item() <= 1e-12 * fmax
 
 
+_K6_SHAPES = [(4000, 12.0, 1.4, 8), (3000, 13.0, 1.8, 1), (80000, 40.0, 1.8, 8)]
+
+
+def _k6_inputs(dtype, radii, n, box, cutoff, align, dev):
+    """test_k6_kernel_matches_plain's inputs."""
+    td = _DT[dtype]
+    rng = np.random.default_rng(12)
+    ts = _rows(n, box, cutoff, align, td, dev, seed=12)
+    r = _poly_radii(ts, n, rng, td, dev) if radii else None
+    return (ts.pos, ts.valid, (box,) * 3, 0.5, 1000.0, 0.3), r
+
+
+def _k6_digest(dtype, radii, n, box, cutoff, align, dev):
+    """sha256 (first 16 hex digits) of K6's output bytes, every slot, on
+    test_k6_kernel_matches_plain's inputs."""
+    import hashlib
+
+    args, r = _k6_inputs(dtype, radii, n, box, cutoff, align, dev)
+    got = k6.row_hertzian_forces(*args, radii=r)
+    return hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+# _k6_digest from K6's first design, which gave every slot a thread that
+# walked all 9 R staged candidates (NVIDIA H100 80GB HBM3)
+_K6_SHA = {
+    ("float32", False, 4000): "2e95f9e0212fb82e", ("float32", False, 3000): "a1a03e672d852432",
+    ("float32", False, 80000): "ffbb4317e47d6a17", ("float32", True, 4000): "576ba24850b903a5",
+    ("float32", True, 3000): "14ac089f9abbe23f", ("float32", True, 80000): "7ef1864f50786ad0",
+    ("float64", False, 4000): "f70ca0a0e46329e8", ("float64", False, 3000): "954b0b81586f5b75",
+    ("float64", False, 80000): "00cb0e4f43a81c30", ("float64", True, 4000): "dea547a7a7efbab6",
+    ("float64", True, 3000): "7faee236af29cfd1", ("float64", True, 80000): "d229d4014c219fc6",
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("radii", [False, True])
+@pytest.mark.parametrize("n,box,cutoff,align", _K6_SHAPES)
+def test_k6_outputs_unchanged(cuda_device, dtype, radii, n, box, cutoff, align):
+    """K6 leaves out padded slots, chunks out of reach in x and pairs
+    stopped before their rsqrt, all of which the first design skipped too,
+    and keeps its order of terms: its outputs, padded slots included, stay
+    bit for bit the first design's."""
+    got = _k6_digest(dtype, radii, n, box, cutoff, align, cuda_device)
+    assert got == _K6_SHA[(dtype, radii, n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("radii", [False, True])
+def test_k6_repeats_bit_for_bit(cuda_device, dtype, radii):
+    """Each own sphere's terms are added in one order by one group of
+    lanes, with no atomics: a second launch gives the same bits."""
+    args, r = _k6_inputs(dtype, radii, 80000, 40.0, 1.8, 8, cuda_device)
+    got = k6.row_hertzian_forces(*args, radii=r)
+    assert torch.equal(got, k6.row_hertzian_forces(*args, radii=r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_k6_spheres_at_one_x_visit_every_chunk(cuda_device, dtype):
+    """Every sphere at x = 3, spread in y and z: every chunk's x range is
+    one point within reach of every own sphere, so the window visits all of
+    them, and the early stop alone sorts the pairs. Against the plain
+    version (5e-5 of max|f| in float32, 1e-12 in float64) and bit-equal on
+    a second launch."""
+    n, box, td = 3000, 12.0, _DT[dtype]
+    rng = np.random.default_rng(47)
+    pos = np.column_stack([np.full(n, 3.0), rng.uniform(0, box, (n, 2))])
+    ts = tr.build_rows(torch.as_tensor(pos, dtype=td, device=cuda_device),
+                       torch.arange(n, dtype=torch.int32, device=cuda_device),
+                       tr.make_row_grid([0, 0, 0], [box] * 3, 1.8, n, dtype=td, align=8,
+                                        device=cuda_device))
+    assert int(ts.valid.sum(-1).max()) > 8  # rows of several chunks
+    r = _poly_radii(ts, n, rng, td, cuda_device)
+    args = (ts.pos, ts.valid, (box,) * 3, 0.5, 1000.0, 0.3)
+    got = k6.row_hertzian_forces(*args, radii=r)
+    ref = k6.row_hertzian_forces_plain(*args, radii=r)
+    fmax = ref.abs().max().item()
+    assert fmax > 1.0
+    assert (got - ref).abs().max().item() <= (1e-12 if dtype == "float64" else 5e-5) * fmax
+    assert torch.equal(got, k6.row_hertzian_forces(*args, radii=r))
+
+
 @pytest.mark.cuda
 def test_k6_past_shared_memory_raises(cuda_device):
-    """float64 at R = 648 stages 9 R x 5 x 8 = 233,280 bytes, past the
-    H100's 232,448-byte opt-in: the wrapper raises before any launch, with
-    no plain fallback; float32 at the same R launches."""
-    R = 648
+    """float64 at R = 709 stages (36 R + 36 ceil(R / 8)) 8 + 4 R + 36 =
+    232,696 bytes, past the H100's 232,448-byte opt-in (the largest
+    float64 row is R = 708, 1400 in float32): the wrapper raises before any
+    launch, with no plain fallback; float32 at the same R launches."""
+    R = 709
     optin = torch.cuda.get_device_properties(cuda_device).shared_memory_per_block_optin
-    assert k6.shared_bytes(R, 8) > optin >= k6.shared_bytes(R, 4)
+    assert k6.shared_bytes(R, 8) > optin >= k6.shared_bytes(R - 1, 8)
+    assert k6.shared_bytes(R, 4) <= optin
     pos = torch.full((5, 5, R, 3), 1.0, dtype=torch.float64, device=cuda_device)
     pos[..., 1] = -1e6
     valid = torch.zeros((5, 5, R), dtype=torch.bool, device=cuda_device)

@@ -261,7 +261,8 @@ def test_k5_cuda_tensors_without_library_raise(monkeypatch, tmp_path):
     before = (k5.se_spread.launches, k5.se_interp.launches)
     with FakeTensorMode():
         pieces, forces = _se_fake_inputs(geom)
-        grid = torch.zeros((32, 32, 32, 3), device="cuda")
+        # K5i's layout: three planes, the channel axis outermost
+        grid = torch.zeros((3, 32, 32, 32), device="cuda").permute(1, 2, 3, 0)
         with pytest.raises(RuntimeError, match="nvcc not found"):
             k5.se_spread(geom, pieces, forces)
         with pytest.raises(RuntimeError, match="nvcc not found"):
@@ -363,11 +364,11 @@ def test_k3t_k6_k2_radii_cuda_tensors_without_library_raise(monkeypatch, tmp_pat
 
 
 def test_k6_k2_radius_envelopes():
-    """The shared memory that K6 (positions, mask and radii) and K2's
-    radius variant stage: within the 48 KB every block gets, no card is
-    asked."""
-    assert k6.shared_bytes(96, 4) == 9 * 96 * 5 * 4
-    assert k6.fits(256, 4, "cuda")  # 46,080 bytes
+    """The shared memory that K6 (the packed x, y, z, radius entries of 9
+    rows, chunk bounds per 8 of them, own slots and counts) and K2's radius
+    variant stage: within the 48 KB every block gets, no card is asked."""
+    assert k6.shared_bytes(96, 4) == (36 * 96 + 36 * 12) * 4 + 4 * 96 + 36
+    assert k6.fits(256, 4, "cuda")  # 42,532 bytes
     assert k2.shared_bytes(96, 4, radii=True) == 9 * 96 * (4 * 4 + 4)
     assert k2.fits(64, 26, 8, "cuda", radii=True)  # 9 * 64 * 36 = 20,736 bytes
 

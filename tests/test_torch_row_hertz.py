@@ -17,6 +17,10 @@ the JAX reference on the CPU, on the reference's own row layouts.
   three axes and finds its contact across the face; the reference's
   pair_accumulate_central (pre-shifted rows, x-only minimum image) does
   not. The port's plain version follows K6 (neighbor/rows.py says why).
+- K6's early stop (row_hertz.contact_reach, the kernel's test operation for
+  operation) rejects only pairs that the plain version gives an exactly
+  zero force, in both dtypes, near contact and near the cut, across the x
+  wrap and across a crossed y face.
 """
 
 import jax.numpy as jnp
@@ -107,3 +111,76 @@ def test_k6_plain_finds_contacts_across_a_face_crossed_since_the_rebuild():
     assert np.abs(fv[:, 1]).max() > 1.0 and np.abs(fv.sum(axis=0)).max() < 1e-9
     np.testing.assert_allclose(got.numpy(), kernel, rtol=0,
                                atol=5e-5 * np.abs(kernel).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k6_early_stop_rejects_only_pairs_that_add_zero(dtype):
+    """K6 stops a pair when contact_reach rejects its r2; the plain version
+    gives every such pair an exactly zero force. On 600 random spheres of
+    radii 0.3-0.7 plus pairs of radii 0.375 and 0.5625 (contact at s =
+    0.9375) along x a few ulp either side of contact and of the early
+    stop's cut s^2 (1 + 2^-10), the same across the x wrap, and pairs across
+    a periodic y face that one of them crossed since the rows were built,
+    over the full 9-row stencil with the minimum image on every axis."""
+    from mundy_tpu_torch.neighbor import rows as tr
+
+    n, box, ro, rc = 600, 9.0, 0.375, 0.5625
+    s = ro + rc
+    rng = np.random.default_rng(53)
+    pos = rng.uniform(0, box, (n, 3))
+    radius = rng.uniform(0.3, 0.7, n)
+    eps = float(torch.finfo(dtype).eps)
+    cut = s * float(torch.sqrt(torch.tensor(k6.REACH_MARGIN, dtype=torch.float64)))
+    # (own x, candidate x, in contact (None: within rounding of s), kept by
+    # the early stop, own y moved across y = 0 after the build)
+    placed = [(2.0, 2.0 + s * (1 - 1e-3), True, True, False),
+              (0.25, 0.25 - s * (1 - 1e-3) + box, True, True, False),
+              (7.0, 7.0, False, True, False)]  # coincident
+    for k in (-3, -1, 1, 3):
+        placed.append((2.0, 2.0 + s * (1 + 4 * k * eps), None if k < 0 else False, True, False))
+        placed.append((0.25, 0.25 - s * (1 + 4 * k * eps) + box, None if k < 0 else False,
+                       True, False))
+        placed.append((5.0, 5.0 + cut * (1 + 8 * k * eps), False, k < 0, False))
+    dy = 0.2  # the crossed pairs' y separation, across the face
+    for xo, f, touch, kept in ((3.0, np.sqrt(s * s - dy * dy) * (1 - 1e-3), True, True),
+                               (4.5, np.sqrt(cut * cut - dy * dy) * (1 - 24 * eps), False, True),
+                               (6.0, np.sqrt(cut * cut - dy * dy) * (1 + 24 * eps), False, False)):
+        placed.append((xo, xo + f, touch, kept, True))
+    for i, (xo, xc, _, _, crossed) in enumerate(placed):
+        z = 0.3 + (box - 0.6) * i / len(placed)
+        if crossed:  # own in the first row of y, candidate in the last
+            pos[2 * i], pos[2 * i + 1] = [xo, 0.1, z], [xc, box - 0.1 - dy, z]
+        else:
+            pos[2 * i], pos[2 * i + 1] = [xo, z, z], [xc, z, z]
+        radius[2 * i], radius[2 * i + 1] = ro, rc
+    tg = tr.make_row_grid([0, 0, 0], [box] * 3, 1.8, n, dtype=dtype, align=1)
+    ts = tr.build_rows(torch.as_tensor(pos, dtype=dtype), torch.arange(n, dtype=torch.int32), tg)
+    gid = torch.where(ts.valid, ts.gid, -1)
+    p = ts.pos.clone()
+    for i, (_, _, _, _, crossed) in enumerate(placed):
+        if crossed:  # the own sphere crosses y = 0: same slot, y wraps to box - 0.1
+            p[..., 1] = torch.where(gid == 2 * i, box - 0.1, p[..., 1])
+    r = torch.as_tensor(radius, dtype=dtype)[gid.clamp(min=0).long()]
+    r = torch.where(ts.valid, r, 0.0)
+    boxs = ((box,) * 3, (True,) * 3)
+    fields = (ts.valid.to(dtype), r, gid.to(dtype))
+    cx, cy, cz, (cv, cr, cg) = tr._candidate_planes(p, boxs, fields)
+    ox, oy, oz = p.unbind(-1)
+    # the plain version's pair arithmetic, unsummed
+    DX, DY, DZ, r2, w = tr.central_pair_terms(
+        ox, oy, oz, (ts.valid.to(dtype), r), cx, cy, cz, (cv, cr),
+        k6.hertz_scalar_fn(0.5, E, NU, dtype, "cpu"), ((box, 1.0 / box),) * 3)
+    terms = torch.stack([w * DX, w * DY, w * DZ], dim=-1)
+    keep = k6.contact_reach(r2, r[..., :, None], cr[..., None, :])
+    assert bool((terms[~keep] == 0).all())
+    og = gid.to(dtype)[..., :, None].expand_as(keep)
+    cg = cg[..., None, :].expand_as(keep)
+    both = (og >= 0) & (cg >= 0)
+    assert 0.9 < float((~keep[both]).double().mean()) < 1.0
+    assert bool((terms[keep & both].abs().amax(-1) > 0).any())
+    for i, (_, _, touch, kept, _) in enumerate(placed):
+        pair = (og == 2 * i) & (cg == 2 * i + 1)
+        assert int(pair.sum()) == 1
+        assert bool(keep[pair]) == kept
+        if touch is not None:
+            assert bool(terms[pair].abs().max() > 0) == touch

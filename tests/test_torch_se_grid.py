@@ -15,7 +15,10 @@ float64 on the CPU, where the wrappers take their plain versions:
 - the same holds against the Pallas kernels se_spread_rows_pre /
   se_interp_rows_pre in interpret mode (the TPU kernels K5s/K5i as the JAX
   tests run them on the CPU) and against the scatter/gather reference
-  se_spread / se_interpolate (ES: 1e-12 of the max; found ~1e-15).
+  se_spread / se_interpolate (ES: 1e-12 of the max; found ~1e-15);
+- the interpolation reads the grid in the inverse FFT's planar layout
+  (three (G, G, G) planes, the channel axis outermost), the one layout K5i
+  takes, and any other strides raise.
 """
 
 import functools
@@ -62,6 +65,12 @@ def _pieces(jgeom, tgeom, pos):
     jp = jsp.se_bin_geom(jgeom, jnp.asarray(pos), jnp.float64)
     tp = tsp.se_bin_geom(tgeom, torch.as_tensor(pos), torch.float64)
     return jp, tp
+
+
+def _planar(grid):
+    """A (G, G, G, 3) grid as three (G, G, G) planes, the channel axis
+    outermost: the inverse FFT's layout, which K5i reads."""
+    return torch.as_tensor(grid).permute(3, 0, 1, 2).contiguous().permute(1, 2, 3, 0)
 
 
 def _rel(a, b):
@@ -124,7 +133,7 @@ def test_plain_matches_tiles(window, n, clustered):
     assert _rel(got.numpy(), want) <= tol
     grid = np.random.default_rng(7).normal(size=want.shape)
     want_u = np.asarray(jg.se_interp_tiles(jgeom, jp, jnp.asarray(grid)))
-    got_u = tg.se_interp(tgeom, tp, torch.as_tensor(grid))
+    got_u = tg.se_interp(tgeom, tp, _planar(grid))
     assert got_u.shape == (n, 3)
     assert _rel(got_u.numpy(), want_u) <= tol
     dropped = tp[4].numpy() >= tp[2].shape[0] * tp[2].shape[1]
@@ -152,7 +161,7 @@ def test_plain_matches_pallas_rows_interpret(window):
     grid = np.random.default_rng(8).normal(size=want.shape)
     want_u = np.asarray(jg.se_interp_rows_pre(rgeom, rp, n, jnp.asarray(grid),
                                               interpret=True))
-    assert _rel(tg.se_interp(tgeom, tp, torch.as_tensor(grid)).numpy(), want_u) <= tol
+    assert _rel(tg.se_interp(tgeom, tp, _planar(grid)).numpy(), want_u) <= tol
 
 
 def test_plain_matches_scatter_reference():
@@ -166,7 +175,7 @@ def test_plain_matches_scatter_reference():
     want = np.asarray(jsp.se_spread(jop, jnp.asarray(pos), jnp.asarray(F)))
     assert _rel(tg.se_spread_plain(tgeom, tp, torch.as_tensor(F)).numpy(), want) <= ES_TOL
     want_u = np.asarray(jsp.se_interpolate(jop, jnp.asarray(pos), jnp.asarray(want)))
-    got_u = tg.se_interp_plain(tgeom, tp, torch.as_tensor(np.array(want))).numpy()
+    got_u = tg.se_interp_plain(tgeom, tp, _planar(np.array(want))).numpy()
     assert _rel(got_u, want_u) <= ES_TOL
 
 
@@ -187,3 +196,31 @@ def test_float32_pieces_and_grid():
     want = np.asarray(jg.se_spread_tiles(jgeom, jp, jnp.asarray(F, jnp.float32)))
     assert got.dtype == torch.float32
     assert _rel(got.numpy(), want) <= 1e-5
+
+
+@pytest.mark.parametrize("window", ["es", "gaussian"])
+def test_plain_interp_reads_the_planar_layout(window):
+    """The wave apply hands K5i the inverse FFT's output as it comes: three
+    planes, the channel axis outermost (mobility/spectral._k_apply). The
+    plain interpolation on that layout matches the reference's tile path
+    within the tolerance above, and other strides, C order among them,
+    raise."""
+    n = 300
+    jop, top = _ops(window)
+    jgeom = jsp.make_se_geometry_tiles(jop, n, capacity_slack=1.5)
+    tgeom = tsp.make_se_geometry_tiles(top, n, capacity_slack=1.5)
+    pos, F = _system(n, seed=6)
+    jp, tp = _pieces(jgeom, tgeom, pos)
+    G = top.grid_n
+    planar = tsp._k_apply(top, tg.se_spread(tgeom, tp, torch.as_tensor(F)))
+    assert planar.stride() == (G * G, G, 1, G ** 3)
+    tg.check_grid(tgeom, planar)
+    got = tg.se_interp(tgeom, tp, planar)
+    assert torch.equal(got, tg.se_interp_plain(tgeom, tp, planar))
+    want = np.asarray(jg.se_interp_tiles(jgeom, jp, jnp.asarray(planar.numpy())))
+    assert _rel(got.numpy(), want) <= (ES_TOL if window == "es" else GAUSS_TOL)
+    for other in (planar.contiguous(), planar.transpose(0, 2)):
+        with pytest.raises(ValueError, match="strides"):
+            tg.se_interp(tgeom, tp, other)
+        with pytest.raises(ValueError, match="strides"):
+            tg.se_interp_plain(tgeom, tp, other)

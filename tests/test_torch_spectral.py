@@ -88,8 +88,9 @@ def test_k_apply_matches():
 
 def test_wave_apply_tiles_matches(monkeypatch):
     """The wave sum through the tile gridding; K5i's wrapper gets its grid
-    in the kernel's C-contiguous (G, G, G, 3) layout, whatever strides the
-    inverse FFT leaves (K5i refuses anything else on the card)."""
+    as the inverse FFT leaves it, three (G, G, G) planes with the channel
+    axis outermost, with no copy: the one layout K5i reads (its wrapper
+    refuses any other)."""
     jop, top = _ops()
     pos, F = _system()
     n = pos.shape[0]
@@ -97,12 +98,13 @@ def test_wave_apply_tiles_matches(monkeypatch):
     tgeom = tsp.make_se_geometry_tiles(top, n, capacity_slack=1.5)
     assert tuple(tgeom) == tuple(jgeom)
     interp = tsp.se_interp
+    G = top.grid_n
 
-    def contiguous_interp(geom, pieces, grid):
-        assert grid.is_contiguous()
+    def planar_interp(geom, pieces, grid):
+        assert grid.stride() == (G * G, G, 1, G ** 3)
         return interp(geom, pieces, grid)
 
-    monkeypatch.setattr(tsp, "se_interp", contiguous_interp)
+    monkeypatch.setattr(tsp, "se_interp", planar_interp)
     want, jovf = jsp.se_wave_apply_dense(jop, jgeom, jnp.asarray(pos), jnp.asarray(F))
     got, tovf = tsp.se_wave_apply_dense(top, tgeom, torch.as_tensor(pos), torch.as_tensor(F))
     assert bool(tovf) == bool(jovf)
