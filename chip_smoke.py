@@ -32,9 +32,11 @@ Delassus applies (kernel K3t) through the port's own entry points:
    launch per step, one K2 launch per broad phase; then torch.profiler over
    8 more steps;
 7. K2 vs its plain version at the row shape of the window's final state:
-   ids and counts exactly equal;
+   ids and counts exactly equal; its bound from the ordered pairs within
+   the cut in x and from occupancy, beside the first design's count;
 8. K3 vs its plain version at the strided shape of the window's final
-   state (within 1e-6 of max|sum|), and index_add_ timed beside them as the
+   state, bit-equal, with the number of blocks whose ids are
+   nondecreasing (K3's fast path), and index_add_ timed beside them as the
    library yardstick;
 9. examples/lcp_spheres_100k.yaml through LCPSpheresSim(...).run(): no
    overflow, finite positions;
@@ -117,13 +119,14 @@ Delassus applies (kernel K3t) through the port's own entry points:
     the K2 radius and K3 counts set to 0 before the 24-step window: one K2
     radius-variant launch per broad phase, one K3 launch per step; K2's
     radius variant vs its plain version at the window's final row shape,
-    ids and counts exactly equal;
+    ids and counts exactly equal, its bound counted as [7]'s;
 28. that line in float64 (2000 spheres, 30 steps) on the card against the
     CPU: equal counters at every step, positions within 1e-8.
 
 Kernel times are medians of CUDA-event timings after a synchronize, kernel
-and plain version alternating. Prints one JSON line of kernel results, then
-a final JSON line {"ok": true, "device": {...}}. Exits non-zero, with no
+and plain version alternating; for K2 and K3 the device time per launch
+of 20 launches queued back to back is printed beside them. Prints one JSON line of kernel results,
+then a final JSON line {"ok": true, "device": {...}}. Exits non-zero, with no
 result, without a CUDA device or without the package beside it.
 """
 
@@ -306,10 +309,11 @@ def reach_pairs(pos, hedges, valid, box, radius, k4, torch) -> tuple:
 
 def cut_pairs_in_x(pos, valid, box, radii, reach, torch) -> float:
     """Unordered pairs of valid spheres on this row layout whose x
-    separation alone a kernel's early stop keeps, reach(dx^2, own radius,
+    separation alone a kernel's cut keeps, reach(dx^2, own radius,
     candidate radius) (row_central.contact_reach for K1, row_hertz's for
-    K6), over the full 9-row stencil with the x minimum image; radii: the
-    (ny, nz, R) radius plane. Counted in y-slabs of ~5e7 pair entries."""
+    K6, k2_bound's for K2), over the full 9-row stencil with the x minimum
+    image; radii: the (ny, nz, R) radius plane. Counted in y-slabs of ~5e7
+    pair entries."""
     ny, nz, R = valid.shape
     lx = float(box[0])
     not_self = ~torch.eye(R, dtype=torch.bool, device=pos.device)
@@ -331,6 +335,35 @@ def cut_pairs_in_x(pos, valid, box, radii, reach, torch) -> float:
     return hits / 2
 
 
+def k2_bound(rs, box, cutoff: float, K: int, radii, torch) -> tuple:
+    """K2's bound on this row layout, counted from the algorithm: 13 FP32
+    operations per ordered pair of occupied slots within the cut in x (x
+    image 5, dy and dz 2, r2 5, the cut test), 15 with the radius variant's
+    per-pair cut (s_own + s_cand and its square); bytes: the valid byte of
+    every slot, the position and gid (and search radius) of each occupied
+    slot read once, K ids and a count per slot written once. Returns (bound,
+    ordered pairs within the cut in x, the first design's count: every
+    occupied candidate x 13 (15) and every slot's planes read once)."""
+    n_slots = rs.valid.numel()
+    n_occ = int(rs.valid.sum())
+    # each unordered pair is tested from both sides, with a symmetric test
+    if radii is None:
+        cut2 = torch.tensor(cutoff * cutoff, dtype=rs.pos.dtype, device=rs.pos.device)
+        plane = torch.zeros(rs.valid.shape, dtype=rs.pos.dtype, device=rs.pos.device)
+        pairs = 2 * cut_pairs_in_x(rs.pos, rs.valid, box, plane,
+                                   lambda dx2, ro, rc: dx2 < cut2, torch)
+    else:
+        pairs = 2 * cut_pairs_in_x(rs.pos, rs.valid, box, radii,
+                                   lambda dx2, ro, rc: dx2 < (ro + rc) * (ro + rc), torch)
+    ops = 13.0 if radii is None else 15.0
+    extra = 0 if radii is None else 4
+    out_bytes = n_slots * (K + 1) * 4
+    new = bound(pairs * ops, n_slots + n_occ * (12 + 4 + extra) + out_bytes)
+    old = bound(stencil_work(rs.valid, torch)[1] * ops,
+                n_slots * (12 + 4 + 1 + extra) + out_bytes)
+    return new, pairs, old
+
+
 def cuda_ms(fn, torch, reps: int) -> float:
     """Median device time of fn() in ms (CUDA events after a synchronize)."""
     times = []
@@ -344,6 +377,30 @@ def cuda_ms(fn, torch, reps: int) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def queued_ms(fn, torch, reps: int = 20) -> float:
+    """Device time per launch of fn, a call that launches one kernel and
+    never waits on the card. After a warm-up call, a spin on the card holds
+    the stream while the host enqueues all `reps` calls between two events,
+    so the events take in the kernels back to back and none of the host
+    time of the wrapper (which an event pair around one call, as in
+    cuda_ms, takes in, and which dominates a kernel of tens of us)."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)  # ~0.1 s of the card's clock
+    t0 = time.perf_counter()
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    host_s = time.perf_counter() - t0
+    b.synchronize()
+    if host_s > 0.05:
+        fail(f"enqueueing {reps} launches took {host_s:.3f} s, as long as the spin ahead of them")
+    return a.elapsed_time(b) / reps
 
 
 def alternate(kernel, plain, torch, reps_k: int, reps_p: int, rounds: int = 3):
@@ -893,13 +950,14 @@ def polydisperse_phases(torch, dev, lcp_sim, lcp_st, card: str) -> list:
                                      lambda: k2.row_neighbor_extract_plain(*k2_args,
                                                                            radii=sr_rows),
                                      torch, 10, 1, rounds=2)
-    # K2's 13 per occupied candidate and the per-pair cutoff's add and
-    # square; read pos, gid, valid and the radii once, write ids and counts
-    n_slots = ny * nz * R
-    cands = stencil_work(rs.valid, torch)[1]
-    k2r_bound = bound(cands * 15.0, n_slots * (12 + 4 + 1 + 4) + n_slots * (K + 1) * 4)
-    print(f"    K2 radii {k2r_ms:.4f} ms, plain {k2r_plain_ms:.4f} ms, bound "
-          f"{k2r_bound[0]:.4f} ms ({k2r_bound[1]}, {cands:.0f} candidates)", flush=True)
+    k2r_bound, k2r_pairs, k2r_old = k2_bound(rs, (pcfg.box_size,) * 3, cutoff, K, sr_rows,
+                                             torch)
+    k2r_dev_ms = queued_ms(lambda: k2.row_neighbor_extract(*k2_args, radii=sr_rows), torch)
+    print(f"    K2 radii {k2r_ms:.4f} ms (device time per launch {k2r_dev_ms:.4f} ms), "
+          f"plain {k2r_plain_ms:.4f} ms, bound {k2r_bound[0]:.4f} ms ({k2r_bound[1]}; "
+          f"{k2r_ms / k2r_bound[0]:.1f}x), {k2r_pairs:.0f} ordered pairs within the cut in "
+          f"x; the first design's count over every occupied candidate: "
+          f"{k2r_old[0]:.4f} ms, {k2r_old[1]}", flush=True)
     del ids_k, ids_p, cnt_k, cnt_p, rs, sr_rows, psim, pst
 
     # ---- 28. the polydisperse LCP line in float64, card vs CPU -------------
@@ -1166,15 +1224,13 @@ def main() -> None:
     k2_ms, k2_plain_ms = alternate(lambda: k2.row_neighbor_extract(*k2_args),
                                    lambda: k2.row_neighbor_extract_plain(*k2_args),
                                    torch, 10, 1, rounds=2)
-    # 13 FP32 operations per occupied candidate (x image 5, dy dz 2, r2 5,
-    # the cutoff test); read pos, gid and valid once, write ids and counts
-    # once
-    n_slots = ny * nz * R
-    k2_cands = stencil_work(rs.valid, torch)[1]
-    k2_bound = bound(k2_cands * 13.0,
-                     n_slots * (12 + 4 + 1) + n_slots * (K + 1) * 4)
-    print(f"    K2 {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms, bound "
-          f"{k2_bound[0]:.4f} ms ({k2_bound[1]}, {k2_cands:.0f} candidates)", flush=True)
+    k2_b, k2_pairs, k2_old = k2_bound(rs, (lcfg.box_size,) * 3, cutoff, K, None, torch)
+    k2_dev_ms = queued_ms(lambda: k2.row_neighbor_extract(*k2_args), torch)
+    print(f"    K2 {k2_ms:.4f} ms (device time per launch {k2_dev_ms:.4f} ms), plain "
+          f"{k2_plain_ms:.4f} ms, bound {k2_b[0]:.4f} ms ({k2_b[1]}; "
+          f"{k2_ms / k2_b[0]:.1f}x), {k2_pairs:.0f} ordered pairs within the cut in x; "
+          f"the first design's count over every occupied candidate: {k2_old[0]:.4f} ms, "
+          f"{k2_old[1]}", flush=True)
     del ids_k, ids_p, cnt_k, cnt_p, rs
 
     # ---- 8. K3 vs plain at the 1M LCP strided shape of the timed window ----
@@ -1196,11 +1252,13 @@ def main() -> None:
     k3_err = (s_k - s_p).abs().max().item()
     smax = s_p.abs().max().item()
     n_act = int(act.setup.pairs.mask.sum())
+    n_sorted = int((loc[:, 1:] >= loc[:, :-1]).all(1).sum())
     print(f"[8] K3 at (nb, W, B) = ({nb}, {W}, {B}), {n_act} active pairs: "
           f"max|diff| {k3_err:.3e}, max|sum| {smax:.3e}, bit-equal "
-          f"{bool(torch.equal(s_k, s_p))}", flush=True)
-    if not (smax > 0 and k3_err <= 1e-6 * smax):
-        fail(f"K3 disagrees with its plain version: {k3_err} > 1e-6 * {smax}")
+          f"{bool(torch.equal(s_k, s_p))}, {n_sorted} of {nb} blocks with "
+          f"nondecreasing ids", flush=True)
+    if not (smax > 0 and torch.equal(s_k, s_p)):
+        fail(f"K3 is not bit-equal to its plain version (max|diff| {k3_err})")
     k3_ms, k3_plain_ms = alternate(lambda: k3.strided_onehot_segment_sum(values, loc, B),
                                    lambda: k3.strided_segment_sum_plain(values, loc, B),
                                    torch, 20, 3)
@@ -1216,7 +1274,9 @@ def main() -> None:
         [cuda_ms(lambda: acc.index_add_(0, flat, vals), torch, 20) for _ in range(3)])
     # 3 adds per active pair; read values and loc once, write the sums once
     k3_bound = bound(3.0 * n_act, values.numel() * 4 + loc.numel() * 4 + s_k.numel() * 4)
-    print(f"    K3 {k3_ms:.4f} ms, plain {k3_plain_ms:.4f} ms, index_add_ "
+    k3_dev_ms = queued_ms(lambda: k3.strided_onehot_segment_sum(values, loc, B), torch)
+    print(f"    K3 {k3_ms:.4f} ms (device time per launch {k3_dev_ms:.4f} ms), plain "
+          f"{k3_plain_ms:.4f} ms, index_add_ "
           f"{k3_lib_ms:.4f} ms (max|diff| {lib_err:.3e}), bound "
           f"{k3_bound[0]:.4f} ms ({k3_bound[1]})", flush=True)
     lcp_sim, lcp_st = sim, st  # [26] holds K3t at this state
@@ -1551,7 +1611,7 @@ def main() -> None:
          "source": "mundy_tpu_torch/csrc/row_extract.cu",
          "replaces": "mundy_tpu/ops/pallas/row_extract.py:210",
          "launches": k2_launches, "max_abs_err": k2_err, "ms": k2_ms,
-         "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
+         "plain_ms": k2_plain_ms, "bound_ms": k2_b[0], "bound_by": k2_b[1],
          "library_ms": None},
         {"name": "strided_onehot_segment_sum", "route": "cuda",
          "source": "mundy_tpu_torch/csrc/seg_onehot.cu",

@@ -10,21 +10,41 @@
 // (ops/kernels/seg_onehot.strided_segment_sum_plain) adds, so the two agree
 // bit for bit.
 //
-// Design. One thread block per body block b, one thread per local segment s
-// (looping over segment groups when B > blockDim). The block stages loc and
-// the three value planes of a W tile in shared memory (2048 slots = 32 KB
-// in float32, 1024 = 28 KB in float64); every thread then walks the tile,
-// each loc read a shared-memory broadcast, and adds the values whose id is
-// its own. Right for any loc, sorted or not (the TPU kernel's contract does
-// not promise sorted ids), deterministic, and free of atomics.
+// Design. The strided layout the LCP line builds
+// (constraints/collision.active_pair_subset_strided) fills block b's slots
+// in cumsum order over the ordered pair list, which is sorted by body, and
+// pads the rest with id N, past every valid id of the block: each block's
+// loc is nondecreasing, so each segment's slots are one contiguous run. One
+// block per body block, 256 threads:
+//   * one pass over adjacent slot pairs and __syncthreads_or find whether
+//     loc is nondecreasing over the whole window (ids compared as raw ints,
+//     out-of-range and negative ones included);
+//   * sorted block: in passes of 1024 segments, the first and last slot of
+//     each run are marked in shared memory (a run starts where loc changes,
+//     so one slot writes each bound and no atomics are needed); then one
+//     thread per segment adds its run's values, read from device memory, in
+//     increasing slot order from +0, and writes +0 for a segment with no
+//     slot. Ids outside [0, B) have no thread and are dropped;
+//   * unsorted block (any loc; the TPU kernel's contract does not promise
+//     sorted ids): the first design's scan, in the same kernel. Loc and the
+//     three value planes are staged in tiles of 512 slots, and every thread
+//     walks each tile and adds the values whose id is its own segment's.
+// Both paths add each segment's values in slot order from +0, the order
+// of the plain version, so the two agree bit for bit, with no atomics.
+// At the LCP line's shape (977 blocks) all blocks are resident at once
+// (8 blocks of 256 threads on each of 132 SMs), so no block takes more
+// than one body block.
 //
 // Dropped from the TPU kernel: the (W, B) bf16 one-hot in VMEM and the
 // hi/mid/lo three-term bf16 split that carried the f32 mantissa through the
 // MXU. Here the sum is direct in float32 (float64 in the f64 instantiation).
 //
-// Bound: the bytes are ~16 W + 12 B per block (~22 MB at 1M bodies, ~7 us
-// at 3.35 TB/s), but the design spends W compares per segment (W * B per
-// block, ~0.64G at 1M), so integer compare issue bounds it, not bytes.
+// Bound: the bytes, ~16 W + 12 B per block in float32 (read loc and the
+// values once, write the sums once: ~22 MB at 1M bodies, ~7 us at 3.35
+// TB/s); 3 adds per active pair are far less. The sorted path reads loc
+// twice (the second time from L1) and each value once; the first design
+// spent W compares per segment (W * B per block, ~0.64G at 1M), which the
+// unsorted path still does.
 //
 // K3t replaces mundy_tpu/ops/pallas/seg_onehot.py (strided_onehot_t /
 // _t_kernel) and keeps its contract: gamma (nb, W), normals (nb, 3, W), loc
@@ -44,50 +64,43 @@
 // families with their hi/mid/lo splits and the VMEM budget check.
 //
 // Bound: 24 W bytes per block in float32 (read gamma, normals, loc once,
-// write t once: ~15 MB at 1M bodies, ~5 us), but phase 1 spends K3's W * B
-// compares per block, so, as for K3, compare issue bounds it.
+// write t once: ~15 MB at 1M bodies, ~5 us), but phase 1 is K3's first
+// design (W * B compares per block, as K3's unsorted path), so compare issue
+// bounds it.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 
 namespace {
 
-template <typename T>
-struct Tile {
-  static constexpr int W = sizeof(T) == 4 ? 2048 : 1024;
-};
+constexpr int kSegThreads = 256;
+constexpr int kScanTile = 512;   // slots per tile of the unsorted path
+constexpr int kRunPass = 1024;   // segments per pass of the sorted path
 
+// The unsorted path: the first design's scan over tiles of kScanTile slots
+// staged in sloc and sv, each segment's sum in slot order from +0.
 template <typename T>
-__global__ void seg_sum_kernel(const T* __restrict__ values,
-                               const int* __restrict__ loc,
-                               T* __restrict__ out, int W, int B) {
-  constexpr int TW = Tile<T>::W;
-  __shared__ int sloc[TW];
-  __shared__ T sv[3][TW];
-  const int b = blockIdx.x;
-  const int* lrow = loc + static_cast<size_t>(b) * W;
-  const T* vrow = values + static_cast<size_t>(b) * 3 * W;
-  T* orow = out + static_cast<size_t>(b) * 3 * B;
-
+__device__ void seg_sum_scan(const T* __restrict__ vrow, const int* __restrict__ lrow,
+                             T* __restrict__ orow, int W, int B, int* sloc, T* sv) {
   for (int s0 = 0; s0 < B; s0 += blockDim.x) {
     const int s = s0 + threadIdx.x;
     T ax = T(0), ay = T(0), az = T(0);
-    for (int w0 = 0; w0 < W; w0 += TW) {
-      const int tw = W - w0 < TW ? W - w0 : TW;
+    for (int w0 = 0; w0 < W; w0 += kScanTile) {
+      const int tw = W - w0 < kScanTile ? W - w0 : kScanTile;
       __syncthreads();  // the previous tile is consumed
       for (int k = threadIdx.x; k < tw; k += blockDim.x) {
         sloc[k] = lrow[w0 + k];
-        sv[0][k] = vrow[w0 + k];
-        sv[1][k] = vrow[W + w0 + k];
-        sv[2][k] = vrow[2 * W + w0 + k];
+        sv[k] = vrow[w0 + k];
+        sv[kScanTile + k] = vrow[W + w0 + k];
+        sv[2 * kScanTile + k] = vrow[2 * W + w0 + k];
       }
       __syncthreads();
       if (s < B) {
         for (int k = 0; k < tw; ++k) {
           if (sloc[k] == s) {
-            ax += sv[0][k];
-            ay += sv[1][k];
-            az += sv[2][k];
+            ax += sv[k];
+            ay += sv[kScanTile + k];
+            az += sv[2 * kScanTile + k];
           }
         }
       }
@@ -96,6 +109,62 @@ __global__ void seg_sum_kernel(const T* __restrict__ values,
       orow[s] = ax;
       orow[B + s] = ay;
       orow[2 * B + s] = az;
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kSegThreads)
+seg_sum_kernel(const T* __restrict__ values, const int* __restrict__ loc,
+               T* __restrict__ out, int W, int B) {
+  // The two paths never meet in one block, so they share one buffer: the
+  // unsorted path's tile (loc and three value planes) or the sorted path's
+  // run bounds.
+  constexpr int kScanBytes = kScanTile * static_cast<int>(sizeof(int) + 3 * sizeof(T));
+  constexpr int kRunBytes = 2 * kRunPass * static_cast<int>(sizeof(int));
+  __shared__ __align__(16) unsigned char smem[kScanBytes > kRunBytes ? kScanBytes : kRunBytes];
+  const int b = blockIdx.x;
+  const int* lrow = loc + static_cast<size_t>(b) * W;
+  const T* vrow = values + static_cast<size_t>(b) * 3 * W;
+  T* orow = out + static_cast<size_t>(b) * 3 * B;
+
+  int down = 0;
+  for (int w = threadIdx.x + 1; w < W; w += blockDim.x) down |= lrow[w - 1] > lrow[w];
+  if (__syncthreads_or(down)) {
+    int* sloc = reinterpret_cast<int*>(smem);
+    seg_sum_scan(vrow, lrow, orow, W, B, sloc, reinterpret_cast<T*>(sloc + kScanTile));
+    return;
+  }
+
+  int* run_lo = reinterpret_cast<int*>(smem);  // first slot of each segment's run
+  int* run_hi = run_lo + kRunPass;             // one past its last
+  for (int s0 = 0; s0 < B; s0 += kRunPass) {
+    const int ns = B - s0 < kRunPass ? B - s0 : kRunPass;
+    __syncthreads();  // the previous pass's bounds are consumed
+    for (int s = threadIdx.x; s < ns; s += blockDim.x) {
+      run_lo[s] = 0;
+      run_hi[s] = 0;
+    }
+    __syncthreads();
+    for (int w = threadIdx.x; w < W; w += blockDim.x) {
+      const int l = lrow[w];
+      if (l >= s0 && l < s0 + ns) {
+        if (w == 0 || lrow[w - 1] != l) run_lo[l - s0] = w;
+        if (w == W - 1 || lrow[w + 1] != l) run_hi[l - s0] = w + 1;
+      }
+    }
+    __syncthreads();
+    for (int s = threadIdx.x; s < ns; s += blockDim.x) {
+      T ax = T(0), ay = T(0), az = T(0);
+      const int hi = run_hi[s];
+      for (int w = run_lo[s]; w < hi; ++w) {
+        ax += vrow[w];
+        ay += vrow[W + w];
+        az += vrow[2 * W + w];
+      }
+      orow[s0 + s] = ax;
+      orow[B + s0 + s] = ay;
+      orow[2 * B + s0 + s] = az;
     }
   }
 }
@@ -192,8 +261,7 @@ int launch_t(const void* gamma, const void* normals, const void* loc, void* t,
 template <typename T>
 int launch(const void* values, const void* loc, void* out, int nb, int W, int B,
            void* stream) {
-  const int threads = B >= 1024 ? 1024 : ((B + 31) / 32) * 32;
-  seg_sum_kernel<T><<<nb, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  seg_sum_kernel<T><<<nb, kSegThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(values), static_cast<const int*>(loc),
       static_cast<T*>(out), W, B);
   return static_cast<int>(cudaGetLastError());

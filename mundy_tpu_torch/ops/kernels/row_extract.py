@@ -2,15 +2,21 @@
 
 Port of mundy_tpu/ops/pallas/row_extract.py::row_neighbor_extract. On a
 CUDA tensor the wrapper launches the hand-written kernel of
-csrc/row_extract.cu (one block per row, the 9 image-shifted candidate rows
-staged in shared memory, one thread per own slot keeping a sorted top-K
-list; see the note there). On a CPU tensor it computes the plain version,
-`row_neighbor_extract_plain`: the XLA extraction branch of the reference's
-neighbor_matrix_rows, K argmin passes over the (R, 9R) candidate blocks.
-Both order a slot's neighbors by (r2, candidate lane), which is argmin's
-first-index rule, and compute r2 with the same operations in the same order
-(no fused multiply-add), so ids, order and counts agree bit for bit. A CUDA
-tensor never takes the plain version: a failed build or launch raises.
+csrc/row_extract.cu (one block per row, the occupied slots of the 9
+image-shifted candidate rows packed in shared memory, each warp testing
+chunks of CHUNK packed candidates against the x interval of its
+OWN_GROUP own slots and visiting those within the cut in x with 8 lanes
+per own slot, each own slot keeping a sorted top-K list; see the note
+there). On a CPU tensor it computes the plain version,
+`row_neighbor_extract_plain`: the XLA extraction branch of the
+reference's neighbor_matrix_rows, K argmin passes over the (R, 9R)
+candidate blocks. Both order a slot's neighbors by (r2, candidate lane),
+which is argmin's first-index rule, and compute r2 with the same operations
+in the same order (no fused multiply-add), so ids, order and counts agree
+bit for bit. `chunk_visit` is the kernel's chunk test, operation for
+operation, so the CPU tests can hold the plain version to no hit in any
+chunk that the kernel skips. A CUDA tensor never takes the plain version:
+a failed build or launch raises.
 
 With a per-slot search-radius plane (`radii`, the polydisperse broad phase)
 the pair cutoff is s_own + s_cand, tested as r2 < (s_own + s_cand)^2 in the
@@ -32,11 +38,18 @@ K_MAX = 512  # the kernel's largest top-K list (csrc/row_extract.cu)
 _SMEM_DEFAULT = 48 * 1024  # shared memory a block gets without the opt-in
 
 
+CHUNK = 8  # packed candidates per chunk of the kernel's x window
+OWN_GROUP = 4  # own slots per warp, tested together against each chunk
+
+
 def shared_bytes(R: int, itemsize: int, radii: bool = False) -> int:
-    """Dynamic shared memory of one block: the 9 staged candidate rows'
-    positions and gids, and their search radii in the radius variant
-    (csrc/row_extract.cu)."""
-    return 9 * R * ((4 if radii else 3) * itemsize + 4)
+    """Dynamic shared memory of one block (csrc/row_extract.cu): the packed
+    positions (and search radii in the radius variant) and 16-bit slot
+    indices of the 9 candidate rows, each chunk's float x bounds (and
+    greatest |search radius|), the 9 counts and the 9 row indices."""
+    nc = -(-R // CHUNK)
+    return (9 * R * ((4 if radii else 3) * itemsize + 2)
+            + 9 * nc * (3 if radii else 2) * 4 + 18 * 4)
 
 
 def fits(R: int, K: int, itemsize: int, device, radii: bool = False) -> bool:
@@ -66,18 +79,74 @@ def _check(pos, gid, valid, box, max_neighbors, radii=None) -> None:
         raise ValueError(f"radii must be a {tuple(pos.shape[:3])} plane in pos's dtype")
 
 
+def chunk_visit(lo: torch.Tensor, hi: torch.Tensor, ox_lo: torch.Tensor,
+                ox_hi: torch.Tensor, cut2, lx: float) -> torch.Tensor:
+    """The kernel's chunk test, operation for operation in ox_lo's dtype:
+    True where a chunk whose candidates have x in [lo, hi] (lo > hi when it
+    is empty) can hold a pair within cut2 of an own slot with x in [ox_lo,
+    ox_hi], the interval of one warp's own slots (OWN_GROUP of them). The x
+    separation is taken as the pair arithmetic takes it, RN(d - RN(lx k))
+    with d = RN(x - ox) and k = rint(RN(d / lx)), monotonic in x and ox for
+    one image k; a chunk it rejects holds no hit of the plain version (the
+    proof is in csrc/row_extract.cu). In the radius variant cut2 is
+    `chunk_cut2`. Inputs are finite."""
+    da = lo - ox_hi
+    db = hi - ox_lo
+    ka = torch.round(da * (1.0 / lx))
+    kb = torch.round(db * (1.0 / lx))
+    sa = da - lx * ka
+    sb = db - lx * kb
+    zero = torch.zeros_like(sa)
+    one = torch.maximum(sa, torch.maximum(-sb, zero))
+    flip = torch.minimum(torch.maximum(sa, zero), torch.maximum(-sb, zero))
+    m = torch.where(ka == kb, one, torch.where(kb == ka + 1, flip, zero))
+    return (lo <= hi) & (m * m < cut2)
+
+
+def chunk_cut2(s_own: torch.Tensor, s_max: torch.Tensor) -> torch.Tensor:
+    """The radius variant's cut for a chunk, RN(C^2) with C = RN(s_own +
+    s_max): s_own >= the |search radius| of each of the warp's own slots,
+    s_max >= that of every candidate in the chunk. It is at least every
+    such pair's RN((s_own + s_cand)^2)."""
+    c = s_own + s_max
+    return c * c
+
+
+def _pair_hits(cx, cy_, cz, cgid, ox, oy, oz, gid_f, lx, px, cut2, radii, csr):
+    """(r2, hit) of every own slot (..., R) against its 9R candidates, with
+    the plain version's operations: r2 = (dx^2 + dy^2) + dz^2, the minimum
+    image on x when periodic, hit = r2 < cut2 (or (s_own + s_cand)^2) with
+    a different gid."""
+    DX = cx[..., None, :] - ox[..., :, None]
+    if px:
+        DX = DX - lx * torch.round(DX * (1.0 / lx))
+    DY = cy_[..., None, :] - oy[..., :, None]
+    DZ = cz[..., None, :] - oz[..., :, None]
+    r2 = DX * DX + DY * DY + DZ * DZ
+    del DX, DY, DZ
+    if radii is None:
+        pair_cut2 = cut2
+    else:
+        cut = radii[..., :, None] + csr[..., None, :]
+        pair_cut2 = cut * cut
+    return r2, (r2 < pair_cut2) & (cgid[..., None, :] != gid_f[..., :, None])
+
+
 def row_neighbor_extract_plain(pos: torch.Tensor, gid: torch.Tensor,
                                valid: torch.Tensor, box, cutoff: float,
                                max_neighbors: int, n: int,
                                hbm_budget_bytes: float = 2.5e9, radii=None):
     """Plain PyTorch version of K2 (any device).
 
-    pos/gid/valid: (ny, nz, R) row layout from build_rows; box: ((lx, ly,
-    lz), (px, py, pz)); radii: an optional (ny, nz, R) search-radius plane
-    (zero on invalid slots) whose per-pair sum replaces `cutoff`. Returns
-    (ids (ny, nz, R, K) int32 neighbor gids in (r2, lane) order padded with
-    n, count (ny, nz, R) int32 in-cutoff hits, zero on invalid slots). The (R, 9R) blocks run in y-slabs whose ~4 live
-    blocks stay within `hbm_budget_bytes`."""
+    pos/gid/valid: (ny, nz, R) row layout from build_rows, whose invalid
+    slots hold its sentinel (no candidate mask is read here; the kernel
+    packs the valid slots, which is the same); box: ((lx, ly, lz), (px,
+    py, pz)); radii: an optional (ny, nz, R) search-radius plane (zero on
+    invalid slots) whose per-pair sum replaces `cutoff`. Returns (ids (ny,
+    nz, R, K) int32 neighbor gids in (r2, lane) order padded with n, count
+    (ny, nz, R) int32 in-cutoff hits, zero on invalid slots). The (R, 9R)
+    blocks run in y-slabs whose ~4 live blocks stay within
+    `hbm_budget_bytes`."""
     from mundy_tpu_torch.neighbor.rows import _candidate_planes
 
     _check(pos, gid, valid, box, max_neighbors, radii)
@@ -93,19 +162,10 @@ def row_neighbor_extract_plain(pos: torch.Tensor, gid: torch.Tensor,
     cut2 = torch.tensor(cutoff * cutoff, dtype=dtype, device=dev)
 
     def extract(sl):
-        DX = cx[sl][..., None, :] - ox[sl][..., :, None]
-        if px:
-            DX = DX - lx * torch.round(DX * (1.0 / lx))
-        DY = cy_[sl][..., None, :] - oy[sl][..., :, None]
-        DZ = cz[sl][..., None, :] - oz[sl][..., :, None]
-        r2 = DX * DX + DY * DY + DZ * DZ
-        del DX, DY, DZ
-        if radii is None:
-            pair_cut2 = cut2
-        else:
-            cut = radii[sl][..., :, None] + csr[0][sl][..., None, :]
-            pair_cut2 = cut * cut
-        hit = (r2 < pair_cut2) & (cgid[sl][..., None, :] != gid_f[sl][..., :, None])
+        r2, hit = _pair_hits(cx[sl], cy_[sl], cz[sl], cgid[sl], ox[sl], oy[sl], oz[sl],
+                             gid_f[sl], lx, px, cut2,
+                             None if radii is None else radii[sl],
+                             None if radii is None else csr[0][sl])
         count = hit.sum(-1, dtype=torch.int32)
         r2m = torch.where(hit, r2, torch.inf)
         del r2, hit

@@ -3,14 +3,15 @@ Delassus half-apply).
 
 Port of mundy_tpu/ops/pallas/seg_onehot.py::strided_onehot_segment_sum and
 ::strided_onehot_t. For K3, on a CUDA tensor the wrapper launches the
-hand-written kernel of
-csrc/seg_onehot.cu (one block per body block, loc and value tiles in shared
-memory, one thread per local segment summing in slot order; see the note
-there). On a CPU tensor it computes the plain version,
+hand-written kernel of csrc/seg_onehot.cu (one block per body block; a
+block whose ids are nondecreasing, as the LCP line's strided layout always
+is, marks each segment's run of slots and sums it in slot order, one
+thread per segment; any other block scans its slots per segment; see the
+note there). On a CPU tensor it computes the plain version,
 `strided_segment_sum_plain`: the blocked reduction, each segment summed over
 its slots in increasing w order from zero, which is the order the kernel
-adds in, so the two agree bit for bit. The TPU kernel's bf16 one-hot and
-three-term mantissa split are not carried over. A CUDA tensor never takes
+adds in on both paths, so the two agree bit for bit. The TPU kernel's bf16
+one-hot and three-term mantissa split are not carried over. A CUDA tensor never takes
 the plain version: a failed build or launch raises.
 
 K3t (`strided_onehot_t`) is K3's sum of -gamma n kept in shared memory and

@@ -78,7 +78,10 @@ def segment_sum_strided(values: torch.Tensor, ids: torch.Tensor, n_segments: int
 
     values (nb*W, D); ids (nb*W,) int32 segment ids, block b's slots holding
     ids in [b*B, (b+1)*B) (pads carry ids outside, which are dropped).
-    Runs kernel K3 on (nb, D, W) value planes."""
+    Runs kernel K3 on (nb, D, W) value planes. Each segment is summed over
+    its slots in slot order, whatever the order of the ids; where a block's
+    ids are nondecreasing (active_pair_subset_strided's layout, pads of id
+    N last) K3 sums each segment's run of slots directly."""
     B, W, nb = windows.block_bodies, windows.window, windows.nb
     D = values.shape[1]
     blk = torch.arange(nb, dtype=torch.int32, device=ids.device)[:, None] * B

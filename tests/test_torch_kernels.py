@@ -1175,16 +1175,16 @@ def test_k6_past_shared_memory_raises(cuda_device):
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("n,box,align,K", [(6000, 14.5, 8, 20),
                                            (4000, 13.05, 1, 12),
-                                           (80000, 40.0, 8, 24)])
+                                           (80000, 40.0, 8, 24),
+                                           (3000, 13.0, 8, k2.K_MAX)])
 def test_k2_radius_variant_matches_plain(cuda_device, dtype, n, box, align, K):
     """With a per-slot search-radius plane (zero on invalid slots) the
     pair cutoff is s_own + s_cand: ids, order and counts bit-equal to the
-    plain version, and counted as radius launches."""
+    plain version, and counted as radius launches. n = 80000 gives R > 128
+    threads per block; K = K_MAX is the regrow ceiling."""
     td = _DT[dtype]
-    rng = np.random.default_rng(14)
     ts = _rows(n, box, 1.8, align, td, cuda_device, seed=14)
-    sr = torch.as_tensor(rng.uniform(0.3, 0.9, n), dtype=td, device=cuda_device)
-    planes = torch.where(ts.valid, sr[ts.gid.long().clamp(max=n - 1)], 0.0).contiguous()
+    planes = _search_radii(ts, n, 14, td, cuda_device)
     args = (ts.pos, ts.gid, ts.valid, ((box,) * 3, (True,) * 3), 1.8, K, n)
     before = (k2.row_neighbor_extract.launches, k2.row_neighbor_extract.radius_launches)
     ids, cnt = k2.row_neighbor_extract(*args, radii=planes)
@@ -1198,3 +1198,290 @@ def test_k2_radius_variant_matches_plain(cuda_device, dtype, n, box, align, K):
     # the radii change the pair set: a uniform cutoff finds another one
     _, cnt_u = k2.row_neighbor_extract(*args)
     assert not torch.equal(cnt_u, cnt)
+
+
+def _k2_check(pos, ts, box, cutoff, K, n, radii=None):
+    """K2 (or its radius variant) against the plain version, ids and counts
+    bit-equal, and a second launch bit-equal; returns the counts."""
+    args = (pos, ts.gid, ts.valid, ((box,) * 3, (True,) * 3), cutoff, K, n)
+    ids, cnt = k2.row_neighbor_extract(*args, radii=radii)
+    ids_p, cnt_p = k2.row_neighbor_extract_plain(*args, radii=radii)
+    assert int(cnt_p.max()) > 0
+    assert torch.equal(cnt, cnt_p)
+    assert torch.equal(ids, ids_p)
+    ids2, cnt2 = k2.row_neighbor_extract(*args, radii=radii)
+    assert torch.equal(ids2, ids) and torch.equal(cnt2, cnt)
+    return cnt
+
+
+def _search_radii(ts, n, seed, td, dev):
+    s = torch.as_tensor(np.random.default_rng(seed).uniform(0.3, 0.9, n), dtype=td,
+                        device=dev)
+    return torch.where(ts.valid, s[ts.gid.long().clamp(max=n - 1)], 0.0).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("radii", [False, True])
+def test_k2_spheres_at_one_x_visit_every_chunk(cuda_device, dtype, radii):
+    """Every sphere at x = 3, spread in y and z: every chunk's x range is
+    one point within the cut of every own sphere, so the window visits all
+    of them and the pair test alone sorts the hits; many hits tie in x."""
+    n, box, td = 3000, 12.0, _DT[dtype]
+    rng = np.random.default_rng(51)
+    pos = np.column_stack([np.full(n, 3.0), rng.uniform(0, box, (n, 2))])
+    cutoff = 1.8 if radii else 1.45
+    ts = tr.build_rows(torch.as_tensor(pos, dtype=td, device=cuda_device),
+                       torch.arange(n, dtype=torch.int32, device=cuda_device),
+                       tr.make_row_grid([0, 0, 0], [box] * 3, cutoff, n, dtype=td, align=8,
+                                        device=cuda_device))
+    assert int(ts.valid.sum(-1).max()) > 3 * k2.CHUNK  # rows of several chunks
+    sr = _search_radii(ts, n, 52, td, cuda_device) if radii else None
+    _k2_check(ts.pos, ts, box, cutoff, 16, n, sr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("radii", [False, True])
+def test_k2_pairs_across_the_x_face(cuda_device, dtype, radii):
+    """Half the spheres within the cut of the x face: many pairs and chunks
+    wrap, and the kernel's window takes the minimum image as its pairs do.
+    Some neighbor lies across the face."""
+    n, box, td = 6000, 14.5, _DT[dtype]
+    rng = np.random.default_rng(53)
+    p = rng.uniform(0, box, (n, 3))
+    p[::2, 0] = np.mod(rng.uniform(-0.8, 0.8, p[::2].shape[0]), box)
+    cutoff = 1.8 if radii else 1.45
+    ts = tr.build_rows(torch.as_tensor(p, dtype=td, device=cuda_device),
+                       torch.arange(n, dtype=torch.int32, device=cuda_device),
+                       tr.make_row_grid([0, 0, 0], [box] * 3, cutoff, n, dtype=td, align=8,
+                                        device=cuda_device))
+    sr = _search_radii(ts, n, 54, td, cuda_device) if radii else None
+    K = 20
+    _k2_check(ts.pos, ts, box, cutoff, K, n, sr)
+    ids, _ = k2.row_neighbor_extract(ts.pos, ts.gid, ts.valid, ((box,) * 3, (True,) * 3),
+                                     cutoff, K, n, radii=sr)
+    x = torch.as_tensor(p[:, 0], dtype=td, device=cuda_device)
+    own = torch.where(ts.valid, ts.gid, 0).long()[..., None].expand(ids.shape)
+    got = ids < n
+    across = (x[own] - x[torch.where(got, ids, 0).long()]).abs() > box / 2
+    assert bool((got & across).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("radii", [False, True])
+def test_k2_rows_moved_since_the_rebuild(cuda_device, dtype, radii):
+    """Every sphere moved by a normal step (sd 0.4) and wrapped, with no
+    rebuild: slots stay in their rows, rows lose their x order, and chunk
+    bounds come from the current positions."""
+    n, box, td = 6000, 14.5, _DT[dtype]
+    cutoff = 1.8 if radii else 1.45
+    ts = _rows(n, box, cutoff, 8, td, cuda_device, seed=55)
+    step = torch.as_tensor(np.random.default_rng(56).normal(0, 0.4, ts.pos.shape), dtype=td,
+                           device=cuda_device)
+    pos = torch.where(ts.valid[..., None], torch.remainder(ts.pos + step, box),
+                      ts.pos).contiguous()
+    x = pos[..., 0]
+    assert bool(((x[..., 1:] < x[..., :-1]) & ts.valid[..., 1:]).any())  # stale x order
+    sr = _search_radii(ts, n, 57, td, cuda_device) if radii else None
+    _k2_check(pos, ts, box, cutoff, 20, n, sr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("radii", [False, True])
+def test_k2_lattice_ties_beyond_k(cuda_device, dtype, radii):
+    """A simple cubic lattice of unit spacing at half-integer coordinates:
+    every separation is exact, each sphere has 6 hits at r2 = 1 and 12 at
+    r2 = 2 within the cut 1.6, and K = 12 keeps 6 of the 12 exact ties, so
+    the candidate lane order alone decides which."""
+    m, td = 16, _DT[dtype]
+    g = np.arange(m) + 0.5
+    p = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    n, box, cutoff = p.shape[0], float(m), 1.6
+    ts = tr.build_rows(torch.as_tensor(p, dtype=td, device=cuda_device),
+                       torch.arange(n, dtype=torch.int32, device=cuda_device),
+                       tr.make_row_grid([0, 0, 0], [box] * 3, cutoff, n, dtype=td, align=8,
+                                        device=cuda_device))
+    sr = torch.where(ts.valid, 0.8, 0.0).to(td).contiguous() if radii else None
+    cnt = _k2_check(ts.pos, ts, box, cutoff, 12, n, sr)
+    assert bool((cnt[ts.valid] == 18).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("radii", [False, True])
+def test_k2_repeats_bit_for_bit(cuda_device, dtype, radii):
+    """Each slot's hits are counted and kept by one group of lanes in
+    candidate order, with no atomics: two launches at R > 128 give the same
+    bits, equal to the plain version's."""
+    td = _DT[dtype]
+    ts = _rows(80000, 40.0, 1.8 if radii else 1.45, 8, td, cuda_device, seed=58)
+    assert ts.pos.shape[2] > 128
+    sr = _search_radii(ts, 80000, 59, td, cuda_device) if radii else None
+    _k2_check(ts.pos, ts, 40.0, 1.8 if radii else 1.45, 24, 80000, sr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("radii", [False, True])
+def test_k2_past_shared_memory_raises(cuda_device, dtype, radii):
+    """At the largest R whose staged rows fit the card's opt-in shared
+    memory (row_extract.shared_bytes) the kernel launches, which shows the
+    formula is the kernel's request; one slot more raises before any launch,
+    with no plain fallback."""
+    td = _DT[dtype]
+    itemsize = torch.tensor([], dtype=td).element_size()
+    optin = torch.cuda.get_device_properties(cuda_device).shared_memory_per_block_optin
+    R = 1
+    while k2.shared_bytes(R + 1, itemsize, radii) <= optin:
+        R += 1
+
+    def planes(R):  # 3 spheres per row at one point, the rest build_rows' sentinel
+        valid = torch.zeros((5, 5, R), dtype=torch.bool, device=cuda_device)
+        valid[..., :3] = True
+        pos = torch.full((5, 5, R, 3), 1.0, dtype=td, device=cuda_device)
+        pos[..., 1] = torch.where(valid, 1.0, -1e6)
+        gid = torch.arange(5 * 5 * R, dtype=torch.int32, device=cuda_device).reshape(5, 5, R)
+        sr = torch.where(valid, 0.5, 0.0).to(td) if radii else None
+        return pos, gid, valid, sr
+
+    box = ((10.0,) * 3, (True,) * 3)
+    pos, gid, valid, sr = planes(R)
+    ids, cnt = k2.row_neighbor_extract(pos, gid, valid, box, 1.0, 12, 10 ** 6, radii=sr)
+    torch.cuda.synchronize()
+    ids_p, cnt_p = k2.row_neighbor_extract_plain(pos, gid, valid, box, 1.0, 12, 10 ** 6,
+                                                 radii=sr)
+    assert torch.equal(ids, ids_p) and torch.equal(cnt, cnt_p)
+    pos, gid, valid, sr = planes(R + 1)
+    before = (k2.row_neighbor_extract.launches, k2.row_neighbor_extract.radius_launches)
+    with pytest.raises(ValueError, match="shared memory"):
+        k2.row_neighbor_extract(pos, gid, valid, box, 1.0, 12, 10 ** 6, radii=sr)
+    assert (k2.row_neighbor_extract.launches,
+            k2.row_neighbor_extract.radius_launches) == before
+
+
+def _k3_inputs(nb, W, B, td, dev, seed, sorted_blocks, lo=None, hi=None):
+    """(nb, 3, W) values and (nb, W) int32 ids drawn from [lo, hi) (default
+    [-B/4, 5B/4)), the blocks in `sorted_blocks` sorted."""
+    rng = np.random.default_rng(seed)
+    lo = -B // 4 if lo is None else lo
+    hi = B + B // 4 if hi is None else hi
+    loc = rng.integers(lo, hi, (nb, W), dtype=np.int64)
+    for b in sorted_blocks:
+        loc[b] = np.sort(loc[b])
+    values = torch.as_tensor(rng.normal(size=(nb, 3, W)), dtype=td, device=dev)
+    return values, torch.as_tensor(loc.astype(np.int32), device=dev)
+
+
+def _k3_check(values, loc, B):
+    got = k3.strided_onehot_segment_sum(values, loc, B)
+    ref = k3.strided_segment_sum_plain(values, loc, B)
+    assert torch.equal(got, ref)
+    assert torch.equal(k3.strided_onehot_segment_sum(values, loc, B), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_k3_sorted_and_unsorted_blocks_in_one_launch(cuda_device, dtype):
+    """Blocks 0 and 2 sorted, 1 and 3 not, in one launch: each block takes
+    its own path, both bit-equal to the plain version and on a second
+    launch."""
+    values, loc = _k3_inputs(4, 640, 1024, _DT[dtype], cuda_device, 61, (0, 2))
+    down = (loc[:, 1:] < loc[:, :-1]).any(1).tolist()
+    assert down == [False, True, False, True]
+    _k3_check(values, loc, 1024)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("B", [200, 1500])
+def test_k3_sorted_runs_of_ids_outside_the_block(cuda_device, dtype, B):
+    """Sorted blocks whose runs include negative ids, ids >= B and the int32
+    extremes (compared as raw ints, and dropped), with B not a multiple of
+    32; B = 1500 takes two passes of the run bounds. Long runs of one id."""
+    nb, W = 3, 700
+    values, loc = _k3_inputs(nb, W, B, _DT[dtype], cuda_device, 62, range(nb),
+                             lo=-B // 3, hi=B + B // 3)
+    loc[:, :5] = torch.iinfo(torch.int32).min
+    loc[:, -5:] = torch.iinfo(torch.int32).max
+    loc[1, 100:300] = loc[1, 100]  # a long run, kept sorted
+    loc = torch.sort(loc, dim=1).values.contiguous()
+    assert bool((loc[:, 1:] >= loc[:, :-1]).all())
+    assert bool((loc < 0).any()) and bool((loc >= B).any())
+    _k3_check(values, loc, B)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_k3_on_the_lcp_strided_layout(cuda_device, dtype):
+    """The strided layout of a small LCPSpheresSim run on the CPU (2000
+    spheres, 2 body blocks, pads of id N inside the last block's range),
+    moved to the card: every block is sorted, and K3 is bit-equal to the
+    plain version."""
+    from mundy_tpu_torch.constraints.collision import (active_pair_subset_strided,
+                                                       collision_setup_spheres)
+    from mundy_tpu_torch.driver.apps.lcp_spheres import LCPSpheresConfig, LCPSpheresSim
+
+    td = _DT[dtype]
+    sim = LCPSpheresSim(LCPSpheresConfig(num_spheres=2000, box_size=20.0, radius=0.5,
+                                         dt=1e-3, diffusion_coeff=0.01,
+                                         constraint_buffer=0.45, dtype=dtype), device="cpu")
+    st = sim.init()
+    for _ in range(6):
+        st = sim.run_block(st, 1, resize=False)
+    setup = collision_setup_spheres(st.pos, sim._radius(), st.pairs, sim.metric)
+    act = active_pair_subset_strided(setup, sim._dyn_margin(setup), 2000, sim.seg_block,
+                                     sim.act_window, st.seg_starts)
+    nb, W, B = sim.nb_blocks, sim.act_window, sim.seg_block
+    gam = torch.rand(act.setup.pairs.i.shape, generator=torch.Generator().manual_seed(3),
+                     dtype=td)
+    gn = -(torch.where(act.setup.pairs.mask, gam, 0.0)[:, None] * act.setup.normals)
+    values = gn.reshape(nb, W, 3).transpose(1, 2).contiguous().to(cuda_device)
+    blk = torch.arange(nb, dtype=torch.int32)[:, None] * B
+    loc = (act.setup.pairs.i.reshape(nb, W) - blk).contiguous().to(cuda_device)
+    assert nb == 2 and bool((loc[:, 1:] >= loc[:, :-1]).all())
+    assert int(act.setup.pairs.mask.sum()) > 100
+    _k3_check(values, loc, B)
+
+
+_K3T_CASES = [(7, 640, 1024, True), (5, 2600, 1024, False), (3, 300, 200, False)]
+
+
+def _k3t_digest(dtype, nb, W, B, sort, dev):
+    """sha256 (first 16 hex digits) of K3t's output bytes on
+    test_k3t_kernel_matches_plain's inputs."""
+    import hashlib
+
+    rng = np.random.default_rng(6)
+    loc = rng.integers(-B // 4, B + B // 4, (nb, W))
+    if sort:
+        loc = np.sort(loc, axis=1)
+    td = _DT[dtype]
+    normals = rng.normal(size=(nb, 3, W))
+    normals /= np.linalg.norm(normals, axis=1, keepdims=True)
+    normals = torch.as_tensor(normals, dtype=td, device=dev)
+    gamma = torch.as_tensor(rng.normal(size=(nb, W)), dtype=td, device=dev)
+    loc = torch.as_tensor(loc, dtype=torch.int32, device=dev)
+    got = k3.strided_onehot_t(gamma, normals, loc, B)
+    return hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+# _k3t_digest from K3t as it stood before K3's run-sum redesign, which
+# shares its source (NVIDIA H100 80GB HBM3)
+_K3T_SHA = {
+    ("float32", 7): "523673516c2e91e8", ("float32", 5): "34b41eb2cf3c7ed2",
+    ("float32", 3): "1e42a16f6d835907", ("float64", 7): "8a86056a74a31697",
+    ("float64", 5): "02ee71c9fef99b49", ("float64", 3): "a2c82fa7bb028a1f",
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("nb,W,B,sort", _K3T_CASES)
+def test_k3t_outputs_unchanged(cuda_device, dtype, nb, W, B, sort):
+    """K3t shares csrc/seg_onehot.cu with K3, whose kernel was redesigned;
+    K3t's own kernel and launcher were left as they were, and its outputs
+    stay bit for bit the earlier build's."""
+    assert _k3t_digest(dtype, nb, W, B, sort, cuda_device) == _K3T_SHA[(dtype, nb)]

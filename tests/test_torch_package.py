@@ -147,10 +147,12 @@ def test_k2_launch_envelope():
     """One envelope for the wrapper and rows_extract_feasible: K past the
     kernel's list fails before the card is asked, and a block within the
     48 KB that every block gets needs no opt-in query."""
-    assert k2.shared_bytes(16, 4) == 9 * 16 * (3 * 4 + 4)
+    # packed x, y, z and 16-bit slots of 9 rows, float x bounds of each
+    # chunk of 8, 9 counts and 9 row indices
+    assert k2.shared_bytes(16, 4) == 9 * 16 * (3 * 4 + 2) + 9 * 2 * 2 * 4 + 18 * 4
     assert not k2.fits(16, k2.K_MAX + 1, 4, "cuda")
     assert k2.fits(16, k2.K_MAX, 4, "cuda")
-    assert k2.fits(64, 26, 8, "cuda")  # 9 * 64 * 28 = 16,128 bytes
+    assert k2.fits(64, 26, 8, "cuda")  # 9 * 64 * 26 + 9 * 8 * 16 + 72 = 16,200 bytes
 
 
 @pytest.mark.parametrize("name", ["row_extract", "seg_onehot"])
@@ -366,11 +368,12 @@ def test_k3t_k6_k2_radii_cuda_tensors_without_library_raise(monkeypatch, tmp_pat
 def test_k6_k2_radius_envelopes():
     """The shared memory that K6 (the packed x, y, z, radius entries of 9
     rows, chunk bounds per 8 of them, own slots and counts) and K2's radius
-    variant stage: within the 48 KB every block gets, no card is asked."""
+    variant (its planes with the radii, and each chunk's greatest |radius|)
+    stage: within the 48 KB every block gets, no card is asked."""
     assert k6.shared_bytes(96, 4) == (36 * 96 + 36 * 12) * 4 + 4 * 96 + 36
     assert k6.fits(256, 4, "cuda")  # 42,532 bytes
-    assert k2.shared_bytes(96, 4, radii=True) == 9 * 96 * (4 * 4 + 4)
-    assert k2.fits(64, 26, 8, "cuda", radii=True)  # 9 * 64 * 36 = 20,736 bytes
+    assert k2.shared_bytes(96, 4, radii=True) == 9 * 96 * (4 * 4 + 2) + 9 * 12 * 3 * 4 + 18 * 4
+    assert k2.fits(64, 26, 8, "cuda", radii=True)  # 9 * 64 * 34 + 9 * 8 * 12 + 72 = 20,520
 
 
 def test_k6_library_is_keyed_by_source():

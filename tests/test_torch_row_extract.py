@@ -128,3 +128,94 @@ def test_build_pair_list_ordered_matches_reference(nmats, capacity):
     for a, b in zip(tp, jp):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     assert bool(tp.overflow) == (capacity == 4096)
+
+
+def _outward(t, up):
+    """The float32 bound of t that the kernel keeps for a chunk: t itself
+    in float32, rounded down (or up) from float64."""
+    f = t.to(torch.float32)
+    if t.dtype == torch.float32:
+        return f
+    off = (f.double() < t) if up else (f.double() > t)
+    step = torch.full_like(f, float("inf") if up else float("-inf"))
+    return torch.where(off, torch.nextafter(f, step), f).to(t.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("radii", [False, True])
+@pytest.mark.parametrize("case", ["uniform", "x_faces", "moved"])
+def test_plain_has_no_hit_in_a_chunk_the_kernel_skips(dtype, radii, case):
+    """K2 skips a chunk of packed candidates whose x bounds `chunk_visit`
+    rejects for a warp's own slots. Every row is packed and chunked as the
+    kernel does (occupied candidates in lane order, CHUNK at a time, float
+    bounds rounded outward, the greatest |search radius| with radii; own
+    slots OWN_GROUP at a time, their least and greatest x and greatest
+    |search radius|), and no hit of the plain version's pair test may lie
+    in a chunk that the test rejects for its own slot's warp:
+    uniform rows; half the spheres within the cut of an x face, so pairs
+    and chunks wrap in x; and rows whose spheres moved after build_rows, so
+    their x order is stale. Counts, both sides of the wrap and the share of
+    rejected chunks keep the check from passing vacuously."""
+    td = torch.float32 if dtype == "float32" else torch.float64
+    n, box = 1500, 12.0
+    cutoff = 1.8 if radii else 1.45
+    rng = np.random.default_rng(21)
+    p = rng.uniform(0, box, (n, 3))
+    if case == "x_faces":
+        p[::2, 0] = np.mod(rng.uniform(-0.8, 0.8, p[::2].shape[0]), box)
+    grid = trows.make_row_grid([0, 0, 0], [box] * 3, cutoff, n, dtype=td, align=8)
+    ts = trows.build_rows(torch.as_tensor(p, dtype=td), torch.arange(n, dtype=torch.int32),
+                          grid)
+    pos = ts.pos
+    if case == "moved":
+        moved = torch.remainder(pos + torch.as_tensor(rng.normal(0, 0.5, pos.shape),
+                                                      dtype=td), box)
+        pos = torch.where(ts.valid[..., None], moved, pos)
+    sr = None
+    if radii:
+        s = torch.as_tensor(rng.uniform(0.3, 0.9, n), dtype=td)
+        sr = torch.where(ts.valid, s[ts.gid.long()], 0.0)
+    ny, nz, R = ts.valid.shape
+    gid_f = ts.gid.to(td)
+    fields = (gid_f, ts.valid.to(td)) + (() if sr is None else (sr,))
+    cx, cy, cz, (cg, cval, *csr) = trows._candidate_planes(pos, ((box,) * 3, (True,) * 3),
+                                                           fields)
+    cut2 = torch.tensor(cutoff * cutoff, dtype=td)
+    ox = pos[..., 0]
+    _, hit = k2._pair_hits(cx, cy, cz, cg, ox, pos[..., 1], pos[..., 2], gid_f, box, True,
+                           cut2, sr, csr[0] if csr else None)
+    hit &= ts.valid[..., None]
+
+    # pack and chunk the candidates as the kernel does
+    nc = -(-R // k2.CHUNK)
+    cv = cval > 0.5
+    rank = torch.cumsum(cv.reshape(ny, nz, 9, R).long(), -1).reshape(ny, nz, 9 * R) - 1
+    blk = torch.arange(9 * R) // R
+    chunk = torch.where(cv, blk * nc + torch.div(rank, k2.CHUNK, rounding_mode="floor"),
+                        9 * nc)
+    inf = torch.full((ny, nz, 9 * nc + 1), float("inf"), dtype=td)
+    lo = _outward(inf.scatter_reduce(-1, chunk, cx, "amin")[..., :-1], up=False)
+    hi = _outward((-inf).scatter_reduce(-1, chunk, cx, "amax")[..., :-1], up=True)
+    # each warp's own slots: OWN_GROUP consecutive occupied slots of the row
+    own = torch.cumsum(ts.valid.long(), -1) - 1
+    ng = -(-R // k2.OWN_GROUP)
+    grp = torch.where(ts.valid, torch.div(own, k2.OWN_GROUP, rounding_mode="floor"), ng)
+    inf_g = torch.full((ny, nz, ng + 1), float("inf"), dtype=td)
+    p_lo = inf_g.scatter_reduce(-1, grp, ox, "amin")
+    p_hi = (-inf_g).scatter_reduce(-1, grp, ox, "amax")
+    ccut2 = cut2
+    if radii:
+        smax = torch.zeros_like(inf).scatter_reduce(-1, chunk, csr[0].abs(), "amax")
+        s_own = torch.zeros_like(inf_g).scatter_reduce(-1, grp, sr.abs(), "amax")
+        ccut2 = k2.chunk_cut2(s_own[..., None], _outward(smax[..., :-1], up=True)[..., None, :])
+    visit = k2.chunk_visit(lo[..., None, :], hi[..., None, :], p_lo[..., None],
+                           p_hi[..., None], ccut2, box)  # (ny, nz, ng + 1, 9 nc)
+    visit = torch.gather(visit, -2, grp[..., None].expand(ny, nz, R, 9 * nc))
+    at = torch.clamp(chunk, max=9 * nc - 1)[..., None, :].expand(hit.shape)
+    assert not bool((hit & ~torch.gather(visit, -1, at)).any())
+
+    assert int(hit.sum()) > 2000
+    own_visits = visit[ts.valid]
+    assert own_visits.float().mean().item() < 0.5  # most chunks are skipped
+    raw = (cx[..., None, :] - ox[..., :, None]).abs()
+    assert bool((hit & (raw > box / 2)).any())  # pairs across the x face

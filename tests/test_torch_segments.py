@@ -133,3 +133,40 @@ def test_segment_sums_match_reference(dtype):
                                overflow=torch.tensor(False))
     got_s = tseg.segment_sum_strided(torch.from_numpy(sv), torch.from_numpy(si), n, swin)
     assert (np.abs(got_s.numpy() - ref) <= tol * scale[:n]).all()
+
+
+@pytest.mark.parametrize("line", [
+    dict(num_spheres=2000, box_size=20.0, polydispersity=0.0),
+    dict(num_spheres=400, box_size=18.0, polydispersity=0.5),
+])
+def test_lcp_strided_loc_is_nondecreasing_in_every_block(monkeypatch, line):
+    """The premise of K3's fast path (csrc/seg_onehot.cu): the strided
+    layout that LCPSpheresSim hands K3 at every step, rebuild included, has
+    a nondecreasing loc in every block, the pad slots (id N) last. Both the
+    monodisperse and the polydisperse line, recorded at K3's wrapper; the
+    monodisperse line's 2 blocks put N inside the last block's id range."""
+    from mundy_tpu_torch.driver.apps.lcp_spheres import LCPSpheresConfig, LCPSpheresSim
+    from mundy_tpu_torch.ops import segments
+
+    seen = []
+    real = segments.strided_onehot_segment_sum
+
+    def spy(values, loc, B):
+        seen.append((loc.clone(), B))
+        return real(values, loc, B)
+
+    monkeypatch.setattr(segments, "strided_onehot_segment_sum", spy)
+    cfg = LCPSpheresConfig(radius=0.5, dt=1e-3, diffusion_coeff=0.01, constraint_buffer=0.45,
+                           dtype="float64", **line)
+    sim = LCPSpheresSim(cfg, device="cpu")
+    st = sim.init()
+    rb0, steps = st.rebuild_count, 8
+    for _ in range(steps):
+        st = sim.run_block(st, 1, resize=False)
+    assert st.rebuild_count > rb0 and not bool(st.overflow)
+    assert len(seen) >= steps
+    n = line["num_spheres"]
+    for loc, B in seen:
+        assert bool((loc[:, 1:] >= loc[:, :-1]).all())
+        pad = n - B * (loc.shape[0] - 1)  # the pads' id in the last block
+        assert bool((loc[-1] == pad).any()) and bool((loc[-1, -1] == pad))
