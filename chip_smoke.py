@@ -9,8 +9,9 @@ K4's rods op), #4 (flexible filaments: K2 in the default engine, K4's
 filaments op in the row engine) and #5 (1M-bead chromatin with
 spectral-Ewald Stokes mobility: kernels K5s and K5i, K2 where the rows
 broad phase is feasible), then the polydisperse lines of #1 (kernel K6
-with a radius plane) and #2 (K2's radius variant) and the scalar-mobility
-Delassus applies (kernel K3t) through the port's own entry points:
+with a radius plane) and #2 (K2's radius variant), the scalar-mobility
+Delassus applies (kernel K3t) and the hydro modes of #2 (K2, K3, and K5s
+and K5i in rpy_spectral) through the port's own entry points:
 
 1. build K1-K6 with nvcc (sm_90a), one process per source, all at once;
    print each kernel's registers and spills and the card with its power
@@ -110,7 +111,8 @@ Delassus applies (kernel K3t) through the port's own entry points:
 25. that config in float64 (2000 spheres, 60 steps) on the card against
     the CPU: equal rebuilds and layout, positions within 1e-7;
 26. K3t vs its plain version at the strided shape of [6]'s final state
-    (within 1e-6 of max|t|), timed beside K3 + the row gather; the
+    (bit-equal; the blocks with nondecreasing ids, K3t's run-sum path,
+    counted), timed by event and device time beside K3 + the row gather; the
     local-drag, band and block Delassus applies on one gamma within 1e-5 of
     max|A gamma|; then resolve_collisions from the step's warm start with
     each as apply_override: iterations, ms per iteration, max|dgamma|
@@ -121,11 +123,31 @@ Delassus applies (kernel K3t) through the port's own entry points:
     radius variant vs its plain version at the window's final row shape,
     ids and counts exactly equal, its bound counted as [7]'s;
 28. that line in float64 (2000 spheres, 30 steps) on the card against the
-    CPU: equal counters at every step, positions within 1e-8.
+    CPU: equal counters at every step, positions within 1e-8;
+29. the LCP line's hydro modes at examples/lcp_spheres_100k.yaml with only
+    `hydro` changed, float32: rpy_neighbors for 10 steps and rpy_spectral
+    for 3 (G 128, P 6, the plain real-space scan on 13^3 cells) from init,
+    with the K2, K3, K5s and K5i counts set to 0 before the sim is made:
+    one K2 launch per broad phase, one K3 launch (and in rpy_spectral one
+    K5s and one K5i launch) per mobility apply (BBPGD iterations + 2 per
+    step); ms per step on the host clock, iterations, active pairs; at the
+    final state K3 bit-equal to its plain version on the next step's active
+    subset, and in rpy_spectral K5s and K5i within 1e-5 of max of theirs on
+    the final binning; one mobility apply timed by CUDA events, in
+    rpy_spectral split into the real space and the wave part;
+30. the three modes (rpy_neighbors, rpy_ewald, rpy_spectral) in float64 at
+    the reference test's size (150 spheres, box 14, dt 2e-3, D 0.02, 14
+    steps) on the card against the CPU: equal counters at every step, a
+    skin rebuild, positions within 1e-7;
+31. the Ewald direct wave sum (2000 bodies in box 14, the rpy_ewald
+    splitting) in float32 against float64 on the card, within 1e-5 of
+    max|u| (full float32 products; TF32 would leave ~2e-3).
 
 Kernel times are medians of CUDA-event timings after a synchronize, kernel
-and plain version alternating; for K2 and K3 the device time per launch
-of 20 launches queued back to back is printed beside them. Prints one JSON line of kernel results,
+and plain version alternating; for K2, K3 and K3t the device time per
+launch of 20 launches queued back to back is printed beside them. Prints
+one JSON line of kernel results (K2's, K3's, K5s's and K5i's entries also
+carry their launches on [29]'s paths under "path_launches"),
 then a final JSON line {"ok": true, "device": {...}}. Exits non-zero, with no
 result, without a CUDA device or without the package beside it.
 """
@@ -200,6 +222,9 @@ K6_RADII_CONTACT_OPS = K6_CONTACT_OPS + 5.0
 FIL_STEPS = 200
 CHROM_STEPS = 20
 CHROM_SMALL_STEPS = 40
+HYDRO_STEPS = 10
+SPECTRAL_STEPS = 3
+HYDRO_SMALL_STEPS = 14
 # published H100 SXM peaks (NVIDIA data sheet): FP32 outside the
 # tensor cores, and HBM bandwidth
 PEAK_FP32 = 67e12
@@ -401,6 +426,29 @@ def queued_ms(fn, torch, reps: int = 20) -> float:
     if host_s > 0.05:
         fail(f"enqueueing {reps} launches took {host_s:.3f} s, as long as the spin ahead of them")
     return a.elapsed_time(b) / reps
+
+
+def k3_window_inputs(sim, st, n: int, seed: int, torch):
+    """K3's inputs for the next step of an LCPSpheresSim at state st: the
+    active subset through collision_forces' reshapes, gamma uniform from
+    `seed` on the active pairs. Returns (values (nb, 3, W), loc (nb, W),
+    active pairs)."""
+    from mundy_tpu_torch.constraints.collision import (active_pair_subset_strided,
+                                                       collision_setup_spheres)
+
+    setup = collision_setup_spheres(st.pos, sim._radius(), st.pairs, sim.metric)
+    act = active_pair_subset_strided(setup, sim._dyn_margin(setup), n, sim.seg_block,
+                                     sim.act_window, st.seg_starts)
+    nb, W, B = sim.nb_blocks, sim.act_window, sim.seg_block
+    dev = st.pos.device
+    pairs = act.setup.pairs
+    gam = torch.rand(pairs.i.shape, generator=torch.Generator(dev).manual_seed(seed),
+                     device=dev, dtype=st.pos.dtype)
+    gn = -(torch.where(pairs.mask, gam, 0.0)[:, None] * act.setup.normals)
+    values = gn.reshape(nb, W, 3).transpose(1, 2).contiguous()
+    blk = torch.arange(nb, dtype=torch.int32, device=dev)[:, None] * B
+    loc = (pairs.i.reshape(nb, W) - blk).contiguous()
+    return values, loc, int(pairs.mask.sum())
 
 
 def alternate(kernel, plain, torch, reps_k: int, reps_p: int, rounds: int = 3):
@@ -822,11 +870,13 @@ def polydisperse_phases(torch, dev, lcp_sim, lcp_st, card: str) -> list:
     k3t_err = (t_k - t_p).abs().max().item()
     tmax = t_p.abs().max().item()
     n_act = int(aset.pairs.mask.sum())
+    k3t_same = bool(torch.equal(t_k, t_p))
+    n_sorted = int((loc[:, 1:] >= loc[:, :-1]).all(1).sum())
     print(f"[26] K3t at (nb, W, B) = ({nb}, {W}, {B}), {n_act} active pairs: max|diff| "
-          f"{k3t_err:.3e}, max|t| {tmax:.3e}, bit-equal {bool(torch.equal(t_k, t_p))}",
-          flush=True)
-    if not (tmax > 0 and k3t_err <= 1e-6 * tmax):
-        fail(f"K3t disagrees with its plain version: {k3t_err} > 1e-6 * {tmax}")
+          f"{k3t_err:.3e}, max|t| {tmax:.3e}, bit-equal {k3t_same}, {n_sorted} of {nb} "
+          f"blocks with nondecreasing ids", flush=True)
+    if not (tmax > 0 and k3t_same):
+        fail(f"K3t is not bit-equal to its plain version (max|diff| {k3t_err})")
 
     def k3_and_gather():  # the reference's fallback with K3: sum, gather, dot
         F = k3.strided_onehot_segment_sum((-g2[:, None, :] * n_pl).contiguous(), loc, B)
@@ -839,12 +889,16 @@ def polydisperse_phases(torch, dev, lcp_sim, lcp_st, card: str) -> list:
                                      lambda: k3.strided_t_plain(g2, n_pl, loc, B),
                                      torch, 20, 3)
     k3g_ms = statistics.median([cuda_ms(k3_and_gather, torch, 20) for _ in range(3)])
+    k3t_dev_ms = queued_ms(lambda: k3.strided_onehot_t(g2, n_pl, loc, B), torch)
+    k3g_dev_ms = queued_ms(k3_and_gather, torch)
     # (-gamma) n and its sums 6 per active pair, the dot 5 per slot; read
     # gamma, normals and loc once, write t once
     k3t_bound = bound(6.0 * n_act + 5.0 * nb * W, nb * W * (4 + 12 + 4 + 4))
-    print(f"    K3t {k3t_ms:.4f} ms, plain {k3t_plain_ms:.4f} ms, K3 + gather {k3g_ms:.4f} "
-          f"ms (max|diff| {k3g_err:.3e}), bound {k3t_bound[0]:.4f} ms ({k3t_bound[1]})",
-          flush=True)
+    print(f"    K3t {k3t_ms:.4f} ms (device time per launch {k3t_dev_ms:.4f} ms), plain "
+          f"{k3t_plain_ms:.4f} ms, K3 + gather {k3g_ms:.4f} ms (device time "
+          f"{k3g_dev_ms:.4f} ms, max|diff| {k3g_err:.3e}), bound {k3t_bound[0]:.4f} ms "
+          f"({k3t_bound[1]}; {k3t_ms / k3t_bound[0]:.1f}x by event time, "
+          f"{k3t_dev_ms / k3t_bound[0]:.1f}x by device time); {card}", flush=True)
     del t_k, t_p
     mob = torch.tensor(1.0 / (6.0 * math.pi * lcfg.viscosity * lcfg.radius), device=dev)
     applies = {
@@ -870,7 +924,7 @@ def polydisperse_phases(torch, dev, lcp_sim, lcp_st, card: str) -> list:
         k3.strided_onehot_t.launches = 0
         t0 = time.perf_counter()
         gamma, _vel, res = resolve_collisions(
-            aset, lsim._mobility, N_BIG, lcfg.dt,
+            aset, lsim._mobility(st.pos, st.hydro_nmat)[0], N_BIG, lcfg.dt,
             max_allowable_overlap=lcfg.max_allowable_overlap,
             max_iterations=lcfg.max_col_iterations, gamma0=act.gamma0, u_ext=u_ext,
             alpha0=st.lcp_alpha, apply_override=fn)
@@ -1001,6 +1055,186 @@ def polydisperse_phases(torch, dev, lcp_sim, lcp_st, card: str) -> list:
          "bound_ms": k2r_bound[0], "bound_by": k2r_bound[1], "library_ms": None}]
 
 
+def lcp_hydro_phases(torch, dev, card: str) -> dict:
+    """Phases 29-31: the LCP line's hydro modes (config #2 with RPY
+    mobility). Returns each kernel's launches on the two 100k paths of
+    [29], counted from the sim's construction to its last step, for the
+    kernels line."""
+    import numpy as np
+
+    from mundy_tpu_torch.core.config import config_from_dict, load_yaml
+    from mundy_tpu_torch.driver.apps.lcp_spheres import LCPSpheresConfig, LCPSpheresSim
+    from mundy_tpu_torch.mobility import ewald, spectral
+    from mundy_tpu_torch.neighbor.cells3d import build_cells3d
+    from mundy_tpu_torch.ops.kernels import row_extract as k2
+    from mundy_tpu_torch.ops.kernels import se_grid as k5
+    from mundy_tpu_torch.ops.kernels import seg_onehot as k3
+
+    counters = {"row_neighbor_extract": (k2.row_neighbor_extract, "launches"),
+                "strided_onehot_segment_sum": (k3.strided_onehot_segment_sum, "launches"),
+                "se_spread": (k5.se_spread, "launches"),
+                "se_interp": (k5.se_interp, "launches")}
+    paths = {name: {} for name in counters}
+
+    # ---- 29. the 100k YAML with hydro rpy_neighbors and rpy_spectral -------
+    raw = load_yaml(os.path.join(HERE, "examples", "lcp_spheres_100k.yaml"))
+    for hydro, steps in (("rpy_neighbors", HYDRO_STEPS), ("rpy_spectral", SPECTRAL_STEPS)):
+        cfg = config_from_dict(LCPSpheresConfig, dict(raw["params"], hydro=hydro))
+        for fn_, attr in counters.values():
+            setattr(fn_, attr, 0)
+        t0 = time.perf_counter()
+        sim = LCPSpheresSim(cfg, device=dev)
+        broad = [0]
+        broad_phase = sim._broad_phase
+
+        def counted(pos, broad_phase=broad_phase, broad=broad):
+            broad[0] += 1
+            return broad_phase(pos)
+
+        sim._broad_phase = counted
+        st = sim.init()
+        torch.cuda.synchronize()
+        extra = ""
+        if sim.spectral is not None:
+            g3 = sim.hydro_cells_grid
+            extra = (f"; G {sim.spectral.grid_n}, P {sim.spectral.support}, r_cut "
+                     f"{sim.spectral.base.r_cut:.4f}, se R {sim.se_geom.R}, hydro cells "
+                     f"{g3.nx}^3 x {g3.capacity}")
+        print(f"[29] 100k LCP {hydro} ({cfg.dtype}): sim and init in "
+              f"{time.perf_counter() - t0:.2f} s, act_window {sim.act_window}, active "
+              f"{int(st.act_count)}{extra}", flush=True)
+        iters, ms = [], []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = sim.run_block(st, 1, resize=False)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            iters.append(st.lcp_iters)
+        got = {name: getattr(fn_, attr) for name, (fn_, attr) in counters.items()}
+        for name, n in got.items():
+            paths[name][f"lcp {hydro} 100k"] = n
+        applies = sum(i + 2 for i in iters)  # g0, one per iteration, the final velocity
+        print(f"    {steps} steps: ms/step {[round(m, 3) for m in ms]}, BBPGD iterations "
+              f"{iters} ({sum(ms) / applies:.3f} ms per BBPGD iteration: step time over "
+              f"iterations + 2), last residual "
+              f"{float(st.lcp_residual):.3e} (tol {cfg.max_allowable_overlap:.1e}), max "
+              f"overlap {sim.max_overlap(st):.3e}, active {int(st.act_count)}, rebuilds "
+              f"{st.rebuild_count}, broad phases {broad[0]}, overflow "
+              f"{bool(st.overflow)}; launches K2 {got['row_neighbor_extract']}, K3 "
+              f"{got['strided_onehot_segment_sum']}, K5s {got['se_spread']}, K5i "
+              f"{got['se_interp']}; {card}", flush=True)
+        if bool(st.overflow) or not bool(torch.isfinite(st.pos).all()):
+            fail(f"the 100k {hydro} run overflowed or went non-finite")
+        k5_want = applies if hydro == "rpy_spectral" else 0
+        if (got["strided_onehot_segment_sum"] != applies
+                or got["row_neighbor_extract"] != broad[0]
+                or got["se_spread"] != k5_want or got["se_interp"] != k5_want):
+            fail(f"the 100k {hydro} run launched {got} for {applies} mobility applies "
+                 f"and {broad[0]} broad phases")
+        # each kernel of this path against its plain version at this path's
+        # sizes: K3 on the next step's active subset, K5s and K5i on the
+        # final positions' binning (as [8] and [20] hold them at 1M)
+        values, loc, n_act = k3_window_inputs(sim, st, cfg.num_spheres, 29, torch)
+        s_k = k3.strided_onehot_segment_sum(values, loc, sim.seg_block)
+        s_p = k3.strided_segment_sum_plain(values, loc, sim.seg_block)
+        torch.cuda.synchronize()
+        n_sorted = int((loc[:, 1:] >= loc[:, :-1]).all(1).sum())
+        print(f"    K3 at (nb, W, B) = {tuple(loc.shape) + (sim.seg_block,)}, {n_act} active "
+              f"pairs: max|diff| {(s_k - s_p).abs().max().item():.3e}, bit-equal "
+              f"{bool(torch.equal(s_k, s_p))}, {n_sorted} of {loc.shape[0]} blocks with "
+              f"nondecreasing ids", flush=True)
+        if not (s_p.abs().max().item() > 0 and torch.equal(s_k, s_p)):
+            fail(f"K3 is not bit-equal to its plain version on the 100k {hydro} path")
+        del values, loc, s_k, s_p
+        f = torch.randn((cfg.num_spheres, 3), device=dev, dtype=st.pos.dtype,
+                        generator=torch.Generator(dev).manual_seed(29))
+        mob, _ovf = sim._mobility(st.pos, st.hydro_nmat)
+        parts = [("whole apply", lambda: mob(f))]
+        if sim.spectral is not None:
+            geom = sim.se_geom
+            pieces = spectral.se_bin_geom(geom, st.pos, sim.dtype)
+            grid_k = k5.se_spread(geom, pieces, f)
+            grid_p = k5.se_spread_plain(geom, pieces, f)
+            ugrid = spectral._k_apply(sim.spectral, grid_p).to(f.dtype)  # as the apply does
+            u_k = k5.se_interp(geom, pieces, ugrid)
+            u_p = k5.se_interp_plain(geom, pieces, ugrid)
+            torch.cuda.synchronize()
+            s_err, gmax = (grid_k - grid_p).abs().max().item(), grid_p.abs().max().item()
+            i_err, umax = (u_k - u_p).abs().max().item(), u_p.abs().max().item()
+            print(f"    K5s at {int(pieces[3].sum())} binned bodies in "
+                  f"{pieces[0].shape[0]} tiles of R = {geom.R}, G {geom.G}: max|diff| "
+                  f"{s_err:.3e} of max|grid| {gmax:.3e}; K5i max|diff| {i_err:.3e} of "
+                  f"max|u| {umax:.3e}, overflow {bool(pieces[1])}", flush=True)
+            if not (gmax > 0 and math.isfinite(s_err) and s_err <= 1e-5 * gmax):
+                fail(f"K5s disagrees with its plain version on the 100k {hydro} path: "
+                     f"{s_err} > 1e-5 * {gmax}")
+            if not (umax > 0 and math.isfinite(i_err) and i_err <= 1e-5 * umax):
+                fail(f"K5i disagrees with its plain version on the 100k {hydro} path: "
+                     f"{i_err} > 1e-5 * {umax}")
+            del grid_k, grid_p, ugrid, u_k, u_p
+            cells = build_cells3d(st.pos, sim.hydro_cells_grid)
+            parts += [("real space (3D cells)", lambda: ewald.ewald_real_apply_cells(
+                          sim.spectral.base, cells, f, (cfg.box_size,) * 3)),
+                      ("wave (K5s, FFT, K5i)", lambda: spectral.se_wave_apply_dense(
+                          sim.spectral, geom, st.pos, f, pieces=pieces))]
+        print("    one mobility apply at the final state: " + ", ".join(
+            f"{name} {cuda_ms(fn_, torch, 3):.3f} ms" for name, fn_ in parts)
+            + f"; {card}", flush=True)
+        del f, mob, parts
+        del sim, st
+
+    # ---- 30. the three modes in float64, card vs CPU -----------------------
+    small = dict(num_spheres=150, box_size=14.0, radius=0.5, dt=2e-3, diffusion_coeff=0.02,
+                 dtype="float64", chunk=256, max_allowable_overlap=1e-6,
+                 max_col_iterations=2000)
+    pos0 = torch.rand((150, 3), dtype=torch.float64,
+                      generator=torch.Generator().manual_seed(30)) * 14.0
+    for hydro in ("rpy_neighbors", "rpy_ewald", "rpy_spectral"):
+        trace = {}
+        for name, d in (("card", dev), ("cpu", "cpu")):
+            ssim = LCPSpheresSim(LCPSpheresConfig(**small, hydro=hydro), device=d)
+            s = ssim.init(pos=pos0, key_words=(0, 30))
+            rows_ = []
+            for _ in range(HYDRO_SMALL_STEPS):
+                s = ssim.run_block(s, 1, resize=False)
+                rows_.append((s.lcp_iters, int(s.act_count), int(s.act_block_max),
+                              s.rebuild_count, bool(s.overflow)))
+            trace[name] = (rows_, s.pos.cpu(), ssim.max_overlap(s))
+        diff = (trace["card"][1] - trace["cpu"][1]).abs().max().item()
+        print(f"[30] LCP {hydro} float64 150 spheres, {HYDRO_SMALL_STEPS} steps: rebuilds "
+              f"{trace['card'][0][-1][3]} (cpu {trace['cpu'][0][-1][3]}), max|pos diff| vs "
+              f"cpu {diff:.3e}, max overlap {trace['card'][2]:.3e}, lcp_iters card "
+              f"{[r[0] for r in trace['card'][0]]}", flush=True)
+        if not (trace["card"][0] == trace["cpu"][0] and diff <= 1e-7
+                and trace["card"][0][-1][3] >= 2 and not trace["card"][0][-1][4]):
+            fail(f"the float64 LCP {hydro} run on the card disagrees with the CPU run")
+
+    # ---- 31. the Ewald wave sum in float32 against float64 -----------------
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is allowed for float32 matmuls: the wave sum would raise")
+    rng = np.random.default_rng(31)
+    pos = rng.uniform(0.0, 14.0, (2000, 3))
+    frc = rng.normal(size=(2000, 3))
+    u = {}
+    for dt_ in (torch.float64, torch.float32):
+        op = ewald.build_ewald_rpy(14.0, 0.5, 1.0, xi=3.0 / 3.5, r_cut=3.5, tol=1e-4,
+                                   dtype=dt_, device=dev)
+        p_, f_ = (torch.as_tensor(a, dtype=dt_, device=dev) for a in (pos, frc))
+        u[dt_] = (ewald.ewald_wave_apply(op, p_, f_).double(),
+                  cuda_ms(lambda: ewald.ewald_wave_apply(op, p_, f_), torch, 5),
+                  op.kvecs.shape[0])
+    umax = u[torch.float64][0].abs().max().item()
+    werr = (u[torch.float32][0] - u[torch.float64][0]).abs().max().item()
+    print(f"[31] Ewald wave sum, 2000 bodies in box 14, {u[torch.float64][2]} k-modes: "
+          f"float32 within {werr / umax:.3e} of float64 (max|u| {umax:.3e}); float32 "
+          f"{u[torch.float32][1]:.3f} ms, float64 {u[torch.float64][1]:.3f} ms; {card}",
+          flush=True)
+    if not (umax > 0 and werr <= 1e-5 * umax):
+        fail(f"the float32 Ewald wave sum is off the float64 one: {werr} > 1e-5 * {umax}")
+    return paths
+
+
 def main() -> None:
     import torch
 
@@ -1014,8 +1248,6 @@ def main() -> None:
     if os.path.dirname(os.path.dirname(os.path.abspath(mundy_tpu_torch.__file__))) != HERE:
         fail(f"mundy_tpu_torch was imported from {mundy_tpu_torch.__file__}, "
              "not from this checkout")
-    from mundy_tpu_torch.constraints.collision import (active_pair_subset_strided,
-                                                       collision_setup_spheres)
     from mundy_tpu_torch.core.config import config_from_dict, load_yaml
     from mundy_tpu_torch.driver.apps.filaments import FilamentsConfig, FilamentsSim
     from mundy_tpu_torch.driver.apps.lcp_spheres import (LCPSpheresConfig,
@@ -1236,22 +1468,14 @@ def main() -> None:
     # ---- 8. K3 vs plain at the 1M LCP strided shape of the timed window ----
     # the strided layout of the next step of the bench line: the active
     # subset of the window's final state, through collision_forces' reshapes
-    setup = collision_setup_spheres(st.pos, sim._radius(), st.pairs, sim.metric)
-    act = active_pair_subset_strided(setup, sim._dyn_margin(setup), N_BIG,
-                                     sim.seg_block, sim.act_window, st.seg_starts)
+    values, loc, n_act = k3_window_inputs(sim, st, N_BIG, 3, torch)
     nb, W, B = sim.nb_blocks, sim.act_window, sim.seg_block
-    gam = torch.rand(act.setup.pairs.i.shape, generator=torch.Generator(dev).manual_seed(3),
-                     device=dev)
-    gn = -(torch.where(act.setup.pairs.mask, gam, 0.0)[:, None] * act.setup.normals)
-    values = gn.reshape(nb, W, 3).transpose(1, 2).contiguous()
     blk = torch.arange(nb, dtype=torch.int32, device=dev)[:, None] * B
-    loc = (act.setup.pairs.i.reshape(nb, W) - blk).contiguous()
     s_k = k3.strided_onehot_segment_sum(values, loc, B)
     s_p = k3.strided_segment_sum_plain(values, loc, B)
     torch.cuda.synchronize()
     k3_err = (s_k - s_p).abs().max().item()
     smax = s_p.abs().max().item()
-    n_act = int(act.setup.pairs.mask.sum())
     n_sorted = int((loc[:, 1:] >= loc[:, :-1]).all(1).sum())
     print(f"[8] K3 at (nb, W, B) = ({nb}, {W}, {B}), {n_act} active pairs: "
           f"max|diff| {k3_err:.3e}, max|sum| {smax:.3e}, bit-equal "
@@ -1280,7 +1504,7 @@ def main() -> None:
           f"{k3_lib_ms:.4f} ms (max|diff| {lib_err:.3e}), bound "
           f"{k3_bound[0]:.4f} ms ({k3_bound[1]})", flush=True)
     lcp_sim, lcp_st = sim, st  # [26] holds K3t at this state
-    del sim, st, setup, act, values, loc, s_k, s_p, acc, vals, flat
+    del sim, st, values, loc, s_k, s_p, acc, vals, flat
 
     # ---- 9. examples/lcp_spheres_100k.yaml ---------------------------------
     raw = load_yaml(os.path.join(HERE, "examples", "lcp_spheres_100k.yaml"))
@@ -1598,9 +1822,10 @@ def main() -> None:
     k5_entries = chromatin_phases(torch, dev, card)
     poly_entries = polydisperse_phases(torch, dev, lcp_sim, lcp_st, card)
     del lcp_sim, lcp_st
+    hydro_paths = lcp_hydro_phases(torch, dev, card)
 
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
-    print(json.dumps({"kernels": [
+    kernels = [
         {"name": "row_hertzian_forces_sym", "route": "cuda",
          "source": "mundy_tpu_torch/csrc/row_central.cu",
          "replaces": "mundy_tpu/ops/pallas/row_central.py:128",
@@ -1630,7 +1855,11 @@ def main() -> None:
          "replaces": "mundy_tpu/ops/pallas/row_segments.py:227",
          "launches": k4f_launches, "max_abs_err": k4f_err, "ms": k4f_ms,
          "plain_ms": k4f_plain_ms, "bound_ms": k4f_bound[0], "bound_by": k4f_bound[1],
-         "library_ms": None}] + k5_entries + poly_entries}), flush=True)
+         "library_ms": None}] + k5_entries + poly_entries
+    for entry in kernels:  # launches on the LCP hydro paths of [29]
+        if entry["name"] in hydro_paths:
+            entry["path_launches"] = hydro_paths[entry["name"]]
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
         flush=True)

@@ -52,21 +52,34 @@
 //   t[b, w] = -(n_w . F[loc_w]),  F[s] = sum over w' with loc_w' == s of
 //   -gamma_w' n_w',
 // both within body block b; a slot whose id lies outside [0, B) gets t = 0.
-// One block per body block. Phase 1 is K3's per-segment sum of -gamma n
-// (each value rounded as (-gamma) * n, each sum in increasing slot order
-// from zero) into a (3, B) array in shared memory (12 KB at B = 1024 in
-// float32); after a block sync, phase 2 gives each slot one thread that
-// reads F[loc] from shared memory and writes t = -((nx Fx + ny Fy) + nz Fz),
-// every product and sum rounded on its own (-fmad=false). The plain version
-// (ops/kernels/seg_onehot.strided_t_plain) adds and multiplies in that
-// order, so the two agree bit for bit. No global gather of F, no atomics,
-// one launch. Dropped from the TPU kernel: the two bf16 one-hot matmul
-// families with their hi/mid/lo splits and the VMEM budget check.
+// One block of 256 threads per body block, in two phases:
+//   * phase 1 is K3's sum of (-gamma) n (the same device helpers,
+//     seg_sum_runs and seg_sum_scan, over a loader that reads (-gamma) n
+//     where K3's reads its value planes), each product rounded on its own,
+//     each segment summed in increasing slot order from +0, into F's (3, B)
+//     array in shared memory (12 KB at B = 1024 in float32), by K3's two
+//     paths: __syncthreads_or finds whether the block's loc is
+//     nondecreasing; a sorted block marks its runs' bounds in passes of 1024
+//     segments (8 KB) and sums each run with one thread per segment, reading
+//     gamma and n from device memory; any other block takes the first
+//     design's scan, staging loc and (-gamma) n in tiles of 512 (float32) or
+//     256 (float64) slots in the same 8 KB, so the bits never depend on the
+//     premise. The strided layout of the LCP line is sorted in every block
+//     (see K3 above);
+//   * after a block sync, phase 2 gives each slot one thread that reads
+//     F[loc] from shared memory and writes t = -((nx Fx + ny Fy) + nz Fz),
+//     every product and sum rounded on its own (-fmad=false).
+// The plain version (ops/kernels/seg_onehot.strided_t_plain) adds and
+// multiplies in that order, so the two agree bit for bit. No global gather
+// of F, no atomics, one launch. Dropped from the TPU kernel: the two bf16
+// one-hot matmul families with their hi/mid/lo splits and the VMEM budget
+// check.
 //
 // Bound: 24 W bytes per block in float32 (read gamma, normals, loc once,
-// write t once: ~15 MB at 1M bodies, ~5 us), but phase 1 is K3's first
-// design (W * B compares per block, as K3's unsorted path), so compare issue
-// bounds it.
+// write t once: ~15 MB at 1M bodies, ~5 us at 3.35 TB/s). The sorted path
+// reads loc three times (twice from L1) and gamma and n once each; the
+// first design scanned W * B compares per block on every block, which only
+// an unsorted block still does.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -77,67 +90,81 @@ constexpr int kSegThreads = 256;
 constexpr int kScanTile = 512;   // slots per tile of the unsorted path
 constexpr int kRunPass = 1024;   // segments per pass of the sorted path
 
-// The unsorted path: the first design's scan over tiles of kScanTile slots
-// staged in sloc and sv, each segment's sum in slot order from +0.
+// A slot's three values, read from device memory: K3's value planes as
+// they are, K3t's (-gamma) n with each product rounded on its own.
 template <typename T>
-__device__ void seg_sum_scan(const T* __restrict__ vrow, const int* __restrict__ lrow,
-                             T* __restrict__ orow, int W, int B, int* sloc, T* sv) {
+struct PlaneValues {
+  const T* __restrict__ v;  // (3, W)
+  int W;
+  __device__ void operator()(int w, T& x, T& y, T& z) const {
+    x = v[w];
+    y = v[W + w];
+    z = v[2 * W + w];
+  }
+};
+
+template <typename T>
+struct DragValues {
+  const T* __restrict__ gamma;  // (W,)
+  const T* __restrict__ n;      // (3, W)
+  int W;
+  __device__ void operator()(int w, T& x, T& y, T& z) const {
+    const T ng = -gamma[w];
+    x = ng * n[w];
+    y = ng * n[W + w];
+    z = ng * n[2 * W + w];
+  }
+};
+
+// Whether any adjacent pair of the block's loc decreases (every thread
+// gets the answer; a block sync).
+__device__ bool block_unsorted(const int* __restrict__ lrow, int W) {
+  int down = 0;
+  for (int w = threadIdx.x + 1; w < W; w += blockDim.x) down |= lrow[w - 1] > lrow[w];
+  return __syncthreads_or(down);
+}
+
+// The unsorted path: the first design's scan over tiles of TW slots staged
+// in sloc and sv (3, TW), each segment's sum in slot order from +0, written
+// to out's (3, B) array.
+template <int TW, typename T, typename Load>
+__device__ void seg_sum_scan(Load load, const int* __restrict__ lrow, T* __restrict__ out,
+                             int W, int B, int* sloc, T* sv) {
   for (int s0 = 0; s0 < B; s0 += blockDim.x) {
     const int s = s0 + threadIdx.x;
     T ax = T(0), ay = T(0), az = T(0);
-    for (int w0 = 0; w0 < W; w0 += kScanTile) {
-      const int tw = W - w0 < kScanTile ? W - w0 : kScanTile;
+    for (int w0 = 0; w0 < W; w0 += TW) {
+      const int tw = W - w0 < TW ? W - w0 : TW;
       __syncthreads();  // the previous tile is consumed
       for (int k = threadIdx.x; k < tw; k += blockDim.x) {
         sloc[k] = lrow[w0 + k];
-        sv[k] = vrow[w0 + k];
-        sv[kScanTile + k] = vrow[W + w0 + k];
-        sv[2 * kScanTile + k] = vrow[2 * W + w0 + k];
+        load(w0 + k, sv[k], sv[TW + k], sv[2 * TW + k]);
       }
       __syncthreads();
       if (s < B) {
         for (int k = 0; k < tw; ++k) {
           if (sloc[k] == s) {
             ax += sv[k];
-            ay += sv[kScanTile + k];
-            az += sv[2 * kScanTile + k];
+            ay += sv[TW + k];
+            az += sv[2 * TW + k];
           }
         }
       }
     }
     if (s < B) {
-      orow[s] = ax;
-      orow[B + s] = ay;
-      orow[2 * B + s] = az;
+      out[s] = ax;
+      out[B + s] = ay;
+      out[2 * B + s] = az;
     }
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kSegThreads)
-seg_sum_kernel(const T* __restrict__ values, const int* __restrict__ loc,
-               T* __restrict__ out, int W, int B) {
-  // The two paths never meet in one block, so they share one buffer: the
-  // unsorted path's tile (loc and three value planes) or the sorted path's
-  // run bounds.
-  constexpr int kScanBytes = kScanTile * static_cast<int>(sizeof(int) + 3 * sizeof(T));
-  constexpr int kRunBytes = 2 * kRunPass * static_cast<int>(sizeof(int));
-  __shared__ __align__(16) unsigned char smem[kScanBytes > kRunBytes ? kScanBytes : kRunBytes];
-  const int b = blockIdx.x;
-  const int* lrow = loc + static_cast<size_t>(b) * W;
-  const T* vrow = values + static_cast<size_t>(b) * 3 * W;
-  T* orow = out + static_cast<size_t>(b) * 3 * B;
-
-  int down = 0;
-  for (int w = threadIdx.x + 1; w < W; w += blockDim.x) down |= lrow[w - 1] > lrow[w];
-  if (__syncthreads_or(down)) {
-    int* sloc = reinterpret_cast<int*>(smem);
-    seg_sum_scan(vrow, lrow, orow, W, B, sloc, reinterpret_cast<T*>(sloc + kScanTile));
-    return;
-  }
-
-  int* run_lo = reinterpret_cast<int*>(smem);  // first slot of each segment's run
-  int* run_hi = run_lo + kRunPass;             // one past its last
+// The sorted path: each segment's slots are one run; mark the runs' bounds
+// in passes of kRunPass segments (run_lo, run_hi), then one thread per
+// segment sums its run in slot order from +0 into out's (3, B) array.
+template <typename T, typename Load>
+__device__ void seg_sum_runs(Load load, const int* __restrict__ lrow, T* __restrict__ out,
+                             int W, int B, int* run_lo, int* run_hi) {
   for (int s0 = 0; s0 < B; s0 += kRunPass) {
     const int ns = B - s0 < kRunPass ? B - s0 : kRunPass;
     __syncthreads();  // the previous pass's bounds are consumed
@@ -158,71 +185,75 @@ seg_sum_kernel(const T* __restrict__ values, const int* __restrict__ loc,
       T ax = T(0), ay = T(0), az = T(0);
       const int hi = run_hi[s];
       for (int w = run_lo[s]; w < hi; ++w) {
-        ax += vrow[w];
-        ay += vrow[W + w];
-        az += vrow[2 * W + w];
+        T x, y, z;
+        load(w, x, y, z);
+        ax += x;
+        ay += y;
+        az += z;
       }
-      orow[s0 + s] = ax;
-      orow[B + s0 + s] = ay;
-      orow[2 * B + s0 + s] = az;
+      out[s0 + s] = ax;
+      out[B + s0 + s] = ay;
+      out[2 * B + s0 + s] = az;
     }
   }
 }
 
-// K3t's slot tiles: with F's (3, B) array beside them (12 KB in float32,
-// 24 KB in float64 at B = 1024) the block stays within the 48 KB every
-// block gets.
 template <typename T>
-struct TTile {
-  static constexpr int W = sizeof(T) == 4 ? 2048 : 512;
-};
-
-template <typename T>
-__global__ void strided_t_kernel(const T* __restrict__ gamma,
-                                 const T* __restrict__ normals,
-                                 const int* __restrict__ loc,
-                                 T* __restrict__ t_out, int W, int B) {
-  constexpr int TW = TTile<T>::W;
-  __shared__ int sloc[TW];
-  __shared__ T sv[3][TW];
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* F = reinterpret_cast<T*>(smem_raw);  // (3, B)
+__global__ void __launch_bounds__(kSegThreads)
+seg_sum_kernel(const T* __restrict__ values, const int* __restrict__ loc,
+               T* __restrict__ out, int W, int B) {
+  // The two paths never meet in one block, so they share one buffer: the
+  // unsorted path's tile (loc and three value planes) or the sorted path's
+  // run bounds.
+  constexpr int kScanBytes = kScanTile * static_cast<int>(sizeof(int) + 3 * sizeof(T));
+  constexpr int kRunBytes = 2 * kRunPass * static_cast<int>(sizeof(int));
+  __shared__ __align__(16) unsigned char smem[kScanBytes > kRunBytes ? kScanBytes : kRunBytes];
   const int b = blockIdx.x;
   const int* lrow = loc + static_cast<size_t>(b) * W;
-  const T* grow = gamma + static_cast<size_t>(b) * W;
+  const PlaneValues<T> load{values + static_cast<size_t>(b) * 3 * W, W};
+  T* orow = out + static_cast<size_t>(b) * 3 * B;
+  int* buf = reinterpret_cast<int*>(smem);
+  if (block_unsorted(lrow, W)) {
+    seg_sum_scan<kScanTile>(load, lrow, orow, W, B, buf,
+                            reinterpret_cast<T*>(buf + kScanTile));
+  } else {
+    seg_sum_runs(load, lrow, orow, W, B, buf, buf + kRunPass);
+  }
+}
+
+// K3t's scan tile (its unsorted path): loc and three value planes of
+// TScan<T>::W slots fill the 8 KB that the sorted path spends on its run
+// bounds.
+template <typename T>
+struct TScan {
+  static constexpr int W = sizeof(T) == 4 ? 512 : 256;
+};
+constexpr int kTScratch = 2 * kRunPass * static_cast<int>(sizeof(int));
+static_assert(TScan<float>::W * (sizeof(int) + 3 * sizeof(float)) <= kTScratch, "tile");
+static_assert(TScan<double>::W * (sizeof(int) + 3 * sizeof(double)) <= kTScratch, "tile");
+
+template <typename T>
+__global__ void __launch_bounds__(kSegThreads)
+strided_t_kernel(const T* __restrict__ gamma, const T* __restrict__ normals,
+                 const int* __restrict__ loc, T* __restrict__ t_out, int W, int B) {
+  // dynamic shared memory: kTScratch bytes of run bounds or scan tile, then
+  // F's (3, B) array
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* F = reinterpret_cast<T*>(smem_raw + kTScratch);
+  const int b = blockIdx.x;
+  const int* lrow = loc + static_cast<size_t>(b) * W;
   const T* nrow = normals + static_cast<size_t>(b) * 3 * W;
+  const DragValues<T> load{gamma + static_cast<size_t>(b) * W, nrow, W};
   T* trow = t_out + static_cast<size_t>(b) * W;
 
-  // phase 1: F[s] = sum of -gamma n over the slots of segment s, in slot order
-  for (int s0 = 0; s0 < B; s0 += blockDim.x) {
-    const int s = s0 + threadIdx.x;
-    T ax = T(0), ay = T(0), az = T(0);
-    for (int w0 = 0; w0 < W; w0 += TW) {
-      const int tw = W - w0 < TW ? W - w0 : TW;
-      __syncthreads();  // the previous tile is consumed
-      for (int k = threadIdx.x; k < tw; k += blockDim.x) {
-        const T ng = -grow[w0 + k];
-        sloc[k] = lrow[w0 + k];
-        sv[0][k] = ng * nrow[w0 + k];
-        sv[1][k] = ng * nrow[W + w0 + k];
-        sv[2][k] = ng * nrow[2 * W + w0 + k];
-      }
-      __syncthreads();
-      if (s < B) {
-        for (int k = 0; k < tw; ++k) {
-          if (sloc[k] == s) {
-            ax += sv[0][k];
-            ay += sv[1][k];
-            az += sv[2][k];
-          }
-        }
-      }
-    }
-    if (s < B) {
-      F[s] = ax;
-      F[B + s] = ay;
-      F[2 * B + s] = az;
-    }
+  // phase 1: F[s] = sum of (-gamma) n over the slots of segment s, in slot
+  // order from +0, by K3's two paths
+  int* buf = reinterpret_cast<int*>(smem_raw);
+  constexpr int TW = TScan<T>::W;
+  if (block_unsorted(lrow, W)) {
+    seg_sum_scan<TW>(load, lrow, F, W, B, buf, reinterpret_cast<T*>(buf + TW));
+  } else {
+    seg_sum_runs(load, lrow, F, W, B, buf, buf + kRunPass);
   }
   __syncthreads();
 
@@ -240,10 +271,8 @@ __global__ void strided_t_kernel(const T* __restrict__ gamma,
 template <typename T>
 int launch_t(const void* gamma, const void* normals, const void* loc, void* t,
              int nb, int W, int B, void* stream) {
-  const int threads = B >= 1024 ? 1024 : ((B + 31) / 32) * 32;
-  const size_t smem = static_cast<size_t>(3) * B * sizeof(T);
-  const size_t smem_static = static_cast<size_t>(TTile<T>::W) * (sizeof(int) + 3 * sizeof(T));
-  if (smem + smem_static > 48 * 1024) {
+  const size_t smem = kTScratch + static_cast<size_t>(3) * B * sizeof(T);
+  if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         strided_t_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
@@ -252,7 +281,7 @@ int launch_t(const void* gamma, const void* normals, const void* loc, void* t,
       return static_cast<int>(err);
     }
   }
-  strided_t_kernel<T><<<nb, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  strided_t_kernel<T><<<nb, kSegThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(gamma), static_cast<const T*>(normals),
       static_cast<const int*>(loc), static_cast<T*>(t), W, B);
   return static_cast<int>(cudaGetLastError());

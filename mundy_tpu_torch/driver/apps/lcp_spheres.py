@@ -1,17 +1,30 @@
 """BASELINE config #2: N spheres with LCP non-penetration constraints.
 
-Port of mundy_tpu/driver/apps/lcp_spheres.py with the dry local-drag
-mobility (hydro = "none"), monodisperse or polydisperse (radii drawn as the
-reference draws them: numpy, seed + 777; per-body search radii in the broad
-phase, per-pair drag mobilities in the Delassus apply). Per step:
-constraints from the skin-buffered ordered pair list (signed separation +
-normals at the current positions), strided active-set compaction,
-matrix-free BBPGD with the banded Delassus apply and warm-started
-multipliers, and an Euler step with the constraint velocities plus
-Brownian drift. A skin trigger rebuilds the
-broad phase: the rows engine with kernel K2 (ops/kernels/row_extract.py)
-when the box holds >= 5 cells per axis, else the cell list. The force
-assembly runs kernel K3 (ops/kernels/seg_onehot.py) once per step.
+Port of mundy_tpu/driver/apps/lcp_spheres.py. Per step: constraints from
+the skin-buffered ordered pair list (signed separation + normals at the
+current positions), strided active-set compaction, matrix-free BBPGD with
+warm-started multipliers, and an Euler step with the constraint velocities
+plus Brownian drift. A skin trigger rebuilds the broad phase: the rows
+engine with kernel K2 (ops/kernels/row_extract.py) when the box holds >= 5
+cells per axis, else the cell list.
+
+The mobility (`hydro`):
+- "none": dry local drag, monodisperse or polydisperse (radii drawn as the
+  reference draws them: numpy, seed + 777; per-body search radii in the
+  broad phase, per-pair drag mobilities). BBPGD runs the banded Delassus
+  apply; the force assembly runs kernel K3 (ops/kernels/seg_onehot.py)
+  once per step, for the final velocity.
+- "rpy_neighbors": RPY over the constraint neighbor matrix, with the
+  overlap correction (mobility/rpy.py).
+- "rpy_ewald": periodic RPY by the Ewald direct sum (mobility/ewald.py),
+  r_cut = box / 4, its real part over a wide hydro neighbor matrix rebuilt
+  with the broad phase.
+- "rpy_spectral": periodic RPY by spectral Ewald (mobility/spectral.py):
+  kernels K5s and K5i grid the wave part, the real part runs on the 3D
+  cells, both rebinned once per step.
+In the RPY modes each BBPGD iteration applies D^T M D: the force assembly
+through K3, the mobility, the separation rate. The reference's `rpy_ring`
+needs a device mesh and is not ported.
 
 The control flow is the reference's, step for step: before every step the
 host reads the skin trigger and rebuilds when it fired, and the BBPGD loop
@@ -48,13 +61,22 @@ from mundy_tpu_torch.driver.regrow import grow_int, run_blocks
 from mundy_tpu_torch.dynamics.brownian import brownian_velocity_keyed
 from mundy_tpu_torch.dynamics.integrators import euler_step
 from mundy_tpu_torch.geom.periodicity import periodic
+from mundy_tpu_torch.mobility.ewald import build_ewald_rpy, ewald_rpy_apply
 from mundy_tpu_torch.mobility.local_drag import local_drag_mobility
+from mundy_tpu_torch.mobility.rpy import rpy_apply_neighbors
+from mundy_tpu_torch.mobility.spectral import (
+    build_spectral_ewald,
+    make_se_geometry_tiles,
+    se_bin_geom,
+    se_rpy_apply_cells,
+)
 from mundy_tpu_torch.neighbor.cell_list import (
     build_cell_list,
     build_pair_list_ordered,
     make_cell_grid,
     neighbor_matrix,
 )
+from mundy_tpu_torch.neighbor.cells3d import build_cells3d, make_cell_grid3d
 from mundy_tpu_torch.neighbor.rows import make_row_grid, neighbor_matrix_rows
 from mundy_tpu_torch.ops.segments import segment_windows
 
@@ -108,6 +130,7 @@ class LCPSpheresState:
     step: int
     nmat: object  # NeighborMatrix (skin-buffered)
     pairs: object  # PairList (skin-buffered constraint candidates)
+    hydro_nmat: object  # NeighborMatrix of the hydro sum (rpy_ewald: wider; else nmat)
     seg_starts: torch.Tensor  # (nb,) first-pair index per body block
     dual_full: torch.Tensor  # (C,) full-list slot of each pair's (j, i) duplicate
     prev_cum: torch.Tensor  # (C,) last step's active cumsum; zeros = invalid
@@ -132,10 +155,10 @@ class LCPSpheresSim:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("LCPSpheresSim(device='cuda') needs a CUDA "
                                "device, and torch sees none")
-        if c.hydro != "none":
+        if c.hydro == "rpy_ring":
             raise NotImplementedError(
-                f"hydro={c.hydro!r} is not ported yet (ROADMAP queue 1, item 4: "
-                "the LCP hydro modes)")
+                "hydro='rpy_ring' runs on a device mesh and is not ported yet "
+                "(ROADMAP queue 1, item 8: the multi-device engines)")
         self.dtype = _DTYPES[c.dtype]
         box = [c.box_size] * 3
         self.metric = periodic(box, dtype=self.dtype, device=self.device)
@@ -166,6 +189,25 @@ class LCPSpheresSim:
         self.rows_slack = 1.9
         self._broad_shrink_streak = 0
         self._act_shrink_streak = 0
+        self.ewald = self.spectral = None
+        if c.hydro == "rpy_spectral":
+            # FFT wave sum + a real-space cutoff of a few spacings, the real
+            # part on the dense 3D cells (no hydro neighbor matrix)
+            self.spectral = build_spectral_ewald(c.box_size, c.radius, c.viscosity,
+                                                 tol=1e-4, n_particles=c.num_spheres, **kw)
+            self.se_geom = make_se_geometry_tiles(self.spectral, c.num_spheres)
+            self.hydro_cells_grid = make_cell_grid3d(box, self.spectral.base.r_cut,
+                                                     c.num_spheres, **kw)
+        if c.hydro == "rpy_ewald":
+            # the direct sum with r_cut ~ box/4 (balancing k-modes against
+            # real-space pairs); its neighbor matrix is built beside the
+            # tighter constraint search
+            r_cut = 0.25 * c.box_size
+            self.ewald = build_ewald_rpy(c.box_size, c.radius, c.viscosity,
+                                         xi=3.0 / r_cut, r_cut=r_cut, tol=1e-4, **kw)
+            self.hydro_search = 0.5 * r_cut
+            self.hydro_grid = make_cell_grid([0, 0, 0], box, 2 * self.hydro_search,
+                                             (True,) * 3, self.dtype, device=self.device)
 
     @property
     def act_capacity(self) -> int:
@@ -221,7 +263,17 @@ class LCPSpheresSim:
                                              dtype=self.dtype, device=self.device)
         dual_full, dual_missing = pair_dual_slots(pairs, starts, nmat, near=near)
         ovf = clist_ovf | nmat.overflow | pairs.overflow | seg.overflow | dual_missing
-        return nmat, pairs, seg.starts, dual_full, ovf
+        hmat = nmat
+        if self.ewald is not None:
+            hcl = build_cell_list(pos, self.hydro_grid, 4 * c.cell_capacity)
+            # a small chunk: the (chunk, 27 cap) candidates of the wide search
+            hmat = neighbor_matrix(
+                pos, hcl, torch.tensor(self.hydro_search, dtype=self.dtype,
+                                       device=self.device),
+                metric=self.metric, max_neighbors=8 * c.max_neighbors,
+                chunk=min(4096, max(256, c.num_spheres)))
+            ovf = ovf | hcl.overflow | hmat.overflow
+        return nmat, pairs, hmat, seg.starts, dual_full, ovf
 
     def init(self, pos: Optional[torch.Tensor] = None,
              key_words: Optional[tuple] = None) -> LCPSpheresState:
@@ -239,7 +291,7 @@ class LCPSpheresSim:
         if key_words is None:
             key_words = (0, c.seed & 0xFFFFFFFF)
         pos = torch.as_tensor(pos, dtype=self.dtype, device=self.device)
-        nmat, pairs, seg_starts, dual_full, ovf = self._broad_phase(pos)
+        nmat, pairs, hmat, seg_starts, dual_full, ovf = self._broad_phase(pos)
         # every BBPGD iteration streams the full capacity: right-size it to
         # 1.3x the measured candidate count (+margin)
         count = int(pairs.num_pairs)
@@ -255,12 +307,12 @@ class LCPSpheresSim:
                 self.rows_k = k_tight
                 resize = True
         if resize:  # windows need the un-truncated pair list
-            nmat, pairs, seg_starts, dual_full, ovf = self._broad_phase(pos)
+            nmat, pairs, hmat, seg_starts, dual_full, ovf = self._broad_phase(pos)
         counts = np.diff(np.append(seg_starts.cpu().numpy(), int(pairs.num_pairs)))
         w_tight = (int(counts.max() * 1.5) + 511) // 512 * 512
         if w_tight != self.seg_window:
             self.seg_window = w_tight
-            nmat, pairs, seg_starts, dual_full, ovf = self._broad_phase(pos)
+            nmat, pairs, hmat, seg_starts, dual_full, ovf = self._broad_phase(pos)
         # active window from the near-contact per-block maximum (a cold start
         # is the high-water mark), 1.1x slack on a 64 grid
         setup0 = collision_setup_spheres(pos, self._radius(), pairs, metric=self.metric)
@@ -277,7 +329,8 @@ class LCPSpheresSim:
                                  dtype=torch.int32, device=self.device),
             gamma_full=torch.zeros((self.pair_capacity,), **kw),
             key=tuple(int(k) for k in key_words), step=0,
-            nmat=nmat, pairs=pairs, seg_starts=seg_starts, dual_full=dual_full,
+            nmat=nmat, pairs=pairs, hydro_nmat=hmat, seg_starts=seg_starts,
+            dual_full=dual_full,
             prev_cum=torch.zeros((self.pair_capacity,), dtype=torch.int32,
                                  device=self.device),
             ref_pos=pos, rebuild_count=1, lcp_iters=0, lcp_iters_max=0,
@@ -320,7 +373,7 @@ class LCPSpheresSim:
         return out[:cap]
 
     def _rebuild(self, state: LCPSpheresState) -> LCPSpheresState:
-        nmat, pairs, seg_starts, dual_full, ovf = self._broad_phase(state.pos)
+        nmat, pairs, hmat, seg_starts, dual_full, ovf = self._broad_phase(state.pos)
         # warm-start multipliers survive the rebuild by pair identity: scatter
         # the active ones onto the old full list, remap into the new list
         gfull_old = self._scatter_gamma(
@@ -331,18 +384,38 @@ class LCPSpheresSim:
                                  old_starts=body_pair_starts(state.nmat),
                                  old_nmat=state.nmat)
         return state.replace(
-            nmat=nmat, pairs=pairs, seg_starts=seg_starts, dual_full=dual_full,
-            prev_cum=torch.zeros_like(state.prev_cum),
+            nmat=nmat, pairs=pairs, hydro_nmat=hmat, seg_starts=seg_starts,
+            dual_full=dual_full, prev_cum=torch.zeros_like(state.prev_cum),
             gamma=torch.zeros_like(state.gamma),
             gamma_sel=torch.full_like(state.gamma_sel, self.pair_capacity),
             gamma_full=gamma_full, ref_pos=state.pos,
             rebuild_count=state.rebuild_count + 1,
             overflow=state.overflow | ovf)
 
-    def _mobility(self, f: torch.Tensor) -> torch.Tensor:
-        if self.radii is not None:
-            return self.inv_drag[:, None] * f
-        return local_drag_mobility(f, self.config.radius, self.config.viscosity)
+    def _mobility(self, pos: torch.Tensor, hydro_nmat) -> tuple:
+        """(apply, overflow) of the hydro mode at these positions. `overflow`
+        flags the spectral mode's per-step binning (SE tiles, 3D cells): an
+        overflowed body leaves the hydro sum, so it must reach the state's
+        flag."""
+        c = self.config
+        no_ovf = torch.zeros((), dtype=torch.bool, device=self.device)
+        if c.hydro == "none":
+            if self.radii is not None:
+                return (lambda f: self.inv_drag[:, None] * f), no_ovf
+            return (lambda f: local_drag_mobility(f, c.radius, c.viscosity)), no_ovf
+        if c.hydro == "rpy_spectral":
+            # bin once per step: positions are fixed across the solve's applies
+            pieces = se_bin_geom(self.se_geom, pos, self.dtype)
+            cells = build_cells3d(pos, self.hydro_cells_grid)
+            return (lambda f: se_rpy_apply_cells(
+                self.spectral, cells, pos, f, (c.box_size,) * 3, self.se_geom,
+                pieces=pieces)[0]), pieces[1] | cells.overflow
+        if c.hydro == "rpy_ewald":
+            return (lambda f: ewald_rpy_apply(self.ewald, pos, f, hydro_nmat,
+                                              self.metric)), no_ovf
+        return (lambda f: rpy_apply_neighbors(pos, f, hydro_nmat, c.radius, c.viscosity,
+                                              metric=self.metric,
+                                              overlap_correction=True)), no_ovf
 
     def _dyn_margin(self, setup) -> torch.Tensor:
         """Active-set margin = static margin + deepest current overlap (a
@@ -356,24 +429,31 @@ class LCPSpheresSim:
         """Constraint assembly + BBPGD + Euler against the skin-buffered
         pair list (separations and normals from the current positions)."""
         c = self.config
+        fused_drag = c.hydro == "none"
         setup_full = collision_setup_spheres(state.pos, self._radius(), state.pairs,
                                              metric=self.metric)
         act = active_pair_subset_strided(
             setup_full, self._dyn_margin(setup_full), c.num_spheres,
             self.seg_block, self.act_window, state.seg_starts,
-            dual_full=state.dual_full,
+            dual_full=state.dual_full if fused_drag else None,
             prev=(state.prev_cum, state.gamma, self.act_window),
             gamma_full=state.gamma_full)
-        if self.radii is not None:
-            nsafe = c.num_spheres - 1
-            mob_i = self.inv_drag[torch.clamp(act.setup.pairs.i, max=nsafe).long()]
-            mob_j = self.inv_drag[torch.clamp(act.setup.pairs.j, max=nsafe).long()]
-        else:
-            mob_i = mob_j = torch.tensor(1.0 / (6.0 * _math.pi * c.viscosity * c.radius),
-                                         dtype=self.dtype, device=self.device)
-        apply_band = make_band_delassus_apply(act.setup, act.dual, c.dt,
-                                              self._pair_run_bound(),
-                                              mobility_i=mob_i, mobility_j=mob_j)
+        mobility, hydro_ovf = self._mobility(state.pos, state.hydro_nmat)
+        apply_band = None
+        if fused_drag:
+            # scalar mobility: the banded Delassus apply (the active list is
+            # i-sorted, so M[p, q] lives within the per-body neighbor cap)
+            if self.radii is not None:
+                nsafe = c.num_spheres - 1
+                mob_i = self.inv_drag[torch.clamp(act.setup.pairs.i, max=nsafe).long()]
+                mob_j = self.inv_drag[torch.clamp(act.setup.pairs.j, max=nsafe).long()]
+            else:
+                mob_i = mob_j = torch.tensor(
+                    1.0 / (6.0 * _math.pi * c.viscosity * c.radius),
+                    dtype=self.dtype, device=self.device)
+            apply_band = make_band_delassus_apply(act.setup, act.dual, c.dt,
+                                                  self._pair_run_bound(),
+                                                  mobility_i=mob_i, mobility_j=mob_j)
         # Brownian drift is a known velocity: it enters the LCP's constant
         # term so the solve enforces non-penetration of the end-of-step
         # positions
@@ -384,7 +464,7 @@ class LCPSpheresSim:
                 torch.arange(c.num_spheres, dtype=torch.int32, device=self.device),
                 c.diffusion_coeff, c.dt, dtype=self.dtype)
         gamma, vel, res = resolve_collisions(
-            act.setup, self._mobility, c.num_spheres, c.dt,
+            act.setup, mobility, c.num_spheres, c.dt,
             max_allowable_overlap=c.max_allowable_overlap,
             max_iterations=c.max_col_iterations, gamma0=act.gamma0,
             u_ext=u_ext, alpha0=state.lcp_alpha, apply_override=apply_band)
@@ -399,7 +479,7 @@ class LCPSpheresSim:
             lcp_iters_max=max(state.lcp_iters_max, res.num_iters),
             lcp_residual=res.residual, lcp_alpha=res.alpha,
             act_count=act.n_act, act_block_max=act.block_max.to(torch.int32),
-            overflow=state.overflow | act.overflow)
+            overflow=state.overflow | act.overflow | hydro_ovf)
 
     def _moved(self, state: LCPSpheresState) -> bool:
         disp = self.metric.sep(state.ref_pos, state.pos)
@@ -476,7 +556,10 @@ class LCPSpheresSim:
     def regrow(self, state: LCPSpheresState) -> LCPSpheresState:
         """Grow every overflow-bounded capacity and rebuild from the state's
         positions; warm-start multipliers are remapped by pair identity into
-        the bigger list (driver/regrow.py)."""
+        the bigger list (driver/regrow.py). The spectral mode's SE tile rows
+        and 3D-cell capacity grow too, as the chromatin app grows them; the
+        reference's LCP app leaves them, so its overflow there persists until
+        run() gives up (ROADMAP queue 3)."""
         c = self.config
         probes = self._pair_run_bound()
         old = torch.zeros((self.pair_capacity,), dtype=self.dtype, device=self.device)
@@ -487,12 +570,17 @@ class LCPSpheresSim:
         self.rows_slack *= 1.5
         c.max_neighbors = grow_int(c.max_neighbors)
         c.cell_capacity = grow_int(c.cell_capacity)
-        nmat, pairs, seg_starts, dual_full, ovf = self._broad_phase(state.pos)
+        if self.spectral is not None:
+            self.se_geom = self.se_geom._replace(R=grow_int(self.se_geom.R))
+            g3 = self.hydro_cells_grid
+            self.hydro_cells_grid = g3.replace(capacity=grow_int(g3.capacity))
+        nmat, pairs, hmat, seg_starts, dual_full, ovf = self._broad_phase(state.pos)
         gamma_full = remap_gamma(state.pairs, self._scatter_gamma(old, state), pairs,
                                  probes=probes, old_starts=body_pair_starts(state.nmat),
                                  old_nmat=state.nmat)
         return state.replace(
-            nmat=nmat, pairs=pairs, seg_starts=seg_starts, dual_full=dual_full,
+            nmat=nmat, pairs=pairs, hydro_nmat=hmat, seg_starts=seg_starts,
+            dual_full=dual_full,
             prev_cum=torch.zeros((self.pair_capacity,), dtype=torch.int32,
                                  device=self.device),
             gamma=torch.zeros((self.act_capacity,), dtype=self.dtype, device=self.device),

@@ -1,7 +1,6 @@
-"""Ewald-split periodic RPY mobility: the real-space part and its tables.
+"""Ewald-split periodic RPY mobility (the long-range Stokes path).
 
-Port of mundy_tpu/mobility/ewald.py (the pieces the spectral-Ewald path
-reads). The split (Hasimoto screening):
+Port of mundy_tpu/mobility/ewald.py. The split (Hasimoto screening):
 
     M(k) = (I - k_hat k_hat) sinc^2(k a) / (eta k^2)      exact RPY in k
     H(k) = (1 + k^2/(4 xi^2)) exp(-k^2/(4 xi^2))          splitting window
@@ -9,9 +8,12 @@ reads). The split (Hasimoto screening):
     real part  = RPY(r) - W(r),  W = continuum FT^-1[M H]
 
 The window scalars W are computed once on the host in float64 by radial
-quadrature and fitted by Chebyshev series; the self term replaces W(0) by
-the true 1/(6 pi eta a). `build_ewald_rpy` also builds the direct-sum k
-table, as the reference does; the spectral path never reads it.
+quadrature, tabulated and fitted by Chebyshev series; the self term
+replaces W(0) by the true 1/(6 pi eta a). The direct sum
+(`ewald_rpy_apply`: the real part over a neighbor matrix, the wave part as
+dense products over k-mode chunks, the self term) serves the LCP app's
+`rpy_ewald` mode; the spectral-Ewald path (mobility/spectral.py) reads the
+real-space pieces and grids the wave part instead.
 """
 
 from __future__ import annotations
@@ -229,3 +231,88 @@ def ewald_real_apply_cells(op: EwaldRPY, cells, forces: torch.Tensor,
     payload = gather_from_flat(cells, forces)
     u = pair_apply_cells3d(cells, box_lengths, payload, rpy_real_cells_kernel(op), 3)
     return scatter_to_flat(cells, u, forces.shape[0])
+
+
+def _interp_tables(op: EwaldRPY, r: torch.Tensor):
+    """Linear interpolation of the tabulated real-space correction scalars,
+    zero beyond r_cut (the operator's path when it has no Chebyshev fits)."""
+    n_t = op.table_r.shape[0]
+    t = r / op.r_cut * (n_t - 1)
+    i0 = torch.clamp(t.to(torch.int32), 0, n_t - 2).to(torch.int64)
+    w = t - i0
+    f = op.table_f[i0] * (1 - w) + op.table_f[i0 + 1] * w
+    g = op.table_g[i0] * (1 - w) + op.table_g[i0 + 1] * w
+    inside = r < op.r_cut
+    return torch.where(inside, f, 0.0), torch.where(inside, g, 0.0)
+
+
+def ewald_wave_apply(op: EwaldRPY, pos: torch.Tensor, forces: torch.Tensor,
+                     chunk_k: int = 4096) -> torch.Tensor:
+    """Wave-space sum as dense products over chunks of chunk_k k-modes:
+
+        u_i = sum_k c(k) (I - khat khat) [cos(k.x_i) Sc(k) + sin(k.x_i) Ss(k)]
+
+    with Sc = sum_j cos(k.x_j) f_j, Ss = sum_j sin(k.x_j) f_j; each row adds
+    the chunks in mode order, as the reference does. The products need full
+    float32 (the reference pins its matmuls to the highest precision: bf16
+    products left a 2.9e-3 relative error in this sum), so a float32 call on
+    the card raises while TF32 is allowed."""
+    if (forces.is_cuda and forces.dtype == torch.float32
+            and torch.backends.cuda.matmul.allow_tf32):
+        raise RuntimeError("the Ewald wave sum needs full float32 products: "
+                           "torch.backends.cuda.matmul.allow_tf32 is on")
+    u = torch.zeros_like(forces)
+    for c0 in range(0, op.kvecs.shape[0], chunk_k):
+        kvc = op.kvecs[c0:c0 + chunk_k]
+        kcc = op.kcoeff[c0:c0 + chunk_k]
+        k2 = torch.clamp((kvc * kvc).sum(1), min=1e-30)
+        phase = pos @ kvc.T  # (n, Kc)
+        cosp = torch.cos(phase)
+        sinp = torch.sin(phase)
+        # project the structure factors transverse per mode: P f = f - khat (khat . f)
+        fk_c = cosp.T @ forces  # (Kc, 3)
+        fk_s = sinp.T @ forces
+        kdotc = (kvc * fk_c).sum(1) / k2
+        kdots = (kvc * fk_s).sum(1) / k2
+        tc = (fk_c - kdotc[:, None] * kvc) * kcc[:, None]
+        ts = (fk_s - kdots[:, None] * kvc) * kcc[:, None]
+        u = u + cosp @ tc + sinp @ ts
+    return u
+
+
+def ewald_real_apply(op: EwaldRPY, pos: torch.Tensor, forces: torch.Tensor, nmat,
+                     metric, hbm_budget_bytes: float = 1.0e9) -> torch.Tensor:
+    """Real-space correction over a neighbor matrix whose cutoff is >=
+    r_cut, chunked over particles so that the ~8 live (chunk, K, 3) pair
+    temporaries stay within hbm_budget_bytes. The scalars come from the
+    Chebyshev fits, or from the tables when the operator has none."""
+    n, k = nmat.idx.shape
+    pf = torch.cat([pos, forces], dim=1)  # (N, 6): one row gather per pair
+    use_cheb = len(op.cheb_fw) > 0
+
+    def apply_rows(idx_c, mask_c, pos_c):
+        pfj = pf[torch.clamp(idx_c, max=n - 1).to(torch.int64)]  # (rows, K, 6)
+        rvec = metric.sep(pfj[..., :3], pos_c[:, None, :])  # from j toward i
+        fj = pfj[..., 3:]
+        r2 = torch.clamp((rvec * rvec).sum(-1), min=1e-24)
+        rinv = torch.rsqrt(r2)
+        r = r2 * rinv
+        f, g = real_scalars(op, r, rinv) if use_cheb else _interp_tables(op, r)
+        rdotf = (rvec * fj).sum(-1) * rinv * rinv
+        u = f[..., None] * fj + (g * rdotf)[..., None] * rvec
+        return torch.where(mask_c[..., None], u, 0.0).sum(1)
+
+    chunk = int(hbm_budget_bytes // max(8 * k * 3 * pos.element_size(), 1))
+    if chunk >= n:
+        return apply_rows(nmat.idx, nmat.mask, pos)
+    chunk = max(1024, (chunk // 1024) * 1024)
+    return torch.cat([apply_rows(nmat.idx[s:s + chunk], nmat.mask[s:s + chunk],
+                                 pos[s:s + chunk]) for s in range(0, n, chunk)])
+
+
+def ewald_rpy_apply(op: EwaldRPY, pos: torch.Tensor, forces: torch.Tensor, nmat,
+                    metric, chunk_k: int = 4096) -> torch.Tensor:
+    """Full periodic RPY product: real + wave + self. (N, 3)."""
+    u = ewald_real_apply(op, pos, forces, nmat, metric)
+    u = u + ewald_wave_apply(op, pos, forces, chunk_k=chunk_k)
+    return u + op.self_coeff * forces

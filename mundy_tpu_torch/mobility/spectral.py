@@ -202,7 +202,9 @@ def se_wave_apply_dense(op: SpectralEwaldRPY, geom: SEGridTiles, pos: torch.Tens
     binning across applies at fixed positions."""
     if pieces is None:
         pieces = se_bin_geom(geom, pos, forces.dtype)
-    grid = se_spread(geom, pieces, forces)
+    # K5s reads contiguous forces; K3's (N, 3) sums of a single body block
+    # come out as a transposed view
+    grid = se_spread(geom, pieces, forces.contiguous())
     ugrid = _k_apply(op, grid)  # the inverse FFT's strides: the channel axis outermost
     u = se_interp(geom, pieces, ugrid.to(forces.dtype))  # K5i reads that layout
     return u, pieces[1]

@@ -15,7 +15,8 @@ one-hot and three-term mantissa split are not carried over. A CUDA tensor never 
 the plain version: a failed build or launch raises.
 
 K3t (`strided_onehot_t`) is K3's sum of -gamma n kept in shared memory and
-read back per slot, t = -(n . F[loc]), in the same source; its plain
+read back per slot, t = -(n . F[loc]), in the same source and by K3's two
+paths (run sums in a sorted block, the scan in any other); its plain
 version, `strided_t_plain`, is K3's plain sum followed by the row gather
 and the dot in the kernel's order, so the two agree bit for bit.
 """

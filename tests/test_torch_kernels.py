@@ -971,25 +971,39 @@ def test_k5_refuses_outside_its_envelope(cuda_device):
     assert (k5.se_spread.launches, k5.se_interp.launches) == before
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "float64"])
-@pytest.mark.parametrize("nb,W,B,sort", [(7, 640, 1024, True),
-                                         (5, 2600, 1024, False),
-                                         (3, 300, 200, False)])
-def test_k3t_kernel_matches_plain(cuda_device, dtype, nb, W, B, sort):
-    """K3t is bit-equal to its plain version. W = 2600 spans more than one
-    shared-memory tile (and W = 640 in float64); the unsorted cases scatter
-    ids over [-B/4, 5B/4), some outside [0, B), whose t is 0."""
+def _k3t_inputs(dtype, nb, W, B, sort, dev):
+    """(gamma, normals, loc) with ids over [-B/4, 5B/4), some outside [0, B):
+    every block sorted (sort True), none (False) or the blocks listed."""
     rng = np.random.default_rng(6)
     loc = rng.integers(-B // 4, B + B // 4, (nb, W))
-    if sort:
+    if sort is True:
         loc = np.sort(loc, axis=1)
+    elif sort:
+        for b in sort:
+            loc[b] = np.sort(loc[b])
     td = _DT[dtype]
     normals = rng.normal(size=(nb, 3, W))
     normals /= np.linalg.norm(normals, axis=1, keepdims=True)
-    normals = torch.as_tensor(normals, dtype=td, device=cuda_device)
-    gamma = torch.as_tensor(rng.normal(size=(nb, W)), dtype=td, device=cuda_device)
-    loc = torch.as_tensor(loc, dtype=torch.int32, device=cuda_device)
+    normals = torch.as_tensor(normals, dtype=td, device=dev)
+    gamma = torch.as_tensor(rng.normal(size=(nb, W)), dtype=td, device=dev)
+    return gamma, normals, torch.as_tensor(loc, dtype=torch.int32, device=dev)
+
+
+# (nb, W, B, sorted blocks): W = 2600 spans several scan tiles; (0, 2) mixes
+# sorted blocks and unsorted ones (1, 3) in one launch; B = 1500 takes two
+# passes of the run bounds
+_K3T_CASES = [(7, 640, 1024, True), (5, 2600, 1024, False), (3, 300, 200, False),
+              (4, 640, 1024, (0, 2)), (2, 700, 1500, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("nb,W,B,sort", _K3T_CASES)
+def test_k3t_kernel_matches_plain(cuda_device, dtype, nb, W, B, sort):
+    """K3t is bit-equal to its plain version, on the run-sum path (sorted
+    blocks), the scan (unsorted ones) and both in one launch; a slot whose
+    id lies outside [0, B) gets t = 0."""
+    gamma, normals, loc = _k3t_inputs(dtype, nb, W, B, sort, cuda_device)
     before = k3.strided_onehot_t.launches
     got = k3.strided_onehot_t(gamma, normals, loc, B)
     torch.cuda.synchronize()
@@ -1446,42 +1460,40 @@ def test_k3_on_the_lcp_strided_layout(cuda_device, dtype):
     _k3_check(values, loc, B)
 
 
-_K3T_CASES = [(7, 640, 1024, True), (5, 2600, 1024, False), (3, 300, 200, False)]
-
-
-def _k3t_digest(dtype, nb, W, B, sort, dev):
-    """sha256 (first 16 hex digits) of K3t's output bytes on
+def _k3t_digest(dtype, nb, W, B, sort, dev, fn=k3.strided_onehot_t):
+    """sha256 (first 16 hex digits) of fn's output bytes on
     test_k3t_kernel_matches_plain's inputs."""
     import hashlib
 
-    rng = np.random.default_rng(6)
-    loc = rng.integers(-B // 4, B + B // 4, (nb, W))
-    if sort:
-        loc = np.sort(loc, axis=1)
-    td = _DT[dtype]
-    normals = rng.normal(size=(nb, 3, W))
-    normals /= np.linalg.norm(normals, axis=1, keepdims=True)
-    normals = torch.as_tensor(normals, dtype=td, device=dev)
-    gamma = torch.as_tensor(rng.normal(size=(nb, W)), dtype=td, device=dev)
-    loc = torch.as_tensor(loc, dtype=torch.int32, device=dev)
-    got = k3.strided_onehot_t(gamma, normals, loc, B)
+    got = fn(*_k3t_inputs(dtype, nb, W, B, sort, dev), B)
     return hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()[:16]
 
 
-# _k3t_digest from K3t as it stood before K3's run-sum redesign, which
-# shares its source (NVIDIA H100 80GB HBM3)
+# _k3t_digest of K3t's first design, which scanned every block (NVIDIA H100
+# 80GB HBM3); the cases nb = 4 and 2 are the plain version's on the CPU,
+# which gives the first design's bits on the other three
 _K3T_SHA = {
     ("float32", 7): "523673516c2e91e8", ("float32", 5): "34b41eb2cf3c7ed2",
-    ("float32", 3): "1e42a16f6d835907", ("float64", 7): "8a86056a74a31697",
-    ("float64", 5): "02ee71c9fef99b49", ("float64", 3): "a2c82fa7bb028a1f",
+    ("float32", 3): "1e42a16f6d835907", ("float32", 4): "36ea4b41a89be849",
+    ("float64", 7): "8a86056a74a31697", ("float64", 5): "02ee71c9fef99b49",
+    ("float64", 3): "a2c82fa7bb028a1f", ("float64", 4): "11ff608ebab518ed",
+    ("float32", 2): "edcd9cc99ad12a47", ("float64", 2): "1cd0e93c766a2ea2",
 }
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("nb,W,B,sort", _K3T_CASES)
+def test_k3t_plain_gives_the_pinned_bits(dtype, nb, W, B, sort):
+    """On the CPU the plain version gives the bits that _K3T_SHA pins for
+    the card's kernel: the first design's on every case it ran."""
+    assert _k3t_digest(dtype, nb, W, B, sort, "cpu", k3.strided_t_plain) \
+        == _K3T_SHA[(dtype, nb)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("nb,W,B,sort", _K3T_CASES)
 def test_k3t_outputs_unchanged(cuda_device, dtype, nb, W, B, sort):
-    """K3t shares csrc/seg_onehot.cu with K3, whose kernel was redesigned;
-    K3t's own kernel and launcher were left as they were, and its outputs
-    stay bit for bit the earlier build's."""
+    """K3t's redesign (run sums in sorted blocks) keeps the first design's
+    outputs bit for bit."""
     assert _k3t_digest(dtype, nb, W, B, sort, cuda_device) == _K3T_SHA[(dtype, nb)]

@@ -69,7 +69,8 @@ def test_run_block_trajectory_matches(started):
 
 
 def test_untouched_branches_raise():
-    """The hydro modes are not ported (the polydisperse branch is:
+    """`rpy_ring` needs a device mesh and is not ported (the other hydro
+    modes are: tests/test_torch_lcp_hydro.py; the polydisperse branch:
     tests/test_torch_polydisperse.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LCPSpheresSim(LCPSpheresConfig(**dict(KW, hydro="rpy_neighbors")), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
+        LCPSpheresSim(LCPSpheresConfig(**dict(KW, hydro="rpy_ring")), device="cpu")
