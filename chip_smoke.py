@@ -10,8 +10,9 @@ filaments op in the row engine) and #5 (1M-bead chromatin with
 spectral-Ewald Stokes mobility: kernels K5s and K5i, K2 where the rows
 broad phase is feasible), then the polydisperse lines of #1 (kernel K6
 with a radius plane) and #2 (K2's radius variant), the scalar-mobility
-Delassus applies (kernel K3t) and the hydro modes of #2 (K2, K3, and K5s
-and K5i in rpy_spectral) through the port's own entry points:
+Delassus applies (kernel K3t), the hydro modes of #2 (K2, K3, and K5s
+and K5i in rpy_spectral) and the HP1 periphery modes of #5 (K5s and K5i
+on the free-space padded grid) through the port's own entry points:
 
 1. build K1-K6 with nvcc (sm_90a), one process per source, all at once;
    print each kernel's registers and spills and the card with its power
@@ -141,13 +142,45 @@ and K5i in rpy_spectral) through the port's own entry points:
     skin rebuild, positions within 1e-7;
 31. the Ewald direct wave sum (2000 bodies in box 14, the rpy_ewald
     splitting) in float32 against float64 on the card, within 1e-5 of
-    max|u| (full float32 products; TF32 would leave ~2e-3).
+    max|u| (full float32 products; TF32 would leave ~2e-3);
+32. examples/hp1_chromatin.yaml as written (rpy_periphery: 7 x 405 beads,
+    512 crosslinkers, periphery radius 25, order 12, float32), all 1000
+    steps through run(), with the K5s/K5i counts set to 0 before the sim
+    is made (no launch in this mode): init time with M^-1, ms/step on the
+    host clock, doubly bound crosslinkers; no overflow, finite, every bead
+    within the periphery radius + its own; one mobility apply at the final
+    state by CUDA events, split into the dense RPY, the flow at the Q = 338
+    nodes and the BIE correction; then torch.profiler over 8 more steps;
+33. the same YAML with `hydro: rpy_periphery_spectral`: the free-space
+    operator's host build (seconds, and the peak of numpy's host
+    allocations by tracemalloc), G, P, m and the tile R; 2 warm-up steps
+    through run_blocks, then 200 steps of run_block with the K5s/K5i counts
+    set to 0 just before: one launch of each per step, no overflow; then
+    torch.profiler over 8 more steps; one mobility apply split into the
+    real space, the wave part and the BIE;
+    K5s within 1e-5 of max|grid| of its plain version on the final
+    binning (at P = 10, m = 12, slots below 0 counted), K5i within 1e-6
+    of the magnitude of each bead's own summands, h^3 sum|w v| (the
+    deconvolved free-space grid cancels ~1000-fold in the interpolation,
+    so a float32 sum in another order is off max|u| by ~3e-5), and K5i
+    no farther (x 1.25) than the plain version from the float64
+    interpolation of the same grid; both kernels in float64 within 1e-12
+    of max; timed beside index_add_ with their bounds; the warm-up
+    regrows nothing (init sizes the capacities); the velocity within 2e-3 of
+    max|u| of [32]'s dense operator at the same state and forces (the
+    reference's bound, tests/test_app_chromatin.py:228-250);
+34. both periphery modes in float64 at the reference test's size (2 x 48
+    beads, 16 crosslinkers, periphery radius 8, order 8, D 0.002, skin
+    0.03, 30 steps) on the card against the CPU: equal rebuilds (more than
+    one), overflow and binding states at every step, positions within
+    1e-7.
 
 Kernel times are medians of CUDA-event timings after a synchronize, kernel
 and plain version alternating; for K2, K3 and K3t the device time per
 launch of 20 launches queued back to back is printed beside them. Prints
 one JSON line of kernel results (K2's, K3's, K5s's and K5i's entries also
-carry their launches on [29]'s paths under "path_launches"),
+carry their launches on [29]'s paths, and K5s's and K5i's on [33]'s,
+under "path_launches"),
 then a final JSON line {"ok": true, "device": {...}}. Exits non-zero, with no
 result, without a CUDA device or without the package beside it.
 """
@@ -225,6 +258,8 @@ CHROM_SMALL_STEPS = 40
 HYDRO_STEPS = 10
 SPECTRAL_STEPS = 3
 HYDRO_SMALL_STEPS = 14
+HP1_SPECTRAL_STEPS = 200
+PERIPHERY_SMALL_STEPS = 30
 # published H100 SXM peaks (NVIDIA data sheet): FP32 outside the
 # tensor cores, and HBM bandwidth
 PEAK_FP32 = 67e12
@@ -1235,6 +1270,254 @@ def lcp_hydro_phases(torch, dev, card: str) -> dict:
     return paths
 
 
+def periphery_phases(torch, dev, card: str) -> dict:
+    """Phases 32-34: the HP1 periphery modes (examples/hp1_chromatin.yaml),
+    times printed with `card`. Returns K5s's and K5i's launches on [33]'s
+    path, for the kernels line."""
+    import tracemalloc
+
+    from mundy_tpu_torch.core.config import config_from_dict, load_yaml
+    from mundy_tpu_torch.driver.apps.chromatin import ChromatinConfig, ChromatinSim
+    from mundy_tpu_torch.driver.regrow import run_blocks
+    from mundy_tpu_torch.geom.periodicity import free_space
+    from mundy_tpu_torch.mobility import freespace, spectral
+    from mundy_tpu_torch.mobility.ewald import ewald_real_apply
+    from mundy_tpu_torch.mobility.periphery import no_slip_correction
+    from mundy_tpu_torch.mobility.rpy import rpy_apply_dense, rpy_flow_at
+    from mundy_tpu_torch.ops.kernels import se_grid as k5
+
+    # ---- 32. the HP1 YAML as written (rpy_periphery) -----------------------
+    raw = load_yaml(os.path.join(HERE, "examples", "hp1_chromatin.yaml"))
+    cfg = config_from_dict(ChromatinConfig, raw["params"])
+    k5.se_spread.launches = k5.se_interp.launches = 0
+    t0 = time.perf_counter()
+    dsim = ChromatinSim(cfg, device=dev)
+    st = dsim.init()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    a, rp = cfg.bead_radius, cfg.periphery_radius
+    print(f"[32] hp1_chromatin.yaml ({cfg.hydro}, {cfg.dtype}): {dsim.N} beads, {dsim.X} "
+          f"crosslinkers, periphery radius {rp}, order {cfg.periphery_order} (Q "
+          f"{dsim.periphery.points.shape[0]}); ChromatinSim() and init with M^-1 in "
+          f"{init_s:.3f} s", flush=True)
+    t0 = time.perf_counter()
+    st = dsim.run(st, log=lambda line: print(f"    {line}", flush=True))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    step_ms = 1e3 * elapsed / cfg.num_steps
+    r_max = st.pos.norm(dim=1).max().item()
+    print(f"    {cfg.num_steps} steps in {elapsed:.3f} s, {step_ms:.4f} ms/step (run(), host "
+          f"clock), rebuilds {st.rebuild_count}, doubly bound {dsim.doubly_bound(st)}/"
+          f"{dsim.X}, overflow {bool(st.overflow)}, max|pos| {r_max:.4f} (limit "
+          f"{rp + a}); launches K5s {k5.se_spread.launches}, K5i {k5.se_interp.launches}; "
+          f"{card}", flush=True)
+    if bool(st.overflow) or not bool(torch.isfinite(st.pos).all()) or not r_max <= rp + a:
+        fail("the HP1 rpy_periphery run overflowed, went non-finite or left the periphery")
+    if st.step != cfg.num_steps or k5.se_spread.launches or k5.se_interp.launches:
+        fail(f"the HP1 rpy_periphery run took {st.step} steps and launched K5s/K5i "
+             f"{k5.se_spread.launches}/{k5.se_interp.launches} times")
+    f = dsim._forces(st)
+    per = dsim.periphery
+    u_surf = rpy_flow_at(per.points, st.pos, f, a, cfg.viscosity)
+    parts = [("whole apply", lambda: dsim._velocity(st, f)),
+             ("dense RPY", lambda: rpy_apply_dense(st.pos, f, a, cfg.viscosity,
+                                                   overlap_correction=True)),
+             ("flow at the nodes", lambda: rpy_flow_at(per.points, st.pos, f, a,
+                                                       cfg.viscosity)),
+             ("BIE correction", lambda: no_slip_correction(per, u_surf, st.pos))]
+    print("    one mobility apply at the final state: " + ", ".join(
+        f"{name} {cuda_ms(fn_, torch, 5):.4f} ms" for name, fn_ in parts) + f"; {card}",
+        flush=True)
+    profile_window(lambda n: dsim.run_block(st, n), torch, step_ms)
+
+    # ---- 33. the same YAML with hydro rpy_periphery_spectral ---------------
+    scfg = dataclasses.replace(cfg, hydro="rpy_periphery_spectral")
+    k5.se_spread.launches = k5.se_interp.launches = 0
+    tracemalloc.start()
+    t0 = time.perf_counter()
+    ssim = ChromatinSim(scfg, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    peak_gb = tracemalloc.get_traced_memory()[1] / 1e9
+    tracemalloc.stop()
+    t0 = time.perf_counter()
+    sst = ssim.init()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    op, geom = ssim.freespace, ssim.fs_geom
+    print(f"[33] hp1 rpy_periphery_spectral: ChromatinSim() {build_s:.3f} s (the free-space "
+          f"operator's host build, peak numpy/python host allocation {peak_gb:.3f} GB by "
+          f"tracemalloc), init {init_s:.3f} s; padded box {op.se.base.box:.4f}, G "
+          f"{geom.G}, P {geom.P}, m {geom.m}, tile R {geom.R}, r_cut "
+          f"{op.se.base.r_cut:.4f}, hydro K {ssim.fs_hydro_K}, hydro cells "
+          f"{ssim.fs_cell_capacity}", flush=True)
+    warm_log = []
+    sst = run_blocks(ssim, sst, 2, 2, log=warm_log.append)
+    torch.cuda.synchronize()
+    for line in warm_log:
+        print(f"    {line}", flush=True)
+    warm = (k5.se_spread.launches, k5.se_interp.launches)
+    geom = ssim.fs_geom
+    regrows = sum("regrow" in line for line in warm_log)
+    print(f"    after the warm-up ({regrows} regrows): tile R {ssim.fs_geom.R}, hydro K "
+          f"{ssim.fs_hydro_K}, hydro cells {ssim.fs_cell_capacity}, contact K "
+          f"{ssim.contact_K}, kmc K {ssim.kmc_K}", flush=True)
+    if regrows:
+        fail("HP1 rpy_periphery_spectral regrew after init's right-sizing")
+    rb0 = sst.rebuild_count
+    k5.se_spread.launches = k5.se_interp.launches = 0
+    t0 = time.perf_counter()
+    sst = ssim.run_block(sst, HP1_SPECTRAL_STEPS)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    s_launches, i_launches = k5.se_spread.launches, k5.se_interp.launches
+    spec_ms = 1e3 * elapsed / HP1_SPECTRAL_STEPS
+    r_max = sst.pos.norm(dim=1).max().item()
+    print(f"    {HP1_SPECTRAL_STEPS} steps in {elapsed:.3f} s, {spec_ms:.4f} ms/step "
+          f"(run_block, host clock), rebuilds {sst.rebuild_count - rb0}, doubly bound "
+          f"{ssim.doubly_bound(sst)}/{ssim.X}, overflow {bool(sst.overflow)}, max|pos| "
+          f"{r_max:.4f}; launches K5s {s_launches}, K5i {i_launches} (warm-up {warm}); "
+          f"{card}", flush=True)
+    if bool(sst.overflow) or not bool(torch.isfinite(sst.pos).all()) or not r_max <= rp + a:
+        fail("the HP1 rpy_periphery_spectral window overflowed, went non-finite or left "
+             "the periphery")
+    if s_launches != HP1_SPECTRAL_STEPS or i_launches != HP1_SPECTRAL_STEPS:
+        fail(f"K5s/K5i launched {s_launches}/{i_launches} times in {HP1_SPECTRAL_STEPS} "
+             "steps")
+    path = {"se_spread": warm[0] + s_launches, "se_interp": warm[1] + i_launches}
+    profile_window(lambda n: ssim.run_block(sst, n), torch, spec_ms)
+    f = ssim._forces(sst)
+    pieces = spectral.se_bin_geom(geom, freespace._shift(op, sst.pos), torch.float32)
+    u_surf = rpy_flow_at(ssim.periphery.points, sst.pos, f, a, cfg.viscosity)
+    metric = free_space(torch.float32, dev)
+    parts = [("whole apply", lambda: ssim._velocity(sst, f)),
+             ("real space", lambda: ewald_real_apply(op.se.base, sst.pos, f, sst.hydro_nmat,
+                                                     metric)),
+             ("wave (binning, K5s, FFT, K5i)", lambda: freespace.freespace_wave_apply_dense(
+                 op, geom, sst.pos, f)),
+             ("wave on a binning (K5s, FFT, K5i)", lambda: freespace.freespace_wave_apply_dense(
+                 op, geom, sst.pos, f, pieces=pieces)),
+             ("flow at the nodes + BIE", lambda: no_slip_correction(
+                 ssim.periphery, rpy_flow_at(ssim.periphery.points, sst.pos, f, a,
+                                             cfg.viscosity), sst.pos))]
+    print("    one mobility apply at the final state: " + ", ".join(
+        f"{name} {cuda_ms(fn_, torch, 5):.4f} ms" for name, fn_ in parts) + f"; {card}",
+        flush=True)
+    # K5s and K5i against their plain versions on the final binning
+    perm, ovf, u, valid, slot_of = pieces
+    n_valid = int(valid.sum())
+    n_neg = int((u[valid] < 0).any(dim=1).sum())
+    grid_k = k5.se_spread(geom, pieces, f)
+    grid_p = k5.se_spread_plain(geom, pieces, f)
+    ugrid = freespace._k_apply_free(op, grid_p)  # the planar layout, as the apply passes it
+    u_k = k5.se_interp(geom, pieces, ugrid)
+    u_p = k5.se_interp_plain(geom, pieces, ugrid)
+    torch.cuda.synchronize()
+    s_err, gmax = (grid_k - grid_p).abs().max().item(), grid_p.abs().max().item()
+    i_err, umax = (u_k - u_p).abs().max().item(), u_p.abs().max().item()
+    # K5i's float32 sums cancel here: the deconvolved free-space grid holds
+    # ~1e5 at Nyquist where u is ~1e2, so a reordered float32 sum is held
+    # per bead against the magnitude of its own P^3 summands, h^3 sum|w v|,
+    # and both float32 sums against the float64 interpolation of the same
+    # grid on the same binning: K5i no farther from it than the plain version
+    sel = slot_of.long()
+    idx, wt = k5._support(geom, u.reshape(-1, 3)[sel])
+    summands = ((wt[..., None] * ugrid.reshape(-1, 3)[idx.reshape(-1)].reshape(idx.shape + (3,)))
+                .abs().sum(dim=(1, 2, 3)) * (geom.box / geom.G) ** 3)
+    i_rel = ((u_k - u_p).abs() / summands.clamp(min=1e-30)).max().item()
+    del idx, wt
+    p64 = (perm, ovf, u.double(), valid, slot_of)
+    u_exact = k5.se_interp_plain(geom, p64, ugrid.double())
+    k_exact = (u_k.double() - u_exact).abs().max().item()
+    p_exact = (u_p.double() - u_exact).abs().max().item()
+    del u_exact
+    # and both kernels in float64 on the same binning and grid: the sums'
+    # order apart, nothing cancels beyond float64's reach
+    f64, ugrid64 = f.double(), freespace._k_apply_free(op, grid_p.double())
+    s64 = (k5.se_spread(geom, p64, f64) - k5.se_spread_plain(geom, p64, f64)).abs().max().item()
+    u64 = k5.se_interp_plain(geom, p64, ugrid64)
+    i64 = (k5.se_interp(geom, p64, ugrid64) - u64).abs().max().item()
+    u64max = u64.abs().max().item()
+    del p64, f64, ugrid64, u64
+    print(f"    K5s at {n_valid} binned beads in {perm.shape[0]} tiles of R = {geom.R} ({n_neg} "
+          f"with u < 0 on some axis), G {geom.G}, P {geom.P}, m {geom.m}: max|diff| "
+          f"{s_err:.3e} of max|grid| {gmax:.3e}; K5i max|diff| {i_err:.3e} of max|u| "
+          f"{umax:.3e} ({i_err / umax:.3e}; max|ugrid| {ugrid.abs().max().item():.3e}, per "
+          f"bead at most {i_rel:.3e} of its summands' magnitude, max "
+          f"{summands.max().item():.3e}); off the float64 interpolation of the same grid: "
+          f"K5i {k_exact:.3e}, plain {p_exact:.3e}; float64 K5s {s64:.3e} of max|grid|, K5i "
+          f"{i64:.3e} of max|u| {u64max:.3e}; overflow {bool(ovf)}", flush=True)
+    if not (gmax > 0 and math.isfinite(s_err) and s_err <= 1e-5 * gmax):
+        fail(f"K5s disagrees with its plain version on the HP1 path: {s_err} > 1e-5 * {gmax}")
+    if not (umax > 0 and math.isfinite(i_err) and i_rel <= 1e-6):
+        fail(f"K5i disagrees with its plain version on the HP1 path: {i_rel} > 1e-6 of its "
+             "summands' magnitude")
+    if not k_exact <= 1.25 * p_exact:
+        fail(f"K5i is farther from the float64 interpolation than its plain version: "
+             f"{k_exact} > 1.25 * {p_exact}")
+    if not (s64 <= 1e-12 * gmax and i64 <= 1e-12 * u64max):
+        fail(f"K5s/K5i in float64 disagree with their plain versions on the HP1 path: "
+             f"{s64}, {i64}")
+    del grid_k, u_k, summands
+    s_ms, s_plain_ms = alternate(lambda: k5.se_spread(geom, pieces, f),
+                                 lambda: k5.se_spread_plain(geom, pieces, f), torch, 10, 3,
+                                 rounds=2)
+    i_ms, i_plain_ms = alternate(lambda: k5.se_interp(geom, pieces, ugrid),
+                                 lambda: k5.se_interp_plain(geom, pieces, ugrid), torch, 10,
+                                 3, rounds=2)
+    sel = valid.reshape(-1).nonzero()[:, 0]
+    idx, wt = k5._support(geom, u.reshape(-1, 3)[sel])
+    vals = (wt[..., None] * f[perm.reshape(-1)[sel].long()][:, None, None, None, :])
+    idx, vals = idx.reshape(-1), vals.reshape(-1, 3)
+    acc = torch.zeros((geom.G ** 3, 3), device=dev)
+    s_lib_ms = statistics.median(
+        [cuda_ms(lambda: acc.index_add_(0, idx, vals), torch, 5) for _ in range(3)])
+    del idx, vals, wt, acc
+    grid_bytes = grid_p.numel() * 4
+    s_bound = bound(n_valid * k5_ops(geom.P),
+                    perm.numel() * 4 + n_valid * 12 + f.numel() * 4 + grid_bytes)
+    i_bound = bound(n_valid * (k5_ops(geom.P) + 3),
+                    slot_of.numel() * 4 + n_valid * 12 + grid_bytes + u_p.numel() * 4)
+    print(f"    K5s {s_ms:.4f} ms, plain {s_plain_ms:.4f} ms, index_add_ {s_lib_ms:.4f} ms, "
+          f"bound {s_bound[0]:.4f} ms ({s_bound[1]}, {s_ms / s_bound[0]:.1f}x); K5i "
+          f"{i_ms:.4f} ms, plain {i_plain_ms:.4f} ms, bound {i_bound[0]:.4f} ms "
+          f"({i_bound[1]}, {i_ms / i_bound[0]:.1f}x); {card}", flush=True)
+    del grid_p, ugrid, u_p, pieces
+    # the spectral velocity against [32]'s dense operator at the same state
+    u_spec, _ = ssim._velocity(sst, f)
+    u_dense, _ = dsim._velocity(sst, f)
+    verr, vmax = (u_spec - u_dense).abs().max().item(), u_dense.abs().max().item()
+    print(f"    velocity at the final state vs the dense operator: max|diff| {verr:.3e} of "
+          f"max|u| {vmax:.3e} ({verr / vmax:.3e})", flush=True)
+    if not (vmax > 0 and verr <= 2e-3 * vmax):
+        fail(f"the spectral periphery velocity is off the dense one: {verr} > 2e-3 * {vmax}")
+    del dsim, st, ssim, sst, f, u_surf, parts
+
+    # ---- 34. both modes in float64, card vs CPU ----------------------------
+    small = dict(num_chains=2, beads_per_chain=48, bead_radius=0.5, num_crosslinkers=16,
+                 periphery_radius=8.0, periphery_order=8, diffusion_coeff=0.002, dt=2e-4,
+                 skin=0.03, binding_rate=50.0, unbinding_rate=5.0, max_neighbors=64,
+                 cell_capacity=64, chunk=256, dtype="float64")
+    for hydro in ("rpy_periphery", "rpy_periphery_spectral"):
+        trace = {}
+        for name, d in (("card", dev), ("cpu", "cpu")):
+            psim = ChromatinSim(ChromatinConfig(**small, hydro=hydro), device=d)
+            s = psim.init()
+            rows_ = []
+            for _ in range(PERIPHERY_SMALL_STEPS):
+                s = psim.run_block(s, 1)
+                rows_.append((s.rebuild_count, bool(s.overflow), s.xl_state.cpu().tolist()))
+            trace[name] = (rows_, s.pos.cpu(), psim.doubly_bound(s))
+        (tg, pg, dbound), (tc, pc, _) = trace["card"], trace["cpu"]
+        diff = (pg - pc).abs().max().item()
+        print(f"[34] {hydro} float64 2 x 48 beads, {PERIPHERY_SMALL_STEPS} steps: rebuilds "
+              f"{tg[-1][0]} (cpu {tc[-1][0]}), doubly bound {dbound}, max|pos diff| vs cpu "
+              f"{diff:.3e}", flush=True)
+        if not (tg == tc and diff <= 1e-7 and tg[-1][0] >= 2 and not tg[-1][1]):
+            fail(f"the float64 {hydro} run on the card disagrees with the CPU run")
+    return path
+
+
 def main() -> None:
     import torch
 
@@ -1823,6 +2106,7 @@ def main() -> None:
     poly_entries = polydisperse_phases(torch, dev, lcp_sim, lcp_st, card)
     del lcp_sim, lcp_st
     hydro_paths = lcp_hydro_phases(torch, dev, card)
+    hp1_paths = periphery_phases(torch, dev, card)
 
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     kernels = [
@@ -1856,9 +2140,11 @@ def main() -> None:
          "launches": k4f_launches, "max_abs_err": k4f_err, "ms": k4f_ms,
          "plain_ms": k4f_plain_ms, "bound_ms": k4f_bound[0], "bound_by": k4f_bound[1],
          "library_ms": None}] + k5_entries + poly_entries
-    for entry in kernels:  # launches on the LCP hydro paths of [29]
+    for entry in kernels:  # launches on the LCP hydro paths of [29] and HP1's of [33]
         if entry["name"] in hydro_paths:
             entry["path_launches"] = hydro_paths[entry["name"]]
+        if entry["name"] in hp1_paths:
+            entry["path_launches"]["hp1 rpy_periphery_spectral"] = hp1_paths[entry["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -1,5 +1,5 @@
-"""BASELINE config #5: chromatin bead chains with crosslinkers and
-spectral-Ewald Stokes mobility.
+"""BASELINE config #5 and the HP1 pipeline: chromatin bead chains with
+crosslinkers and Stokes mobility, periodic or confined.
 
 Port of mundy_tpu/driver/apps/chromatin.py (ref: the HP1 pipeline,
 `HP1_mock_rework_agents_text_mesh_neigh_linker.cpp`, time loop
@@ -9,19 +9,25 @@ Port of mundy_tpu/driver/apps/chromatin.py (ref: the HP1 pipeline,
        neighbor matrix (bonded pairs excluded), crosslinker Hookean
        springs, the spherical periphery wall (`:604-760`);
     3. velocities: local drag (`hydro="none"`), neighbor RPY
-       (`"rpy_neighbors"`) or the periodic spectral-Ewald RPY
-       (`"rpy_spectral"`): the real-space correction on the 3D-cell engine
-       (with the density split where init's cost model picks it) plus the
-       wave sum through kernels K5s and K5i and cuFFT; then gid-keyed
+       (`"rpy_neighbors"`), the periodic spectral-Ewald RPY
+       (`"rpy_spectral"`: the real-space correction on the 3D-cell engine,
+       with the density split where init's cost model picks it, plus the
+       wave sum through kernels K5s and K5i and cuFFT), or inside the
+       spherical periphery the ambient RPY flow plus the no-slip
+       boundary-integral correction (`:1487-1493`): all pairs
+       (`"rpy_periphery"`) or the free-space spectral Stokes sum on a padded
+       grid through K5s and K5i (`"rpy_periphery_spectral"`), with the flow
+       at the quadrature nodes summed over all beads; then gid-keyed
        Brownian noise;
     4. the Euler update, wrapped into the periodic box.
 
 Neighbor maintenance: the contact search goes through the row layout and
 kernel K2 where the row layout is feasible, the cell list otherwise; the
-crosslinker candidates come from their own capture-radius cell list. The
-searches are rebuilt before a step when some bead moved more than skin/2
-since the last rebuild; the host reads that flag once per step. The
-periphery hydro modes and the sharded mode are not ported.
+crosslinker candidates come from their own capture-radius cell list, and
+`rpy_periphery_spectral`'s real-space pairs from a cell list at the
+free-space operator's cutoff. The searches are rebuilt before a step when
+some bead moved more than skin/2 since the last rebuild; the host reads
+that flag once per step. The sharded mode is not ported.
 
 Chains start on a Hilbert curve, their offsets and the crosslinker homes
 drawn from numpy's default_rng(seed), as in the reference; the run's key is
@@ -52,8 +58,14 @@ from mundy_tpu_torch.kmc.crosslinkers import (
     crosslinker_kmc_step,
 )
 from mundy_tpu_torch.math.spacefill import hilbert_positions_and_directors
+from mundy_tpu_torch.mobility.freespace import (
+    build_freespace_stokes,
+    freespace_geometry,
+    freespace_rpy_apply,
+)
 from mundy_tpu_torch.mobility.local_drag import local_drag_mobility
-from mundy_tpu_torch.mobility.rpy import rpy_apply_neighbors
+from mundy_tpu_torch.mobility.periphery import build_sphere_periphery, no_slip_correction
+from mundy_tpu_torch.mobility.rpy import rpy_apply_dense, rpy_apply_neighbors, rpy_flow_at
 from mundy_tpu_torch.mobility.spectral import (
     build_spectral_ewald,
     make_se_geometry_tiles,
@@ -82,7 +94,7 @@ from mundy_tpu_torch.state.select import select
 from mundy_tpu_torch.state.world import EntitySet, LinkSet
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
-_NOT_PORTED = ("rpy_periphery", "rpy_periphery_spectral")
+_PERIPHERY_MODES = ("rpy_periphery", "rpy_periphery_spectral")
 
 
 @dataclasses.dataclass
@@ -114,11 +126,12 @@ class ChromatinConfig:
     periphery_stiffness: float = 200.0
     viscosity: float = 1.0
     diffusion_coeff: float = 0.1
-    # "none" | "rpy_neighbors" | "rpy_spectral"; the reference's
-    # "rpy_periphery" and "rpy_periphery_spectral" are not ported
+    # "none" | "rpy_neighbors" | "rpy_spectral" | "rpy_periphery" (all-pairs
+    # RPY + the no-slip periphery BIE correction; needs periphery_radius) |
+    # "rpy_periphery_spectral" (free-space spectral Stokes + the same BIE)
     hydro: str = "none"
-    periphery_order: int = 12
-    periphery_cache: str = ""
+    periphery_order: int = 12  # BIE quadrature order (Q = 2 (order + 1)^2)
+    periphery_cache: str = ""  # optional .npy path caching the dense M^-1
     # periodic box edge; 0 = free space. Required for "rpy_spectral"
     box_size: float = 0.0
     dt: float = 1e-4
@@ -141,7 +154,7 @@ class ChromatinConfig:
             "rpy_spectral, rpy_periphery, rpy_periphery_spectral"
         if self.hydro == "rpy_spectral":
             assert self.box_size > 0, "rpy_spectral needs a periodic box_size"
-        if self.hydro in _NOT_PORTED:
+        if self.hydro in _PERIPHERY_MODES:
             assert self.periphery_radius > 0, \
                 f"{self.hydro} needs a periphery_radius confinement"
         assert self.periphery_radius == 0 or self.box_size == 0, \
@@ -161,6 +174,7 @@ class ChromatinState:
     key: tuple  # the run's two uint32 key words (python ints)
     step: int
     nmat: NeighborMatrix  # contact search, and the pairs of the neighbor RPY
+    hydro_nmat: NeighborMatrix  # free-space real-space pairs; nmat in other modes
     kmc_nmat: NeighborMatrix  # crosslinker candidates (X, kmc_K)
     ref_pos: torch.Tensor  # positions at the last rebuild
     rebuild_count: int
@@ -181,14 +195,15 @@ class ChromatinState:
 
 def chromatin_state_from_numpy(pos, xl_indices, xl_active, xl_state, key, step, nmat,
                                kmc_nmat, ref_pos, rebuild_count, overflow,
-                               device="cpu") -> ChromatinState:
+                               device="cpu", hydro_nmat=None) -> ChromatinState:
     """A ChromatinState from the reference ChromatinState's arrays, to
     continue a JAX run in the port: pos and ref_pos (N, 3) in one dtype;
     the crosslinker LinkSet's indices (X, 2), active (X,) and
     fields["state"] (X,); key: the two uint32 words of the raw threefry key;
-    step, rebuild_count: ints; nmat, kmc_nmat: the contact and crosslinker
-    searches, carried with core/interop's neighbor_matrix_from_numpy;
-    overflow: the sticky flag."""
+    step, rebuild_count: ints; nmat, kmc_nmat, hydro_nmat: the contact,
+    crosslinker and free-space hydro searches, carried with core/interop's
+    neighbor_matrix_from_numpy (hydro_nmat defaults to nmat, as in every
+    mode but rpy_periphery_spectral); overflow: the sticky flag."""
     def t(a, dtype=None):
         return torch.as_tensor(np.array(a), dtype=dtype, device=device)
 
@@ -198,6 +213,7 @@ def chromatin_state_from_numpy(pos, xl_indices, xl_active, xl_state, key, step, 
     xl = LinkSet(indices=t(xl_indices, torch.int32), active=t(xl_active, torch.bool),
                  fields={"state": t(xl_state, torch.int32)}, targets=("beads", "beads"))
     return ChromatinState(pos=pos, xl=xl, key=key_words(key), step=int(step), nmat=nmat,
+                          hydro_nmat=nmat if hydro_nmat is None else hydro_nmat,
                           kmc_nmat=kmc_nmat, ref_pos=ref_pos,
                           rebuild_count=int(rebuild_count),
                           overflow=t(bool(overflow), torch.bool))
@@ -212,9 +228,6 @@ class ChromatinSim:
         validate_config(config)
         if mesh is not None:
             raise NotImplementedError("the sharded spectral mode (mesh=) is not ported")
-        if c.hydro in _NOT_PORTED:
-            raise NotImplementedError(f"hydro {c.hydro!r} (the periphery BIE modes) is "
-                                      "not ported")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ChromatinSim(device='cuda') needs a CUDA device, and "
@@ -277,6 +290,30 @@ class ChromatinSim:
             cap = min(((cap + 7) // 8) * 8, self.N)
             g3 = make_cell_grid3d([c.box_size] * 3, edge, self.N, **kw)
             self.hydro_cells_grid = g3.replace(capacity=max(g3.capacity, cap))
+        self.periphery = None
+        if c.hydro in _PERIPHERY_MODES:
+            self.periphery = build_sphere_periphery(c.periphery_order, c.periphery_radius,
+                                                    cache_path=c.periphery_cache or None,
+                                                    **kw)
+        self.freespace = None
+        if c.hydro == "rpy_periphery_spectral":
+            # free-space spectral Stokes over the sphere's bounding box; r_cut
+            # from the local (touching-chain) spacing
+            rp = c.periphery_radius
+            r_cut = min(0.5 * rp, 3.5 * 2.0 * c.bead_radius)
+            self.freespace = build_freespace_stokes(2.0 * rp, c.bead_radius, c.viscosity,
+                                                    origin=(-rp, -rp, -rp), extent=2.0 * rp,
+                                                    r_cut=r_cut, tol=1e-4, **kw)
+            # tile gridding of the padded grid; R right-sized at init
+            self.fs_geom = freespace_geometry(self.freespace, self.N, capacity_slack=3.0)
+            # the real-space pairs: their own search at the operator's r_cut,
+            # on a grid of their own (the contact grid's cells are far
+            # narrower than r_cut, and the 27-cell stencil reaches one cell)
+            self.fs_hydro_search = 0.5 * self.freespace.se.base.r_cut
+            self.fs_hydro_K = 96
+            self.fs_grid = make_cell_grid(-rp * np.ones(3), rp * np.ones(3),
+                                          2.0 * self.fs_hydro_search, (False,) * 3, **kw)
+            self.fs_cell_capacity = 256
         # bonded-exclusion table for contact: previous and next bead
         bead = np.arange(self.N)
         per_chain = c.beads_per_chain
@@ -334,18 +371,27 @@ class ChromatinSim:
             pos = pos * torch.clamp(max_r / torch.clamp(r.max(), min=1e-6), max=1.0)
         return pos
 
+    @staticmethod
+    def _room(occ: int) -> int:
+        """1.5 x a measured occupancy + 8, rounded up to 8."""
+        return ((int(occ * 1.5) + 8 + 7) // 8) * 8
+
+    @classmethod
+    def _measured_tile_R(cls, g, q: np.ndarray) -> int:
+        """The room for the fullest tile's count, for the positions q (from
+        the grid's origin) binned as se_bin_tiles bins them."""
+        nt1 = g.G // g.m
+        h = g.box / g.G
+        it = np.clip((q / (g.m * h)).astype(int), 0, nt1 - 1)
+        tile = (it[:, 0] * nt1 + it[:, 1]) * nt1 + it[:, 2]
+        return cls._room(int(np.bincount(tile, minlength=nt1 ** 3).max()))
+
     def _right_size_hydro(self, p: np.ndarray) -> None:
         """SE tile R and 3D-cell capacity from the measured occupancy, and
         the density split from a cost model over the measured histogram."""
-        g = self.se_geom
-        h = self.config.box_size / g.G
-        nt1 = g.G // g.m
-        it = np.clip((p / (g.m * h)).astype(int), 0, nt1 - 1)
-        tile = (it[:, 0] * nt1 + it[:, 1]) * nt1 + it[:, 2]
-        occ = int(np.bincount(tile, minlength=nt1 ** 3).max())
-        need = ((int(occ * 1.5) + 8 + 7) // 8) * 8
-        if need != g.R:
-            self.se_geom = g._replace(R=max(need, 8))
+        need = self._measured_tile_R(self.se_geom, p)
+        if need != self.se_geom.R:
+            self.se_geom = self.se_geom._replace(R=max(need, 8))
         g3 = self.hydro_cells_grid
         edge = g3.edge.cpu().numpy()
         dims = np.asarray([g3.nx, g3.ny, g3.nz])
@@ -381,6 +427,31 @@ class ChromatinSim:
             self.hydro_split_grid = self.hydro_cells_grid.replace(capacity=c_lo)
             self.hydro_split = (c_ex, dc_cap)
 
+    def _right_size_freespace(self, p: np.ndarray, pos: torch.Tensor) -> None:
+        """The padded grid's tile R from the measured occupancy of the
+        shifted positions, by the reference's 1.5 x + 8 rule (it sizes its
+        rows layout so): the padded box is mostly empty and the chains are
+        clustered, so the Poisson bound is hopeless. Then the hydro search's
+        cell capacity and K, by the same rule where the reference's 256 and
+        96 overflow (HP1's chains overflow K at init; the reference leaves
+        both as they are). All three only grow here."""
+        need = self._measured_tile_R(self.fs_geom,
+                                     p - np.asarray(self.freespace.origin)[None, :])
+        if need > self.fs_geom.R:
+            self.fs_geom = self.fs_geom._replace(R=need)
+        hcl = build_cell_list(pos, self.fs_grid, self.fs_cell_capacity)
+        if bool(hcl.overflow):
+            self.fs_cell_capacity = self._room(int(hcl.counts.max()))
+            hcl = build_cell_list(pos, self.fs_grid, self.fs_cell_capacity)
+        chunk = min(self.config.chunk, max(256, self.N))
+        hmat = neighbor_matrix(pos, hcl, self.fs_hydro_search, metric=None,
+                               max_neighbors=self.fs_hydro_K, chunk=chunk)
+        if bool(hmat.overflow):
+            # room for all 27 cells' candidates: the count is exact
+            full = neighbor_matrix(pos, hcl, self.fs_hydro_search, metric=None,
+                                   max_neighbors=27 * self.fs_cell_capacity, chunk=chunk)
+            self.fs_hydro_K = self._room(int(full.mask.sum(1).max()))
+
     def _right_size_rows(self, p: np.ndarray) -> None:
         """Contact rows slack from the measured row occupancy (Hilbert
         chains cluster 2-3x over the mean)."""
@@ -401,16 +472,19 @@ class ChromatinSim:
         jax.random.PRNGKey(seed) holds); the run keeps the second half of its
         split. Then every right-sizing the reference measures: SE tile R,
         hydro cell capacity and density split, rows slack, contact_K and
-        kmc_K."""
+        kmc_K; and the free-space tile R, hydro cell capacity and hydro K,
+        which the reference does not measure."""
         c = self.config
         key = (0, c.seed & 0xFFFFFFFF) if key_words is None else tuple(int(k) for k in key_words)
         run_key = fold_in(key, 1)  # jax.random.split(key)[1] for threefry keys
         rng = np.random.default_rng(c.seed)
         pos = self._initial_positions(rng)
-        if self.spectral is not None or self.periodic:
+        if self.spectral is not None or self.freespace is not None or self.periodic:
             p = pos.cpu().numpy()
             if self.spectral is not None:
                 self._right_size_hydro(p)
+            if self.freespace is not None:
+                self._right_size_freespace(p, pos)
             if self.periodic:
                 self._right_size_rows(p)
 
@@ -439,7 +513,7 @@ class ChromatinSim:
                      fields={"state": torch.full((self.X,), BINDING_STATE.LEFT_BOUND,
                                                  dtype=torch.int32, device=dev)},
                      targets=("beads", "beads"))
-        nmat, kmat, ovf = self._build_nmat(pos, home)
+        nmat, hmat, kmat, ovf = self._build_nmat(pos, home)
         # right-size the candidate capacities from the measured occupancy:
         # every step gathers (N, contact_K) and (X, kmc_K) rows
         resize = False
@@ -456,10 +530,10 @@ class ChromatinSim:
                 self.kmc_K = tightk
                 resize = True
         if resize:
-            nmat, kmat, ovf = self._build_nmat(pos, home)
+            nmat, hmat, kmat, ovf = self._build_nmat(pos, home)
         return ChromatinState(pos=pos, xl=xl, key=run_key, step=0, nmat=nmat,
-                              kmc_nmat=kmat, ref_pos=pos, rebuild_count=1,
-                              overflow=ovf)
+                              hydro_nmat=hmat, kmc_nmat=kmat, ref_pos=pos,
+                              rebuild_count=1, overflow=ovf)
 
     def broad_phase(self) -> str:
         """Which broad phase the contact search takes at the current capacities:
@@ -529,13 +603,24 @@ class ChromatinSim:
         return NeighborMatrix(idx=idx.to(torch.int32), mask=mask, overflow=ovf), ovf
 
     def _build_nmat(self, pos: torch.Tensor, home: torch.Tensor):
+        """(contact nmat, hydro nmat, crosslinker candidates, overflow); the
+        hydro search is its own only in rpy_periphery_spectral, at the
+        free-space operator's cutoff."""
+        c = self.config
         nmat, ovf = self._build_search(pos, self.search_radius, self.contact_K)
         if self.X > 0:
             kmat, kovf = self._build_kmc_candidates(pos, home)
             ovf = ovf | kovf
         else:
             kmat = nmat
-        return nmat, kmat, ovf
+        hmat = nmat
+        if self.freespace is not None:
+            hcl = build_cell_list(pos, self.fs_grid, self.fs_cell_capacity)
+            hmat = neighbor_matrix(pos, hcl, self.fs_hydro_search, metric=None,
+                                   max_neighbors=self.fs_hydro_K,
+                                   chunk=min(c.chunk, max(256, self.N)))
+            ovf = ovf | hcl.overflow | hmat.overflow
+        return nmat, hmat, kmat, ovf
 
     # ------------------------------------------------------------------
     def _kmc(self, state: ChromatinState) -> ChromatinState:
@@ -601,6 +686,20 @@ class ChromatinSim:
                                              (c.box_size,) * 3, self.se_geom, pieces=pieces)
             # both the SE binning and the 3D cells drop bodies on overflow
             return vel, state.overflow | cells.overflow | se_ovf
+        if c.hydro in _PERIPHERY_MODES:
+            overflow = state.overflow
+            if c.hydro == "rpy_periphery":
+                vel = rpy_apply_dense(state.pos, f, c.bead_radius, c.viscosity,
+                                      overlap_correction=True)
+            else:
+                vel, fs_ovf = freespace_rpy_apply(self.freespace, state.pos, f,
+                                                  state.hydro_nmat, geom=self.fs_geom)
+                overflow = overflow | fs_ovf  # the binning drops bodies on overflow
+            # the ambient flow at the quadrature nodes, exact over all beads
+            # (O(N Q)), then the densities and their double-layer flow
+            u_surf = rpy_flow_at(self.periphery.points, state.pos, f, c.bead_radius,
+                                 c.viscosity)
+            return vel + no_slip_correction(self.periphery, u_surf, state.pos), overflow
         return rpy_apply_neighbors(state.pos, f, state.nmat, c.bead_radius, c.viscosity,
                                    overlap_correction=True), state.overflow
 
@@ -619,8 +718,8 @@ class ChromatinSim:
         return state.replace(pos=new_pos, step=state.step + 1, overflow=overflow)
 
     def _rebuild(self, state: ChromatinState) -> ChromatinState:
-        nmat, kmat, ovf = self._build_nmat(state.pos, state.xl_home)
-        return state.replace(nmat=nmat, kmc_nmat=kmat, ref_pos=state.pos,
+        nmat, hmat, kmat, ovf = self._build_nmat(state.pos, state.xl_home)
+        return state.replace(nmat=nmat, hydro_nmat=hmat, kmc_nmat=kmat, ref_pos=state.pos,
                              rebuild_count=state.rebuild_count + 1,
                              overflow=state.overflow | ovf)
 
@@ -643,9 +742,10 @@ class ChromatinSim:
 
     def regrow(self, state: ChromatinState) -> ChromatinState:
         """Grow every overflow-bounded capacity (contact cells and K, rows
-        slack, KMC candidate cells and K, SE tile R, hydro cells and split)
-        and rebuild the searches from the state's positions
-        (driver/regrow.py)."""
+        slack, KMC candidate cells and K, SE tile R, hydro cells and split,
+        and the free-space tile R, hydro cells and K, which the reference
+        leaves as they are) and rebuild the searches from the state's
+        positions (driver/regrow.py)."""
         self.cell_capacity = grow_int(self.cell_capacity)
         self.contact_K = grow_int(self.contact_K)
         self.rows_slack *= 1.5
@@ -659,8 +759,12 @@ class ChromatinSim:
             if self.hydro_split is not None:
                 c_ex, dc_cap = self.hydro_split
                 self.hydro_split = (grow_int(c_ex), grow_int(dc_cap))
-        nmat, kmat, ovf = self._build_nmat(state.pos, state.xl_home)
-        return state.replace(nmat=nmat, kmc_nmat=kmat, ref_pos=state.pos,
+        if self.freespace is not None:
+            self.fs_geom = self.fs_geom._replace(R=grow_int(self.fs_geom.R))
+            self.fs_cell_capacity = grow_int(self.fs_cell_capacity)
+            self.fs_hydro_K = grow_int(self.fs_hydro_K)
+        nmat, hmat, kmat, ovf = self._build_nmat(state.pos, state.xl_home)
+        return state.replace(nmat=nmat, hydro_nmat=hmat, kmc_nmat=kmat, ref_pos=state.pos,
                              overflow=ovf)
 
     def doubly_bound(self, state: ChromatinState) -> int:

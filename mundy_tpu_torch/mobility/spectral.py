@@ -1,12 +1,16 @@
 """Spectral-Ewald (SE) wave-space RPY sum: FFT-accelerated periodic Stokes
 mobility.
 
-Port of mundy_tpu/mobility/spectral.py (the tile-gridding path of the
-chromatin app; ref: the PVFMM/STKFMM long-range Stokes sums,
-`TPLsList.cmake:29-30`): spread the forces onto a (G, G, G) grid with a
-window (kernel K5s), FFT, multiply each mode by the RPY x Hasimoto
+Port of mundy_tpu/mobility/spectral.py (ref: the PVFMM/STKFMM long-range
+Stokes sums, `TPLsList.cmake:29-30`): spread the forces onto a (G, G, G)
+grid with a window, FFT, multiply each mode by the RPY x Hasimoto
 coefficient with the window transform divided out, inverse FFT,
-interpolate back to the particles (kernel K5i). The FFTs are cuFFT through
+interpolate back to the particles. Two griddings: the tile layout of the
+apps (kernels K5s and K5i, `se_wave_apply_dense`) and the reference's
+scatter-add and gather over every particle's P^3 support points
+(`se_spread`, `se_interpolate`, `se_wave_apply`: plain PyTorch, as the
+reference's are XLA; small N, CPU tensors only: on the card they raise,
+naming the tile gridding). The FFTs are cuFFT through
 `torch.fft`, as the reference leaves them to XLA; the forward transform
 runs in float32 in every dtype, as the reference's does. The real-space
 correction comes from mobility/ewald.py on the 3D-cell engine.
@@ -29,16 +33,18 @@ import torch
 from mundy_tpu_torch.mobility.ewald import (
     EwaldRPY,
     build_ewald_rpy,
+    ewald_real_apply,
     ewald_real_apply_cells,
     rpy_real_cells_kernel,
 )
 from mundy_tpu_torch.ops.kernels.se_grid import (
     SEGridTiles,
+    _support,
     make_se_grid_tiles,
     se_bin_tiles,
     se_interp,
-    se_spread,
 )
+from mundy_tpu_torch.ops.kernels.se_grid import se_spread as se_spread_tiles
 
 
 class SpectralEwaldRPY(NamedTuple):
@@ -181,6 +187,47 @@ def _k_apply(op: SpectralEwaldRPY, grid: torch.Tensor) -> torch.Tensor:
     return ugrid * (op.base.box ** 3)
 
 
+def _scatter_support(op: SpectralEwaldRPY, pos: torch.Tensor):
+    """(flat grid ids (N, P, P, P), separable weights (N, P, P, P)) of every
+    particle's P^3 support points at offsets -(P/2 - 1) .. P/2 from
+    floor(pos / h), wrapped periodically: the support of the tile plain
+    versions (se_grid._support), whose window depends on the operator only.
+    A CUDA tensor raises: the card grids through K5s and K5i."""
+    if pos.is_cuda:
+        raise RuntimeError("the scatter gridding is the CPU's; on the card use the tile "
+                           "gridding (se_wave_apply_dense, se_rpy_apply_cells, or "
+                           "freespace_rpy_apply with geom=)")
+    return _support(make_se_geometry_tiles(op, 1), pos / (op.base.box / op.grid_n))
+
+
+def se_spread(op: SpectralEwaldRPY, pos: torch.Tensor, forces: torch.Tensor) -> torch.Tensor:
+    """Spread the forces onto the (G, G, G, 3) grid: a scatter-add of every
+    particle's P^3 weighted force (`index_add_`)."""
+    G = op.grid_n
+    idx, wt = _scatter_support(op, pos)
+    vals = wt[..., None] * forces[:, None, None, None, :]
+    grid = forces.new_zeros((G * G * G, 3))
+    grid.index_add_(0, idx.reshape(-1), vals.reshape(-1, 3))
+    return grid.reshape(G, G, G, 3)
+
+
+def se_interpolate(op: SpectralEwaldRPY, pos: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """Interpolate the grid's velocities at the particles: a gather of every
+    particle's P^3 support, weighted and summed, times h^3. (N, 3)."""
+    h = op.base.box / op.grid_n
+    idx, wt = _scatter_support(op, pos)
+    vals = grid.reshape(-1, 3)[idx.reshape(-1)].reshape(idx.shape + (3,))
+    return (wt[..., None] * vals).sum(dim=(1, 2, 3)) * (h * h * h)
+
+
+def se_wave_apply(op: SpectralEwaldRPY, pos: torch.Tensor, forces: torch.Tensor) -> torch.Tensor:
+    """Wave-space sum through the scatter gridding (small N): spread, the
+    FFT mode product, interpolate. (N, 3)."""
+    grid = se_spread(op, pos, forces)
+    ugrid = _k_apply(op, grid)
+    return se_interpolate(op, pos, ugrid.to(forces.dtype))
+
+
 def make_se_geometry_tiles(op: SpectralEwaldRPY, n_particles: int,
                            capacity_slack: float = 1.15) -> SEGridTiles:
     """3D-tile gridding geometry: occupancy bounded locally on all three
@@ -204,7 +251,7 @@ def se_wave_apply_dense(op: SpectralEwaldRPY, geom: SEGridTiles, pos: torch.Tens
         pieces = se_bin_geom(geom, pos, forces.dtype)
     # K5s reads contiguous forces; K3's (N, 3) sums of a single body block
     # come out as a transposed view
-    grid = se_spread(geom, pieces, forces.contiguous())
+    grid = se_spread_tiles(geom, pieces, forces.contiguous())
     ugrid = _k_apply(op, grid)  # the inverse FFT's strides: the channel axis outermost
     u = se_interp(geom, pieces, ugrid.to(forces.dtype))  # K5i reads that layout
     return u, pieces[1]
@@ -226,3 +273,12 @@ def se_rpy_apply_cells(op: SpectralEwaldRPY, cells, pos: torch.Tensor,
         u = ewald_real_apply_cells(op.base, cells, forces, box_lengths)
     uw, ovf = se_wave_apply_dense(op, geom, pos, forces, pieces=pieces)
     return u + uw, ovf
+
+
+def se_rpy_apply(op: SpectralEwaldRPY, pos: torch.Tensor, forces: torch.Tensor, nmat,
+                 metric) -> torch.Tensor:
+    """Full periodic RPY product through the scatter gridding (small N):
+    the real-space correction over a neighbor matrix (cutoff >= r_cut), the
+    wave sum and the self term. (N, 3)."""
+    u = ewald_real_apply(op.base, pos, forces, nmat, metric)
+    return u + se_wave_apply(op, pos, forces) + op.base.self_coeff * forces

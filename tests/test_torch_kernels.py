@@ -14,7 +14,8 @@ version does (no FMA contraction) and sums in another order: float32
 within 1e-5 of max|force| and of max|torque| (the rods op) or of max|f| of
 each node (the filaments op), float64 within 1e-12 of each. K5s and K5i
 round each window product as their plain versions do and sum in another
-order: float32 within 1e-5, float64 within 1e-12 of max|grid| and max|u|.
+order: float32 within 1e-5, float64 within 1e-12 of max|grid| and max|u|,
+at P = 6 and at the free-space path's P = 10, m = 12 with slots below 0.
 K3t sums, gathers and dots in its plain version's order: bit-equal. K6
 (with a radius plane, or the constant plane it builds without one) sums in
 another order than its plain version, with rsqrt approximations in
@@ -881,6 +882,81 @@ def test_k5i_reads_the_planar_layout(cuda_device, dtype, case):
         with pytest.raises(ValueError, match="strides"):
             k5.se_interp(geom, pieces, other)
     assert k5.se_interp.launches == before + 1
+
+
+def _free_space_pieces(dtype, dev, n=1000, seed=12):
+    """The free-space operator's gridding at HP1's spacing h = 116.15 / 384
+    on a G = 96 padded grid (box 29.0375): P = 10 (the ES default + 4), m =
+    12 (the slab rule's edge at G = 384), R sized from the measured
+    occupancy as the app sizes it. Ten random-walk chains of unit steps
+    cluster within 6 of a point in the padded box's first half; 40 beads lie up to
+    0.4 below 0 on each axis in turn, as the soft wall lets beads poke out
+    of the domain, so floor(u) < 0 and their windows wrap across the faces
+    of the padded grid."""
+    td = _DT[dtype]
+    rng = np.random.default_rng(seed)
+    steps = rng.normal(size=(n, 3))
+    steps /= np.linalg.norm(steps, axis=1, keepdims=True)
+    pos = np.cumsum(steps, axis=0).reshape(10, n // 10, 3)
+    pos -= pos.mean(axis=1, keepdims=True)
+    pos = 6.2 + 6.0 * pos / np.abs(pos).max(axis=(1, 2), keepdims=True)
+    pos = pos.reshape(n, 3)
+    for a in range(3):
+        pos[40 * a:40 * (a + 1), a] = -rng.uniform(0.0, 0.4, 40)
+    G, P, m, box = 96, 10, 12, 116.15 / 4
+    geom = k5.make_se_grid_tiles(G, P, box, 1.0, 0.0, n, capacity_slack=3.0, min_m=m,
+                                 kind="es", beta=0.97 * np.pi * P * (1.0 - 1.0 / 3.0))
+    assert geom.m == m
+    it = np.clip((pos / (m * box / G)).astype(int), 0, G // m - 1)
+    occ = np.bincount((it[:, 0] * (G // m) + it[:, 1]) * (G // m) + it[:, 2]).max()
+    geom = geom._replace(R=((int(occ * 1.5) + 8 + 7) // 8) * 8)
+    pieces = k5.se_bin_tiles(geom, torch.as_tensor(pos, dtype=td, device=dev), td)
+    forces = torch.as_tensor(rng.normal(size=(n, 3)), dtype=td, device=dev)
+    return geom, pieces, forces
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_k5_kernels_match_plain_free_space(cuda_device, dtype):
+    """K5s and K5i at the free-space path's support and tile edge, P = 10
+    and m = 12 (a runtime-P instantiation of K5i), on a clustered binning
+    with slots below 0: within 1e-5 (float32) and 1e-12 (float64) of
+    max|grid| and max|u| of their plain versions, no slot dropped."""
+    geom, pieces, forces = _free_space_pieces(dtype, cuda_device)
+    perm, ovf, u, valid, _slot_of = pieces
+    assert not bool(ovf) and int(valid.sum()) == forces.shape[0]
+    assert bool((u[valid] < 0).any(dim=0).all())  # negative u on every axis
+    tol = 1e-12 if dtype == "float64" else 1e-5
+    before = (k5.se_spread.launches, k5.se_interp.launches)
+    grid = k5.se_spread(geom, pieces, forces)
+    ref = k5.se_spread_plain(geom, pieces, forces)
+    out = k5.se_interp(geom, pieces, _planar(ref))
+    out_ref = k5.se_interp_plain(geom, pieces, _planar(ref))
+    torch.cuda.synchronize()
+    assert (k5.se_spread.launches, k5.se_interp.launches) == (before[0] + 1, before[1] + 1)
+    for got, want in ((grid, ref), (out, out_ref)):
+        scale = want.abs().max().item()
+        assert scale > 0 and bool(torch.isfinite(got).all())
+        assert (got - want).abs().max().item() <= tol * scale
+    # the wrapped mass lands on the far faces of the padded grid
+    assert ref[-1].abs().max().item() > 0 and ref[:, -1].abs().max().item() > 0
+
+
+@pytest.mark.cuda
+def test_surface_densities_refuse_tf32(cuda_device, monkeypatch):
+    """The periphery densities need full float32 products: with TF32
+    allowed a float32 call on the card raises; float64 runs."""
+    from mundy_tpu_torch.mobility import periphery
+
+    per = periphery.build_sphere_periphery(4, 1.0, device=cuda_device)
+    u = torch.ones(per.points.shape, device=cuda_device)
+    q = periphery.surface_densities(per, u)
+    assert bool(torch.isfinite(q).all())
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    with pytest.raises(RuntimeError, match="allow_tf32"):
+        periphery.surface_densities(per, u)
+    per64 = periphery.build_sphere_periphery(4, 1.0, dtype=torch.float64, device=cuda_device)
+    periphery.surface_densities(per64, u.double())
 
 
 @pytest.mark.cuda

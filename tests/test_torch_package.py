@@ -284,14 +284,36 @@ def test_k5_library_is_keyed_by_source():
     assert (_build.CSRC / "se_grid.cu").exists()
 
 
+def test_scatter_gridding_refuses_cuda_tensors():
+    """The spectral scatter gridding (index_add_ and a gather) is the CPU's:
+    a CUDA tensor raises, naming the tile gridding, before any grid work
+    (freespace_wave_apply and se_rpy_apply reach the same two functions)."""
+    from mundy_tpu_torch.mobility import spectral as tsp
+
+    op = tsp.build_spectral_ewald(12.0, 0.5, 1.0, tol=1e-4, window="es")
+    with FakeTensorMode():
+        pos = torch.zeros((8, 3), device="cuda")
+        grid = torch.zeros((op.grid_n,) * 3 + (3,), device="cuda")
+        for call in (lambda: tsp.se_spread(op, pos, pos), lambda: tsp.se_interpolate(op, pos, grid),
+                     lambda: tsp.se_wave_apply(op, pos, pos)):
+            with pytest.raises(RuntimeError, match="tile gridding"):
+                call()
+
+
 @pytest.mark.parametrize("hydro", ["rpy_periphery", "rpy_periphery_spectral"])
 def test_chromatin_unported_modes_raise(hydro):
-    """The periphery BIE modes and the sharded mode are not ported: they
-    raise, never run something else."""
+    """The periphery BIE modes are ported: each constructs and steps on the
+    CPU when asked (the card is the default), within its periphery. The
+    sharded mode (mesh=) is not ported: it raises, never runs something
+    else."""
     cfg = ChromatinConfig(num_chains=2, beads_per_chain=16, num_crosslinkers=4,
-                          hydro=hydro, periphery_radius=8.0)
-    with pytest.raises(NotImplementedError, match="periphery"):
-        ChromatinSim(cfg, device="cpu")
+                          hydro=hydro, periphery_radius=8.0, periphery_order=6,
+                          dtype="float64")
+    sim = ChromatinSim(cfg, device="cpu")
+    assert (sim.freespace is not None) == (hydro == "rpy_periphery_spectral")
+    st = sim.run_block(sim.init(), 2)
+    assert st.step == 2 and not bool(st.overflow)
+    assert bool(torch.isfinite(st.pos).all()) and float(st.pos.norm(dim=1).max()) < 8.0
     with pytest.raises(NotImplementedError, match="mesh"):
         ChromatinSim(ChromatinConfig(num_chains=2, beads_per_chain=16), device="cpu",
                      mesh=object())
@@ -306,7 +328,9 @@ def test_chromatin_slice_modules_import_without_jax():
                  "mundy_tpu_torch.state.select", "mundy_tpu_torch.kmc.crosslinkers",
                  "mundy_tpu_torch.forces.springs", "mundy_tpu_torch.forces.contact",
                  "mundy_tpu_torch.mobility.rpy", "mundy_tpu_torch.mobility.ewald",
-                 "mundy_tpu_torch.mobility.spectral", "mundy_tpu_torch.neighbor.cells3d",
+                 "mundy_tpu_torch.mobility.spectral", "mundy_tpu_torch.mobility.periphery",
+                 "mundy_tpu_torch.mobility.freespace", "mundy_tpu_torch.mobility",
+                 "mundy_tpu_torch.neighbor.cells3d",
                  "mundy_tpu_torch.ops.kernels.se_grid",
                  "mundy_tpu_torch.driver.apps.chromatin"):
         mod = importlib.import_module(name)
