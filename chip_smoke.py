@@ -12,7 +12,9 @@ broad phase is feasible), then the polydisperse lines of #1 (kernel K6
 with a radius plane) and #2 (K2's radius variant), the scalar-mobility
 Delassus applies (kernel K3t), the hydro modes of #2 (K2, K3, and K5s
 and K5i in rpy_spectral) and the HP1 periphery modes of #5 (K5s and K5i
-on the free-space padded grid) through the port's own entry points:
+on the free-space padded grid) through the port's own entry points, then
+every example YAML through the port's CLI (`mundy_tpu_torch.driver.main`),
+the flat cell-list SpheresSim and the granular app:
 
 1. build K1-K6 with nvcc (sm_90a), one process per source, all at once;
    print each kernel's registers and spills and the card with its power
@@ -173,14 +175,37 @@ on the free-space padded grid) through the port's own entry points:
     beads, 16 crosslinkers, periphery radius 8, order 8, D 0.002, skin
     0.03, 30 steps) on the card against the CPU: equal rebuilds (more than
     one), overflow and binding states at every step, positions within
-    1e-7.
+    1e-7;
+35. every examples/*.yaml through mundy_tpu_torch.driver.main.main([...,
+    "--device", "cuda"]) in this process: spheres_10k and granular_settling
+    as written, with --output-dir (trajectory frames every 100 and 500
+    steps, counted, and final.vtk checked), lcp_spheres_100k for 20 steps,
+    rods_100k for 100, filaments_sperm for 200, hp1_chromatin for 100 and
+    chromatin_1m_spectral for 2; each returns 0 and prints its ms/step; the
+    K2/K3/K4/K5s/K5i counts are set to 0 before each run and printed after
+    it, and must be non-zero on the paths that run them (K2 and K3 on the
+    LCP YAML, K4 on rods, K2, K5s and K5i on the 1M chromatin YAML); the
+    native IO library must have built;
+36. the flat SpheresSim (the engine `app: spheres` runs) at 1M with config
+    #1's physics (bench.py:87-105) through run_block: 3 warm-up steps, then
+    100 steps, ms/step beside [5]'s row engine, rebuilds, no overflow; then
+    torch.profiler over 8 more steps;
+37. float64 on the card against the CPU: the flat SpheresSim (2000
+    spheres, 60 steps, monodisperse and polydispersity 0.4) and the
+    granular app (500 spheres settling from a layer 0.6 < z < 8, 300
+    steps): equal rebuild counts, positions within 1e-7;
+38. checkpoint continuation through the CLI: spheres_10k and
+    granular_settling (float32) for 200 steps straight (checkpoints every
+    100) twice, and for 100 steps then --continue for 100: the final
+    checkpoints bit-equal (the resumed run and the repeated one).
 
 Kernel times are medians of CUDA-event timings after a synchronize, kernel
 and plain version alternating; for K2, K3 and K3t the device time per
 launch of 20 launches queued back to back is printed beside them. Prints
 one JSON line of kernel results (K2's, K3's, K5s's and K5i's entries also
 carry their launches on [29]'s paths, and K5s's and K5i's on [33]'s,
-under "path_launches"),
+under "path_launches", and K2's, K3's, K4's, K5s's and K5i's those of each
+YAML through the CLI at [35], as "cli <yaml>"),
 then a final JSON line {"ok": true, "device": {...}}. Exits non-zero, with no
 result, without a CUDA device or without the package beside it.
 """
@@ -260,6 +285,20 @@ SPECTRAL_STEPS = 3
 HYDRO_SMALL_STEPS = 14
 HP1_SPECTRAL_STEPS = 200
 PERIPHERY_SMALL_STEPS = 30
+# the YAMLs [35] runs through the CLI: (file, --set overrides, --output-every
+# or None, the kernels its path launches)
+CLI_RUNS = (
+    ("spheres_10k", (), 100, ()),
+    ("granular_settling", (), 500, ()),
+    ("lcp_spheres_100k", ("num_steps=20",), None, ("K2", "K3")),
+    ("rods_100k", ("num_steps=100",), None, ("K4",)),
+    ("filaments_sperm", ("num_steps=200",), None, ()),
+    ("hp1_chromatin", ("num_steps=100",), None, ()),
+    ("chromatin_1m_spectral", ("num_steps=2",), None, ("K2", "K5s", "K5i")),
+)
+FLAT_STEPS = 100
+RESUME_STEPS = 200
+
 # published H100 SXM peaks (NVIDIA data sheet): FP32 outside the
 # tensor cores, and HBM bandwidth
 PEAK_FP32 = 67e12
@@ -1518,6 +1557,189 @@ def periphery_phases(torch, dev, card: str) -> dict:
     return path
 
 
+def run_cli(argv: list) -> list:
+    """mundy_tpu_torch.driver.main.main(argv) in this process, its standard
+    output captured; returns its lines. Fails unless it returns 0."""
+    import contextlib
+    import io
+
+    from mundy_tpu_torch.driver.main import main as cli_main
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(argv)
+    except BaseException as e:  # noqa: BLE001 (print what it said, then fail)
+        print(buf.getvalue()[-4000:], flush=True)
+        fail(f"main({argv}) raised {type(e).__name__}: {e}")
+    lines = buf.getvalue().splitlines()
+    if rc != 0:
+        print("\n".join(lines[-20:]), flush=True)
+        fail(f"main({argv}) returned {rc}")
+    return lines
+
+
+def checkpoint_arrays(directory: str, step: int) -> dict:
+    import numpy as np
+
+    with np.load(os.path.join(directory, f"ckpt_{step:012d}.npz")) as d:
+        return {k: d[k] for k in d.files}
+
+
+def cli_phases(torch, dev, card: str, row_ms: float) -> dict:
+    """Phases 35-38: every example YAML through the port's CLI on the card,
+    the flat SpheresSim at 1M, the flat engine and granular in float64
+    against the CPU, and checkpoint continuation through the CLI. `row_ms`
+    is [5]'s ms/step of the row engine. Returns the kernel launches each
+    YAML made, by kernel entry name."""
+    import shutil
+
+    import numpy as np
+
+    from mundy_tpu_torch.driver.apps.granular import GranularConfig, GranularSim
+    from mundy_tpu_torch.driver.apps.spheres import SpheresConfig, SpheresSim
+    from mundy_tpu_torch.io import native
+    from mundy_tpu_torch.io.trajectory import TrajectoryReader
+    from mundy_tpu_torch.ops.kernels import row_extract as k2
+    from mundy_tpu_torch.ops.kernels import row_segments as k4
+    from mundy_tpu_torch.ops.kernels import se_grid as k5
+    from mundy_tpu_torch.ops.kernels import seg_onehot as k3
+
+    work = os.path.join(HERE, "build", "cli_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    counters = {"K2": (k2.row_neighbor_extract, "row_neighbor_extract"),
+                "K3": (k3.strided_onehot_segment_sum, "strided_onehot_segment_sum"),
+                "K4": (k4.row_segment_pairs_sym, "row_segment_pairs_sym"),
+                "K5s": (k5.se_spread, "se_spread"), "K5i": (k5.se_interp, "se_interp")}
+    paths = {}
+
+    # ---- 35. every example YAML through main() -----------------------------
+    for name, sets, every, need in CLI_RUNS:
+        yaml = os.path.join(HERE, "examples", f"{name}.yaml")
+        argv = [yaml, "--device", "cuda"] + (["--set", *sets] if sets else [])
+        out = os.path.join(work, name)
+        if every is not None:
+            argv += ["--output-dir", out, "--output-every", str(every)]
+        for fn, _ in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        lines = run_cli(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: fn.launches for k, (fn, _) in counters.items()}
+        stepped = next((ln for ln in lines if ln.startswith("stepped ")), "")
+        regrow = sum("regrow" in ln for ln in lines)
+        print(f"[35] {name}{' ' + ' '.join(sets) if sets else ''}: rc 0, {stepped}, "
+              f"{wall:.2f} s with init, {regrow} regrows; launches "
+              f"{', '.join(f'{k} {v}' for k, v in got.items())}; {card}", flush=True)
+        for k in need:
+            if got[k] == 0:
+                fail(f"{name} through the CLI launched {k} no time")
+        for k, v in got.items():
+            paths.setdefault(counters[k][1], {})[f"cli {name}"] = v
+        if every is not None:
+            total = int(next(ln for ln in lines if ln.startswith("step ")).split("/")[1])
+            with TrajectoryReader(os.path.join(out, "trajectory.mtrj")) as r:
+                frames, n = r.num_frames, r.n
+                last = r.read(frames - 1)
+            vtk = open(os.path.join(out, "final.vtk")).read().splitlines()
+            print(f"    {frames} trajectory frames of {n} bodies (last at step {last[0]}), "
+                  f"final.vtk {vtk[4]}", flush=True)
+            if not (frames == total // every + 1 and last[0] == total
+                    and np.isfinite(last[2]).all() and vtk[4] == f"POINTS {n} float"):
+                fail(f"{name}: {frames} frames (want {total // every + 1}) or a bad final.vtk")
+    lib = native.library()
+    if lib is None or not native.library_path().exists():
+        fail("the native IO library did not build on this machine")
+    print(f"    native IO library {native.library_path().name} loaded", flush=True)
+
+    # ---- 36. the flat SpheresSim at 1M, config #1's physics -----------------
+    big = bench_config(SpheresConfig, N_BIG)
+    t0 = time.perf_counter()
+    sim = SpheresSim(big, device=dev)
+    st = sim.init()
+    st = sim.run_block(st, 3)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rb0 = st.rebuild_count
+    t0 = time.perf_counter()
+    st = sim.run_block(st, FLAT_STEPS)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    flat_ms = 1e3 * elapsed / FLAT_STEPS
+    print(f"[36] flat SpheresSim at 1M (config #1's physics, cells {sim.grid.dims}, K "
+          f"{big.max_neighbors}, cell capacity {big.cell_capacity}): init + 3 steps "
+          f"{init_s:.2f} s, {FLAT_STEPS} steps in {elapsed:.3f} s = {flat_ms:.3f} ms/step, "
+          f"rebuilds {st.rebuild_count - rb0}, overflow {bool(st.overflow)}; the row "
+          f"engine at [5] {row_ms:.3f} ms/step ({flat_ms / row_ms:.1f}x); {card}", flush=True)
+    if bool(st.overflow) or not bool(torch.isfinite(st.pos).all()):
+        fail("the 1M flat SpheresSim overflowed or went non-finite")
+    profile_window(lambda n: sim.run_block(st, n), torch, flat_ms)
+    del sim, st
+
+    # ---- 37. float64 on the card against the CPU -----------------------------
+    small = SpheresConfig(num_spheres=2000, box_size=16.0, diffusion_coeff=0.01,
+                          dt=1e-4, skin=0.1, dtype="float64")
+    pos0 = torch.rand((2000, 3), dtype=torch.float64,
+                      generator=torch.Generator().manual_seed(5)) * 16.0
+    for p in (0.0, 0.4):
+        cfg = dataclasses.replace(small, polydispersity=p)
+        runs = {}
+        for d in ("cuda", "cpu"):
+            sim = SpheresSim(dataclasses.replace(cfg), device=d)
+            st = sim.run_block(sim.init(pos=pos0), 60)
+            runs[d] = (st.rebuild_count, st.pos.cpu(), st.nmat.idx.cpu())
+        diff = (runs["cuda"][1] - runs["cpu"][1]).abs().max().item()
+        same_nmat = bool(torch.equal(runs["cuda"][2], runs["cpu"][2]))
+        print(f"[37] flat SpheresSim float64 2000 spheres (polydispersity {p}), 60 steps: "
+              f"rebuilds {runs['cuda'][0]} (cpu {runs['cpu'][0]}), max|pos diff| vs cpu "
+              f"{diff:.3e}, neighbor matrix equal {same_nmat}", flush=True)
+        if not (runs["cuda"][0] == runs["cpu"][0] >= 3 and diff <= 1e-7):
+            fail("the float64 flat SpheresSim on the card disagrees with the CPU run")
+    gcfg = GranularConfig(num_spheres=500, box_size=10.0, dt=5e-4, normal_damping=100.0,
+                          tang_damping=50.0, dtype="float64", cell_capacity=32,
+                          max_neighbors=32, pair_capacity_per_body=16)
+    rng = np.random.default_rng(7)
+    gpos = np.column_stack([rng.uniform(1.0, 9.0, (500, 2)), rng.uniform(0.6, 8.0, 500)])
+    runs = {}
+    for d in ("cuda", "cpu"):
+        sim = GranularSim(dataclasses.replace(gcfg), device=d)
+        st = sim.run_block(sim.init(pos=torch.from_numpy(gpos)), 300)
+        runs[d] = (st.rebuild_count, st.pos.cpu(), bool(st.overflow),
+                   sim.kinetic_energy(st))
+    diff = (runs["cuda"][1] - runs["cpu"][1]).abs().max().item()
+    print(f"[37] granular float64 500 spheres, 300 steps: rebuilds {runs['cuda'][0]} (cpu "
+          f"{runs['cpu'][0]}), max|pos diff| vs cpu {diff:.3e}, KE {runs['cuda'][3]:.6e} "
+          f"(cpu {runs['cpu'][3]:.6e}), overflow {runs['cuda'][2]}", flush=True)
+    if not (runs["cuda"][0] == runs["cpu"][0] >= 3 and diff <= 1e-7 and not runs["cuda"][2]):
+        fail("the float64 granular run on the card disagrees with the CPU run")
+
+    # ---- 38. checkpoint continuation through the CLI -------------------------
+    half = RESUME_STEPS // 2
+    for name in ("spheres_10k", "granular_settling"):
+        yaml = os.path.join(HERE, "examples", f"{name}.yaml")
+        a, b, c = (os.path.join(work, f"resume_{name}_{x}") for x in "abc")
+        t0 = time.perf_counter()
+        for ck in (a, c):  # two uninterrupted runs, checkpoints at the half and the end
+            run_cli([yaml, "--device", "cuda", "--set", f"num_steps={RESUME_STEPS}",
+                     "--checkpoint-dir", ck, "--checkpoint-every", str(half)])
+        run_cli([yaml, "--device", "cuda", "--set", f"num_steps={half}", "--checkpoint-dir", b])
+        lines = run_cli([yaml, "--device", "cuda", "--set", f"num_steps={RESUME_STEPS}",
+                         "--checkpoint-dir", b, "--continue"])
+        if not any(ln.startswith("resumed from") for ln in lines):
+            fail(f"{name}: --continue did not resume")
+        fa, fb, fc = (checkpoint_arrays(x, RESUME_STEPS) for x in (a, b, c))
+        resumed = fa.keys() == fb.keys() and all(np.array_equal(fa[k], fb[k]) for k in fa)
+        repeat = fa.keys() == fc.keys() and all(np.array_equal(fa[k], fc[k]) for k in fa)
+        print(f"[38] {name} (float32): {RESUME_STEPS} steps straight vs {half} + --continue "
+              f"{half}: {len(fa)} leaves bit-equal {resumed}; a second straight run bit-equal "
+              f"{repeat} ({time.perf_counter() - t0:.2f} s for the four runs)", flush=True)
+        if not (resumed and repeat):
+            fail(f"{name}: the resumed or the repeated run is not bit-equal")
+    return paths
+
+
 def main() -> None:
     import torch
 
@@ -1668,7 +1890,8 @@ def main() -> None:
         fail("no rebuild in the 1M window")
     if k1_launches != BIG_STEPS:
         fail(f"K1 launched {k1_launches} times in {BIG_STEPS} steps")
-    profile_window(lambda n: sim.run_block(st, n), torch, 1e3 * elapsed / BIG_STEPS)
+    row_ms = 1e3 * elapsed / BIG_STEPS  # [36] prints the flat engine beside it
+    profile_window(lambda n: sim.run_block(st, n), torch, row_ms)
     del sim, st, pos
 
     # ---- 6. the 1M LCP bench protocol (bench.py:39-74) ---------------------
@@ -2107,6 +2330,7 @@ def main() -> None:
     del lcp_sim, lcp_st
     hydro_paths = lcp_hydro_phases(torch, dev, card)
     hp1_paths = periphery_phases(torch, dev, card)
+    cli_paths = cli_phases(torch, dev, card, row_ms)
 
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     kernels = [
@@ -2145,6 +2369,8 @@ def main() -> None:
             entry["path_launches"] = hydro_paths[entry["name"]]
         if entry["name"] in hp1_paths:
             entry["path_launches"]["hp1 rpy_periphery_spectral"] = hp1_paths[entry["name"]]
+        if entry["name"] in cli_paths:  # each example YAML through the CLI, [35]
+            entry.setdefault("path_launches", {}).update(cli_paths[entry["name"]])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

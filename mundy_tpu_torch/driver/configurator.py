@@ -1,0 +1,92 @@
+"""Configurator: YAML -> validated config -> assembled simulation.
+
+Port of mundy_tpu/driver/configurator.py (the reference's
+Configurator/Driver, `Configurator.hpp:98,181-208`, `Driver.hpp:96`): a
+registry maps app names to (config schema, simulation class); YAML
+populates the schema with unknown-key rejection and numeric coercion
+(core/config.py), and every sim is built on the device the caller names.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from mundy_tpu_torch.core.config import ConfigError, config_from_dict, load_yaml
+
+# app name -> (config class, sim factory); filled on first use, so that
+# importing the configurator does not import every app
+_REGISTRY: dict = {}
+
+
+def make_rods_sim(config, device="cuda"):
+    """Engine selection for config #3, as the reference makes it: the row
+    narrow phase (rods_rows.RowRodsSim) when the box admits it. Where the
+    reference builds its (N, K) RodsSim instead (engine="nmat", ellipsoids,
+    friction, or fewer than 5 row cells per axis) the port raises: that
+    engine is not ported yet."""
+    from mundy_tpu_torch.driver.apps.rods_rows import RowRodsSim
+
+    not_ported = NotImplementedError(
+        "this rods config runs on the reference's (N, K) RodsSim engine (engine='nmat', "
+        "ellipsoids, friction, or fewer than 5 row cells per axis), not ported yet "
+        "(ROADMAP queue 1, item 7)")
+    if config.engine == "nmat" or config.shape == "ellipsoid" or config.friction:
+        raise not_ported
+    cutoff = config.length + 2 * config.radius + config.skin
+    feasible = int(config.box_size // cutoff) >= 5
+    if config.engine == "rows" or feasible:
+        return RowRodsSim(config, device=device)
+    raise not_ported
+
+
+def _registry() -> dict:
+    if _REGISTRY:
+        return _REGISTRY
+    from mundy_tpu_torch.driver.apps.chromatin import ChromatinConfig, ChromatinSim
+    from mundy_tpu_torch.driver.apps.filaments import FilamentsConfig, FilamentsSim
+    from mundy_tpu_torch.driver.apps.granular import GranularConfig, GranularSim
+    from mundy_tpu_torch.driver.apps.lcp_spheres import LCPSpheresConfig, LCPSpheresSim
+    from mundy_tpu_torch.driver.apps.rods import RodsConfig
+    from mundy_tpu_torch.driver.apps.spheres import SpheresConfig, SpheresSim
+
+    _REGISTRY.update({
+        "spheres": (SpheresConfig, SpheresSim),
+        "lcp_spheres": (LCPSpheresConfig, LCPSpheresSim),
+        "rods": (RodsConfig, make_rods_sim),
+        "filaments": (FilamentsConfig, FilamentsSim),
+        "chromatin": (ChromatinConfig, ChromatinSim),
+        "granular": (GranularConfig, GranularSim),
+    })
+    return _REGISTRY
+
+
+def available_apps() -> list:
+    return sorted(_registry().keys())
+
+
+def config_from_spec(spec: dict):
+    """{"app": name, "params": {...}} -> (app name, config). Raises
+    ConfigError, with the valid choices, on an unknown app or key."""
+    reg = _registry()
+    if "app" not in spec:
+        raise ConfigError(f"config must name an 'app'; available: {available_apps()}")
+    app = spec["app"]
+    if app not in reg:
+        raise ConfigError(f"unknown app '{app}'; available: {available_apps()}")
+    params = spec.get("params", {}) or {}
+    return app, config_from_dict(reg[app][0], params, path=f"{app}.params")
+
+
+def build_simulation(spec: dict, device="cuda"):
+    """{"app": name, "params": {...}} -> (config, sim on `device`)."""
+    app, config = config_from_spec(spec)
+    return config, _registry()[app][1](config, device=device)
+
+
+def build_simulation_from_yaml(path: str, overrides: Optional[dict] = None, device="cuda"):
+    """Load a YAML app spec, apply key=value overrides to its params, build
+    the sim on `device`."""
+    spec = load_yaml(path)
+    if overrides:
+        spec = {**spec, "params": {**(spec.get("params", {}) or {}), **overrides}}
+    return build_simulation(spec, device=device)

@@ -1,0 +1,133 @@
+"""CLI driver: `python -m mundy_tpu_torch.driver.main config.yaml [--set k=v ...]`.
+
+Port of mundy_tpu/driver/main.py (the `main()` of the reference's app
+drivers, CommandLineProcessor + getParametersFromYamlFile,
+`HP1...neigh_linker.cpp:1021-1062`), with checkpoints and continuation as
+the reference's `enable_continuation_if_available` (`:897-899`) handles
+them. The sim runs on the card unless `--device cpu` is given; with no card
+and no `--device cpu` the driver raises, never carrying on on the CPU. The
+reference's JAX compile-cache and x64 switches have no counterpart: PyTorch
+compiles nothing per run here, and each config's dtype selects float64.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+import torch
+
+from mundy_tpu_torch.driver.configurator import available_apps, build_simulation_from_yaml
+from mundy_tpu_torch.io import latest_checkpoint, load_checkpoint, save_checkpoint
+
+
+def _parse_overrides(pairs) -> dict:
+    out = {}
+    for p in pairs or []:
+        if "=" not in p:
+            raise SystemExit(f"--set expects key=value, got '{p}'")
+        k, v = p.split("=", 1)
+        try:
+            out[k] = json.loads(v)
+        except json.JSONDecodeError:
+            out[k] = v
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        description=f"mundy_tpu_torch driver. Apps: {', '.join(available_apps())}")
+    ap.add_argument("config", help="YAML config with 'app' and 'params'")
+    ap.add_argument("--set", nargs="*", metavar="KEY=VALUE", dest="overrides",
+                    help="parameter overrides (JSON-parsed values)")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="directory for periodic checkpoints + continuation")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="steps between checkpoints (0 = only at end)")
+    ap.add_argument("--continue", dest="resume", action="store_true",
+                    help="resume from the latest checkpoint if present")
+    ap.add_argument("--output-dir", default=None,
+                    help="directory for trajectory frames + final VTK "
+                         "(the IOBroker results role)")
+    ap.add_argument("--output-every", type=int, default=0,
+                    help="steps between trajectory frames (0 = final only)")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="where the sim runs (default: the card)")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="run sharded over N devices (the reference's `mpirun -n N` "
+                         "role); 0/1 = one device")
+    args = ap.parse_args(argv)
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda (the default) needs a CUDA device, and torch sees "
+                           "none; pass --device cpu to run on the CPU")
+    if args.devices and args.devices > 1:
+        raise NotImplementedError("the sharded engines (--devices > 1) are not ported yet "
+                                  "(ROADMAP queue 1, item 8)")
+
+    config, sim = build_simulation_from_yaml(args.config, _parse_overrides(args.overrides),
+                                             device=args.device)
+    print(f"app config: {config}")
+
+    state = sim.init()
+    start_step = 0
+    if args.resume and args.checkpoint_dir:
+        ck = latest_checkpoint(args.checkpoint_dir)
+        if ck is not None:
+            state = load_checkpoint(ck, state)
+            start_step = int(getattr(state, "step", 0))
+            print(f"resumed from {ck} at step {start_step}")
+
+    total = config.num_steps
+    broker = None
+    if args.output_dir:
+        from mundy_tpu_torch.io.broker import ResultsBroker
+
+        broker = ResultsBroker(args.output_dir, 0, args.output_every,
+                               dt=float(getattr(config, "dt", 0.0)), append=start_step > 0)
+        if start_step == 0:
+            broker.write_frame(0, sim, state)  # the initial configuration
+
+    # block size = the finest positive cadence of checkpoints and results
+    # (the reference's io_frequency / PeriodicTrigger role)
+    cadences = [v for v in (args.checkpoint_every, args.output_every) if v > 0]
+    block = min(cadences) if cadences else total
+    done = start_step
+    regrows = 0
+    t0 = time.perf_counter()
+    while done < total:
+        n = min(block, total - done)
+        new_state = sim.run_block(state, n)
+        if args.device == "cuda":
+            torch.cuda.synchronize()
+        if bool(getattr(new_state, "overflow", False)) and hasattr(sim, "regrow"):
+            if regrows >= 8:
+                raise SystemExit("capacity overflow persists after regrows")
+            regrows += 1
+            print(f"capacity overflow: regrow #{regrows}, retrying block")
+            state = sim.regrow(state)
+            continue
+        state = new_state
+        done += n
+        print(f"step {done}/{total}")
+        if broker is not None:
+            broker.maybe_write(done, sim, state)
+        if args.checkpoint_dir and (done >= total or (args.checkpoint_every > 0
+                                                      and done % args.checkpoint_every == 0)):
+            save_checkpoint(args.checkpoint_dir, done, state)
+    elapsed = time.perf_counter() - t0
+    stepped = done - start_step
+    print(f"stepped {stepped} steps in {elapsed:.3f} s"
+          + (f" ({1e3 * elapsed / stepped:.3f} ms/step)" if stepped else ""))
+    if broker is not None:
+        vtk = broker.finalize(done, sim, state)
+        print(f"wrote {broker.frames_written} trajectory frames to "
+              f"{broker.trajectory_path}; final snapshot {vtk}")
+    print("done")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -81,18 +81,36 @@ def contact_forces(pos: torch.Tensor, radius, nmat,
 
 def hertzian_contact_forces(pos: torch.Tensor, radius, youngs, poisson, nmat,
                             metric: Optional[Metric] = None) -> torch.Tensor:
-    """Hertzian sphere-sphere contact over the neighbor matrix, uniform
-    material (the reference's gather-free branch). (N, 3). The constants,
-    python scalars or 0-d tensors, round to pos's dtype as the reference's
-    do; pass them as tensors on pos's device to keep host copies out of a
-    step."""
+    """Hertzian sphere-sphere contact over the neighbor matrix. (N, 3).
+
+    Uniform (python or 0-d) radius, youngs and poisson take the reference's
+    gather-free branch. Per-particle (N,) values take its packed branch:
+    R* = r_i r_j / (r_i + r_j) and E* = m_i m_j / (m_i + m_j) with the
+    plane-strain modulus m = E / (1 - nu^2). The constants round to pos's
+    dtype as the reference's do; pass them as tensors on pos's device to
+    keep host copies out of a step."""
     kw = dict(dtype=pos.dtype, device=pos.device)
     r = torch.as_tensor(radius, **kw)
     e, nu = torch.as_tensor(youngs, **kw), torch.as_tensor(poisson, **kw)
-    r_eff = 0.5 * r
-    e_eff = effective_youngs(e, e, nu, nu)
+    if r.ndim == 0 and e.ndim == 0 and nu.ndim == 0:
+        r_eff = 0.5 * r
+        e_eff = effective_youngs(e, e, nu, nu)
 
-    def mag(signed_sep, i, j):
+        def mag(signed_sep, i, j):
+            return hertzian_pair_force(signed_sep, r_eff, e_eff)
+
+        return contact_forces(pos, r, nmat, mag, metric)
+
+    n = pos.shape[0]
+    r, e, nu = (torch.broadcast_to(v, (n,)) for v in (r, e, nu))
+    params = torch.stack([r, e / (1.0 - nu * nu)], dim=1)
+
+    def mag_packed(signed_sep, i, j):
+        pi = params[i[:, 0]]  # (N, 2)
+        pj = params[torch.clamp(j, max=n - 1)]  # (N, K, 2)
+        r_eff = effective_radius(pi[:, None, 0], pj[..., 0])
+        m_i, m_j = pi[:, None, 1], pj[..., 1]
+        e_eff = (m_i * m_j) / torch.clamp(m_i + m_j, min=_EPS)
         return hertzian_pair_force(signed_sep, r_eff, e_eff)
 
-    return contact_forces(pos, r, nmat, mag, metric)
+    return contact_forces(pos, r, nmat, mag_packed, metric)

@@ -1,13 +1,52 @@
-"""Hilbert-curve lattice layouts for chain initialisation (host numpy).
+"""Hilbert-curve keys and lattice layouts (host numpy).
 
-Port of mundy_tpu/math/spacefill.py::hilbert_positions_and_directors (ref:
+Port of mundy_tpu/math/spacefill.py's hilbert_key_3d (the keys the native
+IO library's `mundy_hilbert_keys` computes, io/trajectory.py) and
+hilbert_positions_and_directors for chain initialisation (ref:
 `mundy/math/src/mundy_math/Hilbert.hpp:90`, create_hilbert_positions_and_
-directors). Plain numpy, run once at init; the port keeps its own copy.
+directors). Plain numpy, run on the host; the port keeps its own copy.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def hilbert_key_3d(ix, iy, iz, bits: int = 10) -> np.ndarray:
+    """uint32 3-D Hilbert index of integer cell coordinates (Skilling's
+    transform, `bits` <= 10 per axis), axis 0 most significant."""
+    if bits > 10:
+        raise ValueError("hilbert_key_3d supports at most 10 bits per axis (uint32 keys)")
+    x = np.stack([np.asarray(v).astype(np.uint32) for v in (ix, iy, iz)])  # (3, ...)
+    # the inverse undo of Skilling's Hilbert transpose: coords -> transposed key
+    q = np.uint32(1 << (bits - 1))
+    for _ in range(bits - 1):
+        p = np.uint32(q - 1)
+        for i in range(3):
+            cond = (x[i] & q) > 0
+            if i == 0:
+                x[0] = np.where(cond, x[0] ^ p, x[0])
+            else:  # bit set: invert x[0]'s low bits; else exchange them with x[i]'s
+                t = (x[0] ^ x[i]) & p
+                x0 = np.where(cond, x[0] ^ p, x[0] ^ t)
+                x[i] = np.where(cond, x[i], x[i] ^ t)
+                x[0] = x0
+        q = np.uint32(q >> 1)
+    # Gray encode
+    x[1] ^= x[0]
+    x[2] ^= x[1]
+    t = np.zeros_like(x[0])
+    q = np.uint32(1 << (bits - 1))
+    for _ in range(bits - 1):
+        t = np.where((x[2] & q) > 0, t ^ np.uint32(q - 1), t)
+        q = np.uint32(q >> 1)
+    x ^= t[None]
+    # interleave the transposed bits into one key
+    key = np.zeros_like(x[0])
+    for b in range(bits - 1, -1, -1):
+        for i in range(3):
+            key = (key << np.uint32(1)) | ((x[i] >> np.uint32(b)) & np.uint32(1))
+    return key
 
 
 def hilbert_positions_and_directors(num_points: int, orientation=(1.0, 0.0, 0.0),

@@ -5,8 +5,8 @@ chromatin lines run): bin particles into a dense (ncells, capacity) table
 with one stable sort, gather the 27-cell stencil per particle in chunks,
 keep the first K in-cutoff candidates in stencil order, gather the raw
 stencil of a few query points (`neighbor_candidates`), and compact a
-neighbor matrix into the i-sorted ordered pair list of the constraint
-pipeline. Shapes and
+neighbor matrix into the unique i < j pair list of the granular app or the
+i-sorted ordered pair list of the constraint pipeline. Shapes and
 capacities are python ints; overflow is a 0-d bool tensor the host reads
 between blocks.
 
@@ -221,6 +221,29 @@ def neighbor_matrix(pos: torch.Tensor, clist: CellList, search_radius,
     idx = torch.cat(idx_parts)[:n].to(torch.int32)
     mask = torch.cat(mask_parts)[:n]
     return NeighborMatrix(idx=idx, mask=mask, overflow=ovf)
+
+
+def build_pair_list(nmat: NeighborMatrix, capacity: int) -> PairList:
+    """Unique (i < j) pairs of a neighbor matrix, compacted in row-major
+    order into `capacity` slots. Padded slots carry i = j = 0 and
+    mask=False; `num_pairs` counts every pair found, `overflow` flags more
+    than `capacity` of them (the pairs past it are dropped)."""
+    n, k = nmat.idx.shape
+    dev = nmat.idx.device
+    ii = torch.arange(n, dtype=torch.int32, device=dev)[:, None].expand(n, k).reshape(-1)
+    jj = nmat.idx.reshape(-1).to(torch.int32)
+    ok = nmat.mask.reshape(-1) & (ii < jj)
+    num = ok.sum(dtype=torch.int32)
+    slot = torch.cumsum(ok.to(torch.int32), dim=0) - 1
+    dest = torch.where(ok & (slot < capacity), slot, capacity).to(torch.int64)
+    i_out = torch.zeros(capacity + 1, dtype=torch.int32, device=dev)  # + the dump slot
+    j_out = torch.zeros(capacity + 1, dtype=torch.int32, device=dev)
+    mask_out = torch.zeros(capacity + 1, dtype=torch.bool, device=dev)
+    i_out[dest] = ii
+    j_out[dest] = jj
+    mask_out[dest] = ok
+    return PairList(i=i_out[:capacity], j=j_out[:capacity], mask=mask_out[:capacity],
+                    num_pairs=num, overflow=num > capacity)
 
 
 def build_pair_list_ordered(nmat: NeighborMatrix, capacity: int) -> PairList:

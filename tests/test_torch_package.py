@@ -405,3 +405,38 @@ def test_k6_library_is_keyed_by_source():
     assert lib.parent == ROOT / "build" / "kernels"
     assert lib.name.startswith("row_hertz_") and lib.suffix == ".so"
     assert (_build.CSRC / "row_hertz.cu").exists()
+
+
+def test_cli_slice_modules_import_without_jax():
+    """The CLI slice's modules: the pair list, the flat spheres engine,
+    friction, granular, the IO package and the driver, importable and free
+    of JAX (scanned above)."""
+    import importlib
+
+    for name in ("mundy_tpu_torch.neighbor", "mundy_tpu_torch.neighbor.cell_list",
+                 "mundy_tpu_torch.driver.apps.spheres", "mundy_tpu_torch.forces.friction",
+                 "mundy_tpu_torch.driver.apps.granular", "mundy_tpu_torch.io",
+                 "mundy_tpu_torch.io.native", "mundy_tpu_torch.io.trajectory",
+                 "mundy_tpu_torch.io.vtk", "mundy_tpu_torch.io.checkpoint",
+                 "mundy_tpu_torch.io.telemetry", "mundy_tpu_torch.io.broker",
+                 "mundy_tpu_torch.driver.configurator", "mundy_tpu_torch.driver.main"):
+        mod = importlib.import_module(name)
+        assert pathlib.Path(mod.__file__) in PORT_FILES
+
+
+def test_cli_entry_points_default_to_the_card():
+    """The flat spheres engine and the granular app, like the others, run on
+    the card or raise; the configurator passes the device through."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from mundy_tpu_torch.driver.apps.granular import GranularConfig, GranularSim
+    from mundy_tpu_torch.driver.apps.spheres import SpheresSim
+    from mundy_tpu_torch.driver.configurator import build_simulation
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SpheresSim(SpheresConfig(num_spheres=100, box_size=16.0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GranularSim(GranularConfig(num_spheres=100, box_size=10.0))
+    for app in ("spheres", "granular", "lcp_spheres"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build_simulation({"app": app, "params": {"num_spheres": 100, "box_size": 16.0}})
