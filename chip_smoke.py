@@ -14,7 +14,8 @@ Delassus applies (kernel K3t), the hydro modes of #2 (K2, K3, and K5s
 and K5i in rpy_spectral) and the HP1 periphery modes of #5 (K5s and K5i
 on the free-space padded grid) through the port's own entry points, then
 every example YAML through the port's CLI (`mundy_tpu_torch.driver.main`),
-the flat cell-list SpheresSim and the granular app:
+the flat cell-list SpheresSim and the granular app, then the (N, K) rods
+engine RodsSim (K2 in its broad phase) with its three narrow phases:
 
 1. build K1-K6 with nvcc (sm_90a), one process per source, all at once;
    print each kernel's registers and spills and the card with its power
@@ -197,7 +198,27 @@ the flat cell-list SpheresSim and the granular app:
 38. checkpoint continuation through the CLI: spheres_10k and
     granular_settling (float32) for 200 steps straight (checkpoints every
     100) twice, and for 100 steps then --continue for 100: the final
-    checkpoints bit-equal (the resumed run and the repeated one).
+    checkpoints bit-equal (the resumed run and the repeated one);
+39. examples/rods_100k.yaml through the CLI with engine=nmat for 100 steps
+    (RodsSim, the spherocylinder narrow phase on the (N, K) neighbor
+    matrix, built through K2 at K 32), the K2 count set to 0 just before:
+    one launch per neighbor build (init's and each rebuild's), rebuilds
+    read from the final checkpoint; on the final state K2 torch.equal to
+    its plain version at the path's row shape, timed beside it with its
+    bound, and each rod's neighbor set equal to the cell-list builder's;
+40. the same YAML with friction=true (the CLI's route to RodsSim) for 100
+    steps: ms/step, K2 launches and the largest tangential history;
+41. the ellipsoid narrow phase at benchmarks/ellipsoid_bench.py's shape
+    (20,000 rods, length 1.5, radius 0.25, box 81.4, K 32, PGD 24, L-BFGS
+    8, warm PGD 6): the cold and the warm narrow phase by CUDA events over
+    8 calls each, in ms and ns per candidate pair (N x K), then 20 app
+    steps of run_block on the host clock; torch.profiler over 2 warm steps
+    ([39] over 8 steps of its sim between rebuilds);
+42. the three narrow phases in float64 (300 rods, box 14, K 16, both
+    noises, 40 steps from a rebuild; the ellipsoid at length 0.5, where
+    the reference's descent contracts) on the card against the CPU: equal
+    rebuild counts and neighbor ids, positions and quaternions within the
+    bound printed beside each.
 
 Kernel times are medians of CUDA-event timings after a synchronize, kernel
 and plain version alternating; for K2, K3 and K3t the device time per
@@ -205,7 +226,9 @@ launch of 20 launches queued back to back is printed beside them. Prints
 one JSON line of kernel results (K2's, K3's, K5s's and K5i's entries also
 carry their launches on [29]'s paths, and K5s's and K5i's on [33]'s,
 under "path_launches", and K2's, K3's, K4's, K5s's and K5i's those of each
-YAML through the CLI at [35], as "cli <yaml>"),
+YAML through the CLI at [35], as "cli <yaml>"; K2's launches add those of
+[39] and [40], and its entry carries its times at [39]'s shape under
+"rods_nmat"),
 then a final JSON line {"ok": true, "device": {...}}. Exits non-zero, with no
 result, without a CUDA device or without the package beside it.
 """
@@ -298,6 +321,10 @@ CLI_RUNS = (
 )
 FLAT_STEPS = 100
 RESUME_STEPS = 200
+RODS_NMAT_STEPS = 100
+ELLIPSOID_RODS = 20_000
+ELLIPSOID_STEPS = 20
+RODS_F64_STEPS = 40
 
 # published H100 SXM peaks (NVIDIA data sheet): FP32 outside the
 # tensor cores, and HBM bandwidth
@@ -1740,6 +1767,220 @@ def cli_phases(torch, dev, card: str, row_ms: float) -> dict:
     return paths
 
 
+def final_state(directory: str) -> dict:
+    """The leaves of the last checkpoint in `directory`, by field path."""
+    from mundy_tpu_torch.io import latest_checkpoint
+    import numpy as np
+
+    with np.load(latest_checkpoint(directory)) as d:
+        return {k.split("|", 1)[1]: d[k] for k in d.files}
+
+
+def inner_steps(sim, state):
+    """run(n): n steps of `sim` from `state` with no rebuild (its
+    _inner_step), for profile_window: the steady step between rebuilds."""
+    def run(n):
+        s = state
+        for _ in range(n):
+            s = sim._inner_step(s)
+        return s
+    return run
+
+
+def rods_nmat_phases(torch, dev, card: str) -> dict:
+    """Phases 39-42: the (N, K) RodsSim at examples/rods_100k.yaml through
+    the CLI (the spherocylinder narrow phase with engine=nmat, K2 at K 32
+    held against its plain version and the cell list on the final state;
+    then friction), the ellipsoid narrow phase at
+    benchmarks/ellipsoid_bench.py's shape, and the three narrow phases in
+    float64 against the CPU. Returns K2's launches on the paths [39] and
+    [40] drove, and its measurements at [39]'s shape."""
+    import shutil
+
+    import numpy as np
+
+    from mundy_tpu_torch.driver.apps.rods import RodsConfig, RodsSim
+    from mundy_tpu_torch.driver.configurator import build_simulation_from_yaml
+    from mundy_tpu_torch.neighbor.cell_list import build_cell_list, neighbor_matrix
+    from mundy_tpu_torch.neighbor.rows import build_rows, neighbor_matrix_rows
+    from mundy_tpu_torch.ops.kernels import row_extract as k2
+
+    work = os.path.join(HERE, "build", "rods_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    yaml = os.path.join(HERE, "examples", "rods_100k.yaml")
+    out = {"paths": {}}
+
+    # ---- 39. the spherocylinder nmat engine at rods_100k.yaml ----------------
+    # ---- 40. friction at the same YAML (the CLI's route to RodsSim) ----------
+    for phase, sets in (("39", ("engine=nmat", f"num_steps={RODS_NMAT_STEPS}")),
+                        ("40", ("friction=true", f"num_steps={RODS_NMAT_STEPS}"))):
+        ck = os.path.join(work, f"ck{phase}")
+        k2.row_neighbor_extract.launches = 0
+        t0 = time.perf_counter()
+        lines = run_cli([yaml, "--device", dev.type, "--set", *sets, "--checkpoint-dir", ck])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = k2.row_neighbor_extract.launches
+        st = final_state(ck)
+        stepped = next((ln for ln in lines if ln.startswith("stepped ")), "")
+        regrows = sum("regrow" in ln for ln in lines)
+        rebuilds = int(st["rebuild_count"])
+        print(f"[{phase}] rods_100k {' '.join(sets)} through the CLI: {stepped}, {wall:.2f} s "
+              f"with init, rebuilds {rebuilds}, regrows {regrows}, K2 launches {launches}"
+              + (f", largest |tangential history| {np.abs(st['tang']).max():.6e}"
+                 if phase == "40" else "") + f"; {card}", flush=True)
+        if not (np.isfinite(st["pos"]).all() and not bool(st["overflow"])):
+            fail(f"[{phase}] the rods_100k nmat run went non-finite or overflowed")
+        # one launch per neighbor build: init's, each rebuild's, each
+        # regrow's (a block retried after a regrow launched for its rebuilds
+        # too, and the state kept none of them)
+        if launches == 0 or (launches != rebuilds if regrows == 0
+                             else launches < rebuilds + regrows):
+            fail(f"[{phase}] K2 launched {launches} times for {rebuilds} builds and "
+                 f"{regrows} regrows")
+        out["paths"][f"rods_100k nmat [{phase}]" if phase == "39"
+                     else f"rods_100k friction [{phase}]"] = launches
+        if phase != "39":
+            continue
+        # K2 on the final state at the path's shape, bit-equal to its plain
+        # version; the neighbor sets equal to the cell list's
+        _cfg, sim = build_simulation_from_yaml(yaml, {"engine": "nmat"}, device=dev)
+        c = sim.config
+        rg = sim._row_grid()
+        if rg is None:
+            fail("[39] rods_100k with engine=nmat did not take the rows broad phase (K2)")
+        pos = torch.from_numpy(st["pos"]).to(dev)
+        rs = build_rows(pos, torch.arange(c.num_rods, dtype=torch.int32, device=dev), rg)
+        cutoff, K = 2 * float(sim.search_radius), c.max_neighbors
+        box = ((c.box_size,) * 3, (True,) * 3)
+        k2_args = (rs.pos, rs.gid, rs.valid, box, cutoff, K, c.num_rods)
+        ids_k, cnt_k = k2.row_neighbor_extract(*k2_args)
+        ids_p, cnt_p = k2.row_neighbor_extract_plain(*k2_args)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(ids_k, ids_p) and torch.equal(cnt_k, cnt_p))
+        rows_nm = neighbor_matrix_rows(pos, float(sim.search_radius), (c.box_size,) * 3,
+                                       max_neighbors=K, grid=rg)
+        cells_nm = neighbor_matrix(pos, build_cell_list(pos, sim.grid, c.cell_capacity),
+                                   sim.search_radius, metric=sim.metric, max_neighbors=K,
+                                   chunk=min(c.chunk, max(256, c.num_rods)))
+        same_sets = bool(torch.equal(torch.sort(rows_nm.idx.long(), dim=1).values,
+                                     torch.sort(cells_nm.idx.long(), dim=1).values))
+        ny, nz, R = rs.valid.shape
+        print(f"    K2 at (ny, nz, R) = ({ny}, {nz}, {R}), K = {K}: torch.equal to its plain "
+              f"version {equal}, max count {int(cnt_p.max())}, mean "
+              f"{cnt_p[rs.valid].float().mean().item():.3f}; neighbor sets equal to the cell "
+              f"list's {same_sets} (overflow rows {bool(rows_nm.overflow)}, cells "
+              f"{bool(cells_nm.overflow)})", flush=True)
+        if not equal:
+            fail("[39] K2 disagrees with its plain version at the rods nmat shape")
+        if not same_sets or bool(rows_nm.overflow) or bool(cells_nm.overflow):
+            fail("[39] the row and cell-list neighbor sets differ at the final state")
+        ms, plain_ms = alternate(lambda: k2.row_neighbor_extract(*k2_args),
+                                 lambda: k2.row_neighbor_extract_plain(*k2_args), torch, 10, 1,
+                                 rounds=2)
+        dev_ms = queued_ms(lambda: k2.row_neighbor_extract(*k2_args), torch)
+        b, pairs, _old = k2_bound(rs, (c.box_size,) * 3, cutoff, K, None, torch)
+        print(f"    K2 {ms:.4f} ms (device time per launch {dev_ms:.4f} ms), plain "
+              f"{plain_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}; {ms / b[0]:.1f}x), "
+              f"{pairs:.0f} ordered pairs within the cut in x; {card}", flush=True)
+        out["k2"] = dict(ms=ms, dev_ms=dev_ms, plain_ms=plain_ms, bound=b, shape=(ny, nz, R, K))
+        del ids_k, ids_p, cnt_k, cnt_p, rs, rows_nm, cells_nm
+        # where a step between rebuilds goes (the sim from the YAML's init)
+        step_ms = float(stepped.split("(")[1].split(" ms/step")[0])
+        profile_window(inner_steps(sim, sim.init()), torch, step_ms)
+        del sim
+
+    # ---- 41. the ellipsoid narrow phase at ellipsoid_bench.py's shape --------
+    n = ELLIPSOID_RODS
+    ecfg = RodsConfig(num_rods=n, box_size=float(max(40.0, (n / 8.0) ** (1 / 3) * 6)),
+                      radius=0.25, length=1.5, shape="ellipsoid", engine="nmat", dt=2e-4,
+                      dtype="float32", ellipsoid_pgd_iters=24, ellipsoid_refine_iters=8)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    esim = RodsSim(ecfg, device=dev)
+    est = esim.init()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    pairs = n * ecfg.max_neighbors
+
+    def narrow_ms(warm: bool) -> float:
+        seed = est.warm_n
+        esim._contact_forces_torques_ellipsoid(est.pos, est.quat, est.nmat,
+                                               warm_n=seed if warm else None)
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(8):
+            _f, _t, nrm = esim._contact_forces_torques_ellipsoid(
+                est.pos, est.quat, est.nmat, warm_n=seed if warm else None)
+            seed = nrm
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / 8
+
+    cold_ms, warm_ms = narrow_ms(False), narrow_ms(True)
+    rb0 = est.rebuild_count
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est = esim.run_block(est, ELLIPSOID_STEPS)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / ELLIPSOID_STEPS
+    print(f"[41] ellipsoid narrow phase, {n} rods (length 1.5, radius 0.25, box "
+          f"{ecfg.box_size:.2f}, K {ecfg.max_neighbors}, rows broad phase "
+          f"{esim.broad_phase() == 'rows'}), init {init_s:.2f} s: cold (PGD "
+          f"{ecfg.ellipsoid_pgd_iters} x 7 starts + L-BFGS {ecfg.ellipsoid_refine_iters}) "
+          f"{cold_ms:.3f} ms = {1e6 * cold_ms / pairs:.1f} ns per candidate pair; warm (PGD "
+          f"{ecfg.ellipsoid_warm_pgd_iters} + L-BFGS {ecfg.ellipsoid_refine_iters}) "
+          f"{warm_ms:.3f} ms = {1e6 * warm_ms / pairs:.1f} ns per pair; cold / warm "
+          f"{cold_ms / warm_ms:.2f}; {ELLIPSOID_STEPS} app steps {step_ms:.3f} ms/step, "
+          f"rebuilds {est.rebuild_count - rb0}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}", flush=True)
+    if bool(est.overflow) or not bool(torch.isfinite(est.pos).all()):
+        fail("[41] the ellipsoid run overflowed or went non-finite")
+    profile_window(inner_steps(esim, est), torch, warm_ms, steps=2)
+    del esim, est
+
+    # ---- 42. the three narrow phases in float64, card against CPU -----------
+    rng = np.random.default_rng(42)
+    pos0 = rng.uniform(0, 14.0, (300, 3))
+    q0 = rng.normal(size=(300, 4))
+    q0 /= np.linalg.norm(q0, axis=1, keepdims=True)
+    base = dict(num_rods=300, box_size=14.0, max_neighbors=16, diffusion_coeff=0.05,
+                rot_diffusion_coeff=0.05, dt=2e-4, skin=0.1, dtype="float64")
+    # (name, overrides, bound on positions and quaternions): the ellipsoid at
+    # semi-axes (0.25, 0.25, 0.5), where the reference's descent contracts
+    # (at length 2 rounding differences grow ~5x per iteration and no two
+    # devices' trajectories agree; tests/test_torch_distance.py); its cold
+    # sweep's pick among starts moves a normal by up to ~1e-7
+    for name, over, bnd in (("segment", dict(engine="nmat"), 1e-9),
+                            ("friction", dict(friction=True), 1e-9),
+                            ("ellipsoid", dict(shape="ellipsoid", length=0.5), 1e-8)):
+        runs = {}
+        t0 = time.perf_counter()
+        for d in ("card", "cpu"):
+            sim = RodsSim(RodsConfig(**base, **over), device=dev if d == "card" else "cpu")
+            st = sim.init(pos=torch.from_numpy(pos0), quat=torch.from_numpy(q0),
+                          key_words=(0, 5))
+            st = sim.run_block(st, RODS_F64_STEPS)
+            runs[d] = (st.rebuild_count, st.pos.cpu(), st.quat.cpu(), st.nmat.idx.cpu(),
+                       bool(st.overflow))
+        L = base["box_size"]
+        dpos = runs["card"][1] - runs["cpu"][1]
+        gap = (dpos - L * torch.round(dpos / L)).abs().max().item()
+        qgap = (runs["card"][2] - runs["cpu"][2]).abs().max().item()
+        same = bool(torch.equal(runs["card"][3], runs["cpu"][3]))
+        print(f"[42] {name} float64 300 rods, {RODS_F64_STEPS} steps: rebuilds "
+              f"{runs['card'][0]} (cpu {runs['cpu'][0]}), neighbor ids equal {same}, "
+              f"max|pos gap| {gap:.3e}, max|quat gap| {qgap:.3e} (bound {bnd:.0e}), "
+              f"{time.perf_counter() - t0:.2f} s for both", flush=True)
+        if not (runs["card"][0] == runs["cpu"][0] >= 2 and same and gap <= bnd
+                and qgap <= bnd and not runs["card"][4]):
+            fail(f"[42] the float64 {name} run on the card disagrees with the CPU run")
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -2331,6 +2572,7 @@ def main() -> None:
     hydro_paths = lcp_hydro_phases(torch, dev, card)
     hp1_paths = periphery_phases(torch, dev, card)
     cli_paths = cli_phases(torch, dev, card, row_ms)
+    rods = rods_nmat_phases(torch, dev, card)
 
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     kernels = [
@@ -2371,6 +2613,13 @@ def main() -> None:
             entry["path_launches"]["hp1 rpy_periphery_spectral"] = hp1_paths[entry["name"]]
         if entry["name"] in cli_paths:  # each example YAML through the CLI, [35]
             entry.setdefault("path_launches", {}).update(cli_paths[entry["name"]])
+        if entry["name"] == "row_neighbor_extract":  # RodsSim's broad phase, [39]-[40]
+            entry.setdefault("path_launches", {}).update(rods["paths"])
+            entry["launches"] += sum(rods["paths"].values())
+            k2r = rods["k2"]
+            entry["rods_nmat"] = {"shape": list(k2r["shape"]), "ms": k2r["ms"],
+                                  "device_ms": k2r["dev_ms"], "plain_ms": k2r["plain_ms"],
+                                  "bound_ms": k2r["bound"][0], "bound_by": k2r["bound"][1]}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

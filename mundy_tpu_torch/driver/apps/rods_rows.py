@@ -87,9 +87,12 @@ class RowRodsSim:
             raise RuntimeError("RowRodsSim(device='cuda') needs a CUDA device, "
                                "and torch sees none")
         if c.engine == "nmat" or c.shape == "ellipsoid" or c.friction:
-            raise NotImplementedError(
-                "the (N, K) RodsSim engine (engine='nmat', ellipsoids, "
-                "friction) is not ported yet (ROADMAP queue 1, item 7)")
+            # the reference's row engine ignores these options and runs plain
+            # spherocylinders; the port refuses them (ROADMAP queue 3)
+            raise ValueError(
+                "RowRodsSim runs the frictionless spherocylinder narrow phase only; "
+                "engine='nmat', shape='ellipsoid' and friction run on "
+                "driver/apps/rods.RodsSim (make_rods_sim picks it)")
         self.dtype = _DTYPES[c.dtype]
         box = [c.box_size] * 3
         self.metric = periodic(box, dtype=self.dtype, device=self.device)
@@ -102,9 +105,8 @@ class RowRodsSim:
                                   capacity_slack=capacity_slack,
                                   dtype=self.dtype, align=8, device=self.device)
         if self.grid.ny < 5 or self.grid.nz < 5:
-            raise NotImplementedError(
-                "boxes with fewer than 5 row cells per axis run on the (N, K) "
-                "RodsSim engine, not ported yet (ROADMAP queue 1, item 7)")
+            raise ValueError("box too small for the row engine "
+                             "(need >= 5 cells per periodic axis)")
         self.box_static = orthorhombic_lengths(self.metric)
         a_eff = (0.75 * (0.5 * c.length + c.radius) * c.radius * c.radius) ** (1.0 / 3.0)
         self.inv_drag_t = 1.0 / (6.0 * _math.pi * c.viscosity * a_eff)

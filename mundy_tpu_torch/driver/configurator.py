@@ -19,24 +19,21 @@ _REGISTRY: dict = {}
 
 
 def make_rods_sim(config, device="cuda"):
-    """Engine selection for config #3, as the reference makes it: the row
-    narrow phase (rods_rows.RowRodsSim) when the box admits it. Where the
-    reference builds its (N, K) RodsSim instead (engine="nmat", ellipsoids,
-    friction, or fewer than 5 row cells per axis) the port raises: that
-    engine is not ported yet."""
+    """Engine selection for config #3, as the reference makes it: the (N, K)
+    RodsSim for engine="nmat", ellipsoids and friction (their narrow phases
+    and the friction history run per neighbor slot), the row narrow phase
+    (rods_rows.RowRodsSim) when engine="rows" or the box admits >= 5 row
+    cells per axis, else RodsSim."""
+    from mundy_tpu_torch.driver.apps.rods import RodsSim
     from mundy_tpu_torch.driver.apps.rods_rows import RowRodsSim
 
-    not_ported = NotImplementedError(
-        "this rods config runs on the reference's (N, K) RodsSim engine (engine='nmat', "
-        "ellipsoids, friction, or fewer than 5 row cells per axis), not ported yet "
-        "(ROADMAP queue 1, item 7)")
     if config.engine == "nmat" or config.shape == "ellipsoid" or config.friction:
-        raise not_ported
+        return RodsSim(config, device=device)
     cutoff = config.length + 2 * config.radius + config.skin
     feasible = int(config.box_size // cutoff) >= 5
     if config.engine == "rows" or feasible:
         return RowRodsSim(config, device=device)
-    raise not_ported
+    return RodsSim(config, device=device)
 
 
 def _registry() -> dict:

@@ -1,6 +1,6 @@
 """Frictional Hertzian contact (granular DEM, history-dependent).
 
-Port of the sphere part of mundy_tpu/forces/friction.py (ref: the
+Port of mundy_tpu/forces/friction.py (ref: the
 FrictionalHertzianContact kernels,
 `SpherocylinderSegmentSpherocylinderSegmentFrictionalHertzianContact.cpp:
 440-520`, LAMMPS granular hertz/history convention): spring-dashpot normal
@@ -9,8 +9,9 @@ displacement, Coulomb cap |Ft| <= mu |Fn| with the reference's history
 rescale.
 
 The per-contact tangential displacement is the history variable; it lives in
-the pair-list slot and the caller carries it across steps (and across a
-rebuild with constraints/collision.remap_gamma). The reference's pair
+the pair-list slot (or the neighbor-row slot, for the segment contact of
+the rods app) and the caller carries it across steps, and across a rebuild
+with constraints/collision.remap_gamma (or remap_row_history). The reference's pair
 scatter-adds become `index_put_(accumulate=True)`, which on the card sums
 each body's contributions in slot order (see forces/springs.py); slots out
 of contact add their zeros to dump rows instead of to body 0.
@@ -122,3 +123,107 @@ def frictional_hertzian_contact(pos: torch.Tensor, vel: torch.Tensor, radius,
     return FrictionalContactResult(
         forces=forces, torques=torques, tang_disp=xi,
         normal_force_mag=torch.where(in_contact, norm(f_n), 0.0))
+
+
+class SegmentFrictionResult(NamedTuple):
+    forces: torch.Tensor  # (N, 3) per body
+    torques: torch.Tensor  # (N, 3) per body
+    tang_disp: torch.Tensor  # (N, K, 3) updated per-slot history
+    normal_mag: torch.Tensor  # (N, K) Hertzian normal magnitudes (diagnostics)
+
+
+def frictional_segment_contact_rows(pos: torch.Tensor, hedge: torch.Tensor,
+                                    vel: torch.Tensor, omega: torch.Tensor,
+                                    nmat_idx: torch.Tensor, nmat_mask: torch.Tensor,
+                                    tang_disp: torch.Tensor, dt, radius: float,
+                                    youngs: float, poisson: float, tang_spring: float,
+                                    friction_coeff: float, tang_damping: float = 0.0,
+                                    metric: Optional[Metric] = None) -> SegmentFrictionResult:
+    """Frictional Hertzian contact between spherocylinder segments over an
+    (N, K) neighbor matrix (ref: `SpherocylinderSegmentSpherocylinderSegment
+    FrictionalHertzianContact.cpp:440-520`, the CollidingFrictionalSperm
+    capability).
+
+    pos, hedge: (N, 3) midpoints and half-edges (axis length/2); vel, omega:
+    (N, 3) the body velocities of the previous step (the explicit friction
+    closure of overdamped dynamics); tang_disp (N, K, 3) the per-slot
+    history; dt a scalar or 0-d tensor in pos's dtype. The narrow phase is
+    segment_closest_planes; the normal force is Hertz's, the tangential one
+    a spring on the accumulated contact-point slip, sqrt(R* delta) scaled,
+    with the Coulomb cap and history rescale. Each contact sits on both
+    bodies' rows with mirrored normals, so the two histories evolve as exact
+    negatives and the one-sided sums keep action and reaction."""
+    from mundy_tpu_torch.forces.contact import effective_youngs, hertzian_pair_force
+    from mundy_tpu_torch.geom.distance import segment_closest_planes
+
+    n = pos.shape[0]
+    idx = torch.clamp(nmat_idx.long(), max=n - 1)
+    payload = torch.cat([pos, hedge, vel, omega], dim=1)  # (N, 12)
+    cand = payload[idx]  # (N, K, 12): one gather
+    cmid, chedge = cand[..., 0:3], cand[..., 3:6]
+    cvel, comega = cand[..., 6:9], cand[..., 9:12]
+    S = cmid - pos[:, None, :] if metric is None else metric.sep(pos[:, None, :], cmid)
+
+    s, t, DX, DY, DZ, d2 = segment_closest_planes(
+        S[..., 0], S[..., 1], S[..., 2],
+        hedge[:, None, 0], hedge[:, None, 1], hedge[:, None, 2],
+        chedge[..., 0], chedge[..., 1], chedge[..., 2])
+    d2c = torch.clamp(d2, min=_EPS)
+    rinv = torch.rsqrt(d2c)
+    dist = d2c * rinv
+    nhat = torch.stack([DX, DY, DZ], dim=-1) * rinv[..., None]  # own -> cand
+    sep0 = dist - 2.0 * radius
+    in_contact = nmat_mask & (sep0 < 0.0)
+
+    kw = dict(dtype=pos.dtype, device=pos.device)
+    e_eff = effective_youngs(youngs, youngs, poisson, poisson)
+    fn_mag = hertzian_pair_force(sep0, torch.tensor(0.5 * radius, **kw),
+                                 torch.tensor(e_eff, **kw))
+
+    # contact arms from each body's center (closest point + radius n)
+    arm_i = (2.0 * s - 1.0)[..., None] * hedge[:, None, :] + radius * nhat
+    arm_j = (2.0 * t - 1.0)[..., None] * chedge - radius * nhat
+    v_i = vel[:, None, :] + cross(omega[:, None, :], arm_i)
+    v_j = cvel + cross(comega, arm_j)
+    rel = v_j - v_i
+    rel_n = (rel * nhat).sum(-1)[..., None] * nhat
+    rel_t = rel - rel_n
+
+    xi = tang_disp + rel_t * dt
+    xi = xi - (xi * nhat).sum(-1)[..., None] * nhat
+    xi = torch.where(in_contact[..., None], xi, 0.0)
+
+    # hertz/history scaling: the tangential stiffness grows with the
+    # contact patch, sqrt(R* delta) (ref `:470-497`)
+    hertz_poly = torch.sqrt(torch.clamp(-0.5 * radius * sep0, min=0.0))
+    f_t = hertz_poly[..., None] * (tang_spring * xi + tang_damping * rel_t)
+    ft_mag = torch.linalg.vector_norm(f_t, dim=-1)
+    cap = friction_coeff * fn_mag
+    over = ft_mag > cap
+    scale = cap / torch.clamp(ft_mag, min=_EPS)
+    damp = tang_damping * rel_t / max(tang_spring, _EPS)
+    xi = torch.where(over[..., None], scale[..., None] * (xi + damp) - damp, xi)
+    f_t = torch.where(over[..., None], f_t * scale[..., None], f_t)
+
+    f_pair = torch.where(in_contact[..., None], -fn_mag[..., None] * nhat + f_t, 0.0)
+    return SegmentFrictionResult(
+        forces=f_pair.sum(1), torques=cross(arm_i, f_pair).sum(1), tang_disp=xi,
+        normal_mag=torch.where(in_contact, fn_mag, 0.0))
+
+
+def remap_row_history(old_idx: torch.Tensor, old_mask: torch.Tensor,
+                      old_vals: torch.Tensor, new_idx: torch.Tensor,
+                      new_mask: torch.Tensor) -> torch.Tensor:
+    """Carry (N, K, ...) per-slot history across a neighbor rebuild by pair
+    identity: new slot (i, q) inherits old slot (i, p) where the neighbor ids
+    match (a K x K probe per row, the reference's einsum; the row form of
+    constraints.remap_gamma). The old and new K may differ (a regrow). The
+    contraction is a batched product: in float32 on the card it refuses
+    TF32, which would round the carried values to 11 bits."""
+    if (old_vals.is_cuda and old_vals.dtype == torch.float32
+            and torch.backends.cuda.matmul.allow_tf32):
+        raise RuntimeError("remap_row_history needs full float32: "
+                           "torch.backends.cuda.matmul.allow_tf32 is on")
+    hit = ((old_idx[:, None, :] == new_idx[:, :, None])
+           & old_mask[:, None, :] & new_mask[:, :, None])
+    return torch.einsum("npq,nq...->np...", hit.to(old_vals.dtype), old_vals)

@@ -1,1 +1,2 @@
-"""Geometry: periodic-box metrics."""
+"""Geometry: periodic-box metrics, primitives, distances, bounding boxes,
+rigid transforms and random configurations."""

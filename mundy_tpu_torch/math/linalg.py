@@ -1,9 +1,7 @@
 """Batched small-vector algebra over trailing axes.
 
-Port of the part of mundy_tpu/math/linalg.py that the rods and filaments
-paths use: a "Vector3" is any tensor of shape (..., 3) and every operation
-broadcasts over leading batch axes. The rest of the module waits for its
-callers.
+Port of mundy_tpu/math/linalg.py: a "Vector3" is any tensor of shape
+(..., 3) and every operation broadcasts over leading batch axes.
 """
 
 from __future__ import annotations
@@ -16,8 +14,22 @@ def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.sum(a * b, dim=-1)
 
 
+def norm_sq(a: torch.Tensor) -> torch.Tensor:
+    return torch.sum(a * a, dim=-1)
+
+
 def norm(a: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(torch.sum(a * a, dim=-1))
+    return torch.sqrt(norm_sq(a))
+
+
+def normalize(a: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
+    """Unit vector along `a`; with eps > 0 the zero vector (|a| <= eps)
+    maps to 0."""
+    n = norm(a)
+    if eps > 0.0:
+        safe = torch.clamp(n, min=eps)
+        return torch.where(n[..., None] > eps, a / safe[..., None], 0.0)
+    return a / n[..., None]
 
 
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -30,3 +42,8 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         ],
         dim=-1,
     )
+
+
+def outer(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched outer product: (..., n) x (..., m) -> (..., n, m)."""
+    return a[..., :, None] * b[..., None, :]

@@ -1,7 +1,6 @@
 """Batched quaternion algebra, convention w-x-y-z (scalar first).
 
-Port of the part of mundy_tpu/math/quaternion.py that the rods and
-filaments paths use: Hamilton products, scalar-first storage, and
+Port of mundy_tpu/math/quaternion.py: Hamilton products, scalar-first storage, and
 `quat_rotate(q, v) = q v q*` as the active rotation of `v` by `q`. All
 functions broadcast over leading batch axes; quaternions are (..., 4). The
 arithmetic order is the reference's, so float64 results agree to rounding.
@@ -14,13 +13,20 @@ from __future__ import annotations
 
 import torch
 
-from mundy_tpu_torch.math.linalg import cross, norm
+from mundy_tpu_torch.math.linalg import cross, dot, norm
 
 
 def maximum(x: torch.Tensor, floor: float) -> torch.Tensor:
     """jnp.maximum(x, floor) for a python floor, gradient included (a 0-d
     CPU tensor rides along with a CUDA x as a scalar: no device copy)."""
     return torch.maximum(x, torch.tensor(floor, dtype=x.dtype))
+
+
+def quat_identity(shape=(), dtype=torch.float32, device=None) -> torch.Tensor:
+    """Identity quaternion(s) of shape (*shape, 4)."""
+    q = torch.zeros(tuple(shape) + (4,), dtype=dtype, device=device)
+    q[..., 0] = 1.0
+    return q
 
 
 def quat_multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
@@ -56,6 +62,47 @@ def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     uv = cross(u, v)
     uuv = cross(u, uv)
     return v + 2.0 * (w[..., None] * uv + uuv)
+
+
+def quat_inverse_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate v by the inverse of unit quaternion q."""
+    return quat_rotate(quat_conjugate(q), v)
+
+
+def quat_from_axis_angle(axis: torch.Tensor, angle) -> torch.Tensor:
+    """Unit quaternion for a rotation of `angle` radians about unit `axis`."""
+    half = 0.5 * torch.as_tensor(angle, dtype=axis.dtype, device=axis.device)
+    return torch.cat([torch.cos(half)[..., None], torch.sin(half)[..., None] * axis], dim=-1)
+
+
+def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion -> rotation matrix (..., 3, 3)."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    m = torch.stack([
+        1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy),
+        2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx),
+        2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
+    ], dim=-1)
+    return m.reshape(m.shape[:-1] + (3, 3))
+
+
+def quat_slerp(q0: torch.Tensor, q1: torch.Tensor, t) -> torch.Tensor:
+    """Spherical linear interpolation between unit quaternions (a lerp
+    below sin(theta) = 1e-6)."""
+    d = dot(q0, q1)
+    q1 = torch.where(d[..., None] < 0.0, -q1, q1)
+    d = torch.clamp(torch.abs(d), -1.0, 1.0)
+    theta = torch.arccos(d)
+    sin_theta = torch.sin(theta)
+    t = torch.as_tensor(t, dtype=q0.dtype, device=q0.device)
+    use_lerp = sin_theta < 1e-6
+    safe = torch.where(use_lerp, 1.0, sin_theta)
+    w0 = torch.where(use_lerp, 1.0 - t, torch.sin((1.0 - t) * theta) / safe)
+    w1 = torch.where(use_lerp, t, torch.sin(t * theta) / safe)
+    return quat_normalize(w0[..., None] * q0 + w1[..., None] * q1)
 
 
 def quat_from_omega_dt(omega: torch.Tensor, dt) -> torch.Tensor:

@@ -1,9 +1,9 @@
-"""Mechanical elements: the centerline-twist Kirchhoff rod.
+"""Mechanical elements: the centerline-twist Kirchhoff rod and ball joints.
 
-Port of the rod part of mundy_tpu/mech/ (`mech.rod`); the ball joints of
-`mech.joints` wait for their callers.
+Port of mundy_tpu/mech/ (`mech.rod`, `mech.joints`).
 """
 
+from mundy_tpu_torch.mech.joints import ball_joint_forces
 from mundy_tpu_torch.mech.rod import (
     RodState,
     init_rod_edges,
@@ -18,4 +18,5 @@ __all__ = [
     "update_rod_edges",
     "rod_curvature",
     "rod_internal_forces",
+    "ball_joint_forces",
 ]

@@ -5,6 +5,12 @@ go through Giles' float32 erf_inv polynomial, the one XLA evaluates, which
 must lie within 2 ulp of jax.lax.erf_inv on the same draws; `torch.erfinv`
 would not (checked below, so the reason for the polynomial stays on
 record). The velocities carry that bound through their two products.
+
+The positional draws of the (N, K) rods engine (brownian_velocity,
+brownian_angular_velocity: jax.random.normal's stream) take their uniforms
+bit for bit from the same words; the normals are within 4 ulp in float32
+and 64 ulp in float64 (Giles' float64 polynomial as XLA evaluates it, but
+XLA's log1p and its fused products round differently: 30 ulp measured).
 """
 
 import jax
@@ -14,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from mundy_tpu.dynamics import brownian as jb
 from mundy_tpu.dynamics.brownian import brownian_velocity_keyed as jax_brownian
 from mundy_tpu_torch.dynamics import brownian as tb
 
@@ -106,3 +113,53 @@ def test_torch_erfinv_misses_the_bound():
     xt = torch.from_numpy(x)
     assert _ulp_diff(torch.erfinv(xt).numpy(), ref).max() > 2
     assert _ulp_diff(tb._erf_inv_f32(xt).numpy(), ref).max() <= 2
+
+
+_DT = ((jnp.float32, torch.float32, 4), (jnp.float64, torch.float64, 64))
+
+
+def _ulps(got, ref):
+    return np.abs(got - ref) / np.spacing(np.abs(ref).astype(ref.dtype))
+
+
+@pytest.mark.parametrize("seed", [0, 1234])
+@pytest.mark.parametrize("dtypes", _DT, ids=["float32", "float64"])
+def test_jax_normal_stream(dtypes, seed):
+    """The words of the flat index (32 or 64 bits wide) are
+    jax.random.bits' bit for bit; uniform_pm1 is jax.random.uniform(key,
+    (n, 3), dtype, nextafter(-1, 0), 1) bit for bit; normal is
+    jax.random.normal within the stated ulps."""
+    jdt, tdt, ulp = dtypes
+    key = jax.random.fold_in(jax.random.PRNGKey(seed), 11)
+    kd = tuple(int(w) for w in np.asarray(jax.random.key_data(key)))
+    # the words: threefry2x32 of the counters (0, flat index)
+    i = torch.arange(3 * 20000, dtype=torch.int64)
+    y0, y1 = (w.numpy().astype(np.uint64) for w in tb.threefry_2x32(kd, 0 * i, i))
+    wide = jdt == jnp.float64
+    words = (y0 << np.uint64(32)) | y1 if wide else (y0 ^ y1).astype(np.uint32)
+    ref_w = np.asarray(jax.random.bits(key, (20000, 3), jnp.uint64 if wide else jnp.uint32))
+    np.testing.assert_array_equal(words.reshape(20000, 3), ref_w)
+    lo = np.nextafter(np.array(-1.0, jdt), np.array(0.0, jdt))
+    ref_u = np.asarray(jax.random.uniform(key, (20000, 3), jdt, lo, 1.0))
+    np.testing.assert_array_equal(tb.uniform_pm1(kd, 20000, tdt).numpy(), ref_u)
+    ref_z = np.asarray(jax.random.normal(key, (20000, 3), jdt))
+    got_z = tb.normal(kd, 20000, tdt).numpy()
+    assert got_z.dtype == ref_z.dtype
+    assert _ulps(got_z, ref_z).max() <= ulp
+
+
+@pytest.mark.parametrize("step", [0, 9])
+@pytest.mark.parametrize("dtypes", _DT, ids=["float32", "float64"])
+def test_brownian_velocity_and_angular(dtypes, step):
+    """The rods engine's two streams, fold_in(key, step) and its fold_in
+    with 0x5EED, at the rods YAML's D = D_rot = 0.05, dt = 1e-4; one more
+    rounding for the scale."""
+    jdt, tdt, ulp = dtypes
+    key = jax.random.split(jax.random.PRNGKey(1234), 3)[2]
+    kd = tuple(int(w) for w in np.asarray(jax.random.key_data(key)))
+    for jfn, tfn in ((jb.brownian_velocity, tb.brownian_velocity),
+                     (jb.brownian_angular_velocity, tb.brownian_angular_velocity)):
+        ref = np.asarray(jfn(key, step, 5000, jnp.asarray(0.05, jdt), 1e-4, dtype=jdt))
+        got = tfn(kd, step, 5000, 0.05, 1e-4, dtype=tdt).numpy()
+        assert got.shape == ref.shape == (5000, 3)
+        assert _ulps(got, ref).max() <= ulp + 1

@@ -15,7 +15,7 @@ from mundy_tpu.core.config import config_from_dict as jax_config_from_dict
 from mundy_tpu.driver import configurator as jcfg
 from mundy_tpu_torch.core.config import ConfigError, load_yaml
 from mundy_tpu_torch.driver import configurator as tcfg
-from mundy_tpu_torch.driver.apps.rods import RodsConfig
+from mundy_tpu_torch.driver.apps.rods import RodsConfig, RodsSim
 from mundy_tpu_torch.driver.apps.rods_rows import RowRodsSim
 from mundy_tpu_torch.driver.apps.spheres import SpheresSim
 from mundy_tpu_torch.driver.main import main
@@ -68,17 +68,15 @@ _RODS = dict(num_rods=200, box_size=24.0)
     {}, {"engine": "rows"}, {"engine": "nmat"}, {"shape": "ellipsoid"}, {"friction": True},
     {"box_size": 13.0}], ids=["auto", "rows", "nmat", "ellipsoid", "friction", "small_box"])
 def test_make_rods_sim_follows_the_reference(over):
-    """RowRodsSim where the reference builds its RowRodsSim; where it
-    builds RodsSim the port raises, naming queue 1 item 7."""
+    """The port builds its RowRodsSim where the reference builds its
+    RowRodsSim, and its RodsSim where the reference builds RodsSim."""
     kw = dict(_RODS, **over)
     want = type(jcfg._registry()["rods"][1](jax_config_from_dict(
         jcfg._registry()["rods"][0], kw))).__name__
-    if want == "RowRodsSim":
-        assert isinstance(tcfg.make_rods_sim(RodsConfig(**kw), device="cpu"), RowRodsSim)
-    else:
-        assert want == "RodsSim"
-        with pytest.raises(NotImplementedError, match="item 7"):
-            tcfg.make_rods_sim(RodsConfig(**kw), device="cpu")
+    assert want in ("RowRodsSim", "RodsSim")
+    sim = tcfg.make_rods_sim(RodsConfig(**kw), device="cpu")
+    assert type(sim).__name__ == want
+    assert isinstance(sim, RowRodsSim if want == "RowRodsSim" else RodsSim)
 
 
 def _yaml(tmp_path, app, **params):
@@ -101,12 +99,16 @@ def test_main_writes_frames_and_final_vtk(tmp_path):
 
 
 # one config per engine kind: the flat cell list, granular (the pair list
-# and its history) and a row engine
+# and its history), a row engine, and the (N, K) rods engine with friction
+# (the tangential history and the lagged velocities through a checkpoint)
 _RESUME = {
     "spheres": dict(num_spheres=200, box_size=10.0, diffusion_coeff=0.1, skin=0.1),
     "granular": dict(num_spheres=150, box_size=8.0, dt=5e-4),
     "rods": dict(num_rods=150, box_size=24.0, diffusion_coeff=0.05,
                  rot_diffusion_coeff=0.05, skin=0.1),
+    "rods_friction": dict(num_rods=200, box_size=14.0, diffusion_coeff=0.05,
+                          rot_diffusion_coeff=0.05, skin=0.1, engine="nmat",
+                          friction=True, max_neighbors=16),
 }
 
 
@@ -119,7 +121,7 @@ def _final(ck):
 def test_continue_is_bit_equal_to_one_run(app, tmp_path):
     """10 steps in one run (checkpoints every 5) equal 5 steps, then
     --continue for 5, bit for bit, output frames included."""
-    y = _yaml(tmp_path, app, num_steps=10, dtype="float64", **_RESUME[app])
+    y = _yaml(tmp_path, app.split("_")[0], num_steps=10, dtype="float64", **_RESUME[app])
     a, b = str(tmp_path / "a"), str(tmp_path / "b")
     args = ["--device", "cpu", "--output-every", "5"]
     assert main([y, "--checkpoint-dir", a, "--checkpoint-every", "5",

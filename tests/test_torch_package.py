@@ -14,7 +14,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 from mundy_tpu_torch.driver.apps.chromatin import ChromatinConfig, ChromatinSim
 from mundy_tpu_torch.driver.apps.filaments import FilamentsConfig, FilamentsSim
 from mundy_tpu_torch.driver.apps.lcp_spheres import LCPSpheresConfig, LCPSpheresSim
-from mundy_tpu_torch.driver.apps.rods import RodsConfig
+from mundy_tpu_torch.driver.apps.rods import RodsConfig, RodsSim
 from mundy_tpu_torch.driver.apps.rods_rows import RowRodsSim
 from mundy_tpu_torch.driver.apps.spheres import SpheresConfig
 from mundy_tpu_torch.driver.apps.spheres_rows import RowSpheresSim
@@ -90,6 +90,8 @@ def test_entry_points_default_to_the_card():
         LCPSpheresSim(LCPSpheresConfig(num_spheres=100, box_size=16.0))
     with pytest.raises(RuntimeError, match="CUDA"):
         RowRodsSim(RodsConfig(num_rods=100, box_size=24.0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RodsSim(RodsConfig(num_rods=100, box_size=24.0, engine="nmat"))
     with pytest.raises(RuntimeError, match="CUDA"):
         FilamentsSim(FilamentsConfig(num_filaments=8, nodes_per_filament=5, box_size=24.0))
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -440,3 +442,21 @@ def test_cli_entry_points_default_to_the_card():
     for app in ("spheres", "granular", "lcp_spheres"):
         with pytest.raises(RuntimeError, match="CUDA"):
             build_simulation({"app": app, "params": {"num_spheres": 100, "box_size": 16.0}})
+
+
+def test_rods_slice_modules_import_without_jax():
+    """The (N, K) rods slice's modules: the distance family and its
+    primitives, L-BFGS, the JAX-stream Brownian draws, the segment friction,
+    RodsSim and the small modules, importable and free of JAX (scanned
+    above)."""
+    import importlib
+
+    for name in ("mundy_tpu_torch.math.linalg", "mundy_tpu_torch.math.quaternion",
+                 "mundy_tpu_torch.math.lbfgs", "mundy_tpu_torch.math.tolerance",
+                 "mundy_tpu_torch.geom.primitives", "mundy_tpu_torch.geom.distance",
+                 "mundy_tpu_torch.geom.aabb", "mundy_tpu_torch.geom.transform",
+                 "mundy_tpu_torch.geom.randomize", "mundy_tpu_torch.mech.joints",
+                 "mundy_tpu_torch.state.fieldops", "mundy_tpu_torch.dynamics.brownian",
+                 "mundy_tpu_torch.forces.friction", "mundy_tpu_torch.driver.apps.rods"):
+        mod = importlib.import_module(name)
+        assert pathlib.Path(mod.__file__) in PORT_FILES

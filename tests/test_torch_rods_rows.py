@@ -127,7 +127,10 @@ def test_run_from_default_init():
                                   dict(friction=True),
                                   dict(box_size=13.0, engine="rows")])
 def test_unported_engines_raise(over):
-    """What the reference's configurator sends to the (N, K) RodsSim, and a
-    box with fewer than 5 row cells, raise."""
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 7"):
+    """What the reference's configurator sends to the (N, K) RodsSim raises,
+    naming RodsSim (the reference's row engine would run plain
+    spherocylinders); a box with fewer than 5 row cells raises ValueError,
+    as the reference's does."""
+    match = "too small" if "box_size" in over else "RodsSim"
+    with pytest.raises(ValueError, match=match):
         RowRodsSim(RodsConfig(**dict(KW, **over)), device="cpu")
