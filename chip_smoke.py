@@ -15,7 +15,10 @@ and K5i in rpy_spectral) and the HP1 periphery modes of #5 (K5s and K5i
 on the free-space padded grid) through the port's own entry points, then
 every example YAML through the port's CLI (`mundy_tpu_torch.driver.main`),
 the flat cell-list SpheresSim and the granular app, then the (N, K) rods
-engine RodsSim (K2 in its broad phase) with its three narrow phases:
+engine RodsSim (K2 in its broad phase) with its three narrow phases, then
+the general row pair engine with the small-box spheres, the rows layout of
+the spectral-Ewald gridding (kernels K5s-rows and K5i-rows) and the
+collision layouts beside the strided one:
 
 1. build K1-K6 with nvcc (sm_90a), one process per source, all at once;
    print each kernel's registers and spills and the card with its power
@@ -218,12 +221,35 @@ engine RodsSim (K2 in its broad phase) with its three narrow phases:
     noises, 40 steps from a rebuild; the ellipsoid at length 0.5, where
     the reference's descent contracts) on the card against the CPU: equal
     rebuild counts and neighbor ids, positions and quaternions within the
-    bound printed beside each.
+    bound printed beside each;
+43. pair_accumulate (the small-box fallback's Hertz pair_fn, through
+    RowSpheresSim._small_box_forces) on config #1's 1M rows (152, 152, 88)
+    against K1, 2e-5 of max|f|, with its time, y-chunk count and peak
+    allocation; RowSpheresSim at ny = nz = 4 in float64 (100 spheres, box
+    5.5) for 60 steps on the card against the CPU, 1e-7;
+44. the rows layout of the spectral-Ewald gridding at config #5's grid
+    (1,048,576 uniform beads in the YAML's 152 box, its operator: G 384,
+    P 6, ES; m 8, 48 x 48 rows of R 664): K5s-rows and K5i-rows against
+    their plain versions (1e-5 of the max) and a second launch (bit-equal),
+    the rows grid against the tile K5s grid and se_wave_apply_rows against
+    the tile wave apply (1e-5 of the max), the rows wave apply driven with
+    the two counts set to 0 just before (one launch each), CUDA-event times
+    beside their plain versions, index_add_ of the same spread terms and
+    the tile K5s and K5i at the same beads; float64 at 3000 beads on the
+    card against the CPU (the kernels and se_spread_dense 1e-10, the wave
+    apply through the float32 forward FFT 1e-5; the dense trio twice on the
+    card bit-equal);
+45. the collision layouts at [6]'s final 1M LCP state: collision_forces in
+    the windowed (active_pair_subset, K3 on the gathered windows), j_perm
+    and unordered layouts against the strided K3 result, 1e-6 of max|F|,
+    two runs of each bit-equal; active_pair_subset selecting the same pairs
+    as active_pair_subset_strided.
 
 Kernel times are medians of CUDA-event timings after a synchronize, kernel
 and plain version alternating; for K2, K3 and K3t the device time per
 launch of 20 launches queued back to back is printed beside them. Prints
-one JSON line of kernel results (K2's, K3's, K5s's and K5i's entries also
+one JSON line of kernel results (K5s-rows and K5i-rows, the rows-contract
+ports, beside the tile-contract K5s and K5i; K2's, K3's, K5s's and K5i's entries also
 carry their launches on [29]'s paths, and K5s's and K5i's on [33]'s,
 under "path_launches", and K2's, K3's, K4's, K5s's and K5i's those of each
 YAML through the CLI at [35], as "cli <yaml>"; K2's launches add those of
@@ -325,6 +351,8 @@ RODS_NMAT_STEPS = 100
 ELLIPSOID_RODS = 20_000
 ELLIPSOID_STEPS = 20
 RODS_F64_STEPS = 40
+SMALL_BOX_STEPS = 60
+SE_ROWS_BEADS = 1 << 20
 
 # published H100 SXM peaks (NVIDIA data sheet): FP32 outside the
 # tensor cores, and HBM bandwidth
@@ -1981,6 +2009,310 @@ def rods_nmat_phases(torch, dev, card: str) -> dict:
     return out
 
 
+def se_rows_ops(P: int, W: int) -> tuple:
+    """FP32 operations per occupied slot of K5s-rows and K5i-rows at window
+    support P and slab width W, counted from the algorithm (the window
+    weights come precomputed in the pieces). K5s-rows: wz f (3 W), times wy
+    (3 P W), times wx (3 P^2 W) and the sums into the grid (3 P^2 W).
+    K5i-rows: the y sums (2 x 3 P^2 W), the x sums (2 x 3 P W), the z sums
+    (2 x 3 W) and the h^3 scale (3)."""
+    return 3.0 * W + 3.0 * P * W + 6.0 * P * P * W, 6.0 * P * P * W + 6.0 * P * W + 6.0 * W + 3.0
+
+
+def slice15_phases(torch, dev, card: str, lcp_sim, lcp_st) -> list:
+    """Phases 43-45: the general row pair engine and the small-box spheres
+    ([43]), the rows layout of the spectral-Ewald gridding with kernels
+    K5s-rows and K5i-rows ([44]), the windowed, j_perm and unordered
+    collision layouts at [6]'s 1M LCP state ([45]); times printed with
+    `card`. Returns the kernels line's entries of K5s-rows and K5i-rows."""
+    from mundy_tpu_torch.constraints.collision import (active_pair_subset,
+                                                       active_pair_subset_strided,
+                                                       collision_forces,
+                                                       collision_setup_spheres,
+                                                       pair_j_permutation)
+    from mundy_tpu_torch.core.config import config_from_dict, load_yaml
+    from mundy_tpu_torch.driver.apps.chromatin import ChromatinConfig
+    from mundy_tpu_torch.driver.apps.spheres import SpheresConfig
+    from mundy_tpu_torch.driver.apps.spheres_rows import RowSpheresSim
+    from mundy_tpu_torch.mobility import spectral
+    from mundy_tpu_torch.neighbor.cell_list import build_pair_list
+    from mundy_tpu_torch.neighbor.rows import pair_chunk_rows
+    from mundy_tpu_torch.ops.kernels import row_central as k1
+    from mundy_tpu_torch.ops.kernels import se_grid as k5
+
+    # ---- 43. pair_accumulate at config #1's 1M rows; small boxes ----------
+    big = bench_config(SpheresConfig, N_BIG)
+    sim = RowSpheresSim(big, device=dev)
+    rows = sim.init().rows
+    m = rows.valid
+    f_k1 = k1.row_hertzian_forces_sym(rows.pos, sim.box_static[0], big.radius,
+                                      big.youngs_modulus, big.poissons_ratio, valid=m)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    f_pa = sim._small_box_forces(rows)  # the app's fallback: pair_accumulate, Hertz pair_fn
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    fmax = f_k1[m].abs().max().item()
+    pa_err = (f_pa[m] - f_k1[m]).abs().max().item()
+    chunks = -(-rows.pos.shape[0] // pair_chunk_rows(rows))
+    pa_ms = statistics.median([cuda_ms(lambda: sim._small_box_forces(rows), torch, 1)
+                               for _ in range(3)])
+    ny, nz, R = m.shape
+    print(f"[43] pair_accumulate (Hertz pair_fn, box fast path) at (ny, nz, R) = ({ny}, {nz}, "
+          f"{R}): max|diff| vs K1 {pa_err:.3e} of max|f| {fmax:.3e}; {pa_ms:.3f} ms (first "
+          f"call {first_s:.3f} s), {chunks} y-chunks of {pair_chunk_rows(rows)} rows, peak "
+          f"allocation {(peak - base) / 1e9:.3f} GB above {base / 1e9:.3f} GB "
+          f"(max_memory_allocated {peak / 1e9:.3f} GB); K1 alone {cuda_ms(lambda: k1.row_hertzian_forces_sym(rows.pos, sim.box_static[0], big.radius, big.youngs_modulus, big.poissons_ratio, valid=m), torch, 5):.4f} ms; {card}",
+          flush=True)
+    if not (fmax > 0 and math.isfinite(pa_err) and pa_err <= 2e-5 * fmax):
+        fail(f"pair_accumulate disagrees with K1 at 1M: {pa_err} > 2e-5 * {fmax}")
+    del sim, rows, m, f_k1, f_pa
+    small = SpheresConfig(num_spheres=100, box_size=5.5, diffusion_coeff=0.05, dt=1e-4,
+                          skin=0.25, dtype="float64")
+    pos0 = torch.rand((100, 3), dtype=torch.float64,
+                      generator=torch.Generator().manual_seed(43)) * 5.5
+    runs = {}
+    for d in (dev, "cpu"):
+        ssim = RowSpheresSim(small, device=d)
+        st = ssim.run_block(ssim.init(pos=pos0), SMALL_BOX_STEPS)
+        runs[str(d)] = (st, ssim.positions(st).cpu(), (ssim.grid.ny, ssim.grid.nz),
+                        ssim.small_box)
+    (sg, pg, shape, sb), (sc, pc, _, _) = runs[str(dev)], runs["cpu"]
+    diff = (pg - pc).abs().max().item()
+    print(f"    RowSpheresSim float64, 100 spheres in a 5.5 box, rows {shape} (small box "
+          f"{sb}), {SMALL_BOX_STEPS} steps: rebuilds {sg.rebuild_count} (cpu "
+          f"{sc.rebuild_count}), max|pos diff| vs cpu {diff:.3e}", flush=True)
+    if not (sb and shape == (4, 4) and sg.rebuild_count == sc.rebuild_count >= 2
+            and not bool(sg.overflow) and diff <= 1e-7):
+        fail("the small-box float64 run on the card disagrees with the CPU run")
+
+    # ---- 44. the rows SE layout at config #5's grid -----------------------
+    raw = load_yaml(os.path.join(HERE, "examples", "chromatin_1m_spectral.yaml"))
+    ccfg = config_from_dict(ChromatinConfig, raw["params"])
+
+    def yaml_op(dtype, device):  # the operator the chromatin app builds from the YAML
+        r_cut = min(0.25 * ccfg.box_size, 3.5 * 2.0 * ccfg.bead_radius)
+        s2 = math.sqrt(max(math.log(1e4), 1.0))
+        return spectral.build_spectral_ewald(ccfg.box_size, ccfg.bead_radius, ccfg.viscosity,
+                                             tol=1e-4, xi=s2 / r_cut, r_cut=r_cut,
+                                             dtype=dtype, device=device)
+
+    op = yaml_op(torch.float32, dev)
+    n = SE_ROWS_BEADS
+    geom = spectral.make_se_geometry(op, n)
+    gen = torch.Generator(device=dev).manual_seed(44)
+    pos = torch.rand((n, 3), generator=gen, device=dev) * ccfg.box_size
+    F = torch.randn((n, 3), generator=gen, device=dev)
+    pieces = k5.se_bin_and_windows(geom, pos, torch.float32)
+    grid_k = k5.se_spread_rows_pre(geom, pieces, F)
+    s_same = bool(torch.equal(grid_k, k5.se_spread_rows_pre(geom, pieces, F)))
+    grid_p = k5.se_spread_rows_plain(geom, pieces, F)
+    ugrid = spectral._k_apply(op, grid_p)  # the inverse FFT's planar layout
+    u_k = k5.se_interp_rows_pre(geom, pieces, n, ugrid)
+    i_same = bool(torch.equal(u_k, k5.se_interp_rows_pre(geom, pieces, n, ugrid)))
+    u_p = k5.se_interp_rows_plain(geom, pieces, n, ugrid)
+    tgeom = spectral.make_se_geometry_tiles(op, n, capacity_slack=1.5)
+    tpieces = spectral.se_bin_geom(tgeom, pos, torch.float32)
+    grid_t = k5.se_spread(tgeom, tpieces, F)
+    torch.cuda.synchronize()
+    gmax = grid_p.abs().max().item()
+    s_err = (grid_k - grid_p).abs().max().item()
+    t_err = (grid_k - grid_t).abs().max().item()
+    umax = u_p.abs().max().item()
+    i_err = (u_k - u_p).abs().max().item()
+    perm = pieces[0]
+    n_occ = int((perm < n).sum())
+    P, W = geom.P, geom.m + geom.P
+    print(f"[44] rows SE layout, {n} uniform beads in the {ccfg.box_size} box: G {geom.G}, "
+          f"P {P}, m {geom.m}, W {W}, {perm.shape[0]} rows of R {geom.R}, {n_occ} occupied "
+          f"slots, overflow {bool(pieces[1])}; K5s-rows max|diff| {s_err:.3e} of max|grid| "
+          f"{gmax:.3e} (repeat bit-equal {s_same}), against the tile K5s grid {t_err:.3e}; "
+          f"K5i-rows max|diff| {i_err:.3e} of max|u| {umax:.3e} on the planar layout (repeat "
+          f"bit-equal {i_same})", flush=True)
+    if bool(pieces[1]) or n_occ != n:
+        fail("the rows binning at config #5's grid overflowed")
+    if not (gmax > 0 and s_err <= 1e-5 * gmax and s_same and t_err <= 1e-5 * gmax):
+        fail(f"K5s-rows disagrees with its plain version ({s_err}), the tile grid ({t_err}) "
+             f"or itself (bit-equal {s_same}), max|grid| {gmax}")
+    if not (umax > 0 and i_err <= 1e-5 * umax and i_same):
+        fail(f"K5i-rows disagrees with its plain version ({i_err} > 1e-5 * {umax}) or with "
+             f"itself (bit-equal {i_same})")
+    # the main path: the rows wave apply from positions, counts set to 0 just before
+    k5.se_spread_rows_pre.launches = k5.se_interp_rows_pre.launches = 0
+    u_rows, ovf = spectral.se_wave_apply_rows(op, geom, pos, F)
+    torch.cuda.synchronize()
+    s_launches, i_launches = k5.se_spread_rows_pre.launches, k5.se_interp_rows_pre.launches
+    u_tile, _ = spectral.se_wave_apply_dense(op, tgeom, pos, F, pieces=tpieces)
+    torch.cuda.synchronize()
+    wmax = u_tile.abs().max().item()
+    w_err = (u_rows - u_tile).abs().max().item()
+    print(f"    se_wave_apply_rows: K5s-rows {s_launches}, K5i-rows {i_launches} launches; "
+          f"max|u - u_tile| {w_err:.3e} of max|u_tile| {wmax:.3e}, overflow {bool(ovf)}",
+          flush=True)
+    if s_launches != 1 or i_launches != 1:
+        fail(f"se_wave_apply_rows launched K5s-rows {s_launches}, K5i-rows {i_launches} times")
+    if not (wmax > 0 and w_err <= 1e-5 * wmax) or bool(ovf):
+        fail(f"the rows wave apply disagrees with the tile one: {w_err} > 1e-5 * {wmax}")
+    del grid_t, u_rows, u_tile
+    s_ms, s_plain_ms = alternate(lambda: k5.se_spread_rows_pre(geom, pieces, F),
+                                 lambda: k5.se_spread_rows_plain(geom, pieces, F),
+                                 torch, 5, 2, rounds=2)
+    i_ms, i_plain_ms = alternate(lambda: k5.se_interp_rows_pre(geom, pieces, n, ugrid),
+                                 lambda: k5.se_interp_rows_plain(geom, pieces, n, ugrid),
+                                 torch, 5, 2, rounds=2)
+    ts_ms = statistics.median([cuda_ms(lambda: k5.se_spread(tgeom, tpieces, F), torch, 5)
+                               for _ in range(2)])
+    ti_ms = statistics.median([cuda_ms(lambda: k5.se_interp(tgeom, tpieces, ugrid), torch, 5)
+                               for _ in range(2)])
+    wr_ms = cuda_ms(lambda: spectral.se_wave_apply_rows(op, geom, pos, F, pieces=pieces),
+                    torch, 3)
+    wt_ms = cuda_ms(lambda: spectral.se_wave_apply_dense(op, tgeom, pos, F, pieces=tpieces),
+                    torch, 3)
+    # the library yardstick: one index_add_ of the same P x P x W spread
+    # terms, precomputed (untimed) in the plain version's arithmetic
+    sel = (perm.reshape(-1) < n).nonzero()[:, 0]
+    parts = [k5.rows_spread_terms(geom, pieces, F, sel[s0:s0 + (1 << 17)])
+             for s0 in range(0, sel.shape[0], 1 << 17)]
+    idx, vals = torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+    del parts
+    acc = torch.zeros((geom.G ** 3, 3), device=dev)
+    lib_err = (acc.clone().index_add_(0, idx, vals) - grid_p.reshape(-1, 3)).abs().max().item()
+    s_lib_ms = statistics.median([cuda_ms(lambda: acc.index_add_(0, idx, vals), torch, 3)
+                                  for _ in range(2)])
+    n_terms = idx.numel()
+    del idx, vals, acc
+    # perm of every slot; an occupied slot's gx0, gy0, wx, wy, wz (an empty
+    # one's are never read); the forces or u; the grid written or read once
+    grid_bytes = grid_p.numel() * 4
+    piece_bytes = perm.numel() * 4 + n_occ * (4 + 4 + 4 * (2 * P + W))
+    s_ops, i_ops = se_rows_ops(P, W)
+    s_bound = bound(n_occ * s_ops, piece_bytes + F.numel() * 4 + grid_bytes)
+    i_bound = bound(n_occ * i_ops, piece_bytes + grid_bytes + u_p.numel() * 4)
+    print(f"    K5s-rows {s_ms:.4f} ms, plain {s_plain_ms:.4f} ms, index_add_ of the "
+          f"{n_terms} terms {s_lib_ms:.4f} ms (max|diff| {lib_err:.3e}), bound "
+          f"{s_bound[0]:.4f} ms ({s_bound[1]}, {s_ms / s_bound[0]:.1f}x); tile K5s at the "
+          f"same beads {ts_ms:.4f} ms (R {tgeom.R}); {card}", flush=True)
+    print(f"    K5i-rows {i_ms:.4f} ms, plain {i_plain_ms:.4f} ms, bound {i_bound[0]:.4f} ms "
+          f"({i_bound[1]}, {i_ms / i_bound[0]:.1f}x); tile K5i {ti_ms:.4f} ms; wave apply "
+          f"rows {wr_ms:.3f} ms, tiles {wt_ms:.3f} ms; {card}", flush=True)
+    del grid_k, grid_p, ugrid, u_k, u_p, pieces, tpieces, pos, F
+    # float64 at a few thousand beads, the card against the CPU, with both
+    # windows: the Gaussian's weights on the z terms between P and W are not
+    # zero (the tile layout truncates them), so a kernel that dropped them
+    # would miss the CPU's rows grid by the printed tail share
+    n64 = 3000
+    g64 = torch.Generator().manual_seed(45)
+    pos64 = torch.rand((n64, 3), dtype=torch.float64, generator=g64) * 24.0
+    F64 = torch.randn((n64, 3), dtype=torch.float64, generator=g64)
+    for window in ("es", "gaussian"):
+        res = []
+        for d in (dev, "cpu"):
+            r_cut = 3.5
+            op64 = spectral.build_spectral_ewald(24.0, 0.5, 1.0, tol=1e-4,
+                                                 xi=math.sqrt(math.log(1e4)) / r_cut,
+                                                 r_cut=r_cut, dtype=torch.float64,
+                                                 window=window, device=d)
+            g = spectral.make_se_geometry(op64, n64)
+            pc = k5.se_bin_and_windows(g, pos64.to(d), torch.float64)
+            gr = k5.se_spread_rows_pre(g, pc, F64.to(d))
+            ug = spectral._k_apply(op64, gr)
+            uu = k5.se_interp_rows_pre(g, pc, n64, ug)
+            pd = k5.se_bin_dense(g, pos64.to(d), torch.float64)  # the dense trio, twice
+            dense = [(k5.se_spread_dense(g, pd, F64.to(d)), k5.se_interp_dense(g, pd, n64, ug))
+                     for _ in range(2)]
+            d_same = all(torch.equal(a, b) for a, b in zip(*dense))
+            res.append((gr.cpu(), ug.cpu(), uu.cpu(), g, pc, dense[0][0].cpu(), d_same, op64))
+        (gg, ugg, uug, g, pcg, dg, dsame, _), (gc, ugc, uuc, _, pcc, dc, _, opc) = res
+        tg = spectral.make_se_geometry_tiles(opc, n64, capacity_slack=1.5)
+        g_tile = k5.se_spread(tg, spectral.se_bin_geom(tg, pos64, torch.float64), F64)
+        tails = ((gc - g_tile).abs().max() / gc.abs().max()).item()
+        e_grid = ((gg - gc).abs().max() / gc.abs().max()).item()
+        ui = k5.se_interp_rows_pre(g, pcg, n64, ugc.to(dev).permute(3, 0, 1, 2).contiguous()
+                                   .permute(1, 2, 3, 0)).cpu()
+        u_cpu = k5.se_interp_rows_pre(g, pcc, n64, ugc)
+        e_interp = ((ui - u_cpu).abs().max() / u_cpu.abs().max()).item()
+        e_wave = ((uug - uuc).abs().max() / uuc.abs().max()).item()
+        e_dense = ((dg - dc).abs().max() / dc.abs().max()).item()
+        print(f"    float64 {window}, {n64} beads (G {g.G}, P {g.P}, m {g.m}, W {g.m + g.P}, "
+              f"R {g.R}), card vs CPU: K5s-rows {e_grid:.3e}, K5i-rows {e_interp:.3e} of the "
+              f"max (the z terms beyond P carry {tails:.3e} of the rows grid's max); the wave "
+              f"apply through the float32 forward FFT {e_wave:.3e}; se_spread_dense "
+              f"{e_dense:.3e}, the dense trio twice on the card bit-equal {dsame}", flush=True)
+        if not (e_grid <= 1e-10 and e_interp <= 1e-10 and e_wave <= 1e-5 and e_dense <= 1e-10
+                and dsame):
+            fail(f"the float64 rows gridding ({window}) on the card disagrees with the CPU "
+                 f"or itself")
+        if window == "gaussian" and not tails > 1e3 * 1e-10:
+            fail(f"the Gaussian check's z tails ({tails}) are too small to test the W terms")
+
+    # ---- 45. the collision layouts at [6]'s 1M state -----------------------
+    lsim, st = lcp_sim, lcp_st
+    setup = collision_setup_spheres(st.pos, lsim._radius(), st.pairs, lsim.metric)
+    margin = lsim._dyn_margin(setup)
+    strided = active_pair_subset_strided(setup, margin, N_BIG, lsim.seg_block, lsim.act_window,
+                                         st.seg_starts)
+    c_full = setup.pairs.i.shape[0]
+    windowed, sel_w, n_act, w_ovf = active_pair_subset(
+        setup, margin, c_full, N_BIG, seg_starts=st.seg_starts, block_bodies=lsim.seg_block,
+        window=lsim.seg_window)
+    # one multiplier per contact, both directions active (a pair at the
+    # margin's rounding edge in one direction only carries none)
+    act = setup.pairs.mask & (setup.sep0 < margin)
+    dual = st.dual_full.long()
+    u = torch.rand(c_full, generator=torch.Generator(dev).manual_seed(45), device=dev)
+    g_full = torch.where(act & act[dual], u + u[dual], 0.0)
+    upairs = build_pair_list(st.nmat, c_full)
+    half = (setup.pairs.mask & (setup.pairs.i < setup.pairs.j)).nonzero()[:, 0]
+    g_u = torch.zeros(c_full, device=dev)
+    g_u[:half.shape[0]] = g_full[half]
+    jp = pair_j_permutation(upairs, N_BIG)
+    usetup = collision_setup_spheres(st.pos, lsim._radius(), upairs, lsim.metric, j_perm=jp)
+    g_s = torch.where(strided.setup.pairs.mask,
+                      g_full[torch.clamp(strided.sel, max=c_full - 1).long()], 0.0)
+    g_w = torch.where(windowed.pairs.mask, g_full[torch.clamp(sel_w, max=c_full - 1).long()],
+                      0.0)
+    layouts = (("windowed", windowed, g_w), ("j_perm", usetup, g_u),
+               ("unordered", usetup._replace(j_perm=None), g_u))
+    F_s = collision_forces(strided.setup, g_s, N_BIG)
+    fmax = F_s.abs().max().item()
+    fs_ms = cuda_ms(lambda: collision_forces(strided.setup, g_s, N_BIG), torch, 10)
+    same_set = bool(torch.equal(sel_w[windowed.pairs.mask],
+                                strided.sel[strided.setup.pairs.mask]))
+    print(f"[45] collision layouts at [6]'s 1M state: {int(n_act)} active pairs (windowed "
+          f"overflow {bool(w_ovf)}, window overflow {bool(windowed.windows.overflow)}), "
+          f"{int(upairs.num_pairs)} unordered pairs; the windowed and strided subsets select "
+          f"the same pairs {same_set}; strided (K3) {fs_ms:.4f} ms, max|F| {fmax:.3e}; {card}",
+          flush=True)
+    if not same_set or bool(w_ovf) or bool(windowed.windows.overflow):
+        fail("active_pair_subset and active_pair_subset_strided select different pairs")
+    for name, lsetup, gam in layouts:
+        F1 = collision_forces(lsetup, gam, N_BIG)
+        F2 = collision_forces(lsetup, gam, N_BIG)
+        torch.cuda.synchronize()
+        err = (F1 - F_s).abs().max().item()
+        same = bool(torch.equal(F1, F2))
+        ms = cuda_ms(lambda: collision_forces(lsetup, gam, N_BIG), torch, 10)
+        print(f"    {name}: max|F - F_strided| {err:.3e} of {fmax:.3e}, two runs bit-equal "
+              f"{same}, {ms:.4f} ms", flush=True)
+        if not (fmax > 0 and err <= 1e-6 * fmax and same):
+            fail(f"collision_forces ({name}) disagrees with the strided layout ({err}) or "
+                 f"with itself (bit-equal {same})")
+    return [
+        {"name": "se_spread_rows_pre", "route": "cuda",
+         "source": "mundy_tpu_torch/csrc/se_grid.cu",
+         "replaces": "mundy_tpu/ops/pallas/se_grid.py:429", "launches": s_launches,
+         "max_abs_err": s_err, "ms": s_ms, "plain_ms": s_plain_ms, "bound_ms": s_bound[0],
+         "bound_by": s_bound[1], "library_ms": s_lib_ms},
+        {"name": "se_interp_rows_pre", "route": "cuda",
+         "source": "mundy_tpu_torch/csrc/se_grid.cu",
+         "replaces": "mundy_tpu/ops/pallas/se_grid.py:486", "launches": i_launches,
+         "max_abs_err": i_err, "ms": i_ms, "plain_ms": i_plain_ms, "bound_ms": i_bound[0],
+         "bound_by": i_bound[1], "library_ms": None}]
+
+
 def main() -> None:
     import torch
 
@@ -2568,6 +2900,7 @@ def main() -> None:
 
     k5_entries = chromatin_phases(torch, dev, card)
     poly_entries = polydisperse_phases(torch, dev, lcp_sim, lcp_st, card)
+    rows_entries = slice15_phases(torch, dev, card, lcp_sim, lcp_st)  # [43]-[45]
     del lcp_sim, lcp_st
     hydro_paths = lcp_hydro_phases(torch, dev, card)
     hp1_paths = periphery_phases(torch, dev, card)
@@ -2605,7 +2938,7 @@ def main() -> None:
          "replaces": "mundy_tpu/ops/pallas/row_segments.py:227",
          "launches": k4f_launches, "max_abs_err": k4f_err, "ms": k4f_ms,
          "plain_ms": k4f_plain_ms, "bound_ms": k4f_bound[0], "bound_by": k4f_bound[1],
-         "library_ms": None}] + k5_entries + poly_entries
+         "library_ms": None}] + k5_entries + poly_entries + rows_entries
     for entry in kernels:  # launches on the LCP hydro paths of [29] and HP1's of [33]
         if entry["name"] in hydro_paths:
             entry["path_launches"] = hydro_paths[entry["name"]]

@@ -670,6 +670,377 @@ int launch_interp(const void* u, const void* perm, const void* slot_of, const vo
                                win, h3, stream);
 }
 
+
+// ---------------------------------------------------------------------------
+// The rows layout: K5s-rows and K5i-rows.
+//
+// Replace the Pallas TPU kernels of the row decomposition, under their own
+// contract: mundy_tpu/ops/pallas/se_grid.py se_spread_rows_pre
+// (_spread_kernel) and se_interp_rows_pre (_interp_kernel), on the pieces
+// of se_bin_and_windows. Particles are binned into nyz^2 = (G/m)^2 rows,
+// one per (y, z) column of m x m grid points spanning the x axis, R slots
+// each: perm (particle id, n = empty), the patch offsets gx0 and gy0, and
+// the window weights wx (P), wy (P) and wz (W = m + P), precomputed. Slot s
+// of row (iy, iz) adds wx[a] (wy[b] (wz[c] f)) to grid point
+//   x = (gx0 + a - XPAD/2) mod G, y = (iy m - P/2 + gy0 + b) mod G,
+//   z = (iz m - P/2 + c) mod G        (a, b < P; c < W)
+// (the z weights span the slab's whole width W, not P support points);
+// interpolation is the transpose, times h^3, written at perm. Dropped from
+// the TPU kernels: the (G + XPAD, W, 3 W) slab per row, the roll folds
+// _combine_axis / _extract_axis in XLA, the z contraction outside the
+// kernel and the _r_chunk split of R.
+//
+// K5s-rows design: output-stationary gather, no float atomics, two kernels
+// per call (one launch counted). The tile pre-pass of K5s writes each row's
+// extent (1 + its last occupied slot). Then one block of 256 threads per
+// (row cell, run of RX = 32 grid points along x), each thread owning a run
+// of XR = 8 points along x at one (y, z) of the cell (m^2 RX / XR items,
+// 256 at m = 8; more items take more passes). The block walks the occupied
+// slots of the distinct rows around its own (rows (Y + dy, Z + dz), dy, dz
+// in -1..1, each once when G/m < 3) in (row, slot) order, a block-width
+// batch at a time; a slot is kept when its x, y and z supports meet the
+// block's box, and the kept ones are compacted in list order (ballot,
+// per-warp counts). Once per flush, one thread per kept slot stages its
+// weights box-relative (RX along x, m along y and z, zero off the support)
+// and its force; every thread then adds the staged slots to its run in
+// list order: wz f, times wy, skipped where that is an exact zero, then XR
+// products with wx into XR x 3 register sums. Each point's sum is the plain
+// version's set of terms in one fixed order, so the grid repeats bit for
+// bit and each point is written once, by its own block. A slot's y and z
+// reach stays within one row of its own while m >= P/2 + 1, and no axis
+// wraps onto itself while W <= G; the wrapper checks both and P <= XPAD.
+//
+// K5i-rows design: half a warp per occupied slot (two slots per warp, 16
+// per block of 256), a lane per z term c (c = lane, lane + 16, ... < W).
+// Each lane contracts the P x P (x, y) patch at its z the reference's way,
+// sum_a wx[a] sum_b wy[b] grid[x, y, z], and multiplies by wz[c]; the 16
+// lanes then sum by a fixed shuffle tree, and the slot's first lane writes
+// h^3 times the sum at perm (no atomics; an empty slot writes nothing and a
+// dropped particle keeps the wrapper's zero). The grid is read where the
+// inverse FFT leaves it, three (G, G, G) planes with the channel axis
+// outermost, so neighbouring lanes read neighbouring z.
+//
+// Bound: the grid written (K5s-rows) or read (K5i-rows) once is 12 G^3
+// bytes (680 MB at G = 384, 0.20 ms at 3.35 TB/s), plus the pieces (perm's
+// 4 bytes a slot, and 4 + 4 + 4 (2 P + W) bytes an occupied slot in float32:
+// 0.12 GB for 1M particles in 2304 rows of R 664, P 6, W 14; an empty
+// slot's weights are never read), against ~1.5 GFLOP for 1M particles
+// (3 P^2 W products and sums each), so both are bound by bytes. K5s-rows re-reads each slot's offsets
+// for every x-run of the 9 rows around it (~12 times) from L2 and evaluates
+// nothing; K5i-rows reads each grid value once per slot whose patch covers
+// it (~P^2 W / m^2 ~ 8 times at config #5, from L2) and leaves lanes
+// 14-15 of each half-warp idle at W = 14.
+
+constexpr int RX = 32;  // K5s-rows: grid points along x per block
+constexpr int XR = 8;   // K5s-rows: grid points along x per thread
+constexpr int ROWS_XPAD = 16;
+constexpr int ROWS_THREADS = 256;
+constexpr int ROWS_CAP = 64;  // K5s-rows: staged slots per flush
+
+// Bytes of shared memory per staged slot: RX + 2 m box-relative weights and
+// the force padded to 4.
+template <typename T>
+size_t rows_slot_bytes(int m) {
+  return static_cast<size_t>(RX + 2 * m + 4) * sizeof(T);
+}
+
+template <typename T>
+__global__ void se_spread_rows_kernel(const int* __restrict__ perm,
+                                      const int* __restrict__ gx0,
+                                      const int* __restrict__ gy0,
+                                      const T* __restrict__ wx, const T* __restrict__ wy,
+                                      const T* __restrict__ wz,
+                                      const T* __restrict__ forces,
+                                      const int* __restrict__ ext, T* __restrict__ grid,
+                                      int n, int G, int m, int P, int R, int nyz, int nxr) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ws = RX + 2 * m + 4;                 // staged values per slot
+  T* sw = reinterpret_cast<T*>(smem_raw);        // [ROWS_CAP][ws]
+  __shared__ int s_slot[ROWS_THREADS];           // kept candidates of a batch
+  __shared__ int s_row[9];                       // the distinct rows around
+  __shared__ int s_pre[10];                      // exclusive prefix of their extents
+  __shared__ int s_wsum[ROWS_THREADS / 32];      // kept candidates per warp
+
+  const int W = m + P;
+  const int xr = blockIdx.x % nxr;
+  const int row = blockIdx.x / nxr;
+  const int Y = row / nyz, Z = row % nyz;
+  const int X0 = xr * RX, Y0 = Y * m, Z0 = Z * m;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const int noff = nyz >= 3 ? 3 : nyz;  // fewer than 3 rows a side: each once
+  const int off0 = nyz >= 3 ? -1 : 0;
+  const int n_nb = noff * noff;
+
+  if (warp == 0) {
+    int c = 0;
+    if (lane < n_nb) {
+      const int ry = (Y + off0 + lane / noff + nyz) % nyz;
+      const int rz = (Z + off0 + lane % noff + nyz) % nyz;
+      s_row[lane] = ry * nyz + rz;
+      c = ext[ry * nyz + rz];
+    }
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, c, o);
+      if (lane >= o) c += y;
+    }
+    if (lane < n_nb) s_pre[lane + 1] = c;
+    if (lane == 0) s_pre[0] = 0;
+  }
+  __syncthreads();
+  const int total = s_pre[n_nb];
+  const int nseg = RX / XR;
+  const int items = m * m * nseg;
+
+  for (int it0 = 0; it0 < items; it0 += blockDim.x) {
+    const int item = it0 + threadIdx.x;
+    const bool own = item < items;
+    const int lz = own ? item % m : 0;
+    const int ly = own ? (item / m) % m : 0;
+    const int x0 = own ? (item / (m * m)) * XR : 0;
+    T acc[XR][3];
+#pragma unroll
+    for (int i = 0; i < XR; ++i) acc[i][0] = acc[i][1] = acc[i][2] = T(0);
+    int cnt = 0;  // kept slots not yet added (the same value in every thread)
+    int done = 0;  // of those, the ones already staged and added
+
+    // stage kept slots [done, cnt) in turns of ROWS_CAP, add each turn
+    auto flush = [&]() {
+      while (done < cnt) {
+        const int nst = min(ROWS_CAP, cnt - done);
+        for (int e = threadIdx.x; e < nst; e += blockDim.x) {
+          const int s = s_slot[done + e];
+          const int rs = s / R;
+          const int iy = rs / nyz, iz = rs % nyz;
+          int sx = (gx0[s] - ROWS_XPAD / 2) % G;
+          sx += sx < 0 ? G : 0;
+          int sy = (iy * m - P / 2 + gy0[s]) % G;
+          sy += sy < 0 ? G : 0;
+          int sz = (iz * m - P / 2) % G;
+          sz += sz < 0 ? G : 0;
+          T* w = sw + static_cast<size_t>(e) * ws;
+          const T* px = wx + static_cast<size_t>(s) * P;
+          const T* py = wy + static_cast<size_t>(s) * P;
+          const T* pz = wz + static_cast<size_t>(s) * W;
+          for (int i = 0; i < RX; ++i) {
+            int a = (X0 + i - sx) % G;
+            a += a < 0 ? G : 0;
+            w[i] = (X0 + i < G && a < P) ? px[a] : T(0);
+          }
+          for (int l = 0; l < m; ++l) {
+            int b = (Y0 + l - sy) % G;
+            b += b < 0 ? G : 0;
+            int c = (Z0 + l - sz) % G;
+            c += c < 0 ? G : 0;
+            w[RX + l] = b < P ? py[b] : T(0);
+            w[RX + m + l] = c < W ? pz[c] : T(0);
+          }
+          const size_t pid = static_cast<size_t>(perm[s]);
+          T* f = w + RX + 2 * m;
+          f[0] = forces[3 * pid];
+          f[1] = forces[3 * pid + 1];
+          f[2] = forces[3 * pid + 2];
+          f[3] = T(0);
+        }
+        __syncthreads();
+        if (own) {
+          for (int j = 0; j < nst; ++j) {
+            const T* w = sw + static_cast<size_t>(j) * ws;
+            const T wzv = w[RX + m + lz];
+            const T wyv = w[RX + ly];
+            if (wzv == T(0) || wyv == T(0)) continue;  // exact-zero terms
+            const T* f = w + RX + 2 * m;
+            const T t0 = wyv * (wzv * f[0]);
+            const T t1 = wyv * (wzv * f[1]);
+            const T t2 = wyv * (wzv * f[2]);
+#pragma unroll
+            for (int i = 0; i < XR; ++i) {
+              const T wxv = w[x0 + i];
+              acc[i][0] += wxv * t0;
+              acc[i][1] += wxv * t1;
+              acc[i][2] += wxv * t2;
+            }
+          }
+        }
+        __syncthreads();  // the staging buffer is reused by the next turn
+        done += nst;
+      }
+    };
+
+    for (int i0 = 0; i0 < total; i0 += blockDim.x) {
+      const int i = i0 + threadIdx.x;
+      bool flag = false;
+      int s = 0;
+      if (i < total) {
+        int nb = 0;
+        while (s_pre[nb + 1] <= i) ++nb;
+        const int rs = s_row[nb];
+        s = rs * R + (i - s_pre[nb]);
+        if (perm[s] < n) {
+          const int iy = rs / nyz;
+          int sx = (gx0[s] - ROWS_XPAD / 2) % G;
+          sx += sx < 0 ? G : 0;
+          int sy = (iy * m - P / 2 + gy0[s]) % G;
+          sy += sy < 0 ? G : 0;
+          int dx = (sx - X0) % G, ex = (X0 - sx) % G;
+          dx += dx < 0 ? G : 0;
+          ex += ex < 0 ? G : 0;
+          int dy = (sy - Y0) % G, ey = (Y0 - sy) % G;
+          dy += dy < 0 ? G : 0;
+          ey += ey < 0 ? G : 0;
+          // the z support of a neighbouring row always meets the cell
+          flag = (dx < RX || ex < P) && (dy < m || ey < P);
+        }
+      }
+      const unsigned kept = __ballot_sync(0xffffffffu, flag);
+      if (lane == 0) s_wsum[warp] = __popc(kept);
+      __syncthreads();
+      int before = 0, batch = 0;
+      for (int w2 = 0; w2 < nw; ++w2) {
+        const int v = s_wsum[w2];
+        before += w2 < warp ? v : 0;
+        batch += v;
+      }
+      if (flag) s_slot[before + __popc(kept & ((1u << lane) - 1u))] = s;
+      cnt = batch;
+      done = 0;
+      __syncthreads();
+      flush();
+    }
+    if (own) {
+      const int y = Y0 + ly, z = Z0 + lz;
+#pragma unroll
+      for (int i = 0; i < XR; ++i) {
+        const int x = X0 + x0 + i;
+        if (x < G) {
+          const size_t g = ((static_cast<size_t>(x) * G + y) * G + z) * 3;
+          grid[g] = acc[i][0];
+          grid[g + 1] = acc[i][1];
+          grid[g + 2] = acc[i][2];
+        }
+      }
+    }
+    __syncthreads();  // the kept list is reused by the next pass
+  }
+}
+
+template <typename T>
+__global__ void se_interp_rows_kernel(const int* __restrict__ perm,
+                                      const int* __restrict__ gx0,
+                                      const int* __restrict__ gy0,
+                                      const T* __restrict__ wx, const T* __restrict__ wy,
+                                      const T* __restrict__ wz,
+                                      const T* __restrict__ grid, T* __restrict__ out,
+                                      int n, int n_slots, int G, int m, int P, int R,
+                                      int nyz, T h3) {
+  const int half = (threadIdx.x >> 4) & 1;
+  const int l = threadIdx.x & 15;
+  const unsigned mask = 0xffffu << (16 * half);
+  const int s = blockIdx.x * (blockDim.x >> 4) + (threadIdx.x >> 4);
+  if (s >= n_slots) return;  // the whole half-warp
+  const int pid = perm[s];
+  if (pid >= n) return;  // the whole half-warp: an empty slot
+  const int W = m + P;
+  const int rs = s / R;
+  const int iy = rs / nyz, iz = rs % nyz;
+  int sx = (gx0[s] - ROWS_XPAD / 2) % G;
+  sx += sx < 0 ? G : 0;
+  int sy = (iy * m - P / 2 + gy0[s]) % G;
+  sy += sy < 0 ? G : 0;
+  const T* px = wx + static_cast<size_t>(s) * P;
+  const T* py = wy + static_cast<size_t>(s) * P;
+  const T* pz = wz + static_cast<size_t>(s) * W;
+  const size_t plane = static_cast<size_t>(G) * G * G;
+  T part[3] = {T(0), T(0), T(0)};
+  for (int c = l; c < W; c += 16) {
+    int z = (iz * m - P / 2 + c) % G;
+    z += z < 0 ? G : 0;
+    T acc[3] = {T(0), T(0), T(0)};
+    for (int a = 0; a < P; ++a) {
+      const int x = sx + a < G ? sx + a : sx + a - G;
+      T yred[3] = {T(0), T(0), T(0)};
+      for (int b = 0; b < P; ++b) {
+        const int y = sy + b < G ? sy + b : sy + b - G;
+        const size_t g = (static_cast<size_t>(x) * G + y) * G + z;
+        const T wb = py[b];
+        yred[0] += wb * grid[g];
+        yred[1] += wb * grid[plane + g];
+        yred[2] += wb * grid[2 * plane + g];
+      }
+      const T wa = px[a];
+      acc[0] += wa * yred[0];
+      acc[1] += wa * yred[1];
+      acc[2] += wa * yred[2];
+    }
+    const T wc = pz[c];
+    part[0] += acc[0] * wc;
+    part[1] += acc[1] * wc;
+    part[2] += acc[2] * wc;
+  }
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) part[k] += __shfl_down_sync(mask, part[k], o, 16);
+  }
+  if (l == 0) {
+    out[3 * static_cast<size_t>(pid)] = h3 * part[0];
+    out[3 * static_cast<size_t>(pid) + 1] = h3 * part[1];
+    out[3 * static_cast<size_t>(pid) + 2] = h3 * part[2];
+  }
+}
+
+template <typename T>
+int launch_spread_rows(const void* perm, const void* gx0, const void* gy0, const void* wx,
+                       const void* wy, const void* wz, const void* forces, void* ext,
+                       void* grid, int n, int G, int m, int P, int R, void* stream) {
+  if (m < 1 || G % m != 0 || P < 1 || P > ROWS_XPAD || m + P > G) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int nyz = G / m;
+  const int n_rows = nyz * nyz;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  se_tile_extent_kernel<<<(n_rows + 7) / 8, 256, 0, st>>>(
+      static_cast<const int*>(perm), static_cast<int*>(ext), n, n_rows, R);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int nxr = (G + RX - 1) / RX;
+  const size_t smem = ROWS_CAP * rows_slot_bytes<T>(m);
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(se_spread_rows_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // clear it: the next launch must not report it
+      return static_cast<int>(err);
+    }
+  }
+  se_spread_rows_kernel<T><<<n_rows * nxr, ROWS_THREADS, smem, st>>>(
+      static_cast<const int*>(perm), static_cast<const int*>(gx0),
+      static_cast<const int*>(gy0), static_cast<const T*>(wx), static_cast<const T*>(wy),
+      static_cast<const T*>(wz), static_cast<const T*>(forces),
+      static_cast<const int*>(ext), static_cast<T*>(grid), n, G, m, P, R, nyz, nxr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_interp_rows(const void* perm, const void* gx0, const void* gy0, const void* wx,
+                       const void* wy, const void* wz, const void* grid, void* out, int n,
+                       int n_slots, int G, int m, int P, int R, double h3, void* stream) {
+  if (m < 1 || G % m != 0 || P < 1 || P > ROWS_XPAD || m + P > G) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_slots == 0) return 0;
+  const int per_block = ROWS_THREADS / 16;
+  se_interp_rows_kernel<T><<<(n_slots + per_block - 1) / per_block, ROWS_THREADS, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(perm), static_cast<const int*>(gx0),
+      static_cast<const int*>(gy0), static_cast<const T*>(wx), static_cast<const T*>(wy),
+      static_cast<const T*>(wz), static_cast<const T*>(grid), static_cast<T*>(out), n,
+      n_slots, G, m, P, R, G / m, static_cast<T>(h3));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -706,6 +1077,37 @@ int se_interp_f64(const void* u, const void* perm, const void* slot_of, const vo
                   void* stream) {
   return launch_interp<double>(u, perm, slot_of, grid, out, n, n_slots, G, m, P, R,
                                kind, beta, wh, c, h, pref, h3, stream);
+}
+
+// The rows layout. ext: (n_rows,) int32 scratch for the row extents; grid:
+// (G, G, G, 3) C order (K5s-rows), or three (G, G, G) planes, the channel
+// axis outermost (K5i-rows); out: (n, 3), zeroed by the caller.
+int se_spread_rows_f32(const void* perm, const void* gx0, const void* gy0, const void* wx,
+                       const void* wy, const void* wz, const void* forces, void* ext,
+                       void* grid, int n, int G, int m, int P, int R, void* stream) {
+  return launch_spread_rows<float>(perm, gx0, gy0, wx, wy, wz, forces, ext, grid, n, G, m,
+                                   P, R, stream);
+}
+
+int se_spread_rows_f64(const void* perm, const void* gx0, const void* gy0, const void* wx,
+                       const void* wy, const void* wz, const void* forces, void* ext,
+                       void* grid, int n, int G, int m, int P, int R, void* stream) {
+  return launch_spread_rows<double>(perm, gx0, gy0, wx, wy, wz, forces, ext, grid, n, G, m,
+                                    P, R, stream);
+}
+
+int se_interp_rows_f32(const void* perm, const void* gx0, const void* gy0, const void* wx,
+                       const void* wy, const void* wz, const void* grid, void* out, int n,
+                       int n_slots, int G, int m, int P, int R, double h3, void* stream) {
+  return launch_interp_rows<float>(perm, gx0, gy0, wx, wy, wz, grid, out, n, n_slots, G, m,
+                                   P, R, h3, stream);
+}
+
+int se_interp_rows_f64(const void* perm, const void* gx0, const void* gy0, const void* wx,
+                       const void* wy, const void* wz, const void* grid, void* out, int n,
+                       int n_slots, int G, int m, int P, int R, double h3, void* stream) {
+  return launch_interp_rows<double>(perm, gx0, gy0, wx, wy, wz, grid, out, n, n_slots, G,
+                                    m, P, R, h3, stream);
 }
 
 }  // extern "C"

@@ -4,7 +4,14 @@ Port of mundy_tpu/driver/apps/spheres_rows.py. The state lives in the
 (ny, nz, R) row layout between rebuilds; each step computes Hertzian contact
 forces with kernel K1 (ops/kernels/row_central.py), adds gid-keyed Brownian
 noise, and takes an overdamped Euler step with periodic wrap. A skin
-displacement trigger re-sorts the rows. With `polydispersity > 0` the radii
+displacement trigger re-sorts the rows. A small box, whose row grid has
+ny or nz < 5 (the half stencil of K1 and the image pre-shift need 5), takes
+the reference's fallback, the general neighbor/rows.pair_accumulate with
+the Hertz pair_fn under the full minimum image, with two corrections
+(ROADMAP queue 3): each neighbour row counts once where ny or nz <= 2
+(the reference's nine rolls count its pairs two or three times), and
+polydisperse spheres pass their radius plane to the pair_fn (the
+reference's uses the scalar radius). With `polydispersity > 0` the radii
 are drawn as the reference draws them (numpy, seed + 777), the grid cutoff
 covers the largest pair, the forces run through kernel K6 with a radius
 plane (ops/kernels/row_hertz.py) and drag and diffusion scale per sphere,
@@ -31,7 +38,7 @@ from mundy_tpu_torch.core.interop import key_words, row_state_from_numpy
 from mundy_tpu_torch.driver.apps.spheres import SpheresConfig, polydisperse_radii
 from mundy_tpu_torch.driver.regrow import grow_int, run_blocks
 from mundy_tpu_torch.dynamics.brownian import brownian_velocity_keyed
-from mundy_tpu_torch.forces.contact import effective_youngs
+from mundy_tpu_torch.forces.contact import effective_youngs, hertzian_pair_force
 from mundy_tpu_torch.geom.periodicity import periodic
 from mundy_tpu_torch.neighbor.rows import (
     RowState,
@@ -39,6 +46,7 @@ from mundy_tpu_torch.neighbor.rows import (
     make_row_grid,
     moved_beyond_skin,
     orthorhombic_lengths,
+    pair_accumulate,
     rows_to_flat,
 )
 from mundy_tpu_torch.ops.kernels.row_central import row_hertzian_forces_sym
@@ -102,15 +110,16 @@ class RowSpheresSim:
                                   capacity_slack=_CAPACITY_SLACK,
                                   dtype=self.dtype, align=8,
                                   device=self.device)
-        if self.grid.ny < 5 or self.grid.nz < 5:
-            raise NotImplementedError(
-                "row grids with ny or nz < 5 need the general pair_accumulate, "
-                "not ported yet (ROADMAP queue 1, item 6: small boxes)")
         self.box_static = orthorhombic_lengths(self.metric)
+        # the reference's condition for its central-force engines
+        self.small_box = self.grid.ny < 5 or self.grid.nz < 5
         self.inv_drag = 1.0 / (6.0 * _math.pi * c.viscosity * c.radius)
         self.e_eff = effective_youngs(c.youngs_modulus, c.youngs_modulus,
                                       c.poissons_ratio, c.poissons_ratio)
         self.dt = torch.tensor(c.dt, dtype=self.dtype, device=self.device)
+        # the small-box pair_fn's constants, in the positions' dtype
+        self._hertz = tuple(torch.tensor(v, dtype=self.dtype, device=self.device)
+                            for v in (0.5 * c.radius, 2.0 * c.radius, self.e_eff))
 
     def _gids(self) -> torch.Tensor:
         return torch.arange(self.config.num_spheres, dtype=torch.int32,
@@ -169,8 +178,37 @@ class RowSpheresSim:
             self._planes = (rows.gid, (r_rows, inv_drag, diff))
         return self._planes[1]
 
+    def _small_box_forces(self, rows: RowState) -> torch.Tensor:
+        """Hertz forces through pair_accumulate (the small-box fallback),
+        with each sphere's radius when the spheres are polydisperse."""
+        r_eff, two_r, e_eff = self._hertz
+
+        def rinv_d(r2):
+            r2 = torch.clamp(r2, min=1e-24)
+            rinv = torch.rsqrt(r2)
+            return rinv, r2 * rinv
+
+        if self.radii is None:
+            def pair_fn(sep, r2, mask):
+                rinv, d = rinv_d(r2)
+                mag = hertzian_pair_force(d - two_r, r_eff, e_eff)
+                return -torch.where(mask, mag * rinv, 0.0)[..., None] * sep
+
+            return pair_accumulate(rows, self.metric, pair_fn, box=self.box_static)
+
+        def pair_fn_poly(sep, r2, mask, ro, rc):
+            rinv, d = rinv_d(r2)
+            re = (ro * rc) / torch.clamp(ro + rc, min=1e-12)
+            mag = hertzian_pair_force(d - (ro + rc), re, e_eff)
+            return -torch.where(mask, mag * rinv, 0.0)[..., None] * sep
+
+        return pair_accumulate(rows, self.metric, pair_fn_poly,
+                               extra_fields=(self.slot_planes(rows)[0],), box=self.box_static)
+
     def _forces(self, rows: RowState) -> torch.Tensor:
         c = self.config
+        if self.small_box:
+            return self._small_box_forces(rows)
         if self.radii is not None:
             return row_hertzian_forces(rows.pos, rows.valid, self.box_static[0],
                                        c.radius, c.youngs_modulus, c.poissons_ratio,

@@ -79,6 +79,12 @@ def contact_forces(pos: torch.Tensor, radius, nmat,
     return -((mag * rinv)[..., None] * sepv).sum(1)
 
 
+def _is_uniform(x) -> bool:
+    """True for python and 0-d scalars (the per-particle gathers are
+    skipped)."""
+    return not (isinstance(x, torch.Tensor) and x.ndim > 0)
+
+
 def hertzian_contact_forces(pos: torch.Tensor, radius, youngs, poisson, nmat,
                             metric: Optional[Metric] = None) -> torch.Tensor:
     """Hertzian sphere-sphere contact over the neighbor matrix. (N, 3).
@@ -112,5 +118,34 @@ def hertzian_contact_forces(pos: torch.Tensor, radius, youngs, poisson, nmat,
         m_i, m_j = pi[:, None, 1], pj[..., 1]
         e_eff = (m_i * m_j) / torch.clamp(m_i + m_j, min=_EPS)
         return hertzian_pair_force(signed_sep, r_eff, e_eff)
+
+    return contact_forces(pos, r, nmat, mag_packed, metric)
+
+
+def wca_contact_forces(pos: torch.Tensor, radius, epsilon, nmat,
+                       metric: Optional[Metric] = None) -> torch.Tensor:
+    """WCA contact over the neighbor matrix with sigma = r_i + r_j (contact
+    at center distance sigma) and epsilon_ij = sqrt(epsilon_i epsilon_j).
+    (N, 3). Uniform (python or 0-d) radius and epsilon take the reference's
+    gather-free branch; per-particle (N,) values its packed one."""
+    n = pos.shape[0]
+    if _is_uniform(radius) and _is_uniform(epsilon):
+
+        def mag(signed_sep, i, j):
+            sigma = 2.0 * radius
+            return wca_pair_force(signed_sep + sigma, sigma, epsilon)
+
+        return contact_forces(pos, radius, nmat, mag, metric)
+
+    kw = dict(dtype=pos.dtype, device=pos.device)
+    r = torch.broadcast_to(torch.as_tensor(radius, **kw), (n,))
+    params = torch.stack([r, torch.broadcast_to(torch.as_tensor(epsilon, **kw), (n,))], dim=1)
+
+    def mag_packed(signed_sep, i, j):
+        pi = params[i[:, 0]]
+        pj = params[torch.clamp(j, max=n - 1)]
+        sigma = pi[:, None, 0] + pj[..., 0]
+        eps_pair = torch.sqrt(pi[:, None, 1] * pj[..., 1])
+        return wca_pair_force(signed_sep + sigma, sigma, eps_pair)
 
     return contact_forces(pos, r, nmat, mag_packed, metric)

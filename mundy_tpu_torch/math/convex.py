@@ -31,8 +31,24 @@ class Space:
         return torch.minimum(torch.maximum(x, self.lo), self.hi)
 
 
-def lower_bound(lo: torch.Tensor) -> Space:
+def unconstrained(dtype=torch.float32, device=None) -> Space:
+    return Space(torch.tensor(-torch.inf, dtype=dtype, device=device),
+                 torch.tensor(torch.inf, dtype=dtype, device=device))
+
+
+def lower_bound(lo, dtype=None, device=None) -> Space:
+    lo = torch.as_tensor(lo, dtype=dtype, device=device)
     return Space(lo, torch.full_like(lo, torch.inf))
+
+
+def upper_bound(hi, dtype=None, device=None) -> Space:
+    hi = torch.as_tensor(hi, dtype=dtype, device=device)
+    return Space(torch.full_like(hi, -torch.inf), hi)
+
+
+def bounded(lo, hi, dtype=None, device=None) -> Space:
+    return Space(torch.as_tensor(lo, dtype=dtype, device=device),
+                 torch.as_tensor(hi, dtype=dtype, device=device))
 
 
 @dataclasses.dataclass(frozen=True)

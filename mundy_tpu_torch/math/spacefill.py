@@ -1,15 +1,44 @@
-"""Hilbert-curve keys and lattice layouts (host numpy).
+"""Space-filling-curve keys and lattice layouts.
 
-Port of mundy_tpu/math/spacefill.py's hilbert_key_3d (the keys the native
-IO library's `mundy_hilbert_keys` computes, io/trajectory.py) and
+Port of mundy_tpu/math/spacefill.py: the Morton and row-major cell keys
+(`morton_key_3d`, `cell_linear_index`, torch, on the indices' device; ref:
+the float-Morton comparators of `zmort.hpp:167-230`, replaced by integer
+keys), hilbert_key_3d (the keys the native IO library's
+`mundy_hilbert_keys` computes, io/trajectory.py) and
 hilbert_positions_and_directors for chain initialisation (ref:
 `mundy/math/src/mundy_math/Hilbert.hpp:90`, create_hilbert_positions_and_
-directors). Plain numpy, run on the host; the port keeps its own copy.
+directors), the last two plain numpy on the host.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+
+def _part1by2(x: torch.Tensor) -> torch.Tensor:
+    """Spread the low 10 bits of x so two zero bits sit between each (int64;
+    torch has no uint32 shifts)."""
+    x = x.to(torch.int64) & 0x3FF
+    x = (x | (x << 16)) & 0x030000FF
+    x = (x | (x << 8)) & 0x0300F00F
+    x = (x | (x << 4)) & 0x030C30C3
+    x = (x | (x << 2)) & 0x09249249
+    return x
+
+
+def morton_key_3d(ix: torch.Tensor, iy: torch.Tensor, iz: torch.Tensor) -> torch.Tensor:
+    """Interleave three 10-bit cell indices into a 30-bit Morton key: the
+    reference's uint32 value, as int64."""
+    return _part1by2(ix) | (_part1by2(iy) << 1) | (_part1by2(iz) << 2)
+
+
+def cell_linear_index(ix: torch.Tensor, iy: torch.Tensor, iz: torch.Tensor,
+                      dims) -> torch.Tensor:
+    """Plain row-major cell id ix + nx (iy + ny iz), int32: the cheapest key
+    where locality does not matter."""
+    nx, ny = dims[0], dims[1]
+    return (ix + nx * (iy + ny * iz)).to(torch.int32)
 
 
 def hilbert_key_3d(ix, iy, iz, bits: int = 10) -> np.ndarray:

@@ -38,11 +38,19 @@ from mundy_tpu_torch.mobility.ewald import (
     rpy_real_cells_kernel,
 )
 from mundy_tpu_torch.ops.kernels.se_grid import (
+    SEGridRows,
     SEGridTiles,
     _support,
+    make_se_grid_rows,
     make_se_grid_tiles,
+    se_bin_and_windows,
+    se_bin_dense,
     se_bin_tiles,
     se_interp,
+    se_interp_dense,
+    se_interp_rows_pre,
+    se_spread_dense,
+    se_spread_rows_pre,
 )
 from mundy_tpu_torch.ops.kernels.se_grid import se_spread as se_spread_tiles
 
@@ -154,6 +162,24 @@ def build_spectral_ewald(box: float, radius: float, viscosity: float,
                             kvec=(t(kx), t(kx), t(kz)))
 
 
+def _window_1d(op: SpectralEwaldRPY, frac: torch.Tensor, dtype) -> torch.Tensor:
+    """(N, P) window weights along one axis at the grid offsets -(P/2 - 1)
+    .. P/2 from a particle's base grid point; `frac` (N,) is its offset from
+    that point in grid units, in [0, 1)."""
+    P = op.support
+    h = op.base.box / op.grid_n
+    offs = torch.arange(P, dtype=dtype, device=frac.device) - (P // 2 - 1)
+    d = offs[None, :] - frac[:, None]
+    if op.window == "es":
+        t = d / (0.5 * P)
+        s = torch.sqrt(torch.clamp(1.0 - t * t, min=0.0))
+        w = torch.exp(torch.tensor(op.es_beta, dtype=dtype, device=frac.device) * (s - 1.0))
+        return torch.where(t.abs() < 1.0, w, 0.0)
+    c = 2.0 * op.base.xi * op.base.xi / op.eta
+    dx = d * h
+    return math.sqrt(c / math.pi) * torch.exp(-c * dx * dx)
+
+
 def _k_apply(op: SpectralEwaldRPY, grid: torch.Tensor) -> torch.Tensor:
     """FFT -> transverse-project and scale each mode -> inverse FFT. The
     forward FFT is float32 in every dtype (the reference's cast); the mode
@@ -228,6 +254,32 @@ def se_wave_apply(op: SpectralEwaldRPY, pos: torch.Tensor, forces: torch.Tensor)
     return se_interpolate(op, pos, ugrid.to(forces.dtype))
 
 
+def make_se_geometry(op: SpectralEwaldRPY, n_particles: int,
+                     capacity_slack: float = 1.15) -> SEGridRows:
+    """Row-gridding geometry of the operator (ops/kernels/se_grid
+    .make_se_grid_rows): `capacity_slack` scales the Poisson bound of the
+    slots per row; clustered systems need more, and an overflowed slot
+    leaves the wave sum (flagged)."""
+    return make_se_grid_rows(op.grid_n, op.support, op.base.box, op.base.xi, op.eta,
+                             n_particles, capacity_slack=capacity_slack,
+                             kind=op.window, beta=op.es_beta)
+
+
+def se_wave_apply_rows(op: SpectralEwaldRPY, geom: SEGridRows, pos: torch.Tensor,
+                       forces: torch.Tensor, pieces=None):
+    """Wave-space sum through the row gridding: K5s-rows, the FFT mode
+    product, K5i-rows on the inverse FFT's planar output. Returns (u (N,
+    3), overflow). Pass `pieces` (se_bin_and_windows) to reuse one binning
+    and window evaluation across applies at fixed positions, e.g. the
+    mobility products of one BBPGD solve."""
+    if pieces is None:
+        pieces = se_bin_and_windows(geom, pos, forces.dtype)
+    grid = se_spread_rows_pre(geom, pieces, forces.contiguous())
+    ugrid = _k_apply(op, grid)
+    u = se_interp_rows_pre(geom, pieces, pos.shape[0], ugrid.to(forces.dtype))
+    return u, pieces[1]
+
+
 def make_se_geometry_tiles(op: SpectralEwaldRPY, n_particles: int,
                            capacity_slack: float = 1.15) -> SEGridTiles:
     """3D-tile gridding geometry: occupancy bounded locally on all three
@@ -237,18 +289,27 @@ def make_se_geometry_tiles(op: SpectralEwaldRPY, n_particles: int,
                               kind=op.window, beta=op.es_beta)
 
 
-def se_bin_geom(geom: SEGridTiles, pos: torch.Tensor, dtype=torch.float32):
-    """Binning of the tile geometry (overflow at pieces[1])."""
+def se_bin_geom(geom, pos: torch.Tensor, dtype=torch.float32):
+    """Binning of either dense-gridding geometry, the 3D tiles or the
+    (y, z) rows (overflow at pieces[1] in both)."""
+    if isinstance(geom, SEGridRows):
+        return se_bin_dense(geom, pos, dtype)
     return se_bin_tiles(geom, pos, dtype)
 
 
-def se_wave_apply_dense(op: SpectralEwaldRPY, geom: SEGridTiles, pos: torch.Tensor,
+def se_wave_apply_dense(op: SpectralEwaldRPY, geom, pos: torch.Tensor,
                         forces: torch.Tensor, pieces=None):
-    """Wave-space sum through the tile gridding: K5s, the FFT mode product,
-    K5i. Returns (u (N, 3), overflow); `pieces` from se_bin_geom reuses one
+    """Wave-space sum through a dense gridding: on the 3D tiles K5s, the
+    FFT mode product and K5i; on the (y, z) rows the plain dense trio
+    (se_spread_dense / se_interp_dense, one matrix product per row).
+    Returns (u (N, 3), overflow); `pieces` from se_bin_geom reuses one
     binning across applies at fixed positions."""
     if pieces is None:
         pieces = se_bin_geom(geom, pos, forces.dtype)
+    if isinstance(geom, SEGridRows):
+        grid = se_spread_dense(geom, pieces, forces)
+        u = se_interp_dense(geom, pieces, pos.shape[0], _k_apply(op, grid).to(forces.dtype))
+        return u, pieces[1]
     # K5s reads contiguous forces; K3's (N, 3) sums of a single body block
     # come out as a transposed view
     grid = se_spread_tiles(geom, pieces, forces.contiguous())

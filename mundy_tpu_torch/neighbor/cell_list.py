@@ -266,3 +266,13 @@ def build_pair_list_ordered(nmat: NeighborMatrix, capacity: int) -> PairList:
     lane = torch.where(valid, pos_in - base[ii_safe], 0).to(torch.int64)
     jj = torch.where(valid, nmat.idx[ii_safe, lane].to(torch.int32), n)
     return PairList(i=ii, j=jj, mask=valid, num_pairs=num, overflow=num > capacity)
+
+
+def need_rebuild(pos: torch.Tensor, ref_pos: torch.Tensor, skin,
+                 metric: Optional[Metric] = None) -> torch.Tensor:
+    """() bool tensor: has any particle moved more than skin/2 since the
+    list was built? With search radii inflated by `skin` the list stays
+    valid until a displacement could close half the margin from each side.
+    ref: objects_moved_too_much (HP1 driver `:1404-1427`)."""
+    disp = pos - ref_pos if metric is None else metric.sep(ref_pos, pos)
+    return torch.linalg.vector_norm(disp, dim=-1).max() > 0.5 * skin

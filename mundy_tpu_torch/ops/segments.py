@@ -1,13 +1,14 @@
 """Blocked segmented reductions for sorted ids: the force assembly of the
 LCP collision path.
 
-Port of mundy_tpu/ops/segments.py (the parts the LCP spheres line runs).
-Bodies are partitioned into blocks of B; each block's pairs occupy one
-window of at most W slots. The rebuild-time SegmentWindows find each
-block's window in the sorted pair list (its start and whether it overflows
-W); the per-step StridedWindows put block b's pairs at the static slots
-[b*W, b*W + count_b), which is the layout kernels K3 and K3t
-(ops/kernels/seg_onehot.py) reduce.
+Port of mundy_tpu/ops/segments.py. Bodies are partitioned into blocks of
+B; each block's pairs occupy one window of at most W slots. The
+rebuild-time SegmentWindows find each block's window in the sorted pair
+list (its start and whether it overflows W); the per-step StridedWindows
+put block b's pairs at the static slots [b*W, b*W + count_b), which is the
+layout kernels K3 and K3t (ops/kernels/seg_onehot.py) reduce.
+`segment_sum_sorted_blocked` reduces the windowed layout through K3 too:
+it gathers each block's window into the strided shape first.
 
 The reference's bf16 hi/mid/lo split existed to carry the f32 mantissa
 through the TPU's MXU; here every sum is taken directly in the working
@@ -105,3 +106,36 @@ def strided_t(gamma: torch.Tensor, normals: torch.Tensor, ids: torch.Tensor,
     loc = (ids.reshape(nb, W) - blk).contiguous()
     n = normals.reshape(nb, W, 3).transpose(1, 2).contiguous()
     return strided_onehot_t(gamma.reshape(nb, W).contiguous(), n, loc, B).reshape(nb * W)
+
+
+def segment_sum_sorted_blocked(values: torch.Tensor, ids: torch.Tensor, n_segments: int,
+                               windows: SegmentWindows) -> torch.Tensor:
+    """sum over the rows with ids == s of values -> (n_segments, D).
+
+    values (C, D), zero on padded rows; ids (C,) sorted ascending, pads
+    carrying >= n_segments. Block b sums the W rows from windows.starts[b]
+    whose ids fall in [b B, (b+1) B); rows beyond a block's window are
+    dropped, as in the reference (callers check `windows.overflow` at
+    rebuild). The windows are gathered into K3's strided (nb, 3, W) planes,
+    three value columns at a time, so every segment is summed in row order
+    in full precision and two runs on the card are bit-equal (the
+    reference's bf16 three-term split for the TPU's matrix unit is not
+    carried over)."""
+    B, W = windows.block_bodies, windows.window
+    nb = windows.starts.shape[0]
+    C, D = values.shape
+    dev = values.device
+    vpad = torch.cat([values, values.new_zeros((W, D))])
+    ipad = torch.cat([ids.to(torch.int64),
+                      torch.full((W,), nb * B + B, dtype=torch.int64, device=dev)])
+    # a window starts at most C rows in (the reference's dynamic slice clamps so)
+    rows = torch.clamp(windows.starts.to(torch.int64), 0, C)[:, None] + torch.arange(W, device=dev)
+    loc = (ipad[rows] - torch.arange(nb, device=dev)[:, None] * B).to(torch.int32).contiguous()
+    vw = vpad[rows]  # (nb, W, D)
+    d3 = -(-D // 3) * 3
+    if d3 != D:
+        vw = torch.cat([vw, vw.new_zeros((nb, W, d3 - D))], dim=2)
+    outs = [strided_onehot_segment_sum(vw[:, :, c:c + 3].transpose(1, 2).contiguous(), loc, B)
+            for c in range(0, d3, 3)]
+    out = torch.cat(outs, dim=1)[:, :D]  # (nb, D, B)
+    return out.transpose(1, 2).reshape(nb * B, D)[:n_segments]

@@ -1573,3 +1573,73 @@ def test_k3t_outputs_unchanged(cuda_device, dtype, nb, W, B, sort):
     """K3t's redesign (run sums in sorted blocks) keeps the first design's
     outputs bit for bit."""
     assert _k3t_digest(dtype, nb, W, B, sort, cuda_device) == _K3T_SHA[(dtype, nb)]
+
+
+def _rows_geom(G, P, n, kind, slack=1.15, min_m=8):
+    """A row geometry at box 24 (the ES beta of build_spectral_ewald at
+    sigma = 1.5; the Gaussian at xi = 0.87, eta = 0.5)."""
+    return k5.make_se_grid_rows(G, P, 24.0, 0.87, 0.5, n, capacity_slack=slack, min_m=min_m,
+                                kind=kind, beta=0.97 * np.pi * P * (1.0 - 1.0 / 3.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("G,P,min_m,n,kind,clustered", [
+    (64, 6, 8, 3000, "es", False),
+    (64, 6, 8, 4000, "es", True),
+    (48, 6, 8, 2500, "gaussian", False),
+    (32, 8, 16, 800, "es", False),
+    (16, 6, 8, 300, "es", False),
+    (72, 10, 8, 3000, "es", False),
+])
+def test_k5_rows_kernels_match_plain(cuda_device, dtype, G, P, min_m, n, kind, clustered):
+    """K5s-rows and K5i-rows against their plain versions on the same
+    pieces (se_bin_and_windows): float32 within 1e-5 and float64 within
+    1e-12 of max|grid| and of max|u|. The cases reach two rows per axis
+    (each neighbour row visited once), m = 16, P = 10 and rows that
+    overflow (dropped particles gridded by neither, interpolated to 0);
+    two launches of each are bit-equal."""
+    td = _DT[dtype]
+    tol = 1e-12 if dtype == "float64" else 1e-5
+    geom = _rows_geom(G, P, n, kind, min_m=min_m)
+    rng = np.random.default_rng(13)
+    pos = rng.uniform(0, 24.0, (n, 3))
+    if clustered:
+        pos[: n // 2] = np.mod(rng.normal(scale=1.0, size=(n // 2, 3)) + 3.0, 24.0)
+    pieces = k5.se_bin_and_windows(geom, torch.as_tensor(pos, dtype=td, device=cuda_device),
+                                   td)
+    assert bool(pieces[1]) == clustered
+    forces = torch.as_tensor(rng.normal(size=(n, 3)), dtype=td, device=cuda_device)
+    before = (k5.se_spread_rows_pre.launches, k5.se_interp_rows_pre.launches)
+    grid = k5.se_spread_rows_pre(geom, pieces, forces)
+    ref = k5.se_spread_rows_plain(geom, pieces, forces)
+    u = k5.se_interp_rows_pre(geom, pieces, n, _planar(ref))
+    u_ref = k5.se_interp_rows_plain(geom, pieces, n, _planar(ref))
+    torch.cuda.synchronize()
+    assert (k5.se_spread_rows_pre.launches,
+            k5.se_interp_rows_pre.launches) == (before[0] + 1, before[1] + 1)
+    for got, want in ((grid, ref), (u, u_ref)):
+        scale = want.abs().max().item()
+        assert scale > 0 and (got - want).abs().max().item() <= tol * scale
+    assert torch.equal(grid, k5.se_spread_rows_pre(geom, pieces, forces))
+    assert torch.equal(u, k5.se_interp_rows_pre(geom, pieces, n, _planar(ref)))
+    dropped = ~torch.isin(torch.arange(n, device=cuda_device), pieces[0].reshape(-1).long())
+    assert bool(dropped.any()) == clustered
+    assert not bool(u[dropped].any())
+
+
+@pytest.mark.cuda
+def test_k5_rows_refuse_off_the_envelope(cuda_device):
+    """A row edge below P/2 + 1 and a slab wider than the grid raise
+    before any launch."""
+    geom = _rows_geom(48, 10, 500, "es", min_m=4)
+    assert geom.m == 4
+    pos = torch.rand((500, 3), device=cuda_device) * 24.0
+    pieces = k5.se_bin_and_windows(geom, pos, torch.float32)
+    forces = torch.zeros((500, 3), device=cuda_device)
+    with pytest.raises(ValueError, match="row edge"):
+        k5.se_spread_rows_pre(geom, pieces, forces)
+    narrow = _rows_geom(8, 6, 50, "es")
+    npieces = k5.se_bin_and_windows(narrow, pos[:50], torch.float32)
+    with pytest.raises(ValueError, match="wider than the grid"):
+        k5.se_spread_rows_pre(narrow, npieces, forces[:50])

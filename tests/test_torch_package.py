@@ -279,6 +279,67 @@ def test_k5_cuda_tensors_without_library_raise(monkeypatch, tmp_path):
     _build.load.cache_clear()
 
 
+def test_k5_rows_cuda_tensors_without_library_raise(monkeypatch, tmp_path):
+    """K5s-rows and K5i-rows: a CUDA tensor never takes the plain version;
+    without a library and a compiler the wrappers raise, and geometries
+    outside the kernels' envelope raise before any build."""
+    _no_library(monkeypatch, tmp_path)
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(k5, "se_spread_rows_plain", no_plain)
+    monkeypatch.setattr(k5, "se_interp_rows_plain", no_plain)
+    geom = k5.make_se_grid_rows(32, 6, 12.0, 0.87, 0.0, 64, kind="es", beta=12.2)
+    before = (k5.se_spread_rows_pre.launches, k5.se_interp_rows_pre.launches)
+    with FakeTensorMode():
+        rows, R, W = 16, geom.R, geom.m + geom.P
+        ids = torch.zeros((rows, R), dtype=torch.int32, device="cuda")
+        pieces = (ids, torch.zeros((), dtype=torch.bool, device="cuda"), ids, ids,
+                  torch.zeros((rows, R, 6), device="cuda"),
+                  torch.zeros((rows, R, 6), device="cuda"),
+                  torch.zeros((rows, R, W), device="cuda"))
+        forces = torch.zeros((64, 3), device="cuda")
+        grid = torch.zeros((3, 32, 32, 32), device="cuda").permute(1, 2, 3, 0)
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            k5.se_spread_rows_pre(geom, pieces, forces)
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            k5.se_interp_rows_pre(geom, pieces, 64, grid)
+        with pytest.raises(ValueError, match="strides"):
+            k5.se_interp_rows_pre(geom, pieces, 64, torch.zeros((32, 32, 32, 3), device="cuda"))
+        wide = k5.make_se_grid_rows(32, 20, 12.0, 0.87, 0.0, 64, kind="es", beta=12.2)
+        wpieces = pieces[:4] + (torch.zeros((rows, R, 20), device="cuda"),) * 2 + (
+            torch.zeros((rows, R, 28), device="cuda"),)
+        with pytest.raises(ValueError, match="row edge|support"):
+            k5.se_spread_rows_pre(wide, wpieces, forces)
+        with pytest.raises(TypeError, match="int32"):
+            k5.se_spread_rows_pre(geom, (ids.long(),) + pieces[1:], forces)
+    assert (k5.se_spread_rows_pre.launches, k5.se_interp_rows_pre.launches) == before
+    _build.load.cache_clear()
+
+
+def test_sorted_blocked_segment_sum_takes_k3(monkeypatch):
+    """segment_sum_sorted_blocked reduces through K3's wrapper (which on a
+    CUDA tensor launches the kernel or raises, as tested above), three
+    value columns a call."""
+    from mundy_tpu_torch.ops import segments
+
+    calls = []
+    real = segments.strided_onehot_segment_sum
+
+    def spy(values, loc, B):
+        calls.append(tuple(values.shape))
+        return real(values, loc, B)
+
+    monkeypatch.setattr(segments, "strided_onehot_segment_sum", spy)
+    ids = torch.arange(200, dtype=torch.int32) // 2
+    win = segments.segment_windows(ids, 100, 64, 160)
+    out = segments.segment_sum_sorted_blocked(torch.ones((200, 5), dtype=torch.float64), ids,
+                                              100, win)
+    assert calls == [(2, 3, 160), (2, 3, 160)]
+    assert torch.equal(out, torch.full((100, 5), 2.0, dtype=torch.float64))
+
+
 def test_k5_library_is_keyed_by_source():
     lib = _build.library_path("se_grid")
     assert lib.parent == ROOT / "build" / "kernels"

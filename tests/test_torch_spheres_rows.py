@@ -110,7 +110,14 @@ def test_run_blocks_regrow_matches():
 
 
 def test_untouched_branches_raise():
-    """Small boxes are not ported (the polydisperse branch is, since it
-    got K6: tests/test_torch_polydisperse.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RowSpheresSim(SpheresConfig(**dict(KW, box_size=5.0, skin=0.2)), device="cpu")
+    """No branch is left unported: the small box that was refused now takes
+    the pair_accumulate fallback (tests/test_torch_small_box.py holds it to
+    the reference); what still raises is a card that is not there."""
+    sim = RowSpheresSim(SpheresConfig(**dict(KW, box_size=5.0, skin=0.2, num_spheres=60)),
+                        device="cpu")
+    assert sim.small_box and (sim.grid.ny, sim.grid.nz) == (4, 4)
+    st = sim.run_block(sim.init(), 2)
+    assert st.step == 2 and int(st.rows.valid.sum()) == 60
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            RowSpheresSim(SpheresConfig(**KW), device="cuda")
