@@ -233,9 +233,13 @@ collision layouts beside the strided one:
     their plain versions (1e-5 of the max) and a second launch (bit-equal),
     the rows grid against the tile K5s grid and se_wave_apply_rows against
     the tile wave apply (1e-5 of the max), the rows wave apply driven with
-    the two counts set to 0 just before (one launch each), CUDA-event times
-    beside their plain versions, index_add_ of the same spread terms and
-    the tile K5s and K5i at the same beads; float64 at 3000 beads on the
+    the two counts set to 0 just before (one launch each), the K5s-rows
+    grid and the K5i-rows u on its planar copy bit for bit their first
+    design's (SE_ROWS_SHA), CUDA-event times beside their plain versions,
+    index_add_ of the same spread terms, the tile K5s and K5i at the same
+    beads and the first design's times (SE_ROWS_FIRST), one call each of
+    se_spread_dense and se_interp_dense at this shape with its peak
+    allocation (a yardstick on no path); float64 at 3000 beads on the
     card against the CPU (the kernels and se_spread_dense 1e-10, the wave
     apply through the float32 forward FFT 1e-5; the dense trio twice on the
     card bit-equal);
@@ -263,6 +267,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -353,6 +358,11 @@ ELLIPSOID_STEPS = 20
 RODS_F64_STEPS = 40
 SMALL_BOX_STEPS = 60
 SE_ROWS_BEADS = 1 << 20
+# [44]: the first design's digests of the K5s-rows grid and the K5i-rows u
+# on its planar copy, and its times (NVIDIA H100 80GB HBM3, 700.00 W)
+SE_ROWS_SHA = ("8d2af69b506c6fc2", "fd1ccce136dee4ef")
+SE_ROWS_FIRST = ("K5s-rows 8.1265 ms (8.1265-8.2471), K5i-rows 2.3897 ms (2.3877-2.3926), "
+                 "the rows wave apply 24.117-24.195 ms")
 
 # published H100 SXM peaks (NVIDIA data sheet): FP32 outside the
 # tensor cores, and HBM bandwidth
@@ -2103,12 +2113,18 @@ def slice15_phases(torch, dev, card: str, lcp_sim, lcp_st) -> list:
     op = yaml_op(torch.float32, dev)
     n = SE_ROWS_BEADS
     geom = spectral.make_se_geometry(op, n)
-    gen = torch.Generator(device=dev).manual_seed(44)
-    pos = torch.rand((n, 3), generator=gen, device=dev) * ccfg.box_size
-    F = torch.randn((n, 3), generator=gen, device=dev)
+    gen = torch.Generator().manual_seed(44)  # on the host: the digests' inputs
+    pos = (torch.rand((n, 3), generator=gen) * ccfg.box_size).to(dev)
+    F = torch.randn((n, 3), generator=gen).to(dev)
     pieces = k5.se_bin_and_windows(geom, pos, torch.float32)
     grid_k = k5.se_spread_rows_pre(geom, pieces, F)
     s_same = bool(torch.equal(grid_k, k5.se_spread_rows_pre(geom, pieces, F)))
+    # the first design's digests: K5s-rows' grid, K5i-rows' u on its planar copy
+    u_d = k5.se_interp_rows_pre(geom, pieces, n, grid_k.permute(3, 0, 1, 2).contiguous()
+                                .permute(1, 2, 3, 0))
+    digests = tuple(hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+                    for t in (grid_k, u_d))
+    del u_d
     grid_p = k5.se_spread_rows_plain(geom, pieces, F)
     ugrid = spectral._k_apply(op, grid_p)  # the inverse FFT's planar layout
     u_k = k5.se_interp_rows_pre(geom, pieces, n, ugrid)
@@ -2140,6 +2156,11 @@ def slice15_phases(torch, dev, card: str, lcp_sim, lcp_st) -> list:
     if not (umax > 0 and i_err <= 1e-5 * umax and i_same):
         fail(f"K5i-rows disagrees with its plain version ({i_err} > 1e-5 * {umax}) or with "
              f"itself (bit-equal {i_same})")
+    print(f"    digests of the K5s-rows grid and the K5i-rows u {digests}, the first "
+          f"design's {SE_ROWS_SHA}", flush=True)
+    if digests != SE_ROWS_SHA:
+        fail(f"the rows kernels' outputs {digests} differ from their first design's "
+             f"{SE_ROWS_SHA}")
     # the main path: the rows wave apply from positions, counts set to 0 just before
     k5.se_spread_rows_pre.launches = k5.se_interp_rows_pre.launches = 0
     u_rows, ovf = spectral.se_wave_apply_rows(op, geom, pos, F)
@@ -2163,6 +2184,8 @@ def slice15_phases(torch, dev, card: str, lcp_sim, lcp_st) -> list:
     i_ms, i_plain_ms = alternate(lambda: k5.se_interp_rows_pre(geom, pieces, n, ugrid),
                                  lambda: k5.se_interp_rows_plain(geom, pieces, n, ugrid),
                                  torch, 5, 2, rounds=2)
+    s_dev_ms = queued_ms(lambda: k5.se_spread_rows_pre(geom, pieces, F), torch)
+    i_dev_ms = queued_ms(lambda: k5.se_interp_rows_pre(geom, pieces, n, ugrid), torch)
     ts_ms = statistics.median([cuda_ms(lambda: k5.se_spread(tgeom, tpieces, F), torch, 5)
                                for _ in range(2)])
     ti_ms = statistics.median([cuda_ms(lambda: k5.se_interp(tgeom, tpieces, ugrid), torch, 5)
@@ -2191,13 +2214,30 @@ def slice15_phases(torch, dev, card: str, lcp_sim, lcp_st) -> list:
     s_ops, i_ops = se_rows_ops(P, W)
     s_bound = bound(n_occ * s_ops, piece_bytes + F.numel() * 4 + grid_bytes)
     i_bound = bound(n_occ * i_ops, piece_bytes + grid_bytes + u_p.numel() * 4)
-    print(f"    K5s-rows {s_ms:.4f} ms, plain {s_plain_ms:.4f} ms, index_add_ of the "
+    print(f"    K5s-rows {s_ms:.4f} ms (device time per launch {s_dev_ms:.4f}), plain "
+          f"{s_plain_ms:.4f} ms, index_add_ of the "
           f"{n_terms} terms {s_lib_ms:.4f} ms (max|diff| {lib_err:.3e}), bound "
           f"{s_bound[0]:.4f} ms ({s_bound[1]}, {s_ms / s_bound[0]:.1f}x); tile K5s at the "
           f"same beads {ts_ms:.4f} ms (R {tgeom.R}); {card}", flush=True)
-    print(f"    K5i-rows {i_ms:.4f} ms, plain {i_plain_ms:.4f} ms, bound {i_bound[0]:.4f} ms "
+    print(f"    K5i-rows {i_ms:.4f} ms (device time per launch {i_dev_ms:.4f}), plain "
+          f"{i_plain_ms:.4f} ms, bound {i_bound[0]:.4f} ms "
           f"({i_bound[1]}, {i_ms / i_bound[0]:.1f}x); tile K5i {ti_ms:.4f} ms; wave apply "
           f"rows {wr_ms:.3f} ms, tiles {wt_ms:.3f} ms; {card}", flush=True)
+    print(f"    first design (PERF.md's table, NVIDIA H100 80GB HBM3, 700.00 W): "
+          f"{SE_ROWS_FIRST}", flush=True)
+    # the dense trio at the same shape: a plain yardstick, never on a path
+    pdense = k5.se_bin_dense(geom, pos, torch.float32)
+    dense = []
+    for name, fn in (("se_spread_dense", lambda: k5.se_spread_dense(geom, pdense, F)),
+                     ("se_interp_dense", lambda: k5.se_interp_dense(geom, pdense, n, ugrid))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ms = cuda_ms(fn, torch, 1)
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        dense.append(f"{name} {ms:.3f} ms, peak allocation {peak:.3f} GB above {base / 1e9:.3f}")
+    print(f"    the dense trio, one call each: {'; '.join(dense)}; {card}", flush=True)
+    del pdense
     del grid_k, grid_p, ugrid, u_k, u_p, pieces, tpieces, pos, F
     # float64 at a few thousand beads, the card against the CPU, with both
     # windows: the Gaussian's weights on the z terms between P and W are not

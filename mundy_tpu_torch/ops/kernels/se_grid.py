@@ -26,6 +26,7 @@ tensor never takes the plain version: a failed build or launch raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple
 
@@ -326,12 +327,14 @@ se_interp.launches = 0
 # through perm.
 #
 # On a CUDA tensor se_spread_rows_pre and se_interp_rows_pre launch the
-# hand-written kernels of csrc/se_grid.cu (K5s-rows an output-stationary
-# gather per (row cell, x-run) over the occupied slots of the rows around
-# it, no float atomics; K5i-rows two slots per warp, half a warp per slot,
-# a lane per z term, reading the inverse FFT's planar layout; see the note
-# there). On a CPU tensor they compute the plain versions,
-# `se_spread_rows_plain` and `se_interp_rows_plain`. The TPU's slab-and-fold
+# hand-written kernels of csrc/se_grid.cu, each after a pre-pass in the same
+# counted launch that lists every row's occupied slots by run of RUN_X grid
+# points along x, in slot order (K5s-rows an output-stationary gather per
+# (row cell, x-run) over the run's lists of the rows around it, no float
+# atomics; K5i-rows a block per (row, x-run) that stages its slots' box of
+# the inverse FFT's planar grid in shared memory; see the note there). On a
+# CPU tensor they compute the plain versions, `se_spread_rows_plain` and
+# `se_interp_rows_plain`. The TPU's slab-and-fold
 # structure (the (G + XPAD, W, 3 W) slab per row, the roll folds
 # _combine_axis / _extract_axis, the z contraction outside the kernel) is not
 # carried over. The dense trio (se_bin_dense, se_spread_dense,
@@ -341,7 +344,14 @@ se_interp.launches = 0
 # ---------------------------------------------------------------------------
 
 XPAD = 16  # the reference's slab x pad: P <= XPAD keeps the x wrap exact
-MAX_M = 32  # K5s-rows stages at most this many y and z weights per slot
+# constants of the rows kernels (csrc/se_grid.cu)
+RUN_X = 32  # grid points along x per run of the x-ordered lists
+MAX_RUNS = 128  # runs a row may have (the list pre-pass counts them in shared memory)
+ROWS_THREADS = 256  # threads per block of either kernel
+ROWS_CAP = 128  # K5s-rows: staged slots per turn
+ICHUNK = 64  # K5i-rows: slots per chunk
+ISLAB_BYTES = 24 * 1024  # K5i-rows: staged grid values per x-slab, at least one plane
+SMEM_LIMIT = 232448  # bytes of shared memory a block may use (H100)
 _ROWS_PLAIN_CHUNK = 1 << 15  # slots per pass of the rows plain versions
 _DENSE_CHUNK_ELEMS = 1 << 25  # slab elements per pass of the dense trio
 
@@ -528,11 +538,80 @@ def _check_rows(geom: SEGridRows, pieces) -> None:
         raise TypeError(f"the window weights must share float32 or float64, got {wx.dtype}")
 
 
-def _check_rows_cuda(geom: SEGridRows, pieces, tensors) -> None:
+class RowsPlan(NamedTuple):
+    """The rows kernels' scratch and shared memory at one geometry."""
+
+    nxr: int  # runs of RUN_X grid points along x
+    max_runs: int  # the most runs one slot's x support meets
+    spread_lcap: int  # K5s-rows list entries a row: R max_runs
+    interp_lcap: int  # K5i-rows list entries a row: R (each slot in one run)
+    spread_smem: int  # bytes of shared memory a K5s-rows block uses
+    interp_smem: int  # bytes of shared memory a K5i-rows block uses
+
+
+@functools.lru_cache(maxsize=64)
+def rows_max_runs(G: int, P: int) -> int:
+    """The most runs of RUN_X grid points along x that the P points of one
+    x support, wrapped on the G-point axis, meet."""
+    return max(len({(sx + a) % G // RUN_X for a in range(P)}) for sx in range(G))
+
+
+@functools.lru_cache(maxsize=64)
+def rows_plan(geom: SEGridRows, itemsize: int) -> RowsPlan:
+    """The scratch and shared memory the rows kernels take at `geom` with
+    `itemsize`-byte values, as csrc/se_grid.cu sizes them. Raises
+    ValueError where a kernel cannot take the geometry: more than MAX_RUNS
+    runs, list or slot ids past int32, or a block's shared memory (K5s-rows'
+    ROWS_CAP staged slots; K5i-rows' chunk of ICHUNK slots, its sums and at
+    least one staged (channel, x) plane) above SMEM_LIMIT."""
+    G, m, P, R = geom.G, geom.m, geom.P, geom.R
+    W = m + P
+    nxr = -(-G // RUN_X)
+    if nxr > MAX_RUNS:
+        raise ValueError(f"G = {G} has {nxr} runs of {RUN_X} grid points along x, above "
+                         f"the rows kernels' {MAX_RUNS}")
+    max_runs = rows_max_runs(G, P)
+    n_rows = (G // m) ** 2
+    if n_rows * R * max_runs >= 1 << 31:
+        raise ValueError(f"the x-run lists of {n_rows} rows of R = {R} ({max_runs} runs a "
+                         "slot) need more than the int32 entries the kernels index")
+    spread = (ROWS_CAP * ((RUN_X + 2 * m + 4 + 3) // 4 * 4) * itemsize
+              + 4 * (5 * ROWS_THREADS + ROWS_CAP + 28 + ROWS_THREADS // 32))
+    v = 16 // itemsize
+    plane = 3 * W * ((W + 2 * v - 2) // v * v)  # the widest staged (channel, x) plane
+    budget = ISLAB_BYTES // itemsize
+    slab = plane if plane > budget else min(plane * (RUN_X + P - 1), budget)
+    interp = ((slab + ICHUNK * (2 * P + W) + ICHUNK * W * 3) * itemsize
+              + 4 * (6 * ICHUNK + 1 + ICHUNK * W + W + 2 * RUN_X + 1))
+    for name, b in (("K5s-rows", spread), ("K5i-rows", interp)):
+        if b > SMEM_LIMIT:
+            raise ValueError(f"{name} would stage {b} bytes of shared memory a block at m = "
+                             f"{m}, P = {P} ({itemsize}-byte values), above the "
+                             f"{SMEM_LIMIT} a block may use")
+    return RowsPlan(nxr, max_runs, R * max_runs, R, spread, interp)
+
+
+def rows_run_members(geom: SEGridRows, pieces, n: int, starts: bool = False) -> torch.Tensor:
+    """Plain version of the rows kernels' list pre-pass: (n_rows, R, nxr)
+    bool, True where the occupied slot's x support meets run k of RUN_X
+    grid points along x (starts=False, K5s-rows' lists) or starts in it
+    (starts=True, K5i-rows'). A run's list is its column's slots in slot
+    order."""
+    G, P = geom.G, geom.P
+    perm, _ovf, gx0 = pieces[:3]
+    x0 = torch.arange(0, G, RUN_X, device=perm.device)
+    sx = torch.remainder(gx0.long() - XPAD // 2, G)[..., None]
+    member = torch.remainder(sx - x0, G) < torch.clamp(G - x0, max=RUN_X)
+    if not starts:
+        member = member | (torch.remainder(x0 - sx, G) < P)
+    return member & (perm < n)[..., None]
+
+
+def _check_rows_cuda(geom: SEGridRows, pieces, tensors) -> RowsPlan:
     """The rows kernels' envelope: a slot's support within the rows on
     either side of its own (m >= P/2 + 1), no axis wrapping onto itself (P
-    <= XPAD, W = m + P <= G), m <= MAX_M, int32 ids and offsets, contiguous
-    inputs."""
+    <= XPAD, W = m + P <= G), the scratch and shared memory of `rows_plan`,
+    int32 ids and offsets, contiguous inputs. Returns the plan."""
     G, m, P = geom.G, geom.m, geom.P
     if m < P // 2 + 1:
         raise ValueError(f"row edge m = {m} < P/2 + 1 = {P // 2 + 1}: a slot's window would "
@@ -541,44 +620,46 @@ def _check_rows_cuda(geom: SEGridRows, pieces, tensors) -> None:
         raise ValueError(f"window support P = {P} outside the rows layout's 1..{XPAD}")
     if m + P > G:
         raise ValueError(f"slab width W = m + P = {m + P} wider than the grid G = {G}")
-    if m > MAX_M:
-        raise ValueError(f"row edge m = {m} above the kernels' {MAX_M}")
     perm, _ovf, gx0, gy0 = pieces[:4]
     if not perm.dtype == gx0.dtype == gy0.dtype == torch.int32:
         raise TypeError("the rows kernels need int32 perm, gx0 and gy0")
     for t in tuple(pieces[:1]) + tuple(pieces[2:]) + tuple(tensors):
         if not t.is_contiguous():
             raise ValueError("the K5s-rows/K5i-rows inputs must be contiguous")
+    return rows_plan(geom, pieces[4].element_size())
 
 
 def se_spread_rows_pre(geom: SEGridRows, pieces, forces: torch.Tensor) -> torch.Tensor:
     """Kernel K5s-rows: the (G, G, G, 3) spread grid in forces' dtype from
     the pieces of se_bin_and_windows and the (N, 3) forces. A CPU tensor
-    computes the plain version. A CUDA tensor launches the kernel (its
-    extent pre-pass and the gather, counted once in `.launches`): forces in
-    the weights' dtype, within the envelope of `_check_rows_cuda`, or the
+    computes the plain version. A CUDA tensor launches the kernel (its list
+    pre-pass and the gather, counted once in `.launches`): forces in the
+    weights' dtype, within the envelope of `_check_rows_cuda`, or the
     wrapper raises."""
     _check_rows(geom, pieces)
     if forces.device.type == "cpu":
         return se_spread_rows_plain(geom, pieces, forces)
     if forces.device.type != "cuda":
         raise ValueError(f"no K5s-rows kernel for device {forces.device}")
-    _check_rows_cuda(geom, pieces, (forces,))
+    plan = _check_rows_cuda(geom, pieces, (forces,))
     perm, _ovf, gx0, gy0, wx, wy, wz = pieces
     if forces.dtype != wx.dtype or forces.shape[1:] != (3,):
         raise TypeError("K5s-rows needs (N, 3) forces in the weights' dtype")
     G = geom.G
-    grid = torch.empty((G, G, G, 3), dtype=forces.dtype, device=forces.device)
-    ext = torch.empty(perm.shape[0], dtype=torch.int32, device=forces.device)  # scratch
+    dev = forces.device
+    grid = torch.empty((G, G, G, 3), dtype=forces.dtype, device=dev)
+    lists = torch.empty(perm.shape[0] * plan.spread_lcap, dtype=torch.int32, device=dev)
+    offs = torch.empty(perm.shape[0] * (plan.nxr + 1), dtype=torch.int32, device=dev)
     lib = _build.load("se_grid")
     fn = getattr(lib, f"se_spread_rows_{_DTYPES[forces.dtype]}")
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    with torch.cuda.device(forces.device):
-        stream = torch.cuda.current_stream(forces.device).cuda_stream
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(perm.data_ptr(), gx0.data_ptr(), gy0.data_ptr(), wx.data_ptr(),
-                 wy.data_ptr(), wz.data_ptr(), forces.data_ptr(), ext.data_ptr(),
-                 grid.data_ptr(), forces.shape[0], G, geom.m, geom.P, geom.R, stream)
+                 wy.data_ptr(), wz.data_ptr(), forces.data_ptr(), lists.data_ptr(),
+                 offs.data_ptr(), grid.data_ptr(), forces.shape[0], G, geom.m, geom.P, geom.R,
+                 plan.spread_lcap, stream)
     if err != 0:
         raise RuntimeError(f"se_grid rows spread kernel launch failed: CUDA error {err}")
     se_spread_rows_pre.launches += 1
@@ -598,23 +679,27 @@ def se_interp_rows_pre(geom: SEGridRows, pieces, n: int, grid: torch.Tensor) -> 
     if grid.device.type != "cuda":
         raise ValueError(f"no K5i-rows kernel for device {grid.device}")
     check_grid(geom, grid)
-    _check_rows_cuda(geom, pieces, ())
+    plan = _check_rows_cuda(geom, pieces, ())
     perm, _ovf, gx0, gy0, wx, wy, wz = pieces
     if grid.dtype != wx.dtype:
         raise TypeError("K5i-rows needs a grid in the weights' dtype")
     G = geom.G
     h = geom.box / G
-    out = torch.zeros((n, 3), dtype=grid.dtype, device=grid.device)
+    dev = grid.device
+    out = torch.zeros((n, 3), dtype=grid.dtype, device=dev)
+    lists = torch.empty(perm.shape[0] * plan.interp_lcap, dtype=torch.int32, device=dev)
+    offs = torch.empty(perm.shape[0] * (plan.nxr + 1), dtype=torch.int32, device=dev)
     lib = _build.load("se_grid")
     fn = getattr(lib, f"se_interp_rows_{_DTYPES[grid.dtype]}")
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_double]
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_double]
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    with torch.cuda.device(grid.device):
-        stream = torch.cuda.current_stream(grid.device).cuda_stream
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(perm.data_ptr(), gx0.data_ptr(), gy0.data_ptr(), wx.data_ptr(),
-                 wy.data_ptr(), wz.data_ptr(), grid.data_ptr(), out.data_ptr(), n,
-                 perm.numel(), G, geom.m, geom.P, geom.R, h * h * h, stream)
+                 wy.data_ptr(), wz.data_ptr(), grid.data_ptr(), out.data_ptr(),
+                 lists.data_ptr(), offs.data_ptr(), n, G, geom.m, geom.P, geom.R,
+                 plan.interp_lcap, h * h * h, stream)
     if err != 0:
         raise RuntimeError(f"se_grid rows interp kernel launch failed: CUDA error {err}")
     se_interp_rows_pre.launches += 1

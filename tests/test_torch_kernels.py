@@ -1643,3 +1643,170 @@ def test_k5_rows_refuse_off_the_envelope(cuda_device):
     npieces = k5.se_bin_and_windows(narrow, pos[:50], torch.float32)
     with pytest.raises(ValueError, match="wider than the grid"):
         k5.se_spread_rows_pre(narrow, npieces, forces[:50])
+
+
+_K5_ROWS_CASES = {  # the cases of test_k5_rows_kernels_match_plain
+    "G64": (64, 6, 8, 3000, "es", False),
+    "G64-clustered": (64, 6, 8, 4000, "es", True),
+    "G48-gaussian": (48, 6, 8, 2500, "gaussian", False),
+    "G32-m16": (32, 8, 16, 800, "es", False),
+    "G16": (16, 6, 8, 300, "es", False),
+    "G72-P10": (72, 10, 8, 3000, "es", False),
+}
+_K5_ROWS_STRESS = ("one-x", "x-wrap", "full-row")
+
+
+def _row_of(geom, pos):
+    """(iy, iz) of each position, as _bin_rows bins it."""
+    h = geom.box / geom.G
+    nyz = geom.G // geom.m
+    iyz = np.clip((pos[:, 1:] / (geom.m * h)).astype(np.int32), 0, nyz - 1)
+    return iyz[:, 0], iyz[:, 1]
+
+
+def _k5_rows_case(case, td, dev):
+    """(geom, pieces, forces, n) of a rows-kernel case: those of
+    test_k5_rows_kernels_match_plain, and three that stress the x-run
+    lists. one-x: the 30-odd beads of row (2, 5) at one x, their supports
+    across the edge x = 32 of two runs (two lists hold the whole row).
+    x-wrap: G 72 (runs of 32, 32 and 8 points), P 10, half the beads within
+    half a unit of x = 0, so supports wrap across x = 0 and some meet three
+    runs. full-row: row (1, 1) filled to exactly R slots, all at one x
+    across x = 32, its lists at the scratch's R max_runs entries and K5i-rows'
+    chunk loop taken three times."""
+    rng = np.random.default_rng(13)
+    if case in _K5_ROWS_CASES:
+        G, P, min_m, n, kind, clustered = _K5_ROWS_CASES[case]
+        geom = _rows_geom(G, P, n, kind, min_m=min_m)
+        pos = rng.uniform(0, 24.0, (n, 3))
+        if clustered:
+            pos[: n // 2] = np.mod(rng.normal(scale=1.0, size=(n // 2, 3)) + 3.0, 24.0)
+    elif case == "one-x":
+        n = 2000
+        geom = _rows_geom(64, 6, n, "es")
+        pos = rng.uniform(0, 24.0, (n, 3))
+        iy, iz = _row_of(geom, pos)
+        pos[(iy == 2) & (iz == 5), 0] = 31.5 * geom.box / geom.G
+    elif case == "x-wrap":
+        n = 3000
+        geom = _rows_geom(72, 10, n, "es")
+        pos = rng.uniform(0, 24.0, (n, 3))
+        pos[: n // 2, 0] = np.mod(rng.uniform(-0.5, 0.5, n // 2), 24.0)
+    elif case == "full-row":
+        n0 = 2500
+        geom = _rows_geom(48, 6, n0, "gaussian")
+        h = geom.box / geom.G
+        pos = rng.uniform(0, 24.0, (n0, 3))
+        iy, iz = _row_of(geom, pos)
+        k = geom.R - int(((iy == 1) & (iz == 1)).sum())
+        lo, hi = geom.m * h + 1e-3, 2 * geom.m * h - 1e-3
+        extra = np.stack([np.zeros(k), rng.uniform(lo, hi, k), rng.uniform(lo, hi, k)], 1)
+        pos = np.concatenate([pos, extra])
+        iy, iz = _row_of(geom, pos)
+        pos[(iy == 1) & (iz == 1), 0] = 31.5 * h
+        n = pos.shape[0]
+    else:
+        raise KeyError(case)
+    pieces = k5.se_bin_and_windows(geom, torch.as_tensor(pos, dtype=td, device=dev), td)
+    forces = torch.as_tensor(rng.normal(size=(n, 3)), dtype=td, device=dev)
+    return geom, pieces, forces, n
+
+
+def _k5_rows_grid(geom, td, dev):
+    """K5i-rows' input for the digests: a seeded normal grid, planar."""
+    g = np.random.default_rng(17).normal(size=(geom.G,) * 3 + (3,))
+    return _planar(torch.as_tensor(g, dtype=td, device=dev))
+
+
+def _k5_rows_digests(dtype, case, dev):
+    """sha256 (first 16 hex digits) of K5s-rows' grid and of K5i-rows' u
+    (on _k5_rows_grid) for a case of _k5_rows_case."""
+    import hashlib
+
+    td = _DT[dtype]
+    geom, pieces, forces, n = _k5_rows_case(case, td, dev)
+    grid = k5.se_spread_rows_pre(geom, pieces, forces)
+    u = k5.se_interp_rows_pre(geom, pieces, n, _k5_rows_grid(geom, td, dev))
+    return tuple(hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16] for t in (grid, u))
+
+
+# _k5_rows_digests of the rows kernels' first design, which scanned every
+# occupied slot of the 9 rows around each (row cell, x-run) and gave each
+# slot's interpolation half a warp of L2 gathers (NVIDIA H100 80GB HBM3)
+_K5_ROWS_SHA = {
+    ("float32", "G64"): ("3a351b9d78edcd12", "0f44124f99001c72"),
+    ("float64", "G64"): ("fbac9b42716832d0", "15e3262e31b7b133"),
+    ("float32", "G64-clustered"): ("533bc0974938d27e", "2101b81f3b4dfb22"),
+    ("float64", "G64-clustered"): ("651e81d2f9aca4fd", "af0145b1ebb12acb"),
+    ("float32", "G48-gaussian"): ("95e130e34e998997", "aa1a56a91f8c8d9e"),
+    ("float64", "G48-gaussian"): ("032bee9720f67975", "9e379961b0932562"),
+    ("float32", "G32-m16"): ("31b2810cc262f19d", "7bc1c76b2d744f68"),
+    ("float64", "G32-m16"): ("24c55581e4debc9e", "57f063f0e97d3405"),
+    ("float32", "G16"): ("67adc47b80af9b45", "efaac33ad547a7c6"),
+    ("float64", "G16"): ("47ea8cc2ace18141", "a69afa442c26b3b8"),
+    ("float32", "G72-P10"): ("87fd682b0c7cfe49", "a4f8b92fd7ebd49a"),
+    ("float64", "G72-P10"): ("373307316041a487", "e922717fca4ecdfb"),
+    ("float32", "one-x"): ("9adf8766f7436e1e", "a18ccd0c4d2ecd74"),
+    ("float64", "one-x"): ("3eaec1b30e6b456a", "a1ba46ca76518453"),
+    ("float32", "x-wrap"): ("d95fd32edac4e87a", "19b84cfadda86473"),
+    ("float64", "x-wrap"): ("d75bf9eeb02fedf7", "cedf6abf1fc46cbe"),
+    ("float32", "full-row"): ("84b61fe49aaa171e", "088625d1283c25a4"),
+    ("float64", "full-row"): ("777767d0d52f8ae7", "19dbdd8614d9733a"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("case", list(_K5_ROWS_CASES) + list(_K5_ROWS_STRESS))
+def test_k5_rows_outputs_unchanged(cuda_device, dtype, case):
+    """The rows kernels' redesign (x-run lists, zero segments skipped, the
+    interpolation box staged in shared memory) keeps the first design's
+    grid and u bit for bit."""
+    assert _k5_rows_digests(dtype, case, cuda_device) == _K5_ROWS_SHA[(dtype, case)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("case", _K5_ROWS_STRESS)
+def test_k5_rows_lists_stress(cuda_device, dtype, case):
+    """The cases that stress the x-run lists (_k5_rows_case) against the
+    plain versions, at the bounds of test_k5_rows_kernels_match_plain, one
+    launch a call, two launches bit-equal."""
+    td = _DT[dtype]
+    tol = 1e-12 if dtype == "float64" else 1e-5
+    geom, pieces, forces, n = _k5_rows_case(case, td, cuda_device)
+    perm = pieces[0]
+    occ = (perm < n).sum(1)
+    plan = k5.rows_plan(geom, forces.element_size())
+    assert not bool(pieces[1]) and int(occ.sum()) == n
+    if case == "full-row":
+        assert int(occ.max()) == geom.R and plan.spread_lcap == 2 * geom.R
+    if case == "x-wrap":
+        assert plan.nxr == 3 and plan.max_runs == 3
+    grid_in = _k5_rows_grid(geom, td, cuda_device)
+    before = (k5.se_spread_rows_pre.launches, k5.se_interp_rows_pre.launches)
+    grid = k5.se_spread_rows_pre(geom, pieces, forces)
+    u = k5.se_interp_rows_pre(geom, pieces, n, grid_in)
+    torch.cuda.synchronize()
+    assert (k5.se_spread_rows_pre.launches,
+            k5.se_interp_rows_pre.launches) == (before[0] + 1, before[1] + 1)
+    for got, want in ((grid, k5.se_spread_rows_plain(geom, pieces, forces)),
+                      (u, k5.se_interp_rows_plain(geom, pieces, n, grid_in))):
+        scale = want.abs().max().item()
+        assert scale > 0 and (got - want).abs().max().item() <= tol * scale
+    assert torch.equal(grid, k5.se_spread_rows_pre(geom, pieces, forces))
+    assert torch.equal(u, k5.se_interp_rows_pre(geom, pieces, n, grid_in))
+
+
+@pytest.mark.cuda
+def test_k5_rows_refuse_past_their_runs(cuda_device):
+    """A grid of more than MAX_RUNS runs of RUN_X points along x raises
+    before any launch (rows_plan, which both wrappers call)."""
+    G = (k5.MAX_RUNS + 1) * k5.RUN_X
+    geom = _rows_geom(G, 6, 200, "es")
+    pos = torch.rand((200, 3), device=cuda_device) * 24.0
+    pieces = k5.se_bin_and_windows(geom, pos, torch.float32)
+    before = k5.se_spread_rows_pre.launches
+    with pytest.raises(ValueError, match="runs of"):
+        k5.se_spread_rows_pre(geom, pieces, torch.zeros((200, 3), device=cuda_device))
+    assert k5.se_spread_rows_pre.launches == before

@@ -206,3 +206,104 @@ def test_window_1d_matches(window):
     got = tsp._window_1d(top, torch.as_tensor(frac), torch.float64)
     assert got.shape == (50, top.support)
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=PIECE_TOL * np.abs(want).max())
+
+
+@pytest.mark.parametrize("G,P", [(64, 6), (72, 10), (16, 6), (384, 6), (40, 16)])
+def test_rows_lists_hold_every_spread_term(G, P):
+    """The premise of the rows kernels' x-run lists (rows_run_members, the
+    pre-pass's plain version): a slot is in run k's spread list exactly when
+    one of its P x support points lies in the run, so the list holds every
+    slot with a term there, and in exactly one interp list, the run of its
+    first support point; no row holds more entries than rows_plan's
+    scratch. Positions cluster at x = 0 (supports wrapping onto the last
+    run) and at a run's edge."""
+    n = 3000
+    geom = tg.make_se_grid_rows(G, P, 24.0, 0.87, 0.5, n, min_m=max(8, P // 2 + 1), kind="es",
+                                beta=2.0 * P)
+    rng = np.random.default_rng(G + P)
+    pos = rng.uniform(0, 24.0, (n, 3))
+    pos[: n // 3, 0] = np.mod(rng.uniform(-0.4, 0.4, n // 3), 24.0)
+    pos[n // 3: n // 2, 0] = np.mod(31.5 * 24.0 / G, 24.0)
+    pieces = tg.se_bin_and_windows(geom, torch.as_tensor(pos), torch.float64)
+    plan = tg.rows_plan(geom, 8)
+    sel = (pieces[0].reshape(-1) < n).nonzero()[:, 0]
+    x, _y, _z = tg._rows_support(geom, pieces, sel)
+    meets = torch.zeros((sel.shape[0], plan.nxr), dtype=torch.bool)
+    meets.scatter_(1, x // tg.RUN_X, True)
+    spread = tg.rows_run_members(geom, pieces, n)
+    interp = tg.rows_run_members(geom, pieces, n, starts=True)
+    assert torch.equal(spread.reshape(-1, plan.nxr)[sel], meets)
+    first = torch.zeros_like(meets)
+    first[torch.arange(sel.shape[0]), x[:, 0] // tg.RUN_X] = True
+    assert torch.equal(interp.reshape(-1, plan.nxr)[sel], first)
+    assert not spread.reshape(-1, plan.nxr)[~(pieces[0].reshape(-1) < n)].any()
+    per_slot = spread.sum(-1)
+    assert int(per_slot.max()) <= plan.max_runs
+    assert int(spread.sum((1, 2)).max()) <= plan.spread_lcap
+    assert int(interp.sum((1, 2)).max()) <= plan.interp_lcap
+    if (G, P) == (72, 10):  # runs of 32, 32 and 8 points: a support can meet all three
+        assert plan.max_runs == 3 and int(per_slot.max()) == 3
+
+
+def test_rows_max_runs():
+    """The most runs of 32 x points one wrapped support meets."""
+    assert [tg.rows_max_runs(G, P) for G, P in ((384, 6), (64, 6), (16, 6), (32, 8),
+                                                (72, 10), (66, 6), (40, 16))] \
+        == [2, 2, 1, 1, 3, 3, 2]
+
+
+def _plan_geom(G, m, P, R):
+    return tg.SEGridRows(G=G, m=m, P=P, R=R, box=24.0, c=1.0, kind="es", beta=2.0,
+                         wh=0.5 * P)
+
+
+def test_rows_plan_runs_edge():
+    """rows_plan takes MAX_RUNS runs of RUN_X points along x and refuses one
+    more, before any launch."""
+    G = tg.MAX_RUNS * tg.RUN_X
+    assert tg.rows_plan(_plan_geom(G, 8, 6, 8), 4).nxr == tg.MAX_RUNS
+    with pytest.raises(ValueError, match=f"{tg.MAX_RUNS + 1} runs of"):
+        tg.rows_plan(_plan_geom(G + 8, 8, 6, 8), 4)
+
+
+def test_rows_plan_list_edge():
+    """rows_plan takes the largest R whose x-run lists the kernels index in
+    int32 and refuses R + 1."""
+    G, m, P = 64, 8, 6
+    n_rows, runs = (G // m) ** 2, tg.rows_max_runs(G, P)
+    R = ((1 << 31) - 1) // (n_rows * runs)
+    assert tg.rows_plan(_plan_geom(G, m, P, R), 4).spread_lcap == R * runs
+    with pytest.raises(ValueError, match="int32"):
+        tg.rows_plan(_plan_geom(G, m, P, R + 1), 4)
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_rows_plan_shared_memory_edge(itemsize):
+    """Above some row edge m a block's shared memory passes the SMEM_LIMIT
+    bytes a block may use (K5i-rows' chunk sums and one staged plane grow as
+    W^2): rows_plan raises there and takes m - 1."""
+    P = 6
+    m = 8
+    while True:
+        try:
+            plan = tg.rows_plan(_plan_geom(4 * m, m, P, 64), itemsize)
+        except ValueError as e:
+            assert "shared memory" in str(e) and str(tg.SMEM_LIMIT) in str(e)
+            break
+        assert max(plan.spread_smem, plan.interp_smem) <= tg.SMEM_LIMIT
+        m += 1
+    inside = tg.rows_plan(_plan_geom(4 * (m - 1), m - 1, P, 64), itemsize)
+    assert max(inside.spread_smem, inside.interp_smem) <= tg.SMEM_LIMIT
+    assert m > 32  # the rows kernels take every row edge up to 32
+
+
+def test_rows_cuda_envelope_returns_the_plan():
+    """The wrappers' envelope check (_check_rows_cuda, plain Python) returns
+    rows_plan at the pieces' value size and raises on the old limits."""
+    n = 500
+    geom = tg.make_se_grid_rows(64, 6, 24.0, 0.87, 0.5, n, kind="es", beta=12.0)
+    pos = torch.as_tensor(np.random.default_rng(5).uniform(0, 24.0, (n, 3)))
+    pieces = tg.se_bin_and_windows(geom, pos, torch.float32)
+    assert tg._check_rows_cuda(geom, pieces, ()) == tg.rows_plan(geom, 4)
+    with pytest.raises(ValueError, match="row edge"):
+        tg._check_rows_cuda(geom._replace(m=2), pieces, ())
