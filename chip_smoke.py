@@ -18,7 +18,9 @@ the flat cell-list SpheresSim and the granular app, then the (N, K) rods
 engine RodsSim (K2 in its broad phase) with its three narrow phases, then
 the general row pair engine with the small-box spheres, the rows layout of
 the spectral-Ewald gridding (kernels K5s-rows and K5i-rows) and the
-collision layouts beside the strided one:
+collision layouts beside the strided one, then the multi-rank engines
+(the z-slab spheres and rods engines with K6 and K4 through ShardedSim,
+LCP rpy_ring with K2 and K3, `main --devices 2`):
 
 1. build K1-K6 with nvcc (sm_90a), one process per source, all at once;
    print each kernel's registers and spills and the card with its power
@@ -247,7 +249,36 @@ collision layouts beside the strided one:
     the windowed (active_pair_subset, K3 on the gathered windows), j_perm
     and unordered layouts against the strided K3 result, 1e-6 of max|F|,
     two runs of each bit-equal; active_pair_subset selecting the same pairs
-    as active_pair_subset_strided.
+    as active_pair_subset_strided;
+46. the z-slab spheres engine (parallel/slab_rows.py, K6 on each rank's
+    halo-extended block) through ShardedSim around RowSpheresSim at 1M
+    (config #1), at d = 1 on a one-rank NCCL group in this process and at
+    d = 2 on gloo, two spawned ranks on this card (CUDA tensors staged
+    through pinned host buffers): 30 steps from init against the
+    single-device RowSpheresSim on the slab grid (2e-4, the reference's
+    bound, tests/test_parallel.py:205), then 3 warm-up and 100 timed steps
+    with K6's count and the group's byte and staging counters set to 0
+    just before: ms/step per rank, one K6 launch per rank a step, rebuilds
+    and their mode, bytes moved and staging ms a step; K6 on the
+    halo-extended block of the final state against its plain version on
+    the own slots (5e-5 of max|f|);
+47. the same for the z-slab rods engine (parallel/slab_segments.py, K4's
+    rods op) around RowRodsSim at 1M rods (config #3's physics at its
+    volume fraction), quaternions up to sign; K4 within 1e-5 of each max;
+48. both slab engines in float64 at d = 2 (600 spheres in box 16, 400 rods
+    in box 24) on the card against the same two ranks on the CPU: equal
+    rows and rebuild counts, positions and quaternions within 1e-8;
+49. LCP rpy_ring on one rank: 4096 spheres at lcp_bench_config's volume
+    fraction for 10 steps (float32), with the K2 and K3 counts set to 0
+    before the sim is made (one K3 launch per mobility apply, K2 on each
+    broad phase), one ring apply by CUDA events; 300 spheres in float64
+    on the card against the CPU, equal counters at every step, 1e-8;
+50. `python -m mundy_tpu_torch.driver.main examples/spheres_10k.yaml
+    --devices 2` (200 steps) and `rods_100k.yaml --devices 2` (20 steps)
+    as subprocesses on this card: exit 0, the plan line, one "stepped"
+    line (rank 0 prints), the final VTK and the checkpoint written.
+    `python3 chip_smoke.py --only-sharded` builds the kernels and runs
+    [46]-[50] alone.
 
 Kernel times are medians of CUDA-event timings after a synchronize, kernel
 and plain version alternating; for K2, K3 and K3t the device time per
@@ -258,7 +289,8 @@ carry their launches on [29]'s paths, and K5s's and K5i's on [33]'s,
 under "path_launches", and K2's, K3's, K4's, K5s's and K5i's those of each
 YAML through the CLI at [35], as "cli <yaml>"; K2's launches add those of
 [39] and [40], and its entry carries its times at [39]'s shape under
-"rods_nmat"),
+"rods_nmat"; K6's, K4's, K2's and K3's carry their launches on [46]-[49]'s
+slab and rpy_ring paths under "path_launches"),
 then a final JSON line {"ok": true, "device": {...}}. Exits non-zero, with no
 result, without a CUDA device or without the package beside it.
 """
@@ -363,6 +395,12 @@ SE_ROWS_BEADS = 1 << 20
 SE_ROWS_SHA = ("8d2af69b506c6fc2", "fd1ccce136dee4ef")
 SE_ROWS_FIRST = ("K5s-rows 8.1265 ms (8.1265-8.2471), K5i-rows 2.3897 ms (2.3877-2.3926), "
                  "the rows wave apply 24.117-24.195 ms")
+# [46]-[50]: the multi-rank slice
+SLAB_PARITY_STEPS = 30
+SLAB_STEPS = 100
+F64_SPHERE_STEPS = 60
+F64_ROD_STEPS = 30
+RING_STEPS = 10
 
 # published H100 SXM peaks (NVIDIA data sheet): FP32 outside the
 # tensor cores, and HBM bandwidth
@@ -2353,6 +2391,351 @@ def slice15_phases(torch, dev, card: str, lcp_sim, lcp_st) -> list:
          "bound_by": i_bound[1], "library_ms": None}]
 
 
+def slab_sim(app: str, torch, dev):
+    """The row sim of [46] (1M config #1, bench.py:87-105) or [47] (1M
+    config #3: rods_100k.yaml's physics in a box 10^(1/3) larger), float32."""
+    from mundy_tpu_torch.core.config import config_from_dict, load_yaml
+    from mundy_tpu_torch.driver.apps.rods import RodsConfig
+    from mundy_tpu_torch.driver.apps.rods_rows import RowRodsSim
+    from mundy_tpu_torch.driver.apps.spheres import SpheresConfig
+    from mundy_tpu_torch.driver.apps.spheres_rows import RowSpheresSim
+
+    if app == "spheres":
+        return RowSpheresSim(bench_config(SpheresConfig, N_BIG), device=dev)
+    raw = load_yaml(os.path.join(HERE, "examples", "rods_100k.yaml"))
+    box = raw["params"]["box_size"] * (N_BIG / raw["params"]["num_rods"]) ** (1.0 / 3.0)
+    cfg = config_from_dict(RodsConfig, dict(raw["params"], num_rods=N_BIG, box_size=box,
+                                            dtype="float32"))
+    return RowRodsSim(cfg, device=dev)
+
+
+def slab_rank(group, app: str) -> dict:
+    """One rank of [46] (app "spheres", K6) or [47] ("rods", K4): ShardedSim
+    around the row sim at 1M; 30 steps from init gathered (their positions
+    come back for the parity check), then 3 warm-up steps and SLAB_STEPS
+    timed steps of the slab engine with the kernel's count and the group's
+    byte and staging counters set to 0 just before; then the kernel on the
+    halo-extended block of the final state against its plain version
+    (after the count was read)."""
+    import torch
+
+    from mundy_tpu_torch.driver.sharded import ShardedSim
+    from mundy_tpu_torch.ops.kernels import row_hertz as k6
+    from mundy_tpu_torch.ops.kernels import row_segments as k4
+
+    dev = group.device
+    sim = slab_sim(app, torch, dev)
+    s0 = sim.init()
+    runner = ShardedSim(app, sim, group)
+    eng = runner.engine
+    t0 = time.perf_counter()
+    s30 = runner.run_block(s0, SLAB_PARITY_STEPS)
+    torch.cuda.synchronize(dev)
+    parity_s = time.perf_counter() - t0
+    out = {"rank": group.rank, "backend": group.backend, "planes": eng.grid.nz, "nzl": eng.nzl, "ny": eng.grid.ny,
+           "R": eng.grid.row_capacity, "mode": eng.rebuild_mode, "parity_s": parity_s,
+           "overflow30": bool(s30.overflow), "step30": s30.step}
+    if group.rank == 0:
+        out["pos30"] = sim.positions(s30).cpu().numpy()
+        if app == "rods":
+            out["quat30"] = sim.quaternions(s30).cpu().numpy()
+    kernel = k6.row_hertzian_forces if app == "spheres" else k4.row_segment_pairs_sym
+    st = eng.step_block(runner._dict, 3)  # warm-up
+    torch.cuda.synchronize(dev)
+    rb0 = st["rebuilds"]
+    kernel.launches = 0
+    group.reset_counters()
+    t0 = time.perf_counter()
+    st = eng.step_block(st, SLAB_STEPS)
+    torch.cuda.synchronize(dev)
+    elapsed = time.perf_counter() - t0
+    out.update(ms=1e3 * elapsed / SLAB_STEPS, launches=kernel.launches,
+               rebuilds=st["rebuilds"] - rb0, bytes=group.bytes_moved / SLAB_STEPS,
+               stage_ms=1e3 * group.stage_s / SLAB_STEPS, overflow=bool(st["overflow"]),
+               valid=int(group.psum(st["valid"].sum().reshape(1))[0]))
+    # the kernel against its plain version on the halo-extended block
+    ny, nzl = st["pos"].shape[0], eng.nzl
+    if app == "spheres":
+        pe, ve, box = eng.extended(st)
+        c = sim.config
+        args = (box, c.radius, c.youngs_modulus, c.poissons_ratio)
+        f_k = k6.row_hertzian_forces(pe, ve, *args)[1:1 + ny, 1:1 + nzl]
+        f_p = k6.row_hertzian_forces_plain(pe, ve, *args)[1:1 + ny, 1:1 + nzl]
+        torch.cuda.synchronize(dev)
+        m = st["valid"]
+        out["k_err"] = [(f_k[m] - f_p[m]).abs().max().item()]
+        out["k_max"] = [f_p[m].abs().max().item()]
+        out["block"] = tuple(pe.shape[:3])
+    else:
+        mid, he, ve, box = eng.extended(st)
+        args = (box, sim.config.radius, sim.e_eff)
+        fk, tk = (x[:, 1:1 + nzl] for x in k4.row_segment_pairs_sym(mid, he, ve, *args))
+        fp, tp = (x[:, 1:1 + nzl] for x in k4.row_segment_pairs_plain(mid, he, *args))
+        torch.cuda.synchronize(dev)
+        m = st["valid"]
+        out["k_err"] = [(fk[m] - fp[m]).abs().max().item(), (tk[m] - tp[m]).abs().max().item()]
+        out["k_max"] = [fp[m].abs().max().item(), tp[m].abs().max().item()]
+        out["block"] = tuple(mid.shape[:3])
+    return out
+
+
+def slab_f64_rank(group) -> dict:
+    """[48] on one rank: both slab engines in float64 on the card (this
+    group, gloo with the CUDA tensors staged) and on the CPU (a CPU group of
+    the same ranks), from the same start; rank 0 returns the gathered
+    states."""
+    import torch
+
+    from mundy_tpu_torch.parallel.comm import Group
+    from mundy_tpu_torch.parallel.slab_rows import make_slab_rows_spheres_step
+    from mundy_tpu_torch.parallel.slab_segments import make_slab_rods_step
+
+    cpu = Group(group.rank, group.size, "cpu", group.backend)
+    gen = torch.Generator().manual_seed(48)
+    pos_s = torch.rand((600, 3), dtype=torch.float64, generator=gen) * 16.0
+    pos_r = torch.rand((400, 3), dtype=torch.float64, generator=gen) * 24.0
+    quat_r = torch.nn.functional.normalize(torch.randn((400, 4), dtype=torch.float64,
+                                                       generator=gen), dim=1)
+    res = {}
+    for where, g in (("card", group), ("cpu", cpu)):
+        eng = make_slab_rows_spheres_step(g, 600, 16.0, radius=0.5, youngs=200.0,
+                                          diffusion=0.05, dt=2e-4, skin=0.1,
+                                          dtype=torch.float64)
+        runs = {"spheres": eng.step_block(eng.init(pos_s, (0, 48)), F64_SPHERE_STEPS)}
+        eng = make_slab_rods_step(g, 400, 24.0, diffusion=0.05, rot_diffusion=0.05, dt=1e-3,
+                                  skin=0.3, dtype=torch.float64)
+        runs["rods"] = eng.step_block(eng.init(pos_r, (0, 48), quat=quat_r), F64_ROD_STEPS)
+        res[where] = {
+            app: {"rebuilds": st["rebuilds"],
+                  **{k: torch.cat(g.all_gather(st[k]), dim=1).cpu().numpy()
+                     for k in ("pos", "gid", "valid") + (("quat",) if app == "rods" else ())}}
+            for app, st in runs.items()}
+    return res if group.rank == 0 else None
+
+
+def sharded_ranks(group) -> dict:
+    """The d = 2 rank body: [46], [47] and [48] in one process group."""
+    return {"spheres": slab_rank(group, "spheres"), "rods": slab_rank(group, "rods"),
+            "f64": slab_f64_rank(group)}
+
+
+def slab_reference(app: str, grid, torch, dev) -> dict:
+    """The single-device row sim over SLAB_PARITY_STEPS from the same init,
+    on the slab engine's grid (init right-sizes its row capacity)."""
+    sim = slab_sim(app, torch, dev)
+    s0 = sim.init()
+    kw = dict(pos=sim.positions(s0), key_words=s0.key)
+    if app == "rods":
+        kw["quat"] = sim.quaternions(s0)
+    sim.grid = grid
+    st = sim.run_block(sim.init(**kw), SLAB_PARITY_STEPS)
+    torch.cuda.synchronize()
+    out = {"pos": sim.positions(st).cpu().numpy(), "R": sim.grid.row_capacity}
+    if app == "rods":
+        out["quat"] = sim.quaternions(st).cpu().numpy()
+    return out
+
+
+def sharded_phases(torch, dev, card: str) -> dict:
+    """Phases 46-50: the z-slab spheres engine (K6) and rods engine (K4)
+    through ShardedSim at 1M on one rank (NCCL) and two ranks (gloo, both on
+    this card), float64 against the CPU at two ranks, LCP rpy_ring, and
+    `--devices 2` through the CLI. Returns the path launches of K6, K4, K2
+    and K3 by entry name."""
+    import numpy as np
+    import tempfile
+
+    from mundy_tpu_torch.neighbor.rows import make_row_grid
+    from mundy_tpu_torch.parallel import comm
+    from mundy_tpu_torch.parallel.slab_rows import slab_grid
+
+    torch.cuda.empty_cache()
+    t_start = time.perf_counter()
+    paths = {"row_hertzian_forces": {}, "row_segment_pairs_sym": {},
+             "row_neighbor_extract": {}, "strided_onehot_segment_sum": {}}
+    # ---- 46-47 at d = 1: a one-rank NCCL group in this process -------------
+    store = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    one = comm.init_group(0, 1, "cuda", os.path.join(store, "store"))
+    print(f"[46]-[47] d = 1: ranks 1, backend {one.backend}, devices [{one.device}]",
+          flush=True)
+    try:
+        d1 = {app: slab_rank(one, app) for app in ("spheres", "rods")}
+    finally:
+        comm.close_group()
+    torch.cuda.empty_cache()
+    # ---- 46-48 at d = 2: two ranks on this card ----------------------------
+    d2 = comm.spawn_ranks(sharded_ranks, 2, "cuda", timeout=600.0, threads=4,
+                          log=lambda line: print(f"[46]-[48] d = 2: {line}", flush=True))
+    torch.cuda.empty_cache()
+    for app, phase, kernel, name, tol in (
+            ("spheres", 46, "K6", "row_hertzian_forces", 5e-5),
+            ("rods", 47, "K4", "row_segment_pairs_sym", 1e-5)):
+        runs = {1: [d1[app]], 2: [d2[0][app], d2[1][app]]}
+        sim = slab_sim(app, torch, dev)
+        raw = make_row_grid([0, 0, 0], [sim.config.box_size] * 3, sim.cutoff, N_BIG,
+                            capacity_slack=1.9, dtype=sim.dtype, device=dev)
+        box = sim.config.box_size
+        del sim
+        for d, ranks in runs.items():
+            r0 = ranks[0]
+            grid = slab_grid(raw, d, box)
+            if (grid.ny, grid.nz, grid.row_capacity) != (r0["ny"], r0["planes"], r0["R"]):
+                fail(f"[{phase}] d = {d}: the ranks' grid is not the slab grid {grid}")
+            ref = slab_reference(app, grid, torch, dev)
+            diff = r0["pos30"] - ref["pos"]
+            diff -= box * np.round(diff / box)
+            err = float(np.abs(diff).max())
+            qerr = 0.0
+            if app == "rods":
+                qerr = float(np.minimum(np.abs(r0["quat30"] - ref["quat"]).max(-1),
+                                        np.abs(r0["quat30"] + ref["quat"]).max(-1)).max())
+            launches = [r["launches"] for r in ranks]
+            paths[name][f"slab_{'rows' if app == 'spheres' else 'segments'} d={d}"] = sum(
+                launches)
+            print(f"[{phase}] {N_BIG} {app} through ShardedSim, d = {d} on one card "
+                  f"({r0['backend']}): {r0['planes']} planes, "
+                  f"{r0['nzl']} per rank, (ny, R) ({r0['ny']}, {r0['R']}), {r0['mode']} "
+                  f"rebuilds; 30 steps from init {r0['parity_s']:.2f} s, max|pos diff| vs "
+                  f"the single-device row sim on this grid {err:.3e}"
+                  + (f", quaternions {qerr:.3e}" if app == "rods" else "")
+                  + f"; then {SLAB_STEPS} steps after 3: " + "; ".join(
+                      f"rank {r['rank']} {r['ms']:.3f} ms/step, {kernel} launches/step "
+                      f"{r['launches'] / SLAB_STEPS:.3f}, rebuilds {r['rebuilds']}, bytes "
+                      f"moved/step {r['bytes']:.0f}, staging {r['stage_ms']:.4f} ms/step"
+                      for r in ranks)
+                  + f"; {kernel} on the halo-extended block {r0['block']} vs its plain "
+                    f"version: max|diff| {r0['k_err']} of max {r0['k_max']}; {card}",
+                  flush=True)
+            if any(r["overflow"] or r["overflow30"] or r["step30"] != SLAB_PARITY_STEPS
+                   for r in ranks) or r0["valid"] != N_BIG:
+                fail(f"[{phase}] the d = {d} run overflowed, lost a body or miscounted steps")
+            if not err <= 2e-4 or not qerr <= 2e-4:
+                fail(f"[{phase}] d = {d} disagrees with the single-device row sim: {err}, {qerr}")
+            if any(n != SLAB_STEPS for n in launches):
+                fail(f"[{phase}] {kernel} launched {launches} times in {SLAB_STEPS} steps")
+            if not all(m > 0 and e <= tol * m for e, m in zip(r0["k_err"], r0["k_max"])):
+                fail(f"[{phase}] {kernel} disagrees with its plain version on the "
+                     f"halo-extended block: {r0['k_err']} of {r0['k_max']}")
+    # ---- 48. float64, card vs CPU at d = 2 ---------------------------------
+    f64 = d2[0]["f64"]
+    for app, tol in (("spheres", 1e-8), ("rods", 1e-8)):
+        g, c = f64["card"][app], f64["cpu"][app]
+        v = c["valid"]
+        err = float(np.abs(g["pos"][v] - c["pos"][v]).max())
+        same = bool(np.array_equal(g["gid"], c["gid"]) and np.array_equal(g["valid"], v))
+        qerr = 0.0
+        if app == "rods":
+            qerr = float(np.minimum(np.abs(g["quat"] - c["quat"]).max(-1),
+                                    np.abs(g["quat"] + c["quat"]).max(-1)).max())
+        print(f"[48] float64 {app} at d = 2, card vs CPU: rebuilds {g['rebuilds']} (cpu "
+              f"{c['rebuilds']}), rows equal {same}, max|pos diff| {err:.3e}"
+              + (f", quaternions {qerr:.3e}" if app == "rods" else ""), flush=True)
+        if not (same and g["rebuilds"] == c["rebuilds"] >= 2 and err <= tol and qerr <= tol):
+            fail(f"[48] the float64 {app} slab run on the card disagrees with the CPU run")
+    lcp_paths = lcp_ring_phase(torch, dev, card)
+    for name, n in lcp_paths.items():
+        paths[name]["lcp rpy_ring 4096"] = n
+    cli_devices_phase(torch)
+    print(f"[46]-[50] took {time.perf_counter() - t_start:.1f} s", flush=True)
+    return paths
+
+
+def lcp_ring_phase(torch, dev, card: str) -> dict:
+    """[49]: LCP rpy_ring on one rank: 4096 spheres at lcp_bench_config's
+    volume fraction for RING_STEPS steps (float32), with the K2 and K3
+    counts set to 0 before the sim is made; one mobility apply by CUDA
+    events; then 300 spheres in float64 on the card against the CPU."""
+    from mundy_tpu_torch.driver.apps.lcp_spheres import LCPSpheresConfig, LCPSpheresSim
+    from mundy_tpu_torch.ops.kernels import row_extract as k2
+    from mundy_tpu_torch.ops.kernels import seg_onehot as k3
+
+    cfg = dataclasses.replace(lcp_bench_config(LCPSpheresConfig, 4096), hydro="rpy_ring")
+    k2.row_neighbor_extract.launches = 0
+    k3.strided_onehot_segment_sum.launches = 0
+    sim = LCPSpheresSim(cfg, device=dev)
+    st = sim.init()
+    iters, ms = [], []
+    for _ in range(RING_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = sim.run_block(st, 1, resize=False)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        iters.append(st.lcp_iters)
+    got = {"row_neighbor_extract": k2.row_neighbor_extract.launches,
+           "strided_onehot_segment_sum": k3.strided_onehot_segment_sum.launches}
+    f = torch.randn((cfg.num_spheres, 3), device=dev, generator=torch.Generator(dev).manual_seed(49))
+    mob, _ = sim._mobility(st.pos, st.hydro_nmat)
+    apply_ms = cuda_ms(lambda: mob(f), torch, 5)
+    applies = sum(i + 2 for i in iters)
+    print(f"[49] LCP rpy_ring, {cfg.num_spheres} spheres in box {cfg.box_size:.3f} (float32, "
+          f"one rank): ms/step {[round(m, 3) for m in ms]}, BBPGD iterations {iters}, "
+          f"rebuilds {st.rebuild_count}, max overlap {sim.max_overlap(st):.3e}, overflow "
+          f"{bool(st.overflow)}; launches K2 {got['row_neighbor_extract']}, K3 "
+          f"{got['strided_onehot_segment_sum']} (mobility applies {applies}); one ring apply "
+          f"{apply_ms:.3f} ms by CUDA events; {card}", flush=True)
+    if bool(st.overflow) or not bool(torch.isfinite(st.pos).all()):
+        fail("[49] the rpy_ring run overflowed or went non-finite")
+    if got["strided_onehot_segment_sum"] != applies or got["row_neighbor_extract"] < 1:
+        fail(f"[49] rpy_ring launched {got} for {applies} mobility applies")
+    del sim, st, mob, f
+    small = LCPSpheresConfig(num_spheres=300, box_size=18.0, radius=0.5, dt=2e-3,
+                             diffusion_coeff=0.02, dtype="float64", chunk=256,
+                             max_allowable_overlap=1e-6, max_col_iterations=2000,
+                             hydro="rpy_ring")
+    pos0 = torch.rand((300, 3), dtype=torch.float64,
+                      generator=torch.Generator().manual_seed(49)) * 18.0
+    trace = {}
+    for d in ("cuda", "cpu"):
+        s_sim = LCPSpheresSim(small, device=d)
+        s = s_sim.init(pos=pos0, key_words=(0, 49))
+        rows = []
+        for _ in range(14):
+            s = s_sim.run_block(s, 1, resize=False)
+            rows.append((s.lcp_iters, int(s.act_count), s.rebuild_count, bool(s.overflow)))
+        trace[d] = (rows, s.pos.cpu())
+    err = (trace["cuda"][1] - trace["cpu"][1]).abs().max().item()
+    print(f"[49] float64 300 spheres, 14 steps, card vs CPU: counters equal at every step "
+          f"{trace['cuda'][0] == trace['cpu'][0]}, rebuilds {trace['cuda'][0][-1][2]}, "
+          f"max|pos diff| {err:.3e}", flush=True)
+    if not (trace["cuda"][0] == trace["cpu"][0] and err <= 1e-8):
+        fail("[49] the float64 rpy_ring run on the card disagrees with the CPU run")
+    return got
+
+
+def cli_devices_phase(torch) -> None:
+    """[50]: spheres_10k.yaml and rods_100k.yaml through
+    `python -m mundy_tpu_torch.driver.main ... --devices 2` on this card,
+    cut in steps; each exits 0, prints the plan line once, and rank 0 alone
+    writes the final VTK and the checkpoint."""
+    import shutil
+    import tempfile
+
+    for yaml, steps in (("spheres_10k", 200), ("rods_100k", 20)):
+        out = tempfile.mkdtemp(prefix=f"chip_smoke_{yaml}_")
+        cmd = [sys.executable, "-m", "mundy_tpu_torch.driver.main",
+               os.path.join(HERE, "examples", f"{yaml}.yaml"), "--devices", "2",
+               "--set", f"num_steps={steps}", "--output-dir", os.path.join(out, "out"),
+               "--checkpoint-dir", os.path.join(out, "ck"), "--rank-timeout", "300"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=HERE, timeout=400,
+                              env=dict(os.environ, PYTHONPATH=HERE))
+        wall = time.perf_counter() - t0
+        lines = proc.stdout.splitlines()
+        files = sorted(os.listdir(os.path.join(out, "ck"))) if os.path.isdir(
+            os.path.join(out, "ck")) else []
+        said = [ln for ln in lines if ln.startswith(("ranks ", "sharded ", "stepped "))]
+        print(f"[50] {yaml}.yaml --devices 2, {steps} steps: rc {proc.returncode}, "
+              f"{wall:.1f} s wall; " + " | ".join(said) + f"; checkpoint files {files}",
+              flush=True)
+        if (proc.returncode != 0 or sum(ln.startswith("stepped ") for ln in lines) != 1
+                or not os.path.exists(os.path.join(out, "out", "final.vtk"))
+                or f"ckpt_{steps:012d}.npz" not in files):
+            print(proc.stdout[-3000:], proc.stderr[-3000:], flush=True)
+            fail(f"[50] {yaml}.yaml --devices 2 failed")
+        shutil.rmtree(out, ignore_errors=True)
+
+
 def main() -> None:
     import torch
 
@@ -2397,6 +2780,11 @@ def main() -> None:
 
     # ---- 1. build ---------------------------------------------------------
     build_all(_build)
+    if sys.argv[1:] == ["--only-sharded"]:  # a short run of [46]-[50] alone
+        print(json.dumps({"path_launches": sharded_phases(torch, dev, card)}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
+        return
 
     # ---- 2. K1 vs plain at the 1M main-path shape -------------------------
     big = bench_config(SpheresConfig, N_BIG)
@@ -2946,6 +3334,7 @@ def main() -> None:
     hp1_paths = periphery_phases(torch, dev, card)
     cli_paths = cli_phases(torch, dev, card, row_ms)
     rods = rods_nmat_phases(torch, dev, card)
+    sharded_paths = sharded_phases(torch, dev, card)  # [46]-[50]
 
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     kernels = [
@@ -2986,6 +3375,8 @@ def main() -> None:
             entry["path_launches"]["hp1 rpy_periphery_spectral"] = hp1_paths[entry["name"]]
         if entry["name"] in cli_paths:  # each example YAML through the CLI, [35]
             entry.setdefault("path_launches", {}).update(cli_paths[entry["name"]])
+        if entry["name"] in sharded_paths:  # the slab engines and LCP rpy_ring, [46]-[49]
+            entry.setdefault("path_launches", {}).update(sharded_paths[entry["name"]])
         if entry["name"] == "row_neighbor_extract":  # RodsSim's broad phase, [39]-[40]
             entry.setdefault("path_launches", {}).update(rods["paths"])
             entry["launches"] += sum(rods["paths"].values())

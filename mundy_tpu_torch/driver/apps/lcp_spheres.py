@@ -22,9 +22,15 @@ The mobility (`hydro`):
 - "rpy_spectral": periodic RPY by spectral Ewald (mobility/spectral.py):
   kernels K5s and K5i grid the wave part, the real part runs on the 3D
   cells, both rebinned once per step.
+- "rpy_ring": dense all-pairs RPY (free separations, the overlap
+  correction on), ring-rotated over the ranks of a parallel.comm.Group
+  (parallel/ring_rpy.py); init Hilbert-orders the drawn positions so each
+  rank's contiguous block is spatially local. The reference builds a mesh of
+  every visible device; the port takes one rank unless given a group, and
+  refuses more than one (ROADMAP queue 1, item 8 step 4: the convex solver's
+  reductions over ranks are not ported).
 In the RPY modes each BBPGD iteration applies D^T M D: the force assembly
-through K3, the mobility, the separation rate. The reference's `rpy_ring`
-needs a device mesh and is not ported.
+through K3, the mobility, the separation rate.
 
 The control flow is the reference's, step for step: before every step the
 host reads the skin trigger and rebuilds when it fired, and the BBPGD loop
@@ -79,6 +85,8 @@ from mundy_tpu_torch.neighbor.cell_list import (
 from mundy_tpu_torch.neighbor.cells3d import build_cells3d, make_cell_grid3d
 from mundy_tpu_torch.neighbor.rows import make_row_grid, neighbor_matrix_rows
 from mundy_tpu_torch.ops.segments import segment_windows
+from mundy_tpu_torch.parallel.comm import Group
+from mundy_tpu_torch.parallel.ring_rpy import hilbert_shard_permutation, make_ring_rpy_apply
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -148,17 +156,22 @@ class LCPSpheresState:
 class LCPSpheresSim:
     """Assembled LCP spheres simulation for LCPSpheresConfig on one device."""
 
-    def __init__(self, config: LCPSpheresConfig, device="cuda"):
+    def __init__(self, config: LCPSpheresConfig, device="cuda", group: Optional[Group] = None):
         self.config = c = config
         validate_config(config)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("LCPSpheresSim(device='cuda') needs a CUDA "
                                "device, and torch sees none")
+        self.ring_apply = None
         if c.hydro == "rpy_ring":
-            raise NotImplementedError(
-                "hydro='rpy_ring' runs on a device mesh and is not ported yet "
-                "(ROADMAP queue 1, item 8: the multi-device engines)")
+            group = group if group is not None else Group.single(self.device)
+            if group.size > 1:
+                raise NotImplementedError(
+                    f"hydro='rpy_ring' over {group.size} ranks needs the convex solver's "
+                    "reductions over ranks, not ported yet (ROADMAP queue 1, item 8 step 4)")
+            self.ring_apply = make_ring_rpy_apply(group, c.radius, c.viscosity,
+                                                  include_self=True, overlap_correction=True)
         self.dtype = _DTYPES[c.dtype]
         box = [c.box_size] * 3
         self.metric = periodic(box, dtype=self.dtype, device=self.device)
@@ -280,14 +293,21 @@ class LCPSpheresSim:
         """Initial state, with the reference's right-sizing of the pair
         capacity, row slack, rows K, assembly window and active window. With
         no arguments the positions are drawn uniformly in the box from a
-        torch.Generator seeded with config.seed and the key is (0, seed).
-        Pass `pos` (N, 3) and `key_words` to start from the reference's
-        state (its positions and the key words of its state key)."""
+        torch.Generator seeded with config.seed and the key is (0, seed); in
+        `rpy_ring` the drawn positions are Hilbert-ordered, as the reference
+        orders its own. Pass `pos` (N, 3) and `key_words` to start from the
+        reference's state (its positions, in their order, and the key words
+        of its state key)."""
         c = self.config
         if pos is None:
             gen = torch.Generator(device=self.device).manual_seed(c.seed)
             pos = torch.rand((c.num_spheres, 3), generator=gen, dtype=self.dtype,
                              device=self.device) * c.box_size
+            if self.ring_apply is not None:
+                # the stk::balance role: Hilbert-order the drawn positions so
+                # each rank's contiguous block of the ring is spatially local
+                perm = hilbert_shard_permutation(pos, [0.0] * 3, [c.box_size] * 3)
+                pos = pos[torch.as_tensor(perm, device=self.device)]
         if key_words is None:
             key_words = (0, c.seed & 0xFFFFFFFF)
         pos = torch.as_tensor(pos, dtype=self.dtype, device=self.device)
@@ -413,6 +433,8 @@ class LCPSpheresSim:
         if c.hydro == "rpy_ewald":
             return (lambda f: ewald_rpy_apply(self.ewald, pos, f, hydro_nmat,
                                               self.metric)), no_ovf
+        if c.hydro == "rpy_ring":
+            return (lambda f: self.ring_apply(pos, f)), no_ovf
         return (lambda f: rpy_apply_neighbors(pos, f, hydro_nmat, c.radius, c.viscosity,
                                               metric=self.metric,
                                               overlap_correction=True)), no_ovf

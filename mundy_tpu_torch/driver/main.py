@@ -8,6 +8,14 @@ them. The sim runs on the card unless `--device cpu` is given; with no card
 and no `--device cpu` the driver raises, never carrying on on the CPU. The
 reference's JAX compile-cache and x64 switches have no counterpart: PyTorch
 compiles nothing per run here, and each config's dtype selects float64.
+
+`--devices N` (N > 1) runs the app SPMD over N ranks, one process each
+(parallel.comm.spawn_ranks, which prints the ranks, the backend and the
+devices; its rule: NCCL with a card per rank, gloo on the CPU or on a shared
+card): every rank builds the sim and a driver.sharded.ShardedSim around it
+and runs the same loop; rank 0 alone prints progress and writes the results
+and checkpoints. An app whose sharded engine is not ported raises before
+any rank starts.
 """
 
 from __future__ import annotations
@@ -19,8 +27,11 @@ import time
 
 import torch
 
+from mundy_tpu_torch.core.config import load_yaml
 from mundy_tpu_torch.driver.configurator import available_apps, build_simulation_from_yaml
+from mundy_tpu_torch.driver.sharded import ShardedSim, refuse_unported
 from mundy_tpu_torch.io import latest_checkpoint, load_checkpoint, save_checkpoint
+from mundy_tpu_torch.parallel.comm import spawn_ranks
 
 
 def _parse_overrides(pairs) -> dict:
@@ -56,20 +67,47 @@ def main(argv=None) -> int:
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the sim runs (default: the card)")
     ap.add_argument("--devices", type=int, default=0,
-                    help="run sharded over N devices (the reference's `mpirun -n N` "
+                    help="run sharded over N ranks (the reference's `mpirun -n N` "
                          "role); 0/1 = one device")
+    ap.add_argument("--rank-timeout", type=float, default=3600.0,
+                    help="with --devices: seconds after which every rank is killed and "
+                         "the run fails (also each collective's timeout)")
     args = ap.parse_args(argv)
 
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda (the default) needs a CUDA device, and torch sees "
                            "none; pass --device cpu to run on the CPU")
     if args.devices and args.devices > 1:
-        raise NotImplementedError("the sharded engines (--devices > 1) are not ported yet "
-                                  "(ROADMAP queue 1, item 8)")
+        refuse_unported(load_yaml(args.config).get("app"))
+        threads = max(1, torch.get_num_threads() // args.devices)
+        spawn_ranks(_rank_main, args.devices, args.device, args=(args,),
+                    timeout=args.rank_timeout, threads=threads)
+        return 0
 
     config, sim = build_simulation_from_yaml(args.config, _parse_overrides(args.overrides),
                                              device=args.device)
-    print(f"app config: {config}")
+    return _run(args, config, sim, args.device, lead=True)
+
+
+def _rank_main(group, args) -> int:
+    """One rank of `--devices N`: the sim on the rank's device wrapped in
+    ShardedSim, through the same loop; rank 0 alone prints and writes."""
+    config, sim = build_simulation_from_yaml(args.config, _parse_overrides(args.overrides),
+                                             device=group.device)
+    app = load_yaml(args.config)["app"]
+    sim = ShardedSim(app, sim, group)
+    if group.rank == 0:
+        eng = sim.engine
+        print(f"sharded over {group.size} ranks: the {eng.grid.nz}-plane z-slab engine, "
+              f"{eng.nzl} planes per rank, {eng.rebuild_mode} rebuilds", flush=True)
+    return _run(args, config, sim, group.device.type, lead=group.rank == 0)
+
+
+def _run(args, config, sim, device: str, lead: bool) -> int:
+    """The block loop. `lead` prints and writes results and checkpoints (the
+    one device, or rank 0 of a sharded run)."""
+    say = print if lead else (lambda *a, **k: None)
+    say(f"app config: {config}")
 
     state = sim.init()
     start_step = 0
@@ -78,11 +116,11 @@ def main(argv=None) -> int:
         if ck is not None:
             state = load_checkpoint(ck, state)
             start_step = int(getattr(state, "step", 0))
-            print(f"resumed from {ck} at step {start_step}")
+            say(f"resumed from {ck} at step {start_step}")
 
     total = config.num_steps
     broker = None
-    if args.output_dir:
+    if args.output_dir and lead:
         from mundy_tpu_torch.io.broker import ResultsBroker
 
         broker = ResultsBroker(args.output_dir, 0, args.output_every,
@@ -100,32 +138,33 @@ def main(argv=None) -> int:
     while done < total:
         n = min(block, total - done)
         new_state = sim.run_block(state, n)
-        if args.device == "cuda":
+        if device == "cuda":
             torch.cuda.synchronize()
         if bool(getattr(new_state, "overflow", False)) and hasattr(sim, "regrow"):
             if regrows >= 8:
                 raise SystemExit("capacity overflow persists after regrows")
             regrows += 1
-            print(f"capacity overflow: regrow #{regrows}, retrying block")
+            say(f"capacity overflow: regrow #{regrows}, retrying block")
             state = sim.regrow(state)
             continue
         state = new_state
         done += n
-        print(f"step {done}/{total}")
+        say(f"step {done}/{total}")
         if broker is not None:
             broker.maybe_write(done, sim, state)
-        if args.checkpoint_dir and (done >= total or (args.checkpoint_every > 0
-                                                      and done % args.checkpoint_every == 0)):
+        if lead and args.checkpoint_dir and (
+                done >= total or (args.checkpoint_every > 0
+                                  and done % args.checkpoint_every == 0)):
             save_checkpoint(args.checkpoint_dir, done, state)
     elapsed = time.perf_counter() - t0
     stepped = done - start_step
-    print(f"stepped {stepped} steps in {elapsed:.3f} s"
-          + (f" ({1e3 * elapsed / stepped:.3f} ms/step)" if stepped else ""))
+    say(f"stepped {stepped} steps in {elapsed:.3f} s"
+        + (f" ({1e3 * elapsed / stepped:.3f} ms/step)" if stepped else ""))
     if broker is not None:
         vtk = broker.finalize(done, sim, state)
-        print(f"wrote {broker.frames_written} trajectory frames to "
-              f"{broker.trajectory_path}; final snapshot {vtk}")
-    print("done")
+        say(f"wrote {broker.frames_written} trajectory frames to "
+            f"{broker.trajectory_path}; final snapshot {vtk}")
+    say("done")
     return 0
 
 

@@ -20,6 +20,7 @@ from mundy_tpu.driver.apps.lcp_spheres import LCPSpheresConfig as JaxConfig
 from mundy_tpu.driver.apps.lcp_spheres import LCPSpheresSim as JaxSim
 from mundy_tpu_torch.core.config import config_from_dict
 from mundy_tpu_torch.driver.apps.lcp_spheres import LCPSpheresConfig, LCPSpheresSim
+from mundy_tpu_torch.parallel.comm import Group
 
 torch.set_num_threads(1)
 
@@ -69,8 +70,11 @@ def test_run_block_trajectory_matches(started):
 
 
 def test_untouched_branches_raise():
-    """`rpy_ring` needs a device mesh and is not ported (the other hydro
-    modes are: tests/test_torch_lcp_hydro.py; the polydisperse branch:
+    """`rpy_ring` over more than one rank needs the convex solver's
+    reductions over ranks and is not ported; on one rank it runs
+    (tests/test_torch_ring_rpy.py; the other hydro modes:
+    tests/test_torch_lcp_hydro.py; the polydisperse branch:
     tests/test_torch_polydisperse.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
-        LCPSpheresSim(LCPSpheresConfig(**dict(KW, hydro="rpy_ring")), device="cpu")
+        LCPSpheresSim(LCPSpheresConfig(**dict(KW, hydro="rpy_ring")), device="cpu",
+                      group=Group(0, 2, "cpu", "gloo"))

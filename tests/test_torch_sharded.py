@@ -1,0 +1,147 @@
+"""ShardedSim and `main --devices N` on the CPU (driver/sharded.py,
+driver/main.py), and the backend rule of parallel/comm.py.
+
+- `main config.yaml --devices 2 --device cpu` runs the flat spheres app's
+  YAML over 2 gloo ranks end to end: rank 0 alone writes the trajectory
+  frames, the final VTK and the checkpoint, whose positions are the
+  single-device RowSpheresSim's over the same steps within 1e-7 (one
+  process group for the file).
+- The backend rule: gloo on the CPU, NCCL with a card per rank, gloo with
+  staging when ranks share a card.
+- ShardedSim refuses what its engines do not run and the apps whose
+  engines wait (ROADMAP queue 1, item 8).
+- regrow grows the slab engine's row capacity (ROADMAP queue 3): a
+  capacity too small for a row overflows, main's loop regrows and retries,
+  and the run ends where one with room to spare ends.
+- A rank that raises fails the launch with its traceback; a rank that
+  hangs is killed at the launcher's timeout, which raises.
+"""
+
+import time
+
+import numpy as np
+import pytest
+import torch
+
+import torch_rank_bodies as bodies
+
+from mundy_tpu_torch.driver.apps.rods import RodsConfig
+from mundy_tpu_torch.driver.apps.rods_rows import RowRodsSim
+from mundy_tpu_torch.driver.apps.spheres import SpheresConfig
+from mundy_tpu_torch.driver.apps.spheres_rows import RowSpheresSim
+from mundy_tpu_torch.driver.main import main
+from mundy_tpu_torch.driver.sharded import ShardedSim, refuse_unported
+from mundy_tpu_torch.io import load_checkpoint
+from mundy_tpu_torch.io.trajectory import TrajectoryReader
+from mundy_tpu_torch.parallel.comm import Group, RankError, backend_plan, spawn_ranks
+
+torch.set_num_threads(1)
+
+PARAMS = dict(num_spheres=600, box_size=16.0, radius=0.5, youngs_modulus=200.0,
+              diffusion_coeff=0.05, dt=2e-4, skin=0.4, num_steps=20, dtype="float64",
+              log_every=1000)
+
+
+def test_main_devices_two_on_the_cpu(tmp_path, capfd):
+    y = tmp_path / "spheres.yaml"
+    y.write_text("app: spheres\nparams:\n" + "".join(f"  {k}: {v}\n" for k, v in PARAMS.items()))
+    out, ck = tmp_path / "out", tmp_path / "ck"
+    assert main([str(y), "--device", "cpu", "--devices", "2", "--output-dir", str(out),
+                 "--output-every", "10", "--checkpoint-dir", str(ck),
+                 "--rank-timeout", "240"]) == 0
+    said = capfd.readouterr().out
+    assert "ranks 2, backend gloo, devices [cpu, cpu]" in said
+    assert said.count("step 20/20") == 1  # rank 0 alone prints
+    assert (out / "final.vtk").exists()
+    with TrajectoryReader(str(out / "trajectory.mtrj")) as r:
+        assert r.num_frames == 3  # steps 0, 10 and 20
+    assert sorted(p.name for p in ck.iterdir()) == ["ckpt_000000000020.json",
+                                                   "ckpt_000000000020.npz"]
+    cfg = SpheresConfig(**PARAMS)
+    from mundy_tpu_torch.driver.apps.spheres import SpheresSim
+
+    flat = SpheresSim(cfg, device="cpu")
+    got = load_checkpoint(str(ck / "ckpt_000000000020.npz"), flat.init())
+    assert got.step == 20 and not bool(got.overflow)
+    single = RowSpheresSim(cfg, device="cpu")
+    s0 = flat.init()
+    s = single.run_block(single.init(pos=s0.pos, key_words=s0.key), 10)
+    s = single.run_block(s, 10)
+    diff = got.pos.numpy() - single.positions(s).numpy()
+    diff -= cfg.box_size * np.round(diff / cfg.box_size)
+    assert np.abs(diff).max() < 1e-7
+
+
+def test_backend_rule():
+    cpu = backend_plan(2, "cpu")
+    assert (cpu.backend, cpu.stage) == ("gloo", False)
+    one = backend_plan(1, "cuda", n_cards=1)
+    assert (one.backend, one.stage, one.devices) == ("nccl", False, (torch.device("cuda", 0),))
+    shared = backend_plan(2, "cuda", n_cards=1)
+    assert (shared.backend, shared.stage) == ("gloo", True)
+    assert shared.devices == (torch.device("cuda", 0),) * 2
+    own = backend_plan(4, "cuda", n_cards=4)
+    assert own.backend == "nccl" and [d.index for d in own.devices] == [0, 1, 2, 3]
+    assert [d.index for d in backend_plan(4, "cuda", n_cards=2).devices] == [0, 1, 0, 1]
+    assert "staged through pinned host buffers" in shared.describe()
+
+
+@pytest.mark.parametrize("app,step", [("lcp_spheres", 2), ("granular", 2), ("chromatin", 3),
+                                      ("filaments", 4)])
+def test_unported_apps_raise(app, step):
+    with pytest.raises(NotImplementedError, match=f"item 8 step {step}"):
+        refuse_unported(app)
+
+
+def test_refusals_of_the_engines():
+    g = Group.single("cpu")
+    poly = SpheresConfig(num_spheres=100, box_size=12.0, polydispersity=0.3, dtype="float64")
+    with pytest.raises(ValueError, match="equal radii"):
+        ShardedSim("spheres", RowSpheresSim(poly, device="cpu"), g)
+    for kw in (dict(shape="ellipsoid"), dict(friction=True)):
+        cfg = RodsConfig(num_rods=100, box_size=24.0, dtype="float64", engine="nmat", **kw)
+
+        class _Sim:  # the rods route reads only the config before it refuses
+            config = cfg
+
+        with pytest.raises(ValueError, match="frictionless spherocylinder"):
+            ShardedSim("rods", _Sim(), g)
+
+
+@pytest.mark.parametrize("app", ["spheres", "rods"])
+def test_regrow_grows_the_row_capacity(app):
+    if app == "spheres":
+        cfg = SpheresConfig(num_spheres=300, box_size=12.0, diffusion_coeff=0.05,
+                            dtype="float64")
+        sim = RowSpheresSim(cfg, device="cpu")
+    else:
+        cfg = RodsConfig(num_rods=200, box_size=15.0, diffusion_coeff=0.05,
+                         rot_diffusion_coeff=0.05, dtype="float64")
+        sim = RowRodsSim(cfg, device="cpu")
+    g = Group.single("cpu")
+    roomy = ShardedSim(app, sim, g)
+    tight = ShardedSim(app, sim, g, row_capacity=4)
+    s0 = sim.init()
+    want = sim.positions(roomy.run_block(s0, 6))
+    st = tight.run_block(s0, 6)
+    regrows = 0
+    while bool(st.overflow):  # main's loop: regrow, retry from the last good state
+        before = tight.engine.grid.row_capacity
+        tight.regrow(s0)
+        assert tight.engine.grid.row_capacity > before
+        regrows += 1
+        st = tight.run_block(s0, 6)
+    assert regrows >= 1 and st.step == 6
+    torch.testing.assert_close(sim.positions(st), want, rtol=0, atol=1e-12)
+
+
+def test_a_failing_rank_fails_the_launch():
+    with pytest.raises(RankError, match="rank 0 fails on purpose"):
+        spawn_ranks(bodies.raise_on_rank, 1, "cpu", args=(0,), timeout=60.0)
+
+
+def test_a_hung_rank_is_killed_at_the_timeout():
+    t0 = time.monotonic()
+    with pytest.raises(TimeoutError, match="did not finish within 5"):
+        spawn_ranks(bodies.sleep_on_rank, 1, "cpu", args=(600.0,), timeout=5.0)
+    assert time.monotonic() - t0 < 30.0
