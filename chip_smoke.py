@@ -20,7 +20,9 @@ the general row pair engine with the small-box spheres, the rows layout of
 the spectral-Ewald gridding (kernels K5s-rows and K5i-rows) and the
 collision layouts beside the strided one, then the multi-rank engines
 (the z-slab spheres and rods engines with K6 and K4 through ShardedSim,
-LCP rpy_ring with K2 and K3, `main --devices 2`):
+LCP rpy_ring with K2 and K3, `main --devices 2`), then the
+density-balanced z-slab engines (settling, LCP through ShardedSim, the
+granular and LCP YAMLs through `main --devices 2`, float64 against the CPU):
 
 1. build K1-K6 with nvcc (sm_90a), one process per source, all at once;
    print each kernel's registers and spills and the card with its power
@@ -276,9 +278,33 @@ LCP rpy_ring with K2 and K3, `main --devices 2`):
 50. `python -m mundy_tpu_torch.driver.main examples/spheres_10k.yaml
     --devices 2` (200 steps) and `rods_100k.yaml --devices 2` (20 steps)
     as subprocesses on this card: exit 0, the plan line, one "stepped"
-    line (rank 0 prints), the final VTK and the checkpoint written.
+    line (rank 0 prints), the final VTK and the checkpoint written;
+51. the density-balanced z-slab settling engine (parallel/balanced_slab.py)
+    at 100,000 spheres from the reference test's clustered start (its box
+    (10, 10, 24) scaled to the same number density), d = 2 on gloo, two
+    spawned ranks on this card (CUDA tensors staged through pinned host
+    buffers; a functional number, not scaling): own counts and bounds
+    before and after 30 steps, ms/step, bytes moved and staging per rank,
+    no overflow, no body lost; the uniform split's init on the same start
+    overflows its own buffer;
+52. the balanced LCP engine (parallel/balanced_lcp.py) through
+    ShardedSim("lcp_spheres") at config #2's 1M spheres (bench.py's
+    protocol config), in the same process group: 2 steps from init, then 8
+    steps with the group's counters and peak allocation reset: ms/step,
+    BBPGD iterations per step (equal on both ranks), bytes moved, staging
+    and peak allocation per rank, no overflow, max overlap <= 1e-3;
+53. `python -m mundy_tpu_torch.driver.main examples/lcp_spheres_100k.yaml
+    --devices 2` (20 steps) and `granular_settling.yaml --devices 2` (500
+    steps) as subprocesses on this card: exit 0, the plan line, the
+    decomposition line and one "stepped" line once each, the final VTK
+    and the checkpoint written by rank 0 alone;
+54. the three balanced engines in float64 at d = 2 (1024 settling spheres,
+    1024 clustered LCP spheres with D 0.05, 300 granular spheres) on the
+    card against the same two ranks on the CPU: equal rebuild counts and
+    BBPGD iterations at every step, positions (and granular velocities)
+    within the bounds printed. These paths launch no hand kernel.
     `python3 chip_smoke.py --only-sharded` builds the kernels and runs
-    [46]-[50] alone.
+    [46]-[54] alone.
 
 Kernel times are medians of CUDA-event timings after a synchronize, kernel
 and plain version alternating; for K2, K3 and K3t the device time per
@@ -401,6 +427,15 @@ SLAB_STEPS = 100
 F64_SPHERE_STEPS = 60
 F64_ROD_STEPS = 30
 RING_STEPS = 10
+# [51]-[54]: the density-balanced z-slab engines (parallel/balanced_*.py,
+# granular_shard.py) at d = 2
+SETTLE_N = 100_000
+SETTLE_STEPS = 30
+LCP_SHARD_WARM = 2
+LCP_SHARD_STEPS = 8
+F64_SETTLE_STEPS = 40
+F64_LCP_STEPS = 10
+F64_GRANULAR_STEPS = 100
 
 # published H100 SXM peaks (NVIDIA data sheet): FP32 outside the
 # tensor cores, and HBM bandwidth
@@ -2637,6 +2672,7 @@ def sharded_phases(torch, dev, card: str) -> dict:
         paths[name]["lcp rpy_ring 4096"] = n
     cli_devices_phase(torch)
     print(f"[46]-[50] took {time.perf_counter() - t_start:.1f} s", flush=True)
+    balanced_phases(torch, card)
     return paths
 
 
@@ -2736,6 +2772,266 @@ def cli_devices_phase(torch) -> None:
         shutil.rmtree(out, ignore_errors=True)
 
 
+def settle_box(n: int) -> tuple:
+    """tests/test_balanced_slab.py's box (10, 10, 24) for 1024 spheres,
+    scaled to n at the same number density."""
+    f = (n / 1024.0) ** (1.0 / 3.0)
+    return (10.0 * f, 10.0 * f, 24.0 * f)
+
+
+def clustered_start(n: int, box: tuple, frac: float, seed: int, torch, margin: float = 0.6):
+    """n positions uniform in x and y (margin from the walls) and in the
+    bottom `frac` of z: the clustered start of the reference's balanced-slab
+    tests, float64 on the CPU."""
+    gen = torch.Generator().manual_seed(seed)
+    u = torch.rand((n, 3), dtype=torch.float64, generator=gen)
+    lo = torch.tensor([margin, margin, margin], dtype=torch.float64)
+    hi = torch.tensor([box[0] - margin, box[1] - margin, frac * box[2]], dtype=torch.float64)
+    return lo + (hi - lo) * u
+
+
+def settle_phase(group) -> dict:
+    """[51] on one rank: the balanced settling engine at SETTLE_N spheres
+    from the clustered start (the reference test's radius 0.3 and skin
+    0.24; dt 1.5e-3, as tests/test_torch_balanced_slab.py, so that the skin
+    rebuilds rebalance within the window), SETTLE_STEPS steps timed after
+    init, and the uniform split's init on the same start."""
+    import torch
+
+    from mundy_tpu_torch.parallel.balanced_slab import make_balanced_settling_step, ovf_bits_of
+
+    def own_counts(group, state) -> list:
+        n = state["valid"].sum().reshape(1).to(torch.int64)
+        return [int(c[0]) for c in group.all_gather(n)]
+
+    dev = group.device
+    box = settle_box(SETTLE_N)
+    pos = clustered_start(SETTLE_N, box, 0.5, 51, torch).to(torch.float32)
+    out = {}
+    for balance in ("balanced", "uniform"):
+        eng = make_balanced_settling_step(group, SETTLE_N, box, radius=0.3, skin=0.24,
+                                          dt=1.5e-3, balance=balance)
+        st = eng.init(pos)
+        row = {"counts0": own_counts(group, st), "bounds0": st["bounds"].cpu().tolist(),
+               "bits0": ovf_bits_of(group, st), "n_cap": eng.n_cap, "g_cap": eng.g_cap}
+        if balance == "balanced":
+            group.reset_counters()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            st = eng.step_block(st, SETTLE_STEPS)
+            torch.cuda.synchronize(dev)
+            row["ms"] = 1e3 * (time.perf_counter() - t0) / SETTLE_STEPS
+            row.update(bytes=group.bytes_moved / SETTLE_STEPS,
+                       stage_ms=1e3 * group.stage_s / SETTLE_STEPS,
+                       counts=own_counts(group, st), bounds=st["bounds"].cpu().tolist(),
+                       bits=ovf_bits_of(group, st), rebuilds=st["rebuilds"])
+            p, seen = eng.gather(st)
+            row["lost"] = int((seen != 1).sum())
+            row["finite"] = bool(torch.isfinite(p).all())
+        out[balance] = row
+        del eng, st
+    return out
+
+
+def lcp_shard_phase(group) -> dict:
+    """[52] on one rank: config #2's 1M spheres (bench.py's LCP protocol
+    state, lcp_bench_config) through ShardedSim("lcp_spheres"): a
+    LCP_SHARD_WARM-step block from init, then a LCP_SHARD_STEPS-step block
+    with the group's counters and the peak allocation reset just before."""
+    import torch
+
+    from mundy_tpu_torch.driver.apps.lcp_spheres import LCPSpheresConfig, LCPSpheresSim
+    from mundy_tpu_torch.driver.sharded import ShardedSim
+
+    dev = group.device
+    sim = LCPSpheresSim(lcp_bench_config(LCPSpheresConfig, N_BIG), device=dev)
+    t0 = time.perf_counter()
+    s0 = sim.init()
+    runner = ShardedSim("lcp_spheres", sim, group)
+    st = runner.run_block(s0, LCP_SHARD_WARM)
+    torch.cuda.synchronize(dev)
+    warm_s = time.perf_counter() - t0
+    warm_iters = list(runner._dict["iters"])
+    group.reset_counters()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    st = runner.run_block(st, LCP_SHARD_STEPS)
+    torch.cuda.synchronize(dev)
+    elapsed = time.perf_counter() - t0
+    dd = runner._dict
+    out = {"ms": 1e3 * elapsed / LCP_SHARD_STEPS, "iters": list(dd["iters"]),
+           "warm_iters": warm_iters, "warm_s": warm_s, "rebuilds": dd["rebuilds"],
+           "bytes": group.bytes_moved / LCP_SHARD_STEPS,
+           "stage_ms": 1e3 * group.stage_s / LCP_SHARD_STEPS,
+           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "n_cap": runner.engine.n_cap, "g_cap": runner.engine.g_cap,
+           "own": int(dd["valid"].sum()), "step": st.step, "overflow": bool(st.overflow),
+           "finite": bool(torch.isfinite(st.pos).all()), "describe": runner.describe()}
+    if group.rank == 0:
+        out["overlap"] = sim.max_overlap(st)
+    return out
+
+
+def balanced_f64_rank(group) -> dict:
+    """[54] on one rank: the three balanced engines in float64 on the card
+    (this group, gloo with the CUDA tensors staged) and on the CPU (a CPU
+    group of the same ranks), from the same starts; rank 0 returns the
+    counters and gathered states of both."""
+    import torch
+
+    from mundy_tpu_torch.parallel.balanced_lcp import make_balanced_lcp_step
+    from mundy_tpu_torch.parallel.balanced_slab import make_balanced_settling_step
+    from mundy_tpu_torch.parallel.comm import Group
+    from mundy_tpu_torch.parallel.granular_shard import make_granular_slab_step
+
+    cpu = Group(group.rank, group.size, "cpu", group.backend)
+    f64 = torch.float64
+    s_box = settle_box(1024)
+    s_pos = clustered_start(1024, s_box, 0.5, 54, torch)
+    l_box = float((1024 * (4 / 3) * math.pi * 0.3 ** 3 / 0.02) ** (1 / 3))
+    l_pos = clustered_start(1024, (l_box, l_box, l_box), 0.35, 54, torch, margin=0.0)
+    g_pos = clustered_start(300, (10.0, 10.0, 20.0), 0.45, 54, torch, margin=1.0)
+    res = {}
+    for where, g in (("card", group), ("cpu", cpu)):
+        eng = make_balanced_settling_step(g, 1024, s_box, radius=0.3, skin=0.24, dt=1.5e-3,
+                                          dtype=f64)
+        st = eng.step_block(eng.init(s_pos), F64_SETTLE_STEPS)
+        row = {"settle": {"rebuilds": st["rebuilds"], "pos": eng.gather(st)[0].cpu().numpy()}}
+        eng = make_balanced_lcp_step(g, 1024, l_box, radius=0.3, dt=1e-3,
+                                     constraint_buffer=0.15, diffusion_coeff=0.05, dtype=f64)
+        st = eng.step_block(eng.init((0, 54), pos=l_pos), F64_LCP_STEPS)
+        row["lcp"] = {"rebuilds": st["rebuilds"], "iters": list(st["iters"]),
+                      "pos": eng.gather(st).cpu().numpy()}
+        eng = make_granular_slab_step(g, 300, 10.0, dt=5e-4, normal_damping=100.0,
+                                      tang_damping=50.0, dtype=f64)
+        st = eng.step_block(eng.init(g_pos), F64_GRANULAR_STEPS)
+        p, v = eng.gather(st)
+        row["granular"] = {"rebuilds": st["rebuild_count"], "pos": p.cpu().numpy(),
+                           "vel": v.cpu().numpy()}
+        res[where] = row
+    return res if group.rank == 0 else None
+
+
+def balanced_ranks(group) -> dict:
+    """The d = 2 rank body of [51], [52] and [54], in one process group."""
+    import torch
+
+    out = {"settle": settle_phase(group)}
+    torch.cuda.empty_cache()
+    out["lcp"] = lcp_shard_phase(group)
+    torch.cuda.empty_cache()
+    out["f64"] = balanced_f64_rank(group)
+    return out
+
+
+def balanced_phases(torch, card: str) -> None:
+    """Phases 51-54: the density-balanced z-slab engines at d = 2, two gloo
+    ranks on this card with the CUDA tensors staged through pinned host
+    buffers (functional numbers, not scaling): balanced settling at 100k
+    ([51]), the 1M LCP protocol through ShardedSim ([52]), the two example
+    YAMLs through `--devices 2` ([53]) and float64 card against CPU ([54])."""
+    import numpy as np
+
+    from mundy_tpu_torch.parallel import comm
+
+    t_start = time.perf_counter()
+    torch.cuda.empty_cache()
+    res = comm.spawn_ranks(balanced_ranks, 2, "cuda", timeout=600.0, threads=4,
+                           log=lambda line: print(f"[51]-[54] d = 2: {line}", flush=True))
+    # ---- 51 ----------------------------------------------------------------
+    box = settle_box(SETTLE_N)
+    r0 = res[0]["settle"]
+    b, u = r0["balanced"], r0["uniform"]
+    print(f"[51] balanced settling, {SETTLE_N} spheres from a clustered start (box "
+          f"{tuple(round(x, 3) for x in box)}, radius 0.3, skin 0.24, dt 1.5e-3, float32), d = 2 "
+          f"on one card (gloo, staged): n_cap {b['n_cap']}, g_cap {b['g_cap']}; balanced: own "
+          f"counts {b['counts0']} -> {b['counts']}, bounds {[round(x, 4) for x in b['bounds0']]}"
+          f" -> {[round(x, 4) for x in b['bounds']]}, {SETTLE_STEPS} steps: "
+          + "; ".join(f"rank {k} {res[k]['settle']['balanced']['ms']:.3f} ms/step, bytes "
+                      f"moved/step {res[k]['settle']['balanced']['bytes']:.0f}, staging "
+                      f"{res[k]['settle']['balanced']['stage_ms']:.4f} ms/step"
+                      for k in range(2))
+          + f", rebuilds {b['rebuilds']}, overflow bits {b['bits']}; uniform: own counts "
+            f"{u['counts0']} (capped at n_cap), bounds {[round(x, 4) for x in u['bounds0']]}, "
+            f"overflows at init {u['bits0'] > 0} (bits {u['bits0']}); {card}", flush=True)
+    if b["bits0"] or b["bits"] or b["lost"] or not b["finite"] or not u["bits0"] & 2:
+        fail("[51] the balanced settling run overflowed, lost a body or went non-finite, or "
+             "the uniform split did not overflow its own buffer")
+    # ---- 52 ----------------------------------------------------------------
+    lc = [res[k]["lcp"] for k in range(2)]
+    print(f"[52] {N_BIG} LCP spheres (bench.py's protocol config, float32) through "
+          f"ShardedSim, d = 2 on one card (gloo, staged): {lc[0]['describe']}; "
+          f"{LCP_SHARD_WARM} steps from init in {lc[0]['warm_s']:.1f} s (BBPGD iterations "
+          f"{lc[0]['warm_iters']}), then {LCP_SHARD_STEPS} steps: "
+          + "; ".join(f"rank {k} {lc[k]['ms']:.1f} ms/step, own {lc[k]['own']}, bytes "
+                      f"moved/step {lc[k]['bytes']:.0f}, staging {lc[k]['stage_ms']:.2f} "
+                      f"ms/step, peak allocation {lc[k]['peak_gb']:.2f} GB" for k in range(2))
+          + f"; BBPGD iterations per step {lc[0]['iters']}, rebuilds {lc[0]['rebuilds']}, "
+            f"max overlap {lc[0]['overlap']:.3e}, step {lc[0]['step']}; {card}", flush=True)
+    if (any(r["overflow"] or not r["finite"] for r in lc)
+            or lc[0]["iters"] != lc[1]["iters"] or lc[0]["own"] + lc[1]["own"] != N_BIG
+            or lc[0]["step"] != LCP_SHARD_WARM + LCP_SHARD_STEPS
+            or not lc[0]["overlap"] <= 1e-3):
+        fail("[52] the sharded 1M LCP run overflowed, lost a body, went non-finite, left an "
+             "overlap or disagreed between ranks")
+    # ---- 53 ----------------------------------------------------------------
+    cli_balanced_phase()
+    # ---- 54 ----------------------------------------------------------------
+    f64 = res[0]["f64"]
+    g, c = f64["card"], f64["cpu"]
+    errs = {"settle": float(np.abs(g["settle"]["pos"] - c["settle"]["pos"]).max()),
+            "lcp": float(np.abs(g["lcp"]["pos"] - c["lcp"]["pos"]).max()),
+            "granular": float(np.abs(g["granular"]["pos"] - c["granular"]["pos"]).max()),
+            "granular vel": float(np.abs(g["granular"]["vel"] - c["granular"]["vel"]).max())}
+    bounds = {"settle": 1e-8, "lcp": 1e-8, "granular": 1e-8, "granular vel": 1e-7}
+    same = {k: g[k]["rebuilds"] == c[k]["rebuilds"] for k in ("settle", "lcp", "granular")}
+    same["lcp iters"] = g["lcp"]["iters"] == c["lcp"]["iters"]
+    print("[54] float64 at d = 2, card vs CPU: "
+          + "; ".join(f"{k} rebuilds {g[k]['rebuilds']} (cpu {c[k]['rebuilds']})"
+                      for k in ("settle", "lcp", "granular"))
+          + f"; LCP BBPGD iterations per step {g['lcp']['iters']} (cpu {c['lcp']['iters']})"
+          + "; max|diff| " + ", ".join(f"{k} {v:.3e} (bound {bounds[k]:.0e})"
+                                        for k, v in errs.items()), flush=True)
+    if not all(same.values()) or any(errs[k] > bounds[k] for k in errs):
+        fail("[54] a float64 balanced engine on the card disagrees with the CPU run")
+    print(f"[51]-[54] took {time.perf_counter() - t_start:.1f} s", flush=True)
+
+
+def cli_balanced_phase() -> None:
+    """[53]: lcp_spheres_100k.yaml and granular_settling.yaml through
+    `python -m mundy_tpu_torch.driver.main ... --devices 2` on this card,
+    cut in steps; each exits 0, prints the plan line and the decomposition
+    once, and rank 0 alone writes the final VTK and the checkpoint."""
+    import shutil
+    import tempfile
+
+    for yaml, steps in (("lcp_spheres_100k", 20), ("granular_settling", 500)):
+        out = tempfile.mkdtemp(prefix=f"chip_smoke_{yaml}_")
+        cmd = [sys.executable, "-m", "mundy_tpu_torch.driver.main",
+               os.path.join(HERE, "examples", f"{yaml}.yaml"), "--devices", "2",
+               "--set", f"num_steps={steps}", "--output-dir", os.path.join(out, "out"),
+               "--checkpoint-dir", os.path.join(out, "ck"), "--rank-timeout", "300"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=HERE, timeout=400,
+                              env=dict(os.environ, PYTHONPATH=HERE))
+        wall = time.perf_counter() - t0
+        lines = proc.stdout.splitlines()
+        files = sorted(os.listdir(os.path.join(out, "ck"))) if os.path.isdir(
+            os.path.join(out, "ck")) else []
+        said = [ln for ln in lines if ln.startswith(("ranks ", "sharded ", "stepped "))]
+        print(f"[53] {yaml}.yaml --devices 2, {steps} steps: rc {proc.returncode}, "
+              f"{wall:.1f} s wall; " + " | ".join(said) + f"; checkpoint files {files}",
+              flush=True)
+        once = all(sum(ln.startswith(h) for ln in lines) == 1
+                   for h in ("ranks ", "sharded ", "stepped "))
+        if (proc.returncode != 0 or not once
+                or not os.path.exists(os.path.join(out, "out", "final.vtk"))
+                or files != [f"ckpt_{steps:012d}.json", f"ckpt_{steps:012d}.npz"]):
+            print(proc.stdout[-3000:], proc.stderr[-3000:], flush=True)
+            fail(f"[53] {yaml}.yaml --devices 2 failed")
+        shutil.rmtree(out, ignore_errors=True)
+
+
 def main() -> None:
     import torch
 
@@ -2780,7 +3076,7 @@ def main() -> None:
 
     # ---- 1. build ---------------------------------------------------------
     build_all(_build)
-    if sys.argv[1:] == ["--only-sharded"]:  # a short run of [46]-[50] alone
+    if sys.argv[1:] == ["--only-sharded"]:  # a short run of [46]-[54] alone
         print(json.dumps({"path_launches": sharded_phases(torch, dev, card)}), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
@@ -3334,7 +3630,7 @@ def main() -> None:
     hp1_paths = periphery_phases(torch, dev, card)
     cli_paths = cli_phases(torch, dev, card, row_ms)
     rods = rods_nmat_phases(torch, dev, card)
-    sharded_paths = sharded_phases(torch, dev, card)  # [46]-[50]
+    sharded_paths = sharded_phases(torch, dev, card)  # [46]-[54]
 
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     kernels = [

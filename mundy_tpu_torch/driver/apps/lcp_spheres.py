@@ -27,8 +27,9 @@ The mobility (`hydro`):
   (parallel/ring_rpy.py); init Hilbert-orders the drawn positions so each
   rank's contiguous block is spatially local. The reference builds a mesh of
   every visible device; the port takes one rank unless given a group, and
-  refuses more than one (ROADMAP queue 1, item 8 step 4: the convex solver's
-  reductions over ranks are not ported).
+  refuses more than one: the convex solver's reductions over ranks are
+  ported, and what waits is LCPSpheresSim itself over ranks, its pair list,
+  active set and solve sharded (ROADMAP queue 1, item 8 step 4).
 In the RPY modes each BBPGD iteration applies D^T M D: the force assembly
 through K3, the mobility, the separation rate.
 
@@ -168,8 +169,9 @@ class LCPSpheresSim:
             group = group if group is not None else Group.single(self.device)
             if group.size > 1:
                 raise NotImplementedError(
-                    f"hydro='rpy_ring' over {group.size} ranks needs the convex solver's "
-                    "reductions over ranks, not ported yet (ROADMAP queue 1, item 8 step 4)")
+                    f"hydro='rpy_ring' over {group.size} ranks: LCPSpheresSim over ranks "
+                    "(its pair list, active set and solve sharded; the convex solver's "
+                    "reductions over ranks are ported) waits (ROADMAP queue 1, item 8 step 4)")
             self.ring_apply = make_ring_rpy_apply(group, c.radius, c.viscosity,
                                                   include_self=True, overlap_correction=True)
         self.dtype = _DTYPES[c.dtype]

@@ -97,9 +97,7 @@ def _rank_main(group, args) -> int:
     app = load_yaml(args.config)["app"]
     sim = ShardedSim(app, sim, group)
     if group.rank == 0:
-        eng = sim.engine
-        print(f"sharded over {group.size} ranks: the {eng.grid.nz}-plane z-slab engine, "
-              f"{eng.nzl} planes per rank, {eng.rebuild_mode} rebuilds", flush=True)
+        print(sim.describe(), flush=True)
     return _run(args, config, sim, group.device.type, lead=group.rank == 0)
 
 

@@ -1,11 +1,19 @@
 """Convex QP / LCP solver: projected gradient descent with Barzilai-Borwein
 steps (BBPGD), matrix-free.
 
-Port of mundy_tpu/math/convex.py, single-device (the reference's
-`axis_names` allreduce for sharded solves waits for the multi-device
-port). The reference runs the iteration in a `lax.while_loop` on the
-device; here it is a Python loop that reads the loop condition on the host
-once per iteration, so the iteration count is exactly the reference's.
+Port of mundy_tpu/math/convex.py. The reference runs the iteration in a
+`lax.while_loop` on the device; here it is a Python loop that reads the
+loop condition on the host once per iteration, so the iteration count is
+exactly the reference's.
+
+A sharded solve (each rank holding its block of x, q and the mask) passes
+its parallel.comm.Group as `PGDConfig.group`, the role of the reference's
+`axis_names`: the residual is a pmax over ranks and the four inner products
+of an iteration (dx.dx, dx.dg, dg.dg, x_new.x_new) one psum of a 4-vector,
+each element summed on its own as the reference's four psums are. Every
+value the host reads to steer the loop (keep going, stalls, iterations since
+the best residual, take the best) comes from those reduced values, so every
+rank leaves the loop at the same iteration.
 
 ref: `mundy/math/src/mundy_math/convex.hpp` (`solve_cqpp:790`,
 `solve_lcp:840`, `BBStepStrategy:498`, residual policies `:434-495`) and the
@@ -65,6 +73,9 @@ class PGDConfig:
     # best residual by `min_improve` (relative); the best iterate is returned
     patience: int = 60
     min_improve: float = 1e-2
+    # the ranks of a sharded solve (parallel.comm.Group: psum/pmax over
+    # them), the reference's axis_names; None = one device
+    group: Optional[object] = None
 
 
 class SolveResult(NamedTuple):
@@ -96,7 +107,20 @@ def _residual(x, g, space: Space, cfg: PGDConfig, mask) -> torch.Tensor:
     if mask is not None:
         r = torch.where(mask, r, 0.0)
     zero = torch.zeros((), dtype=dtype, device=x.device)
-    return torch.maximum(r.max(), zero) if r.numel() else zero
+    res = torch.maximum(r.max(), zero) if r.numel() else zero
+    if cfg.group is not None:
+        res = cfg.group.pmax(res.reshape(1))[0]
+    return res
+
+
+def _dots(cfg: PGDConfig, dx, dg, x_new) -> tuple:
+    """(dx.dx, dx.dg, dg.dg, x_new.x_new), summed over the ranks of a
+    sharded solve in one all_reduce of the stacked 4-vector."""
+    sums = ((dx * dx).sum(), (dx * dg).sum(), (dg * dg).sum(), (x_new * x_new).sum())
+    if cfg.group is None:
+        return sums
+    v = cfg.group.psum(torch.stack(sums))
+    return v[0], v[1], v[2], v[3]
 
 
 def solve_cqpp(apply_A: Callable[[torch.Tensor], torch.Tensor], q: torch.Tensor,
@@ -147,9 +171,7 @@ def solve_cqpp(apply_A: Callable[[torch.Tensor], torch.Tensor], q: torch.Tensor,
         g_new = masked(apply_A(x_new) + q)
         dx = x_new - x
         dg = g_new - g
-        dx_dx = (dx * dx).sum()
-        dx_dg = (dx * dg).sum()
-        dg_dg = (dg * dg).sum()
+        dx_dx, dx_dg, dg_dg, x_dx = _dots(config, dx, dg, x_new)
         if config.bb_rule == "bb1":
             a, b = dx_dx, dx_dg
         elif config.bb_rule == "bb2":
@@ -166,7 +188,7 @@ def solve_cqpp(apply_A: Callable[[torch.Tensor], torch.Tensor], q: torch.Tensor,
         alpha_new = torch.clamp(alpha_new, 1e-12, 1e12)
         res = _residual(x_new, g_new, space, config, mask)
         # a stall resets the step to the cold-start rule; two in a row exit
-        moved = dx_dx > (16.0 * eps * eps) * (x_new * x_new).sum()
+        moved = dx_dx > (16.0 * eps * eps) * x_dx
         stalls = torch.where(moved, 0, stalls + 1)
         alpha_new = torch.where(moved, alpha_new, one / torch.maximum(res, tol_t))
         alpha_good = torch.where(moved & ~bad, alpha_new, alpha_good)

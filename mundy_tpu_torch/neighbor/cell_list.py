@@ -99,15 +99,19 @@ def _linear_cell(grid: CellGrid, c: torch.Tensor) -> torch.Tensor:
     return c[..., 0] + nx * (c[..., 1] + ny * c[..., 2])
 
 
-def build_cell_list(pos: torch.Tensor, grid: CellGrid, cell_capacity: int) -> CellList:
+def build_cell_list(pos: torch.Tensor, grid: CellGrid, cell_capacity: int,
+                    valid: Optional[torch.Tensor] = None) -> CellList:
     """Bin particles into the dense (ncells, capacity) table: one stable sort
     by cell id, within-cell rank by a running-max segment trick, one
     scatter. Particles past a cell's capacity are dropped and flag
-    overflow."""
+    overflow. Rows with valid=False (the padded slots of a capacity-bounded
+    buffer) go to cell `ncells`: they enter no cell and no count."""
     n = pos.shape[0]
     dev = pos.device
     ncells = int(np.prod(grid.dims))
     cell_of = _linear_cell(grid, _cell_coords(grid, pos))
+    if valid is not None:
+        cell_of = torch.where(valid, cell_of, ncells)
 
     order = torch.argsort(cell_of, stable=True)
     sorted_cells = cell_of[order]
@@ -117,11 +121,13 @@ def build_cell_list(pos: torch.Tensor, grid: CellGrid, cell_capacity: int) -> Ce
     start_of_cell = torch.cummax(torch.where(first_of_run, ar, 0), dim=0).values
     rank = ar - start_of_cell
 
-    counts = torch.bincount(cell_of, minlength=ncells).to(torch.int32)
+    # bin ncells holds the dropped rows and is cut off
+    counts = torch.bincount(cell_of, minlength=ncells + 1)[:ncells].to(torch.int32)
     overflow = (counts > cell_capacity).any()
 
     dump = ncells * cell_capacity
-    slot = torch.where(rank < cell_capacity, sorted_cells * cell_capacity + rank, dump)
+    keep = (rank < cell_capacity) & (sorted_cells < ncells)
+    slot = torch.where(keep, sorted_cells * cell_capacity + rank, dump)
     entries = torch.full((dump + 1,), -1, dtype=torch.int32, device=dev)
     entries[slot] = order.to(torch.int32)
     return CellList(grid=grid, entries=entries[:dump].reshape(ncells, cell_capacity),

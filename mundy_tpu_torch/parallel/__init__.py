@@ -4,11 +4,22 @@ Port of mundy_tpu/parallel/, one process per rank in place of the
 reference's device mesh: `comm` holds the collectives (ppermute, psum,
 pmax, all_gather), the backend rule and the rank launcher; `ring_rpy` the
 ring-rotated dense RPY apply; `slab_local` the slab-local row resort;
-`slab_rows` and `slab_segments` the z-slab spheres and rods engines. The
+`slab_rows` and `slab_segments` the z-slab spheres and rods engines;
+`balanced_slab` the density-balanced z-slab decomposition (and its settling
+demonstrator), on which `balanced_lcp` runs the LCP spheres pipeline and
+`granular_shard` the granular DEM with migrating contact history. The
 reference's package exports (`slab`, `sharded_step`) and its other engines
 wait (ROADMAP queue 1, item 8).
 """
 
+from mundy_tpu_torch.parallel.balanced_lcp import make_balanced_lcp_step
+from mundy_tpu_torch.parallel.balanced_slab import (
+    BalancedEngine,
+    balanced_bounds,
+    make_balanced_settling_step,
+    reference_settling_step,
+    uniform_bounds,
+)
 from mundy_tpu_torch.parallel.comm import (
     Group,
     RankError,
@@ -17,23 +28,31 @@ from mundy_tpu_torch.parallel.comm import (
     ring_perms,
     spawn_ranks,
 )
+from mundy_tpu_torch.parallel.granular_shard import make_granular_slab_step
 from mundy_tpu_torch.parallel.ring_rpy import hilbert_shard_permutation, make_ring_rpy_apply
 from mundy_tpu_torch.parallel.slab_local import local_resort_ok, slab_local_resort
 from mundy_tpu_torch.parallel.slab_rows import SlabEngine, make_slab_rows_spheres_step
 from mundy_tpu_torch.parallel.slab_segments import make_slab_rods_step
 
 __all__ = [
+    "BalancedEngine",
     "Group",
     "RankError",
     "SlabEngine",
     "backend_plan",
+    "balanced_bounds",
     "hilbert_shard_permutation",
     "init_group",
     "local_resort_ok",
+    "make_balanced_lcp_step",
+    "make_balanced_settling_step",
+    "make_granular_slab_step",
     "make_ring_rpy_apply",
     "make_slab_rods_step",
     "make_slab_rows_spheres_step",
+    "reference_settling_step",
     "ring_perms",
     "slab_local_resort",
     "spawn_ranks",
+    "uniform_bounds",
 ]

@@ -4,8 +4,10 @@ Port of mundy_tpu/state/fieldops.py (ref: `NgpFieldBLAS.hpp:40-523`): fill,
 copy, scale, axpy/axpby, product, and the dot/nrm2/asum/amax/amin
 reductions, each with an optional selector mask (padded or unselected
 entities must not pollute a reduction). The reference's reductions take
-`axis_names` to span a device mesh; the multi-device port is ROADMAP queue 1
-item 8, and until then a non-empty `axis_names` raises.
+`axis_names` to span a device mesh (the `stk::all_reduce_*` role); the
+port's take the ranks' parallel.comm.Group in that slot: dot, nrm2 and asum
+sum over the ranks (psum), amax takes their maximum (pmax), amin their
+minimum (a pmax of the negated value). None reduces on this rank alone.
 """
 
 from __future__ import annotations
@@ -21,10 +23,12 @@ def _bmask(mask: Optional[torch.Tensor], x: torch.Tensor) -> Optional[torch.Tens
     return mask.reshape(mask.shape + (1,) * (x.ndim - mask.ndim))
 
 
-def _local(axis_names) -> None:
-    if axis_names:
-        raise NotImplementedError("reductions across devices (axis_names) come with the "
-                                  "multi-device port (ROADMAP queue 1, item 8)")
+def _psum(v: torch.Tensor, group) -> torch.Tensor:
+    return v if group is None else group.psum(v.reshape(1))[0]
+
+
+def _pmax(v: torch.Tensor, group) -> torch.Tensor:
+    return v if group is None else group.pmax(v.reshape(1))[0]
 
 
 def field_fill(x: torch.Tensor, value, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -65,11 +69,10 @@ def field_product(x: torch.Tensor, y: torch.Tensor,
 
 def field_dot(x: torch.Tensor, y: torch.Tensor, mask: Optional[torch.Tensor] = None,
               axis_names=None) -> torch.Tensor:
-    _local(axis_names)
     prod = x * y
     if mask is not None:
         prod = torch.where(_bmask(mask, prod), prod, 0.0)
-    return torch.sum(prod)
+    return _psum(torch.sum(prod), axis_names)
 
 
 def field_nrm2(x: torch.Tensor, mask: Optional[torch.Tensor] = None,
@@ -79,29 +82,26 @@ def field_nrm2(x: torch.Tensor, mask: Optional[torch.Tensor] = None,
 
 def field_asum(x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                axis_names=None) -> torch.Tensor:
-    _local(axis_names)
     v = torch.abs(x)
     if mask is not None:
         v = torch.where(_bmask(mask, v), v, 0.0)
-    return torch.sum(v)
+    return _psum(torch.sum(v), axis_names)
 
 
 def field_amax(x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                axis_names=None) -> torch.Tensor:
-    _local(axis_names)
     v = torch.abs(x)
     if mask is not None:
         v = torch.where(_bmask(mask, v), v, -torch.inf)
-    return torch.amax(v)
+    return _pmax(torch.amax(v), axis_names)
 
 
 def field_amin(x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                axis_names=None) -> torch.Tensor:
-    _local(axis_names)
     v = torch.abs(x)
     if mask is not None:
         v = torch.where(_bmask(mask, v), v, torch.inf)
-    return torch.amin(v)
+    return -_pmax(-torch.amin(v), axis_names)
 
 
 def field_randomize(gen: torch.Generator, x: torch.Tensor, low=0.0, high=1.0,

@@ -87,11 +87,15 @@ class WorldBuilder:
     """Host-side declaration -> committed World: declare entity sets with
     fields, parts and capacities, add entities with initial values, then
     `commit()` copies the numpy staging to `device` once (the reference's
-    MeshBuilder -> MetaData -> DeclareEntitiesHelper -> commit flow)."""
+    MeshBuilder -> MetaData -> DeclareEntitiesHelper -> commit flow). The
+    device is the card unless the caller asks for "cpu"."""
 
-    def __init__(self, dtype=torch.float32, device="cpu"):
+    def __init__(self, dtype=torch.float32, device="cuda"):
         self.dtype = dtype
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("WorldBuilder(device='cuda') needs a CUDA device, and torch "
+                               "sees none; pass device='cpu'")
         self._sets: dict[str, dict] = {}
         self._links: dict[str, dict] = {}
 

@@ -148,11 +148,10 @@ def test_main_defaults_to_the_card(tmp_path):
 
 
 def test_main_refuses_several_devices(tmp_path):
-    """--devices 2 runs spheres and rods (tests/test_torch_sharded.py); an
-    app whose sharded engine waits raises before any rank starts, naming
-    its step of item 8."""
-    for app, step in (("lcp_spheres", 2), ("granular", 2), ("chromatin", 3),
-                      ("filaments", 4)):
+    """--devices 2 runs spheres, rods, lcp_spheres and granular
+    (tests/test_torch_sharded.py); an app whose sharded engine waits raises
+    before any rank starts, naming its step of item 8."""
+    for app, step in (("chromatin", 3), ("filaments", 4)):
         y = _yaml(tmp_path, app, num_steps=2)
         with pytest.raises(NotImplementedError, match=f"item 8 step {step}"):
             main([y, "--device", "cpu", "--devices", "2"])

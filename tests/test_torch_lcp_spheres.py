@@ -70,8 +70,9 @@ def test_run_block_trajectory_matches(started):
 
 
 def test_untouched_branches_raise():
-    """`rpy_ring` over more than one rank needs the convex solver's
-    reductions over ranks and is not ported; on one rank it runs
+    """`rpy_ring` over more than one rank needs LCPSpheresSim itself over
+    ranks (the convex solver's reductions are ported) and is refused; on one
+    rank it runs
     (tests/test_torch_ring_rpy.py; the other hydro modes:
     tests/test_torch_lcp_hydro.py; the polydisperse branch:
     tests/test_torch_polydisperse.py)."""

@@ -196,7 +196,8 @@ def test_morton_and_linear_keys_bit_equal():
 
 def _build_world(lib):
     jx = lib is jst
-    b = lib.WorldBuilder(dtype=jnp.float64 if jx else torch.float64)
+    b = (lib.WorldBuilder(dtype=jnp.float64) if jx
+         else lib.WorldBuilder(dtype=torch.float64, device="cpu"))
     b.declare_set("beads", 10).declare_field("beads", "x", (3,)).declare_part("beads", "end")
     b.declare_field("beads", "id", (), dtype=jnp.int32 if jx else torch.int32, fill=-1)
     b.declare_set("linkers", 6).declare_field("linkers", "k", fill=2.0)
@@ -240,4 +241,4 @@ def test_world_builder_and_links_to_csr():
     with pytest.raises(tco.require.__globals__["MundyError"], match="unknown field"):
         es.set_field("nope", es.field("x"))
     with pytest.raises(tco.require.__globals__["MundyError"], match="capacity exceeded"):
-        tst.WorldBuilder().declare_set("a", 1).add_entities("a", 2)
+        tst.WorldBuilder(device="cpu").declare_set("a", 1).add_entities("a", 2)

@@ -11,6 +11,9 @@ import sys
 import numpy as np
 import torch
 
+from mundy_tpu_torch.parallel.balanced_lcp import make_balanced_lcp_step
+from mundy_tpu_torch.parallel.balanced_slab import make_balanced_settling_step, ovf_bits_of
+from mundy_tpu_torch.parallel.granular_shard import make_granular_slab_step
 from mundy_tpu_torch.parallel.ring_rpy import make_ring_rpy_apply
 from mundy_tpu_torch.parallel.slab_rows import make_slab_rows_spheres_step
 from mundy_tpu_torch.parallel.slab_segments import make_slab_rods_step
@@ -77,6 +80,180 @@ def sharded_blocks(group, app, cfg, init, blocks):
     if app == "rods":
         out["quat"] = sim.quaternions(st).numpy()
     return out if group.rank == 0 else None
+
+
+def _stacked(group, state, keys) -> dict:
+    """{key: (d, ...) numpy stack of every rank's state[key]}."""
+    return {k: torch.stack(group.all_gather(state[k])).numpy() for k in keys}
+
+
+def _summary(group, state) -> dict:
+    bits = ovf_bits_of(group, state)
+    return {"ovf_bits": bits, "overflow": bits > 0}
+
+
+def balanced_settling(group, kw, pos, blocks):
+    """The balanced settling engine from `pos` over `blocks` blocks; rank 0
+    returns every rank's buffers stacked (gid, valid, pos, bounds), the
+    gathered positions with each body's owner count, the bounds at init and
+    the rebuilds."""
+    eng = make_balanced_settling_step(group, dtype=torch.float64, **kw)
+    st = eng.init(pos)
+    out = {"init": _summary(group, st), "bounds0": st["bounds"].numpy(),
+           "counts0": torch.stack(group.all_gather(st["valid"].sum().reshape(1))).numpy()}
+    if not out["init"]["overflow"]:
+        for n in blocks:
+            st = eng.step_block(st, n)
+        pos_all, seen = eng.gather(st)
+        out.update(_stacked(group, st, ("gid", "valid", "pos")), bounds=st["bounds"].numpy(),
+                   gathered=pos_all.numpy(), seen=seen.numpy(), rebuilds=st["rebuilds"],
+                   n_cap=eng.n_cap, **_summary(group, st))
+    return out if group.rank == 0 else None
+
+
+def balanced_lcp(group, kw, key_words, pos, steps):
+    """The balanced LCP engine from `pos` over `steps` steps in one block;
+    rank 0 returns the per-step BBPGD iterations, the gathered positions,
+    the rebuilds and every rank's gid buffer."""
+    eng = make_balanced_lcp_step(group, dtype=torch.float64, **kw)
+    st = eng.init(key_words, pos=pos)
+    init = _summary(group, st)
+    st = eng.step_block(st, steps)
+    out = {"init": init, "iters": st["iters"], "pos": eng.gather(st).numpy(),
+           "rebuilds": st["rebuilds"], "step": st["step"], **_summary(group, st),
+           **_stacked(group, st, ("gid", "valid"))}
+    return out if group.rank == 0 else None
+
+
+def granular_slab(group, kw, pos, vel, steps):
+    """The granular engine from (pos, vel) over `steps` steps in one block;
+    rank 0 returns the gathered positions and velocities, the rebuilds, the
+    largest tangential history and every rank's gid buffer."""
+    eng = make_granular_slab_step(group, dtype=torch.float64, **kw)
+    st = eng.init(pos, vel)
+    init = _summary(group, st)
+    st = eng.step_block(st, steps)
+    p, v = eng.gather(st)
+    tang = group.pmax(st["tang"].abs().max().reshape(1))[0]
+    out = {"init": init, "pos": p.numpy(), "vel": v.numpy(), "rebuilds": st["rebuild_count"],
+           "step": st["step"], "tang_max": float(tang), **_summary(group, st),
+           **_stacked(group, st, ("gid", "valid"))}
+    return out if group.rank == 0 else None
+
+
+def lcp_sharded(group, cfg, steps):
+    """ShardedSim over LCPSpheresSim (CPU) from its init, in one block;
+    rank 0 returns the positions, the step and the overflow flag."""
+    from mundy_tpu_torch.driver.apps.lcp_spheres import LCPSpheresSim
+    from mundy_tpu_torch.driver.sharded import ShardedSim
+
+    sim = LCPSpheresSim(cfg, device="cpu")
+    runner = ShardedSim("lcp_spheres", sim, group)
+    st = runner.run_block(sim.init(), steps)
+    out = {"pos": st.pos.numpy(), "step": st.step, "lcp_iters": st.lcp_iters,
+           "overflow": bool(st.overflow), "describe": runner.describe()}
+    return out if group.rank == 0 else None
+
+
+def granular_sharded(group, cfg, pos, blocks):
+    """ShardedSim over GranularSim (CPU) from its init with positions `pos`,
+    over `blocks` blocks; rank 0 returns positions, velocities and step."""
+    from mundy_tpu_torch.driver.apps.granular import GranularSim
+    from mundy_tpu_torch.driver.sharded import ShardedSim
+
+    sim = GranularSim(cfg, device="cpu")
+    runner = ShardedSim("granular", sim, group)
+    st = sim.init(pos=torch.as_tensor(pos))
+    for n in blocks:
+        st = runner.run_block(st, n)
+    out = {"pos": st.pos.numpy(), "vel": st.vel.numpy(), "step": st.step,
+           "overflow": bool(st.overflow)}
+    return out if group.rank == 0 else None
+
+
+def regrow_balanced(group, cfg, pos, steps, own_slack, max_neighbors):
+    """ShardedSim over GranularSim with a tight own buffer and neighbor rows,
+    regrown as main's loop does until a block completes; rank 0 returns the
+    regrows, the capacities and slack after them, and the positions."""
+    from mundy_tpu_torch.driver.apps.granular import GranularSim
+    from mundy_tpu_torch.driver.sharded import ShardedSim
+
+    cfg.max_neighbors = max_neighbors
+    sim = GranularSim(cfg, device="cpu")
+    runner = ShardedSim("granular", sim, group, own_slack=own_slack)
+    s0 = sim.init(pos=torch.as_tensor(pos))
+    bits, regrows = [], 0
+    st = runner.run_block(s0, steps)
+    while bool(st.overflow):
+        bits.append(runner._ovf_bits)
+        runner.regrow(s0)
+        regrows += 1
+        st = runner.run_block(s0, steps)
+    out = {"regrows": regrows, "bits": bits, "own_slack": runner.own_slack,
+           "max_neighbors": cfg.max_neighbors, "pos": st.pos.numpy(), "step": st.step}
+    return out if group.rank == 0 else None
+
+
+def hop_fault(group, cfg, pos):
+    """ShardedSim over GranularSim from a start whose slabs are thinner than
+    the ghost margin: rank 0 returns the overflow bits and regrow's error."""
+    from mundy_tpu_torch.driver.apps.granular import GranularSim
+    from mundy_tpu_torch.driver.sharded import ShardedSim
+
+    sim = GranularSim(cfg, device="cpu")
+    runner = ShardedSim("granular", sim, group)
+    s0 = sim.init(pos=torch.as_tensor(pos))
+    st = runner.run_block(s0, 1)
+    err = None
+    try:
+        runner.regrow(s0)
+    except RuntimeError as e:
+        err = str(e)
+    out = {"overflow": bool(st.overflow), "bits": runner._ovf_bits, "error": err}
+    return out if group.rank == 0 else None
+
+
+def lcp_over_ranks(group, a_diag, q, mask, tol):
+    """solve_lcp on this rank's contiguous block of a diagonal-plus-coupling
+    LCP (A = diag(a) + a ring coupling between neighbouring entries, applied
+    with the blocks' edge values exchanged), the group in PGDConfig; rank 0
+    returns the gathered iterate, and every rank its iteration count."""
+    from mundy_tpu_torch.math.convex import PGDConfig, solve_lcp
+    from mundy_tpu_torch.parallel.comm import ring_perms
+
+    n = q.shape[0] // group.size
+    sl = slice(group.rank * n, (group.rank + 1) * n)
+    a = torch.as_tensor(a_diag[sl])
+    up, dn = ring_perms(group.size)
+
+    def apply_A(x):
+        left = group.ppermute(x[-1:].contiguous(), up)  # the previous block's last
+        right = group.ppermute(x[:1].contiguous(), dn)  # the next block's first
+        xl = torch.cat([left, x[:-1]])
+        xr = torch.cat([x[1:], right])
+        return a * x - 0.25 * (xl + xr)
+
+    cfg = PGDConfig(max_iters=500, tol=tol, group=group)
+    res = solve_lcp(apply_A, torch.as_tensor(q[sl]), config=cfg, mask=torch.as_tensor(mask[sl]))
+    x = torch.cat(group.all_gather(res.x)).numpy()
+    iters = [int(v) for v in group.all_gather(torch.tensor([res.num_iters]))]
+    return {"x": x, "iters": iters, "residual": float(res.residual)} if group.rank == 0 else None
+
+
+def field_reductions(group, x, y, mask):
+    """fieldops' reductions over the group on this rank's block; rank 0
+    returns {name: value}."""
+    from mundy_tpu_torch.state import fieldops as tf
+
+    n = x.shape[0] // group.size
+    sl = slice(group.rank * n, (group.rank + 1) * n)
+    tx, ty, tm = (torch.as_tensor(v[sl]) for v in (x, y, mask))
+    out = {"dot": tf.field_dot(tx, ty, tm, axis_names=group),
+           "nrm2": tf.field_nrm2(tx, tm, axis_names=group),
+           "asum": tf.field_asum(tx, tm, axis_names=group),
+           "amax": tf.field_amax(tx, tm, axis_names=group),
+           "amin": tf.field_amin(tx, tm, axis_names=group)}
+    return {k: float(v) for k, v in out.items()} if group.rank == 0 else None
 
 
 def run_all(group, jobs):
