@@ -22,7 +22,11 @@ collision layouts beside the strided one, then the multi-rank engines
 (the z-slab spheres and rods engines with K6 and K4 through ShardedSim,
 LCP rpy_ring with K2 and K3, `main --devices 2`), then the
 density-balanced z-slab engines (settling, LCP through ShardedSim, the
-granular and LCP YAMLs through `main --devices 2`, float64 against the CPU):
+granular and LCP YAMLs through `main --devices 2`, float64 against the CPU),
+then the whole-chain and whole-filament block engines (the 1M chromatin
+YAML through ShardedSim with K5s and K5i on every rank, config #4 and HP1
+through ShardedSim, float64 against the CPU, `main --devices 2`). Each
+group of phases prints its seconds ("[a]-[b] took").
 
 1. build K1-K6 with nvcc (sm_90a), one process per source, all at once;
    print each kernel's registers and spills and the card with its power
@@ -35,7 +39,7 @@ granular and LCP YAMLs through `main --devices 2`, float64 against the CPU):
    config_from_dict -> RowSpheresSim(...).run();
 4. config #1 in float64 (2000 spheres, 60 steps) on the card against the
    same run on the CPU, which takes the plain versions;
-5. the 1M config #1 (phi = 0.05) for 300 steps through run_block, with the
+5. the 1M config #1 (phi = 0.05) for 100 steps through run_block, with the
    K1 count set to 0 just before: one K1 launch per step; then
    torch.profiler over 8 more steps;
 6. the 1M LCP bench protocol of bench.py:39-74: init, 3 settle blocks of 9
@@ -59,7 +63,7 @@ granular and LCP YAMLs through `main --devices 2`, float64 against the CPU):
     volume fraction in a box 10^(1/3) larger), max |diff| within 1e-5 of
     max|force| and of max|torque|; its bound from the pairs within reach
     in x and in 3D, both counted and printed;
-12. examples/rods_100k.yaml, all 1000 steps, through load_yaml /
+12. examples/rods_100k.yaml, 200 of its 1000 steps, through load_yaml /
     config_from_dict -> RowRodsSim(...).run(): no rod lost, no overflow,
     finite, unit quaternions within 1e-5;
 13. config #3 in float64 (400 rods, box 24, 60 steps) on the card against
@@ -75,7 +79,7 @@ granular and LCP YAMLs through `main --devices 2`, float64 against the CPU):
     reference's benchmark size): f_start and f_end max |diff| within 1e-5
     of their max; its bound from the pairs within reach in x and in 3D,
     both counted and printed;
-16. examples/filaments_sperm.yaml, all 1000 steps, through load_yaml /
+16. examples/filaments_sperm.yaml, 200 of its 1000 steps, through load_yaml /
     config_from_dict -> FilamentsSim(...).run() (float64, the active wave,
     the cell-list neighbor matrix): no overflow, finite, unit edge
     quaternions within 1e-10;
@@ -103,10 +107,10 @@ granular and LCP YAMLs through `main --devices 2`, float64 against the CPU):
     at every step, positions within 1e-7; then the same config twice on the
     card in float32, positions bit-equal (no atomics on the path);
 22. the 1M YAML: a regrow-aware warm-up of 2 steps through run_blocks,
-    then 20 steps of run_block with the K5s/K5i/K2 counts set to 0 just
+    then 3 steps of run_block with the K5s/K5i/K2 counts set to 0 just
     before: one K5s and one K5i launch per step, one K2 launch per rows
     broad phase, no overflow; each layer of the step timed alone; then
-    torch.profiler over 4 more steps;
+    torch.profiler over 2 more steps;
 23. K6 (masked full-stencil Hertz, the monodisperse law on a constant
     radius plane) vs its plain version and vs K1 at the 1M config #1
     shape, each within 5e-5 of max|f| (the bound of
@@ -116,7 +120,7 @@ granular and LCP YAMLs through `main --devices 2`, float64 against the CPU):
 24. polydisperse config #1 at 1M (polydispersity 0.4, as
     tests/test_polydisperse.py): K6 with radii vs its plain version
     at the init shape within 5e-5 of max|f| and bit-equal on a second
-    launch, timed, its bound counted as [23]'s, then 300 steps of run_block
+    launch, timed, its bound counted as [23]'s, then 100 steps of run_block
     with the K6 count set to 0 just before: one launch per step, no lost
     sphere, no overflow; then torch.profiler over 8 more steps;
 25. that config in float64 (2000 spheres, 60 steps) on the card against
@@ -137,7 +141,7 @@ granular and LCP YAMLs through `main --devices 2`, float64 against the CPU):
     CPU: equal counters at every step, positions within 1e-8;
 29. the LCP line's hydro modes at examples/lcp_spheres_100k.yaml with only
     `hydro` changed, float32: rpy_neighbors for 10 steps and rpy_spectral
-    for 3 (G 128, P 6, the plain real-space scan on 13^3 cells) from init,
+    for 2 (G 128, P 6, the plain real-space scan on 13^3 cells) from init,
     with the K2, K3, K5s and K5i counts set to 0 before the sim is made:
     one K2 launch per broad phase, one K3 launch (and in rpy_spectral one
     K5s and one K5i launch) per mobility apply (BBPGD iterations + 2 per
@@ -154,8 +158,8 @@ granular and LCP YAMLs through `main --devices 2`, float64 against the CPU):
     splitting) in float32 against float64 on the card, within 1e-5 of
     max|u| (full float32 products; TF32 would leave ~2e-3);
 32. examples/hp1_chromatin.yaml as written (rpy_periphery: 7 x 405 beads,
-    512 crosslinkers, periphery radius 25, order 12, float32), all 1000
-    steps through run(), with the K5s/K5i counts set to 0 before the sim
+    512 crosslinkers, periphery radius 25, order 12, float32), 200 of its
+    1000 steps through run(), with the K5s/K5i counts set to 0 before the sim
     is made (no launch in this mode): init time with M^-1, ms/step on the
     host clock, doubly bound crosslinkers; no overflow, finite, every bead
     within the periphery radius + its own; one mobility apply at the final
@@ -185,9 +189,10 @@ granular and LCP YAMLs through `main --devices 2`, float64 against the CPU):
     one), overflow and binding states at every step, positions within
     1e-7;
 35. every examples/*.yaml through mundy_tpu_torch.driver.main.main([...,
-    "--device", "cuda"]) in this process: spheres_10k and granular_settling
-    as written, with --output-dir (trajectory frames every 100 and 500
-    steps, counted, and final.vtk checked), lcp_spheres_100k for 20 steps,
+    "--device", "cuda"]) in this process: spheres_10k as written and
+    granular_settling for 1000 of its 5000 steps, with --output-dir
+    (trajectory frames every 100 and 500 steps, counted, and final.vtk
+    checked), lcp_spheres_100k for 20 steps,
     rods_100k for 100, filaments_sperm for 200, hp1_chromatin for 100 and
     chromatin_1m_spectral for 2; each returns 0 and prints its ms/step; the
     K2/K3/K4/K5s/K5i counts are set to 0 before each run and printed after
@@ -222,7 +227,7 @@ granular and LCP YAMLs through `main --devices 2`, float64 against the CPU):
     steps of run_block on the host clock; torch.profiler over 2 warm steps
     ([39] over 8 steps of its sim between rebuilds);
 42. the three narrow phases in float64 (300 rods, box 14, K 16, both
-    noises, 40 steps from a rebuild; the ellipsoid at length 0.5, where
+    noises, 20 steps from a rebuild; the ellipsoid at length 0.5, where
     the reference's descent contracts) on the card against the CPU: equal
     rebuild counts and neighbor ids, positions and quaternions within the
     bound printed beside each;
@@ -294,7 +299,7 @@ granular and LCP YAMLs through `main --devices 2`, float64 against the CPU):
     BBPGD iterations per step (equal on both ranks), bytes moved, staging
     and peak allocation per rank, no overflow, max overlap <= 1e-3;
 53. `python -m mundy_tpu_torch.driver.main examples/lcp_spheres_100k.yaml
-    --devices 2` (20 steps) and `granular_settling.yaml --devices 2` (500
+    --devices 2` (20 steps) and `granular_settling.yaml --devices 2` (200
     steps) as subprocesses on this card: exit 0, the plan line, the
     decomposition line and one "stepped" line once each, the final VTK
     and the checkpoint written by rank 0 alone;
@@ -303,8 +308,38 @@ granular and LCP YAMLs through `main --devices 2`, float64 against the CPU):
     card against the same two ranks on the CPU: equal rebuild counts and
     BBPGD iterations at every step, positions (and granular velocities)
     within the bounds printed. These paths launch no hand kernel.
+55. examples/chromatin_1m_spectral.yaml as written (2048 x 512 beads,
+    65,536 crosslinkers, G 384) through ShardedSim("chromatin") at d = 2,
+    two gloo ranks on this card (CUDA tensors staged through pinned host
+    buffers; a functional number, not scaling): 1 step from init, then 3
+    steps with the K5s/K5i counts and the group's counters set to 0 just
+    before: ms/step, one K5s and one K5i launch a step on each rank, bytes
+    moved a step with the grid all_reduce's share, staging, peak
+    allocation; on rank 0 K5s and K5i against their plain versions at its
+    own binning (1e-5 of max) and timed beside [20]'s; the single-device
+    ChromatinSim over the same blocks from the same state within 1e-4 with
+    equal crosslinker states; no overflow, no bead dropped by the binning;
+56. config #4 (2000 x 50, box 120, float32) through ShardedSim("filaments")
+    at d = 1 on NCCL in this process (200 steps after 3) and at d = 2 on
+    gloo (100 steps after 3): ms/step, rebuilds, bytes moved; FilamentsSim
+    on the nmat engine over the same blocks within 1e-4;
+57. examples/hp1_chromatin.yaml as written (rpy_periphery) through
+    ShardedSim("chromatin") at d = 1 on NCCL, 200 steps against
+    ChromatinSim's 200 within 1e-5 and equal crosslinker states, no TF32
+    in the M^-1 slab product, every bead inside the periphery;
+58. float64 at d = 2, card against CPU: the chromatin route with none,
+    rpy_spectral and rpy_periphery at the reference tests' sizes,
+    ChromatinSim(mesh=) with rpy_spectral, the filaments route: positions
+    within 1e-8 (the keyed noise's float32 normals, as at [54]), equal
+    rebuild counts and binding states;
+59. `--devices 2` through the CLI as subprocesses: filaments_sperm.yaml
+    (100 steps) and chromatin_1m_spectral.yaml with 64 chains, 2048
+    crosslinkers and 3 steps each exit 0 with the plan, decomposition and
+    "stepped" lines once and the checkpoint; hp1_chromatin.yaml (7 chains)
+    exits non-zero naming the num_chains % ranks rule before any rank
+    starts.
     `python3 chip_smoke.py --only-sharded` builds the kernels and runs
-    [46]-[54] alone.
+    [46]-[59] alone.
 
 Kernel times are medians of CUDA-event timings after a synchronize, kernel
 and plain version alternating; for K2, K3 and K3t the device time per
@@ -336,7 +371,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 N_BIG = 1_000_000
-BIG_STEPS = 300
+BIG_STEPS = 100
 RODS_STEPS = 200
 KERNELS = ("row_central", "row_extract", "seg_onehot", "row_segments", "se_grid",
            "row_hertz")
@@ -390,10 +425,12 @@ K6_CONTACT_OPS = K6_PAIR_OPS - K6_REACH_OPS + 21.0
 K6_RADII_REACH_OPS = K6_REACH_OPS + 2.0
 K6_RADII_CONTACT_OPS = K6_CONTACT_OPS + 5.0
 FIL_STEPS = 200
-CHROM_STEPS = 20
+# [12], [16] and [32]: steps of the YAMLs run as written otherwise (1000 each)
+YAML_STEPS = 200
+CHROM_STEPS = 3
 CHROM_SMALL_STEPS = 40
 HYDRO_STEPS = 10
-SPECTRAL_STEPS = 3
+SPECTRAL_STEPS = 2
 HYDRO_SMALL_STEPS = 14
 HP1_SPECTRAL_STEPS = 200
 PERIPHERY_SMALL_STEPS = 30
@@ -401,7 +438,7 @@ PERIPHERY_SMALL_STEPS = 30
 # or None, the kernels its path launches)
 CLI_RUNS = (
     ("spheres_10k", (), 100, ()),
-    ("granular_settling", (), 500, ()),
+    ("granular_settling", ("num_steps=1000",), 500, ()),
     ("lcp_spheres_100k", ("num_steps=20",), None, ("K2", "K3")),
     ("rods_100k", ("num_steps=100",), None, ("K4",)),
     ("filaments_sperm", ("num_steps=200",), None, ()),
@@ -413,7 +450,7 @@ RESUME_STEPS = 200
 RODS_NMAT_STEPS = 100
 ELLIPSOID_RODS = 20_000
 ELLIPSOID_STEPS = 20
-RODS_F64_STEPS = 40
+RODS_F64_STEPS = 20
 SMALL_BOX_STEPS = 60
 SE_ROWS_BEADS = 1 << 20
 # [44]: the first design's digests of the K5s-rows grid and the K5i-rows u
@@ -436,6 +473,22 @@ LCP_SHARD_STEPS = 8
 F64_SETTLE_STEPS = 40
 F64_LCP_STEPS = 10
 F64_GRANULAR_STEPS = 100
+# [55]-[59]: the whole-chain and whole-filament block engines
+# (parallel/chromatin_shard.py, spectral_shard.py, filaments_shard.py)
+CHROM_SHARD_WARM = 1
+CHROM_SHARD_STEPS = 3
+CHROM_SHARD_BAR = 1e-4  # float32 positions up to |x| 152 (ulp 1.5e-5), 4 steps
+FIL_SHARD_STEPS = 200
+FIL_SHARD_STEPS_2 = 100
+FIL_SHARD_BAR = 1e-4  # the reference's bar (tests/test_filaments_shard.py)
+HP1_SHARD_STEPS = 200
+HP1_SHARD_BAR = 1e-5
+F64_SHARD_STEPS = 6
+# the keyed noise's float32 normals differ in their last bits between the
+# card and the CPU (as at [54], whose LCP bound is 1e-8 for that reason);
+# a step moves a bead by sqrt(2 D dt) z = 4.47e-3 z (D = 0.05, dt 2e-4), so
+# one ulp of a normal is <= 1.06e-9 of position for |z| < 4: < 6.4e-9 in 6 steps
+F64_SHARD_BAR = 1e-8
 
 # published H100 SXM peaks (NVIDIA data sheet): FP32 outside the
 # tensor cores, and HBM bandwidth
@@ -675,6 +728,13 @@ def alternate(kernel, plain, torch, reps_k: int, reps_p: int, rounds: int = 3):
     return statistics.median(ms_k), statistics.median(ms_p)
 
 
+def took(label: str, t0: float) -> float:
+    """Print the seconds since t0 of a group of phases; return now."""
+    now = time.perf_counter()
+    print(f"{label} took {now - t0:.1f} s", flush=True)
+    return now
+
+
 def build_all(_build) -> None:
     """One nvcc process per source, all started together."""
     t0 = time.perf_counter()
@@ -895,7 +955,7 @@ def chromatin_phases(torch, dev, card: str) -> list:
         print(f"    {name}: {cuda_ms(fn, torch, 3):.3f} ms", flush=True)
     del f, pieces, grid
     profile_window(lambda n: sim.run_block(st, n), torch, 1e3 * elapsed / CHROM_STEPS,
-                   steps=4)
+                   steps=2)
     return [
         {"name": "se_spread", "route": "cuda", "source": "mundy_tpu_torch/csrc/se_grid.cu",
          "replaces": "mundy_tpu/ops/pallas/se_grid.py:429", "launches": s_launches,
@@ -1465,7 +1525,7 @@ def periphery_phases(torch, dev, card: str) -> dict:
 
     # ---- 32. the HP1 YAML as written (rpy_periphery) -----------------------
     raw = load_yaml(os.path.join(HERE, "examples", "hp1_chromatin.yaml"))
-    cfg = config_from_dict(ChromatinConfig, raw["params"])
+    cfg = config_from_dict(ChromatinConfig, dict(raw["params"], num_steps=YAML_STEPS))
     k5.se_spread.launches = k5.se_interp.launches = 0
     t0 = time.perf_counter()
     dsim = ChromatinSim(cfg, device=dev)
@@ -2571,12 +2631,12 @@ def slab_reference(app: str, grid, torch, dev) -> dict:
     return out
 
 
-def sharded_phases(torch, dev, card: str) -> dict:
+def sharded_phases(torch, dev, card: str, k5_single=None) -> dict:
     """Phases 46-50: the z-slab spheres engine (K6) and rods engine (K4)
     through ShardedSim at 1M on one rank (NCCL) and two ranks (gloo, both on
     this card), float64 against the CPU at two ranks, LCP rpy_ring, and
-    `--devices 2` through the CLI. Returns the path launches of K6, K4, K2
-    and K3 by entry name."""
+    `--devices 2` through the CLI; then [51]-[54] and [55]-[59]. Returns the
+    path launches of K6, K4, K2, K3, K5s and K5i by entry name."""
     import numpy as np
     import tempfile
 
@@ -2673,6 +2733,7 @@ def sharded_phases(torch, dev, card: str) -> dict:
     cli_devices_phase(torch)
     print(f"[46]-[50] took {time.perf_counter() - t_start:.1f} s", flush=True)
     balanced_phases(torch, card)
+    paths.update(block_phases(torch, dev, card, k5_single))
     return paths
 
 
@@ -3005,7 +3066,7 @@ def cli_balanced_phase() -> None:
     import shutil
     import tempfile
 
-    for yaml, steps in (("lcp_spheres_100k", 20), ("granular_settling", 500)):
+    for yaml, steps in (("lcp_spheres_100k", 20), ("granular_settling", 200)):
         out = tempfile.mkdtemp(prefix=f"chip_smoke_{yaml}_")
         cmd = [sys.executable, "-m", "mundy_tpu_torch.driver.main",
                os.path.join(HERE, "examples", f"{yaml}.yaml"), "--devices", "2",
@@ -3029,6 +3090,429 @@ def cli_balanced_phase() -> None:
                 or files != [f"ckpt_{steps:012d}.json", f"ckpt_{steps:012d}.npz"]):
             print(proc.stdout[-3000:], proc.stderr[-3000:], flush=True)
             fail(f"[53] {yaml}.yaml --devices 2 failed")
+        shutil.rmtree(out, ignore_errors=True)
+
+
+# ---- 55-59: the whole-chain and whole-filament block engines ------------------
+
+F64_CHROM = {  # the reference tests' sizes (tests/test_chromatin_shard.py), float64
+    "none": dict(num_chains=8, beads_per_chain=32, num_crosslinkers=32, periphery_radius=9.0),
+    "rpy_spectral": dict(num_chains=8, beads_per_chain=16, num_crosslinkers=16,
+                         hydro="rpy_spectral", box_size=12.0, dt=1e-4),
+    "rpy_periphery": dict(num_chains=8, beads_per_chain=16, num_crosslinkers=16,
+                          periphery_radius=9.0, hydro="rpy_periphery", periphery_order=4,
+                          dt=1e-4),
+}
+F64_CHROM_BASE = dict(diffusion_coeff=0.05, binding_rate=50.0, unbinding_rate=2.0, dt=2e-4,
+                      max_neighbors=48, cell_capacity=48, dtype="float64", chunk=256,
+                      log_every=10 ** 6)
+F64_MESH = dict(num_chains=2, beads_per_chain=32, num_crosslinkers=0, diffusion_coeff=0.0,
+                dt=2e-4, hydro="rpy_spectral", box_size=16.0, dtype="float64", chunk=256,
+                log_every=10 ** 6)
+F64_FIL = dict(num_filaments=16, nodes_per_filament=8, box_size=18.0, diffusion_coeff=0.02,
+               active_amplitude=0.2, wave_omega=20.0, dt=2e-4, max_neighbors=24,
+               cell_capacity=32, dtype="float64", chunk=256, log_every=10 ** 6)
+F64_MESH_STEPS = 8
+F64_FIL_STEPS = 20
+
+
+def fil_config():
+    """Config #4 (benchmarks/tpu_round2.py:82-98: 2000 x 50, box 120), float32."""
+    from mundy_tpu_torch.driver.apps.filaments import FilamentsConfig
+
+    return FilamentsConfig(num_filaments=2000, nodes_per_filament=50, segment_length=1.0,
+                           radius=0.25, box_size=120.0, diffusion_coeff=0.05,
+                           dtype="float32", log_every=10 ** 6)
+
+
+def chromatin_shard_phase(group) -> dict:
+    """[55] on one rank: examples/chromatin_1m_spectral.yaml as written
+    through ShardedSim("chromatin"): CHROM_SHARD_WARM steps from init, then
+    CHROM_SHARD_STEPS steps with the K5s/K5i counts and the group's counters
+    set to 0 just before. Rank 0 then holds K5s and K5i against their plain
+    versions at its own binning and times them, and runs the single-device
+    ChromatinSim over the same blocks from the same state."""
+    import torch
+
+    from mundy_tpu_torch.core.config import config_from_dict, load_yaml
+    from mundy_tpu_torch.driver.apps.chromatin import ChromatinConfig, ChromatinSim
+    from mundy_tpu_torch.driver.sharded import ShardedSim
+    from mundy_tpu_torch.mobility import spectral
+    from mundy_tpu_torch.ops.kernels import se_grid as k5
+
+    dev = group.device
+    raw = load_yaml(os.path.join(HERE, "examples", "chromatin_1m_spectral.yaml"))
+    t0 = time.perf_counter()
+    sim = ChromatinSim(config_from_dict(ChromatinConfig, raw["params"]), device=dev)
+    s0 = sim.init()
+    runner = ShardedSim("chromatin", sim, group)
+    st = runner.run_block(s0, CHROM_SHARD_WARM)
+    torch.cuda.synchronize(dev)
+    warm_s = time.perf_counter() - t0
+    k5.se_spread.launches = k5.se_interp.launches = 0
+    group.reset_counters()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    st = runner.run_block(st, CHROM_SHARD_STEPS)
+    torch.cuda.synchronize(dev)
+    elapsed = time.perf_counter() - t0
+    geom = sim.se_geom
+    out = {"ms": 1e3 * elapsed / CHROM_SHARD_STEPS, "warm_s": warm_s,
+           "launches": (k5.se_spread.launches, k5.se_interp.launches),
+           "bytes": group.bytes_moved / CHROM_SHARD_STEPS,
+           "grid_bytes": geom.G ** 3 * 3 * 4, "stage_ms": 1e3 * group.stage_s / CHROM_SHARD_STEPS,
+           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9, "step": st.step,
+           "overflow": bool(st.overflow), "finite": bool(torch.isfinite(st.pos).all()),
+           "describe": runner.describe(), "N": sim.N, "R": geom.R,
+           "cells": (sim.hydro_cells_grid.nx, sim.hydro_cells_grid.capacity),
+           "rebuilds": st.rebuild_count - s0.rebuild_count}
+    # where a step's time goes: one grid all_reduce (both ranks), then on
+    # rank 0 alone its x-slab of the unsplit real-space scan
+    grid0 = torch.zeros((geom.G,) * 3 + (3,), device=dev)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    group.psum(grid0)
+    torch.cuda.synchronize(dev)
+    out["allreduce_s"] = time.perf_counter() - t0
+    del grid0
+    if group.rank != 0:
+        return out
+    from mundy_tpu_torch.mobility.ewald import rpy_real_cells_kernel
+    from mundy_tpu_torch.neighbor import cells3d
+
+    cg = sim.hydro_cells_grid
+    cells = cells3d.build_cells3d(st.pos, cg)
+    payload = cells3d.gather_from_flat(cells, sim._forces(st))
+    nxl = -(-cg.nx // group.size)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    cells3d.pair_apply_cells3d(cells, (sim.config.box_size,) * 3, payload,
+                               rpy_real_cells_kernel(sim.spectral.base), 3, x_range=(0, nxl))
+    torch.cuda.synchronize(dev)
+    out["slab_scan_s"] = time.perf_counter() - t0
+    del cells, payload
+    # K5s and K5i at this rank's own binning, against their plain versions
+    nl = sim.N // group.size
+    pos_l = st.pos[:nl].contiguous()
+    f_l = sim._forces(st)[:nl].contiguous()
+    pieces = spectral.se_bin_geom(geom, pos_l, torch.float32)
+    grid_k = k5.se_spread(geom, pieces, f_l)
+    grid_p = k5.se_spread_plain(geom, pieces, f_l)
+    ugrid = spectral._k_apply(sim.spectral, grid_p)  # the inverse FFT's planar layout
+    u_k = k5.se_interp(geom, pieces, ugrid)
+    u_p = k5.se_interp_plain(geom, pieces, ugrid)
+    torch.cuda.synchronize(dev)
+    out.update(s_err=(grid_k - grid_p).abs().max().item(), gmax=grid_p.abs().max().item(),
+               i_err=(u_k - u_p).abs().max().item(), umax=u_p.abs().max().item(),
+               binned=int(pieces[3].sum()), bin_overflow=bool(pieces[1]))
+    del grid_k, u_k, u_p
+    out["s_ms"], out["s_plain_ms"] = alternate(lambda: k5.se_spread(geom, pieces, f_l),
+                                               lambda: k5.se_spread_plain(geom, pieces, f_l),
+                                               torch, 10, 2, rounds=2)
+    out["i_ms"], out["i_plain_ms"] = alternate(lambda: k5.se_interp(geom, pieces, ugrid),
+                                               lambda: k5.se_interp_plain(geom, pieces, ugrid),
+                                               torch, 10, 2, rounds=2)
+    del grid_p, ugrid, pieces
+    # the single-device sim over the same blocks from the same state
+    t0 = time.perf_counter()
+    ref = sim.run_block(sim.run_block(s0, CHROM_SHARD_WARM), CHROM_SHARD_STEPS)
+    torch.cuda.synchronize(dev)
+    out["single_s"] = time.perf_counter() - t0
+    box = sim.config.box_size
+    diff = st.pos - ref.pos
+    diff = diff - box * torch.round(diff / box)
+    out.update(pos_err=diff.abs().max().item(),
+               xl_diff=int((st.xl_state != ref.xl_state).sum()),
+               bound_diff=int((st.xl_bound_to != ref.xl_bound_to).sum()),
+               doubly=sim.doubly_bound(st), ref_overflow=bool(ref.overflow))
+    return out
+
+
+def filaments_shard_run(group, steps: int, reference: bool) -> dict:
+    """[56] on one rank: config #4 through ShardedSim("filaments"), 3
+    warm-up steps and `steps` timed; with `reference` (rank 0) FilamentsSim
+    on the nmat engine over the same blocks from the same state."""
+    import torch
+
+    from mundy_tpu_torch.driver.apps.filaments import FilamentsSim
+    from mundy_tpu_torch.driver.sharded import ShardedSim
+
+    dev = group.device
+    sim = FilamentsSim(fil_config(), device=dev)
+    s0 = sim.init()
+    runner = ShardedSim("filaments", sim, group)
+    st = runner.run_block(s0, 3)
+    torch.cuda.synchronize(dev)
+    rb0 = st.rebuild_count
+    group.reset_counters()
+    t0 = time.perf_counter()
+    st = runner.run_block(st, steps)
+    torch.cuda.synchronize(dev)
+    elapsed = time.perf_counter() - t0
+    out = {"ms": 1e3 * elapsed / steps, "rebuilds": st.rebuild_count - rb0,
+           "bytes": group.bytes_moved / steps, "stage_ms": 1e3 * group.stage_s / steps,
+           "overflow": bool(st.overflow), "finite": bool(torch.isfinite(st.pos).all()),
+           "step": st.step, "engine": sim.contact_engine, "describe": runner.describe()}
+    if reference:
+        ref = sim.run_block(sim.run_block(s0, 3), steps)
+        torch.cuda.synchronize(dev)
+        out["pos_err"] = (st.pos - ref.pos).abs().max().item()
+        out["ref_rebuilds"] = ref.rebuild_count - rb0
+    return out
+
+
+def hp1_shard_run(group) -> dict:
+    """[57] on one rank: examples/hp1_chromatin.yaml as written (7 chains,
+    rpy_periphery) through ShardedSim("chromatin"), HP1_SHARD_STEPS steps
+    from init, then ChromatinSim over the same steps from the same state."""
+    import torch
+
+    from mundy_tpu_torch.core.config import config_from_dict, load_yaml
+    from mundy_tpu_torch.driver.apps.chromatin import ChromatinConfig, ChromatinSim
+    from mundy_tpu_torch.driver.sharded import ShardedSim
+
+    dev = group.device
+    raw = load_yaml(os.path.join(HERE, "examples", "hp1_chromatin.yaml"))
+    sim = ChromatinSim(config_from_dict(ChromatinConfig, raw["params"]), device=dev)
+    s0 = sim.init()
+    runner = ShardedSim("chromatin", sim, group)
+    t0 = time.perf_counter()
+    st = runner.run_block(s0, HP1_SHARD_STEPS)
+    torch.cuda.synchronize(dev)
+    elapsed = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    ref = sim.run_block(s0, HP1_SHARD_STEPS)
+    torch.cuda.synchronize(dev)
+    ref_s = time.perf_counter() - t1
+    rp, a = sim.config.periphery_radius, sim.config.bead_radius
+    return {"ms": 1e3 * elapsed / HP1_SHARD_STEPS, "ref_ms": 1e3 * ref_s / HP1_SHARD_STEPS,
+            "pos_err": (st.pos - ref.pos).abs().max().item(),
+            "xl_diff": int((st.xl_state != ref.xl_state).sum()),
+            "rebuilds": st.rebuild_count - s0.rebuild_count,
+            "ref_rebuilds": ref.rebuild_count - s0.rebuild_count,
+            "overflow": bool(st.overflow) or bool(ref.overflow),
+            "inside": bool(st.pos.norm(dim=1).max() <= rp + a), "doubly": sim.doubly_bound(st),
+            "tf32": bool(torch.backends.cuda.matmul.allow_tf32), "N": sim.N}
+
+
+def block_f64_rank(group) -> dict:
+    """[58] on one rank: in float64 on the card (this group, gloo with the
+    CUDA tensors staged) and on the CPU (a CPU group of the same ranks),
+    from the same starts: ShardedSim("chromatin") with none, rpy_spectral
+    and rpy_periphery at the reference tests' sizes, ChromatinSim(mesh=)
+    with rpy_spectral, ShardedSim("filaments"). Rank 0 returns both."""
+    import torch
+
+    from mundy_tpu_torch.driver.apps.chromatin import ChromatinConfig, ChromatinSim
+    from mundy_tpu_torch.driver.apps.filaments import FilamentsConfig, FilamentsSim
+    from mundy_tpu_torch.driver.sharded import ShardedSim
+    from mundy_tpu_torch.parallel.comm import Group
+
+    cpu = Group(group.rank, group.size, "cpu", group.backend)
+    fil0 = FilamentsSim(FilamentsConfig(**F64_FIL), device="cpu").init()
+    res = {}
+    for where, g in (("card", group), ("cpu", cpu)):
+        row = {}
+        for case, kw in F64_CHROM.items():
+            sim = ChromatinSim(ChromatinConfig(**{**F64_CHROM_BASE, **kw}), device=g.device)
+            st = ShardedSim("chromatin", sim, g).run_block(sim.init(), F64_SHARD_STEPS)
+            row[case] = {"pos": st.pos.cpu().numpy(), "rebuilds": st.rebuild_count,
+                         "xl_state": st.xl_state.cpu().numpy(),
+                         "bound_to": st.xl_bound_to.cpu().numpy(),
+                         "overflow": bool(st.overflow)}
+        sim = ChromatinSim(ChromatinConfig(**F64_MESH), device=g.device, mesh=g)
+        st = sim.run_block(sim.init(), F64_MESH_STEPS)
+        row["mesh"] = {"pos": st.pos.cpu().numpy(), "rebuilds": st.rebuild_count,
+                       "overflow": bool(st.overflow)}
+        sim = FilamentsSim(FilamentsConfig(**F64_FIL), device=g.device)
+        st = ShardedSim("filaments", sim, g).run_block(
+            sim.init(pos=fil0.pos.to(g.device), key_words=fil0.key), F64_FIL_STEPS)
+        row["filaments"] = {"pos": st.pos.cpu().numpy(), "rebuilds": st.rebuild_count,
+                            "overflow": bool(st.overflow)}
+        res[where] = row
+    return res if group.rank == 0 else None
+
+
+def block_ranks(group) -> dict:
+    """The d = 2 rank body of [55], [56] and [58], in one process group."""
+    import torch
+
+    out = {"chromatin": chromatin_shard_phase(group)}
+    torch.cuda.empty_cache()
+    out["filaments"] = filaments_shard_run(group, FIL_SHARD_STEPS_2, group.rank == 0)
+    torch.cuda.empty_cache()
+    out["f64"] = block_f64_rank(group)
+    return out
+
+
+def block_phases(torch, dev, card: str, k5_single=None) -> dict:
+    """Phases 55-59: the whole-chain and whole-filament block engines. [56]
+    and [57] at d = 1 on NCCL in this process; [55], [56] and [58] at d = 2,
+    two gloo ranks on this card with the CUDA tensors staged through pinned
+    host buffers (functional numbers, not scaling); [59] three YAMLs through
+    `--devices 2`. `k5_single`: [20]'s single-device K5s and K5i ms, printed
+    beside [55]'s. Returns K5s's and K5i's launches on [55]'s path."""
+    import tempfile
+
+    import numpy as np
+
+    from mundy_tpu_torch.parallel import comm
+
+    t_start = time.perf_counter()
+    torch.cuda.empty_cache()
+    # ---- 56-57 at d = 1: a one-rank NCCL group in this process -------------
+    store = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    one = comm.init_group(0, 1, "cuda", os.path.join(store, "store"))
+    print(f"[56]-[57] d = 1: ranks 1, backend {one.backend}, devices [{one.device}]",
+          flush=True)
+    try:
+        fil1 = filaments_shard_run(one, FIL_SHARD_STEPS, True)
+        torch.cuda.empty_cache()
+        hp1 = hp1_shard_run(one)
+    finally:
+        comm.close_group()
+    torch.cuda.empty_cache()
+    # ---- 55, 56, 58 at d = 2: two ranks on this card ----------------------
+    d2 = comm.spawn_ranks(block_ranks, 2, "cuda", timeout=900.0, threads=4,
+                          log=lambda line: print(f"[55]-[58] d = 2: {line}", flush=True))
+    torch.cuda.empty_cache()
+    # ---- 55 ----------------------------------------------------------------
+    ch = [d2[k]["chromatin"] for k in range(2)]
+    c0 = ch[0]
+    single = ("" if k5_single is None else
+              f" (single-device at [20]: K5s {k5_single[0]:.4f} ms, K5i {k5_single[1]:.4f} ms)")
+    print(f"[55] chromatin_1m_spectral.yaml as written ({c0['N']} beads) through ShardedSim, "
+          f"d = 2 on one card (gloo, staged): {c0['describe']}; se R {c0['R']}, hydro cells "
+          f"{c0['cells'][0]}^3 x {c0['cells'][1]} unsplit; {CHROM_SHARD_WARM} step from init "
+          f"(both sims' init included) {c0['warm_s']:.1f} s, then {CHROM_SHARD_STEPS} steps: "
+          + "; ".join(f"rank {k} {ch[k]['ms']:.1f} ms/step, K5s/K5i launches "
+                      f"{ch[k]['launches'][0]}/{ch[k]['launches'][1]}, bytes moved/step "
+                      f"{ch[k]['bytes']:.0f} (the grid all_reduce {ch[k]['grid_bytes']} B, "
+                      f"{ch[k]['grid_bytes'] / max(ch[k]['bytes'], 1):.3f} of it), staging "
+                      f"{ch[k]['stage_ms']:.1f} ms/step, peak allocation "
+                      f"{ch[k]['peak_gb']:.2f} GB" for k in range(2))
+          + f", rebuilds {c0['rebuilds']}; {card}", flush=True)
+    print(f"    alone: one grid all_reduce {ch[0]['allreduce_s']:.2f} s and "
+          f"{ch[1]['allreduce_s']:.2f} s (both ranks at once), rank 0's x-slab of the unsplit "
+          f"real-space scan {c0['slab_scan_s']:.2f} s (rank 1 idle); {card}", flush=True)
+    print(f"    rank 0's own binning ({c0['binned']} beads, overflow {c0['bin_overflow']}): "
+          f"K5s max|diff| {c0['s_err']:.3e} of max|grid| {c0['gmax']:.3e}, K5i max|diff| "
+          f"{c0['i_err']:.3e} of max|u| {c0['umax']:.3e}; K5s {c0['s_ms']:.4f} ms (plain "
+          f"{c0['s_plain_ms']:.4f}), K5i {c0['i_ms']:.4f} ms (plain {c0['i_plain_ms']:.4f})"
+          f"{single}; {card}", flush=True)
+    print(f"    the single-device ChromatinSim over the same blocks ({c0['single_s']:.1f} s): "
+          f"max|pos diff| {c0['pos_err']:.3e} (bar {CHROM_SHARD_BAR:.0e}), crosslinker states "
+          f"differing {c0['xl_diff']}, bound targets differing {c0['bound_diff']}, doubly "
+          f"bound {c0['doubly']}", flush=True)
+    steps = CHROM_SHARD_WARM + CHROM_SHARD_STEPS
+    if (any(r["overflow"] or not r["finite"] or r["step"] != steps for r in ch)
+            or c0["bin_overflow"] or c0["ref_overflow"]
+            or c0["binned"] != c0["N"] // 2):
+        fail("[55] the sharded 1M chromatin run overflowed, lost a bead, went non-finite or "
+             "miscounted steps")
+    if any(r["launches"] != (CHROM_SHARD_STEPS, CHROM_SHARD_STEPS) for r in ch):
+        fail(f"[55] K5s/K5i launched {[r['launches'] for r in ch]} in {CHROM_SHARD_STEPS} steps")
+    if not (c0["gmax"] > 0 and c0["s_err"] <= 1e-5 * c0["gmax"] and c0["umax"] > 0
+            and c0["i_err"] <= 1e-5 * c0["umax"]):
+        fail("[55] K5s or K5i disagrees with its plain version at rank 0's binning")
+    if not c0["pos_err"] <= CHROM_SHARD_BAR or c0["xl_diff"] or c0["bound_diff"]:
+        fail("[55] the sharded 1M chromatin run disagrees with the single-device sim")
+    # ---- 56 ----------------------------------------------------------------
+    fl = [d2[k]["filaments"] for k in range(2)]
+    for d, ranks, n in ((1, [fil1], FIL_SHARD_STEPS), (2, fl, FIL_SHARD_STEPS_2)):
+        r0 = ranks[0]
+        print(f"[56] config #4 (2000 x 50, float32) through ShardedSim, d = {d} on one card "
+              f"({'nccl' if d == 1 else 'gloo, staged'}): {r0['describe']}; {n} steps after 3: "
+              + "; ".join(f"rank {k} {r['ms']:.2f} ms/step, rebuilds {r['rebuilds']}, bytes "
+                          f"moved/step {r['bytes']:.0f}, staging {r['stage_ms']:.3f} ms/step"
+                          for k, r in enumerate(ranks))
+              + f"; FilamentsSim ({r0['engine']}) over the same blocks: max|pos diff| "
+                f"{r0['pos_err']:.3e} (bar {FIL_SHARD_BAR:.0e}), rebuilds "
+                f"{r0['ref_rebuilds']}; {card}", flush=True)
+        if any(r["overflow"] or not r["finite"] or r["step"] != n + 3 for r in ranks):
+            fail(f"[56] the d = {d} filaments run overflowed, went non-finite or miscounted")
+        if r0["engine"] != "nmat" or not r0["pos_err"] <= FIL_SHARD_BAR:
+            fail(f"[56] the d = {d} filaments run disagrees with FilamentsSim (nmat)")
+    # ---- 57 ----------------------------------------------------------------
+    print(f"[57] hp1_chromatin.yaml as written ({hp1['N']} beads, rpy_periphery, float32) "
+          f"through ShardedSim, d = 1 (nccl): {HP1_SHARD_STEPS} steps at {hp1['ms']:.2f} "
+          f"ms/step (ChromatinSim {hp1['ref_ms']:.2f}), rebuilds {hp1['rebuilds']} (single "
+          f"{hp1['ref_rebuilds']}, which skips the entry rebuild), max|pos diff| "
+          f"{hp1['pos_err']:.3e} (bar {HP1_SHARD_BAR:.0e}), crosslinker states differing "
+          f"{hp1['xl_diff']}, doubly bound {hp1['doubly']}, TF32 {hp1['tf32']}; {card}",
+          flush=True)
+    if (hp1["overflow"] or not hp1["inside"] or hp1["tf32"] or hp1["xl_diff"]
+            or not hp1["pos_err"] <= HP1_SHARD_BAR):
+        fail("[57] the sharded HP1 run overflowed, left the periphery or disagrees with "
+             "ChromatinSim")
+    # ---- 58 ----------------------------------------------------------------
+    g, c = d2[0]["f64"]["card"], d2[0]["f64"]["cpu"]
+    errs, same = {}, {}
+    for k in g:
+        errs[k] = float(np.abs(g[k]["pos"] - c[k]["pos"]).max())
+        same[k] = (g[k]["rebuilds"] == c[k]["rebuilds"] and not g[k]["overflow"]
+                   and not c[k]["overflow"]
+                   and all(np.array_equal(g[k][f], c[k][f]) for f in ("xl_state", "bound_to")
+                           if f in g[k]))
+    print("[58] float64 at d = 2, card vs CPU: "
+          + "; ".join(f"{k} rebuilds {g[k]['rebuilds']} (cpu {c[k]['rebuilds']}), max|pos "
+                      f"diff| {errs[k]:.3e}, counters and binding states equal {same[k]}"
+                      for k in g) + f" (bar {F64_SHARD_BAR:.0e})", flush=True)
+    if not all(same.values()) or any(e > F64_SHARD_BAR for e in errs.values()):
+        fail("[58] a float64 block engine on the card disagrees with the CPU run")
+    # ---- 59 ----------------------------------------------------------------
+    cli_block_phase()
+    print(f"[55]-[59] took {time.perf_counter() - t_start:.1f} s", flush=True)
+    return {"se_spread": {f"chromatin_shard d=2 rank {k}": ch[k]["launches"][0]
+                          for k in range(2)},
+            "se_interp": {f"chromatin_shard d=2 rank {k}": ch[k]["launches"][1]
+                          for k in range(2)}}
+
+
+def cli_block_phase() -> None:
+    """[59]: filaments_sperm.yaml and chromatin_1m_spectral.yaml (cut in
+    chains and steps) through `python -m mundy_tpu_torch.driver.main ...
+    --devices 2` on this card, and hp1_chromatin.yaml, whose 7 chains do not
+    split over 2 ranks: it exits non-zero, naming the rule, before any rank
+    starts."""
+    import shutil
+    import tempfile
+
+    runs = (("filaments_sperm", ("num_steps=100",), 100),
+            ("chromatin_1m_spectral", ("num_chains=64", "num_crosslinkers=2048",
+                                       "num_steps=3"), 3),
+            ("hp1_chromatin", (), None))
+    for yaml, sets, steps in runs:
+        out = tempfile.mkdtemp(prefix=f"chip_smoke_{yaml}_")
+        cmd = [sys.executable, "-m", "mundy_tpu_torch.driver.main",
+               os.path.join(HERE, "examples", f"{yaml}.yaml"), "--devices", "2",
+               "--set", *sets, "--checkpoint-dir", os.path.join(out, "ck"),
+               "--rank-timeout", "400"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=HERE, timeout=500,
+                              env=dict(os.environ, PYTHONPATH=HERE))
+        wall = time.perf_counter() - t0
+        lines = proc.stdout.splitlines()
+        files = sorted(os.listdir(os.path.join(out, "ck"))) if os.path.isdir(
+            os.path.join(out, "ck")) else []
+        said = [ln for ln in lines if ln.startswith(("ranks ", "sharded ", "stepped "))]
+        if steps is None:
+            err = (proc.stderr.strip().splitlines() or [""])[-1]
+            print(f"[59] {yaml}.yaml --devices 2: rc {proc.returncode}, {wall:.1f} s wall, "
+                  f"plan lines {len(said)}; {err}", flush=True)
+            if proc.returncode == 0 or said or "num_chains % ranks" not in err:
+                print(proc.stdout[-3000:], proc.stderr[-3000:], flush=True)
+                fail(f"[59] {yaml}.yaml --devices 2 was not refused by its rule")
+        else:
+            print(f"[59] {yaml}.yaml --devices 2 {' '.join(sets)}: rc {proc.returncode}, "
+                  f"{wall:.1f} s wall; " + " | ".join(said) + f"; checkpoint files {files}",
+                  flush=True)
+            once = all(sum(ln.startswith(h) for ln in lines) == 1
+                       for h in ("ranks ", "sharded ", "stepped "))
+            if (proc.returncode != 0 or not once
+                    or files != [f"ckpt_{steps:012d}.json", f"ckpt_{steps:012d}.npz"]):
+                print(proc.stdout[-3000:], proc.stderr[-3000:], flush=True)
+                fail(f"[59] {yaml}.yaml --devices 2 failed")
         shutil.rmtree(out, ignore_errors=True)
 
 
@@ -3076,7 +3560,7 @@ def main() -> None:
 
     # ---- 1. build ---------------------------------------------------------
     build_all(_build)
-    if sys.argv[1:] == ["--only-sharded"]:  # a short run of [46]-[54] alone
+    if sys.argv[1:] == ["--only-sharded"]:  # a short run of [46]-[59] alone
         print(json.dumps({"path_launches": sharded_phases(torch, dev, card)}), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
@@ -3378,7 +3862,7 @@ def main() -> None:
         fail(f"K4 disagrees with its plain version: {errs} vs 1e-5 * {maxs}")
     k4_ms, k4_plain_ms = alternate(k4_kernel,
                                    lambda: k4.row_segment_pairs_plain(*k4_args),
-                                   torch, 5, 1, rounds=2)
+                                   torch, 5, 1, rounds=1)
     # the pairs within reach in x at K4_REACH_OPS, those within reach in 3D
     # at K4_OPS and the rods at K4_ROD_OPS; read valid on every slot and the
     # midpoints and half-edges of the valid slots once (a padded slot's
@@ -3397,8 +3881,8 @@ def main() -> None:
           f"{k4_in_3d:.0f} in 3D; {card}", flush=True)
     del out_k, out_p, k4_args, k4_kernel, rows
 
-    # ---- 12. examples/rods_100k.yaml, 1000 steps ----------------------------
-    cfg = config_from_dict(RodsConfig, raw["params"])
+    # ---- 12. examples/rods_100k.yaml, YAML_STEPS steps -----------------------
+    cfg = config_from_dict(RodsConfig, dict(raw["params"], num_steps=YAML_STEPS))
     sim = RowRodsSim(cfg, device=dev)
     t0 = time.perf_counter()
     st = sim.run(log=lambda line: print(f"    {line}", flush=True))
@@ -3499,8 +3983,15 @@ def main() -> None:
     rows = fst.nmat
     k4f_args = fsim.row_contact_args(fst.pos, rows)  # what the step passes to it
     out_k = k4.row_segment_filaments_sym(*k4f_args)
-    out_p = k4.row_segment_filaments_plain(*k4f_args)
+    # the plain version takes seconds here: its one call for the comparison
+    # is also its time
     torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    out_p = k4.row_segment_filaments_plain(*k4f_args)
+    ev[1].record()
+    ev[1].synchronize()
+    k4f_plain_ms = ev[0].elapsed_time(ev[1])
     errs = [(g - r).abs().max().item() for g, r in zip(out_k, out_p)]
     maxs = [r.abs().max().item() for r in out_p]
     k4f_err = max(errs)
@@ -3512,9 +4003,8 @@ def main() -> None:
     if not all(m > 0 and math.isfinite(e) and e <= 1e-5 * m for e, m in zip(errs, maxs)):
         fail(f"K4's filaments op disagrees with its plain version: {errs} vs 1e-5 * {maxs}")
     del out_k, out_p
-    k4f_ms, k4f_plain_ms = alternate(lambda: k4.row_segment_filaments_sym(*k4f_args),
-                                     lambda: k4.row_segment_filaments_plain(*k4f_args),
-                                     torch, 5, 1, rounds=1)
+    k4f_ms = statistics.median(
+        [cuda_ms(lambda: k4.row_segment_filaments_sym(*k4f_args), torch, 5) for _ in range(2)])
     # the pairs within reach in x at K4_REACH_OPS, those within reach in 3D
     # at K4F_OPS and the segments at K4_ROD_OPS; read valid on every slot and
     # the midpoints, half-edges and gids of the occupied slots once (a padded
@@ -3534,9 +4024,9 @@ def main() -> None:
           f"half-stencil pairs {stencil_work(rows.valid, torch)[0]:.0f}); {card}", flush=True)
     del k4f_args, rows
 
-    # ---- 16. examples/filaments_sperm.yaml, 1000 steps ---------------------
+    # ---- 16. examples/filaments_sperm.yaml, YAML_STEPS steps ----------------
     raw = load_yaml(os.path.join(HERE, "examples", "filaments_sperm.yaml"))
-    cfg = config_from_dict(FilamentsConfig, raw["params"])
+    cfg = config_from_dict(FilamentsConfig, dict(raw["params"], num_steps=YAML_STEPS))
     sim = FilamentsSim(cfg, device=dev)
     t0 = time.perf_counter()
     st = sim.run(log=lambda line: print(f"    {line}", flush=True))
@@ -3622,15 +4112,24 @@ def main() -> None:
     profile_window(lambda n: fsim.run_block(fst, n), torch, 1e3 * elapsed / FIL_STEPS)
     del fsim, fst
 
+    t_group = took("[1]-[19]", t_start)
     k5_entries = chromatin_phases(torch, dev, card)
+    t_group = took("[20]-[22]", t_group)
     poly_entries = polydisperse_phases(torch, dev, lcp_sim, lcp_st, card)
+    t_group = took("[23]-[28]", t_group)
     rows_entries = slice15_phases(torch, dev, card, lcp_sim, lcp_st)  # [43]-[45]
+    t_group = took("[43]-[45]", t_group)
     del lcp_sim, lcp_st
     hydro_paths = lcp_hydro_phases(torch, dev, card)
+    t_group = took("[29]-[31]", t_group)
     hp1_paths = periphery_phases(torch, dev, card)
+    t_group = took("[32]-[34]", t_group)
     cli_paths = cli_phases(torch, dev, card, row_ms)
+    t_group = took("[35]-[38]", t_group)
     rods = rods_nmat_phases(torch, dev, card)
-    sharded_paths = sharded_phases(torch, dev, card)  # [46]-[54]
+    t_group = took("[39]-[42]", t_group)
+    k5_single = (k5_entries[0]["ms"], k5_entries[1]["ms"])
+    sharded_paths = sharded_phases(torch, dev, card, k5_single)  # [46]-[59]
 
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     kernels = [
@@ -3671,7 +4170,7 @@ def main() -> None:
             entry["path_launches"]["hp1 rpy_periphery_spectral"] = hp1_paths[entry["name"]]
         if entry["name"] in cli_paths:  # each example YAML through the CLI, [35]
             entry.setdefault("path_launches", {}).update(cli_paths[entry["name"]])
-        if entry["name"] in sharded_paths:  # the slab engines and LCP rpy_ring, [46]-[49]
+        if entry["name"] in sharded_paths:  # the multi-rank paths, [46]-[49] and [55]
             entry.setdefault("path_launches", {}).update(sharded_paths[entry["name"]])
         if entry["name"] == "row_neighbor_extract":  # RodsSim's broad phase, [39]-[40]
             entry.setdefault("path_launches", {}).update(rods["paths"])

@@ -27,7 +27,13 @@ crosslinker candidates come from their own capture-radius cell list, and
 `rpy_periphery_spectral`'s real-space pairs from a cell list at the
 free-space operator's cutoff. The searches are rebuilt before a step when
 some bead moved more than skin/2 since the last rebuild; the host reads
-that flag once per step. The sharded mode is not ported.
+that flag once per step.
+
+`mesh=` takes a parallel.comm.Group: with `hydro="rpy_spectral"` every rank
+holds the whole state and the mobility apply runs over the group
+(parallel/spectral_shard.py: each rank grids its own block of N/d beads,
+one psum of the grid, each rank's x-slab of the real space), its
+velocities all-gathered, the reference's sharded mode of config #5.
 
 Chains start on a Hilbert curve, their offsets and the crosslinker homes
 drawn from numpy's default_rng(seed), as in the reference; the run's key is
@@ -90,6 +96,7 @@ from mundy_tpu_torch.neighbor.rows import (
     neighbor_matrix_rows,
     rows_extract_feasible,
 )
+from mundy_tpu_torch.parallel.comm import Group
 from mundy_tpu_torch.state.select import select
 from mundy_tpu_torch.state.world import EntitySet, LinkSet
 
@@ -224,10 +231,23 @@ class ChromatinSim:
     unless the caller asks for "cpu")."""
 
     def __init__(self, config: ChromatinConfig, device="cuda", mesh=None):
+        """`mesh`: an optional parallel.comm.Group over which the
+        rpy_spectral mobility runs sharded (every rank builds the sim with
+        the same config and steps it in step with the others)."""
         self.config = c = config
         validate_config(config)
+        self._mesh = mesh
+        self.sharded_se = None
         if mesh is not None:
-            raise NotImplementedError("the sharded spectral mode (mesh=) is not ported")
+            if not isinstance(mesh, Group):
+                raise TypeError(f"mesh= takes a parallel.comm.Group, got {type(mesh).__name__}")
+            if c.hydro != "rpy_spectral":
+                raise ValueError(f"mesh= shards the rpy_spectral mobility; hydro is "
+                                 f"{c.hydro!r}")
+            n = c.num_chains * c.beads_per_chain
+            if n % mesh.size != 0:
+                raise ValueError(f"the sharded spectral hydro needs N % ranks == 0 (N {n}, "
+                                 f"{mesh.size} ranks)")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ChromatinSim(device='cuda') needs a CUDA device, and "
@@ -487,6 +507,8 @@ class ChromatinSim:
                 self._right_size_freespace(p, pos)
             if self.periodic:
                 self._right_size_rows(p)
+            if self._mesh is not None:
+                self._make_sharded_se()
 
         # bead parts + selector: crosslinker homes and targets come from
         # `binding_selector` over the declared parts
@@ -586,6 +608,17 @@ class ChromatinSim:
         hl, il = home.long(), idx.long()
         return tuple(self._min_image(pos[:, a][il] - pos[:, a][hl][:, None]) for a in range(3))
 
+    def _make_sharded_se(self) -> None:
+        """(Re)build the sharded spectral mobility at the current SE tile R
+        and 3D-cell capacity (each rank's binning reuses the R right-sized
+        for the whole N, a safe bound for any subset)."""
+        from mundy_tpu_torch.parallel.spectral_shard import make_sharded_se_rpy_apply
+
+        c = self.config
+        self.sharded_se = make_sharded_se_rpy_apply(self._mesh, self.spectral, self.se_geom,
+                                                    self.hydro_cells_grid, self.N,
+                                                    (c.box_size,) * 3)
+
     def _build_kmc_candidates(self, pos: torch.Tensor, home: torch.Tensor):
         """Crosslinker candidates at their own cutoff (capture + skin): the X
         homes queried against a capture-radius cell list, compacted to the
@@ -675,6 +708,14 @@ class ChromatinSim:
         c = self.config
         if c.hydro == "none":
             return local_drag_mobility(f, c.bead_radius, c.viscosity), state.overflow
+        if c.hydro == "rpy_spectral" and self.sharded_se is not None:
+            # every rank holds the whole state: it passes its own block, and
+            # the blocks of velocities are all-gathered
+            g = self._mesh
+            nl = self.N // g.size
+            own = slice(g.rank * nl, (g.rank + 1) * nl)
+            vel_l, se_ovf = self.sharded_se(state.pos[own], f[own], pos_all=state.pos, f_all=f)
+            return torch.cat(g.all_gather(vel_l)), state.overflow | se_ovf
         if c.hydro == "rpy_spectral":
             pieces = se_bin_geom(self.se_geom, state.pos, self.dtype)
             if self.hydro_split is not None:
@@ -727,7 +768,10 @@ class ChromatinSim:
         """Has some bead moved more than skin/2 since the last rebuild (no
         minimum image: a wrap counts as a move, as in the reference)?"""
         disp = state.pos - state.ref_pos
-        return bool((disp * disp).sum(-1).max() > (0.5 * self.config.skin) ** 2)
+        d2 = (disp * disp).sum(-1).max()
+        if self._mesh is not None:  # every rank takes the same path through the collectives
+            d2 = self._mesh.pmax(d2.reshape(1))[0]
+        return bool(d2 > (0.5 * self.config.skin) ** 2)
 
     def run_block(self, state: ChromatinState, n_steps: int) -> ChromatinState:
         """n_steps steps, each preceded by a rebuild when the skin trigger
@@ -759,6 +803,8 @@ class ChromatinSim:
             if self.hydro_split is not None:
                 c_ex, dc_cap = self.hydro_split
                 self.hydro_split = (grow_int(c_ex), grow_int(dc_cap))
+            if self._mesh is not None:
+                self._make_sharded_se()
         if self.freespace is not None:
             self.fs_geom = self.fs_geom._replace(R=grow_int(self.fs_geom.R))
             self.fs_cell_capacity = grow_int(self.fs_cell_capacity)

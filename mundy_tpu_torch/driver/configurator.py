@@ -80,10 +80,15 @@ def build_simulation(spec: dict, device="cuda"):
     return config, _registry()[app][1](config, device=device)
 
 
-def build_simulation_from_yaml(path: str, overrides: Optional[dict] = None, device="cuda"):
-    """Load a YAML app spec, apply key=value overrides to its params, build
-    the sim on `device`."""
+def load_spec(path: str, overrides: Optional[dict] = None) -> dict:
+    """A YAML app spec with key=value overrides applied to its params."""
     spec = load_yaml(path)
     if overrides:
         spec = {**spec, "params": {**(spec.get("params", {}) or {}), **overrides}}
-    return build_simulation(spec, device=device)
+    return spec
+
+
+def build_simulation_from_yaml(path: str, overrides: Optional[dict] = None, device="cuda"):
+    """Load a YAML app spec, apply key=value overrides to its params, build
+    the sim on `device`."""
+    return build_simulation(load_spec(path, overrides), device=device)

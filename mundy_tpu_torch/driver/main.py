@@ -14,8 +14,9 @@ compiles nothing per run here, and each config's dtype selects float64.
 devices; its rule: NCCL with a card per rank, gloo on the CPU or on a shared
 card): every rank builds the sim and a driver.sharded.ShardedSim around it
 and runs the same loop; rank 0 alone prints progress and writes the results
-and checkpoints. An app whose sharded engine is not ported raises before
-any rank starts.
+and checkpoints. What no sharded engine runs (driver.sharded.refuse_unported:
+an app with no route, a config its engine cannot split over N ranks) raises
+before any rank starts.
 """
 
 from __future__ import annotations
@@ -28,7 +29,12 @@ import time
 import torch
 
 from mundy_tpu_torch.core.config import load_yaml
-from mundy_tpu_torch.driver.configurator import available_apps, build_simulation_from_yaml
+from mundy_tpu_torch.driver.configurator import (
+    available_apps,
+    build_simulation_from_yaml,
+    config_from_spec,
+    load_spec,
+)
 from mundy_tpu_torch.driver.sharded import ShardedSim, refuse_unported
 from mundy_tpu_torch.io import latest_checkpoint, load_checkpoint, save_checkpoint
 from mundy_tpu_torch.parallel.comm import spawn_ranks
@@ -78,7 +84,8 @@ def main(argv=None) -> int:
         raise RuntimeError("--device cuda (the default) needs a CUDA device, and torch sees "
                            "none; pass --device cpu to run on the CPU")
     if args.devices and args.devices > 1:
-        refuse_unported(load_yaml(args.config).get("app"))
+        app, config = config_from_spec(load_spec(args.config, _parse_overrides(args.overrides)))
+        refuse_unported(app, config, args.devices)
         threads = max(1, torch.get_num_threads() // args.devices)
         spawn_ranks(_rank_main, args.devices, args.device, args=(args,),
                     timeout=args.rank_timeout, threads=threads)

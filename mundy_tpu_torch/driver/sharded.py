@@ -11,23 +11,29 @@ rank, so checkpoints, the results broker and the regrow loop work
 unchanged. Between blocks the engine's own slab state stays with the
 wrapper.
 
-App -> engine routes ported so far:
+App -> engine routes:
 
-| app         | engine                           | decomposition |
-|-------------|----------------------------------|---------------|
-| spheres     | parallel/slab_rows.py (K6)       | z-slab rows   |
-| lcp_spheres | parallel/balanced_lcp.py         | balanced z-slabs (count-allocated) |
-| rods        | parallel/slab_segments.py (K4)   | z-slab rows   |
-| granular    | parallel/granular_shard.py       | balanced z-slabs + migrating history |
+| app         | engine                                        | decomposition |
+|-------------|-----------------------------------------------|---------------|
+| spheres     | parallel/slab_rows.py (K6)                    | z-slab rows   |
+| lcp_spheres | parallel/balanced_lcp.py                      | balanced z-slabs (count-allocated) |
+| rods        | parallel/slab_segments.py (K4)                | z-slab rows   |
+| filaments   | parallel/filaments_shard.py                   | whole-filament blocks |
+| chromatin   | parallel/chromatin_shard.py (K5s, K5i with rpy_spectral) | whole-chain blocks |
+| granular    | parallel/granular_shard.py                    | balanced z-slabs + migrating history |
 
 The spheres route takes the flat SpheresSim's state (the app the CLI runs)
 or RowSpheresSim's, the rods route RodsSim's or RowRodsSim's, the
 lcp_spheres route LCPSpheresState's positions, key and step, the granular
-route GranularState's positions and velocities; each refuses what its
-engine does not run (polydisperse spheres; ellipsoids and friction; LCP
-hydro modes other than "none"). The balanced engines need at least two
-ranks. The other apps' engines wait (ROADMAP queue 1, item 8): chromatin
-(step 3: chromatin_shard) and filaments (step 4: filaments_shard).
+route GranularState's positions and velocities, the chromatin and filaments
+routes the whole app state (every rank holds it; the engine keeps its own
+block). Each route refuses what its engine does not run (polydisperse
+spheres; ellipsoids and friction; LCP hydro modes other than "none"), and
+`refuse_unported`, which main calls before any rank starts, refuses LCP
+rpy_ring over ranks (ROADMAP queue 1, item 8 step 4), chromatin hydro modes
+other than "none", "rpy_spectral" and "rpy_periphery", and chains,
+crosslinkers or filaments that do not split evenly over the ranks. The
+balanced engines need at least two ranks.
 
 `regrow` grows what overflowed and re-shards from the last good state. The
 slab engines grow their row capacity (driver/regrow.grow_int, as the
@@ -38,7 +44,14 @@ reference's wrapper does, and, where the engine's overflow bits name them,
 the own and ghost buffers (own_slack, ghost_slack), which the reference's
 regrow cannot cure. A ghost two ring hops away (a slab thinner than the
 ghost margin) no capacity cures: regrow raises, naming the contract (ROADMAP
-queue 3).
+queue 3). The filaments route grows max_neighbors and cell_capacity, as the
+reference's wrapper does. The chromatin engine reads its capacities from the
+sim, so its route runs the sim's own regrow: the contact K and cells, the
+KMC candidates, the SE tile R and the 3D-cell capacity (the reference's
+wrapper grows only max_neighbors and cell_capacity, so an SE or hydro-cell
+overflow never cures there: ROADMAP queue 3). Both engines are built anew
+at the next block, at the sim's capacities of that moment (after init's
+right-sizing too).
 """
 
 from __future__ import annotations
@@ -50,24 +63,39 @@ import torch
 from mundy_tpu_torch.driver.regrow import grow_int
 from mundy_tpu_torch.neighbor.rows import build_rows
 from mundy_tpu_torch.parallel.balanced_slab import OVF_GHOST, OVF_HOP, OVF_OWN, ovf_bits_of
+from mundy_tpu_torch.parallel.chromatin_shard import (
+    chromatin_shard_rules,
+    make_sharded_chromatin_step,
+)
 from mundy_tpu_torch.parallel.comm import Group
+from mundy_tpu_torch.parallel.filaments_shard import (
+    filaments_shard_rules,
+    make_sharded_filaments_step,
+)
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
-# the apps whose sharded engines wait, with their step of ROADMAP item 8
-WAITING = {"chromatin": 3, "filaments": 4}
-ROUTED = ("spheres", "rods", "lcp_spheres", "granular")
+ROUTED = ("spheres", "rods", "lcp_spheres", "granular", "chromatin", "filaments")
 BALANCED = ("lcp_spheres", "granular")
+BLOCKS = ("chromatin", "filaments")  # the whole-chain and whole-filament block engines
 
 
-def refuse_unported(app: str) -> None:
-    """Raise NotImplementedError for an app whose sharded engine is not
-    ported, naming its step of ROADMAP queue 1 item 8."""
-    if app in WAITING:
-        raise NotImplementedError(
-            f"--devices > 1: the sharded engine of app '{app}' is not ported yet "
-            f"(ROADMAP queue 1, item 8 step {WAITING[app]})")
+def refuse_unported(app: str, config=None, d: int = 1) -> None:
+    """Raise, before any rank starts, for what no sharded engine runs over
+    d ranks: ValueError for an app with no route or a config its engine
+    cannot split (each message names the rule), NotImplementedError for LCP
+    rpy_ring over ranks, naming its step of ROADMAP queue 1 item 8."""
     if app not in ROUTED:
         raise ValueError(f"--devices > 1: no sharded engine for app '{app}'")
+    if config is None:
+        return
+    if app == "lcp_spheres" and config.hydro == "rpy_ring" and d > 1:
+        raise NotImplementedError(
+            f"--devices {d}: LCP hydro='rpy_ring' over ranks (LCPSpheresSim's pair list, "
+            "active set and solve sharded) is not ported yet (ROADMAP queue 1, item 8 step 4)")
+    if app == "chromatin":
+        chromatin_shard_rules(config, d)
+    elif app == "filaments":
+        filaments_shard_rules(config, d)
 
 
 class ShardedSim:
@@ -77,7 +105,7 @@ class ShardedSim:
 
     def __init__(self, app: str, sim, group: Group, row_capacity: Optional[int] = None,
                  own_slack: float = 1.5, ghost_slack: float = 3.0):
-        refuse_unported(app)
+        refuse_unported(app, sim.config, group.size)
         self.app = app
         self.sim = sim
         self.config = sim.config
@@ -91,6 +119,14 @@ class ShardedSim:
     def describe(self) -> str:
         """One line on the decomposition (main prints it on rank 0)."""
         eng, d = self.engine, self.group.size
+        if self.app == "chromatin":
+            c = self.config
+            return (f"sharded over {d} ranks: the whole-chain block chromatin engine, "
+                    f"{c.num_chains // d} chains and {c.num_crosslinkers // d} crosslinkers "
+                    f"per rank, hydro {c.hydro}")
+        if self.app == "filaments":
+            return (f"sharded over {d} ranks: the whole-filament block filaments engine, "
+                    f"{self.config.num_filaments // d} filaments per rank")
         if self.app in BALANCED:
             return (f"sharded over {d} ranks: the density-balanced z-slab {self.app} engine, "
                     f"own capacity {eng.n_cap} and ghost capacity {eng.g_cap} per rank")
@@ -109,7 +145,10 @@ class ShardedSim:
     def _build(self):
         c, g = self.config, self.group
         dtype = _DTYPES[c.dtype]
-        if self.app == "spheres":
+        if self.app in BLOCKS:
+            # built at the next _shard, at the sim's capacities then
+            self.engine = None
+        elif self.app == "spheres":
             if getattr(c, "polydispersity", 0.0):
                 raise ValueError("--devices: the sharded spheres engine needs equal radii "
                                  "(polydispersity=0)")
@@ -163,6 +202,11 @@ class ShardedSim:
         """The engine's slab state from an app state: positions (and
         quaternions) in gid order; the key and step from the state, so the
         keyed noise continues the single-device stream."""
+        if self.app in BLOCKS:
+            make = (make_sharded_chromatin_step if self.app == "chromatin"
+                    else make_sharded_filaments_step)
+            self.engine = make(self.group, self.sim)
+            return self.engine.shard(state)
         pos = self.positions(state)
         if self.app == "spheres":
             return self.engine.init(pos, state.key, state.step)
@@ -179,6 +223,8 @@ class ShardedSim:
         every rank's buffer; the step; the overflow flag OR'd over ranks)."""
         if self.app in BALANCED:
             return self._gather_balanced(dd, state, n_done)
+        if self.app in BLOCKS:
+            return self._gather_blocks(dd, state)
         n = self.config.num_spheres if self.app == "spheres" else self.config.num_rods
         chans = [dd["pos"]] + ([dd["quat"]] if self.app == "rods" else [])
         vals = torch.cat(chans + [dd["valid"][..., None].to(dd["pos"].dtype)], dim=-1)
@@ -219,6 +265,29 @@ class ShardedSim:
         return state.replace(pos=pos, ref_pos=pos, step=int(counts[0]),
                              lcp_iters=int(counts[1]), overflow=ovf)
 
+    def _gather_blocks(self, dd: dict, state):
+        """The block engines' state -> the app state: positions, rod frames
+        or the crosslinker state and targets, the step, the rebuild count,
+        the overflow OR'd over ranks. The chromatin state also takes the
+        engine's positions of its last rebuild and the sim's own searches
+        at them, so a checkpoint resumes the engine's rebuild cadence and
+        KMC rows; the filaments engine rebuilds at every block entry, so its
+        state keeps the searches of its input state with their positions."""
+        g = self.engine.gather(dd)
+        st = state.replace(pos=g["pos"], step=dd["step"], rebuild_count=dd["rebuild_count"],
+                           overflow=g["overflow"])
+        if self.app == "filaments":
+            return st.replace(rod=state.rod._replace(edge_q=g["rod_q"], tangent=g["rod_t"],
+                                                     length=g["rod_l"]))
+        xl = state.xl
+        if "xl_state" in g:
+            indices = torch.stack([xl.indices[:, 0], g["xl_target"]], dim=1)
+            xl = xl.replace(indices=indices, active=g["xl_active"],
+                            fields={**xl.fields, "state": g["xl_state"]})
+        nmat, hmat, kmat, ovf = self.sim._build_nmat(g["ref_pos"], xl.indices[:, 0])
+        return st.replace(xl=xl, nmat=nmat, hydro_nmat=hmat, kmc_nmat=kmat,
+                          ref_pos=g["ref_pos"], overflow=st.overflow | ovf)
+
     # ------------------------------------------------------------------
     def run_block(self, state, n_steps: int):
         if self._dict is None:
@@ -234,9 +303,19 @@ class ShardedSim:
         """Grow what overflowed and re-shard at the next block (from `state`,
         the last good one): the slab engines' row capacity; the balanced
         engines' max_neighbors and cell_capacity, and their own and ghost
-        buffers where the overflow bits name them. Raises for a ghost two
-        ring hops away, which no capacity cures."""
-        if self.app in BALANCED:
+        buffers where the overflow bits name them; the filaments engine's
+        max_neighbors and cell_capacity; the chromatin engine's, which are
+        the sim's, through the sim's own regrow. Raises for a ghost two ring hops
+        away, which no capacity cures."""
+        if self.app == "chromatin":
+            # the engine reads its capacities from the sim: the contact K and
+            # cells, the KMC candidates, the SE tile R and the 3D cells
+            state = self.sim.regrow(state)
+        elif self.app == "filaments":
+            c = self.config
+            c.max_neighbors = grow_int(c.max_neighbors)
+            c.cell_capacity = grow_int(c.cell_capacity)
+        elif self.app in BALANCED:
             bits = self._ovf_bits
             if bits & OVF_HOP:
                 raise RuntimeError(

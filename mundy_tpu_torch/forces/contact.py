@@ -52,15 +52,19 @@ def _pair_scalar(x: torch.Tensor, idx: torch.Tensor):
 
 
 def contact_forces(pos: torch.Tensor, radius, nmat,
-                   pair_force_mag: Callable, metric: Optional[Metric] = None) -> torch.Tensor:
+                   pair_force_mag: Callable, metric: Optional[Metric] = None,
+                   sources: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Central-force accumulation over the neighbor matrix `nmat` (idx, mask).
 
     pair_force_mag(signed_sep, idx_i, idx_j) -> magnitude (positive =
     repulsive along the i->j normal); `radius` a python scalar or an (N,)
-    tensor. Returns (N, 3) forces."""
-    n = pos.shape[0]
+    tensor. Returns (N, 3) forces. `sources` (S, 3): the bodies that nmat's
+    ids name when the rows are a subset of them (a rank's own rows against
+    the gathered positions; a uniform radius only); default pos."""
+    src = pos if sources is None else sources
+    n = src.shape[0]
     idx = torch.clamp(nmat.idx, max=n - 1).long()  # clamp padding
-    pj = pos[idx]  # (N, K, 3)
+    pj = src[idx]  # (N, K, 3)
     if metric is None:
         sepv = pj - pos[:, None, :]
     else:
@@ -69,11 +73,13 @@ def contact_forces(pos: torch.Tensor, radius, nmat,
     rinv = torch.rsqrt(r2)
     d = r2 * rinv
     if isinstance(radius, torch.Tensor) and radius.ndim > 0:
+        if sources is not None:
+            raise ValueError("contact_forces(sources=) takes a uniform radius")
         r_i, r_j = _pair_scalar(radius, idx)
         signed_sep = d - r_i - r_j
     else:
         signed_sep = d - 2.0 * radius
-    mag = pair_force_mag(signed_sep, torch.arange(n, device=pos.device)[:, None], idx)
+    mag = pair_force_mag(signed_sep, torch.arange(pos.shape[0], device=pos.device)[:, None], idx)
     mag = torch.where(nmat.mask, mag, 0.0)
     # repulsive: force on i points away from j
     return -((mag * rinv)[..., None] * sepv).sum(1)
@@ -86,8 +92,10 @@ def _is_uniform(x) -> bool:
 
 
 def hertzian_contact_forces(pos: torch.Tensor, radius, youngs, poisson, nmat,
-                            metric: Optional[Metric] = None) -> torch.Tensor:
+                            metric: Optional[Metric] = None,
+                            sources: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Hertzian sphere-sphere contact over the neighbor matrix. (N, 3).
+    `sources`: as contact_forces' (uniform radius, youngs and poisson only).
 
     Uniform (python or 0-d) radius, youngs and poisson take the reference's
     gather-free branch. Per-particle (N,) values take its packed branch:
@@ -105,8 +113,11 @@ def hertzian_contact_forces(pos: torch.Tensor, radius, youngs, poisson, nmat,
         def mag(signed_sep, i, j):
             return hertzian_pair_force(signed_sep, r_eff, e_eff)
 
-        return contact_forces(pos, r, nmat, mag, metric)
+        return contact_forces(pos, r, nmat, mag, metric, sources=sources)
 
+    if sources is not None:
+        raise ValueError("hertzian_contact_forces(sources=) takes uniform radius, youngs "
+                         "and poisson")
     n = pos.shape[0]
     r, e, nu = (torch.broadcast_to(v, (n,)) for v in (r, e, nu))
     params = torch.stack([r, e / (1.0 - nu * nu)], dim=1)

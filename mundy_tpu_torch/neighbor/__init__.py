@@ -9,6 +9,7 @@ from mundy_tpu_torch.neighbor.cell_list import (
     make_cell_grid,
     build_cell_list,
     neighbor_matrix,
+    neighbor_matrix_query,
     NeighborMatrix,
     build_pair_list,
     build_pair_list_ordered,
@@ -23,6 +24,7 @@ __all__ = [
     "make_cell_grid",
     "build_cell_list",
     "neighbor_matrix",
+    "neighbor_matrix_query",
     "NeighborMatrix",
     "build_pair_list",
     "build_pair_list_ordered",

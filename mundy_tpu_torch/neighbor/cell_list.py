@@ -3,7 +3,8 @@
 Port of mundy_tpu/neighbor/cell_list.py (the parts the LCP spheres and
 chromatin lines run): bin particles into a dense (ncells, capacity) table
 with one stable sort, gather the 27-cell stencil per particle in chunks,
-keep the first K in-cutoff candidates in stencil order, gather the raw
+keep the first K in-cutoff candidates in stencil order (for all bodies, or
+for a subset by global id: `neighbor_matrix_query`), gather the raw
 stencil of a few query points (`neighbor_candidates`), and compact a
 neighbor matrix into the unique i < j pair list of the granular app or the
 i-sorted ordered pair list of the constraint pipeline. Shapes and
@@ -189,43 +190,63 @@ def neighbor_matrix(pos: torch.Tensor, clist: CellList, search_radius,
     `exclude` is an optional (N, E) int table of particle ids to drop (the
     reference's ExcludeConnectedEntities filter; -1 excludes nothing).
     Chunked over particles so the (chunk, 27 cap) candidate table stays
-    small."""
+    small. Every body queried: neighbor_matrix_query with gid = arange(N)."""
     n = pos.shape[0]
-    dev = pos.device
-    cap = clist.entries.shape[1]
-    radius = torch.broadcast_to(torch.as_tensor(search_radius, dtype=pos.dtype,
+    gid = torch.arange(n, dtype=torch.int32, device=pos.device)
+    return neighbor_matrix_query(pos, clist, pos, gid, search_radius, metric,
+                                 max_neighbors, chunk, exclude)
+
+
+def neighbor_matrix_query(pos_all: torch.Tensor, clist: CellList, query_pos: torch.Tensor,
+                          query_gid: torch.Tensor, search_radius,
+                          metric: Optional[Metric] = None, max_neighbors: int = 32,
+                          chunk: int = 4096,
+                          exclude: Optional[torch.Tensor] = None) -> NeighborMatrix:
+    """Neighbor rows for a subset of bodies: `query_pos` (Q, 3) with global
+    ids `query_gid` (Q,) against the cell list built over `pos_all` (N, 3).
+    `search_radius` is a scalar or (N,) per body; `exclude` an optional
+    (Q, E) table of global ids to drop per query. The (Q, K) rows carry
+    global ids and equal the matching rows of neighbor_matrix(pos_all, ...):
+    the same candidate order, compaction and exclusions, so a rank can
+    rebuild only its own rows. Padding queries carry gid -1 and find
+    nothing."""
+    n = pos_all.shape[0]
+    q = query_pos.shape[0]
+    dev = pos_all.device
+    radius = torch.broadcast_to(torch.as_tensor(search_radius, dtype=pos_all.dtype,
                                                 device=dev), (n,))
-    n_pad = ((n + chunk - 1) // chunk) * chunk
-    pos_p = torch.cat([pos, pos.new_zeros((n_pad - n, 3))])
-    rad_p = torch.cat([radius, radius.new_zeros((n_pad - n,))])
+    q_pad = ((q + chunk - 1) // chunk) * chunk
+    qp = torch.cat([query_pos, query_pos.new_zeros((q_pad - q, 3))])
+    qg = torch.cat([query_gid.to(torch.int32),
+                    torch.full((q_pad - q,), -1, dtype=torch.int32, device=dev)])
     if exclude is not None:
-        excl_p = torch.cat([exclude, exclude.new_full((n_pad - n, exclude.shape[1]), -1)])
-    coords_all = _cell_coords(clist.grid, pos_p)
+        excl_p = torch.cat([exclude, exclude.new_full((q_pad - q, exclude.shape[1]), -1)])
+    coords_all = _cell_coords(clist.grid, qp)
     idx_parts, mask_parts, ovf = [], [], torch.zeros((), dtype=torch.bool, device=dev)
-    for start in range(0, n_pad, chunk):
+    for start in range(0, q_pad, chunk):
         sl = slice(start, start + chunk)
-        p, r = pos_p[sl], rad_p[sl]
+        p, me = qp[sl], qg[sl]
         cells27, valid27 = _neighbor_cells_of(clist.grid, coords_all[sl])
         cand = clist.entries[cells27]  # (chunk, 27, cap)
-        cand = torch.where(valid27[..., None], cand, -1).reshape(chunk, 27 * cap)
+        cand = torch.where(valid27[..., None], cand, -1).reshape(chunk, -1)
         cand_idx = torch.clamp(cand, min=0).to(torch.int64)
-        cand_pos = pos_p[cand_idx]
+        cand_pos = pos_all[cand_idx]
         if metric is None:
             sep = cand_pos - p[:, None, :]
         else:
             sep = metric.sep(p[:, None, :], cand_pos)
         d2 = (sep * sep).sum(-1)
-        cutoff = r[:, None] + rad_p[cand_idx]
-        me = torch.arange(start, start + chunk, dtype=torch.int32, device=dev)
-        ok = (cand >= 0) & (d2 <= cutoff * cutoff) & (cand != me[:, None])
+        cutoff = radius[torch.clamp(me, min=0).to(torch.int64)][:, None] + radius[cand_idx]
+        ok = ((cand >= 0) & (d2 <= cutoff * cutoff) & (cand != me[:, None])
+              & (me >= 0)[:, None])
         if exclude is not None:
             ok &= (cand[:, :, None] != excl_p[sl][:, None, :]).all(dim=-1)
         row_idx, row_ok, count = _compact_rows(cand, ok, max_neighbors, n)
         idx_parts.append(row_idx)
         mask_parts.append(row_ok)
         ovf = ovf | (count > max_neighbors).any()
-    idx = torch.cat(idx_parts)[:n].to(torch.int32)
-    mask = torch.cat(mask_parts)[:n]
+    idx = torch.cat(idx_parts)[:q].to(torch.int32)
+    mask = torch.cat(mask_parts)[:q]
     return NeighborMatrix(idx=idx, mask=mask, overflow=ovf)
 
 

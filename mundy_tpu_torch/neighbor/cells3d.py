@@ -122,7 +122,7 @@ def _axis_shift(n: int, d: int, L: float, dtype, device) -> torch.Tensor:
 
 def pair_apply_cells3d(state: Cells3DState, box_lengths, payload: torch.Tensor,
                        kernel: Callable, out_dim: int,
-                       hbm_budget_bytes: float = 2.0e9) -> torch.Tensor:
+                       hbm_budget_bytes: float = 2.0e9, x_range=None) -> torch.Tensor:
     """Dense pairwise reduction over the 27-cell neighbourhood.
 
     kernel(DX, DY, DZ, r2, pj) with pair blocks (rows, nz, C, 27C) and
@@ -130,7 +130,12 @@ def pair_apply_cells3d(state: Cells3DState, box_lengths, payload: torch.Tensor,
     out_dim). The kernel must vanish beyond the grid cutoff and for zero
     payload (empty slots carry payload 0, which the caller ensures).
     Self-pairs (sep = 0, own payload) are included. Returns (nx, ny, nz, C,
-    out_dim)."""
+    out_dim).
+
+    `x_range = (x0, nxl)`: evaluate only the x-slab of cells [x0, x0 + nxl)
+    as targets, against candidates from the whole periodic grid, with the
+    same pair blocks in the same order (the sharded real space,
+    parallel/spectral_shard.py). Returns (nxl, ny, nz, C, out_dim)."""
     pos = state.pos
     nx, ny, nz, C = pos.shape[:4]
     dtype, dev = pos.dtype, pos.device
@@ -138,6 +143,10 @@ def pair_apply_cells3d(state: Cells3DState, box_lengths, payload: torch.Tensor,
     if nx < 3 or ny < 3 or nz < 3:
         raise ValueError("pair_apply_cells3d needs >= 3 cells per axis")
     D = payload.shape[-1]
+    x0, nx_out = (0, nx) if x_range is None else (int(x_range[0]), int(x_range[1]))
+    if not (0 <= x0 and nx_out >= 1 and x0 + nx_out <= nx):
+        raise ValueError(f"x_range ({x0}, {nx_out}) outside the grid's {nx} x-cells")
+    xs = slice(x0, x0 + nx_out)
     cx, cy, cz, cf = [], [], [], []
     for dx in (-1, 0, 1):
         for dy in (-1, 0, 1):
@@ -154,18 +163,18 @@ def pair_apply_cells3d(state: Cells3DState, box_lengths, payload: torch.Tensor,
                     y = y + _axis_shift(ny, dy, L[1], dtype, dev)[None, :, None, None]
                 if dz != 0:
                     z = z + _axis_shift(nz, dz, L[2], dtype, dev)[None, None, :, None]
-                cx.append(x)
-                cy.append(y)
-                cz.append(z)
-                cf.append(cpay)
-    rows = nx * ny
+                cx.append(x[xs])
+                cy.append(y[xs])
+                cz.append(z[xs])
+                cf.append(cpay[xs])
+    rows = nx_out * ny
     cx = torch.cat(cx, dim=-1).reshape(rows, nz, 27 * C)
     cy = torch.cat(cy, dim=-1).reshape(rows, nz, 27 * C)
     cz = torch.cat(cz, dim=-1).reshape(rows, nz, 27 * C)
     cf = torch.cat(cf, dim=-2).reshape(rows, nz, 27 * C, D)
-    ox = pos[..., 0].reshape(rows, nz, C)
-    oy = pos[..., 1].reshape(rows, nz, C)
-    oz = pos[..., 2].reshape(rows, nz, C)
+    ox = pos[xs, ..., 0].reshape(rows, nz, C)
+    oy = pos[xs, ..., 1].reshape(rows, nz, C)
+    oz = pos[xs, ..., 2].reshape(rows, nz, C)
     bytes_per_row = (8 + 2 * D) * nz * C * 27 * C * pos.element_size()
     cr = max(1, int(hbm_budget_bytes // max(bytes_per_row, 1)))
     out = []
@@ -177,7 +186,7 @@ def pair_apply_cells3d(state: Cells3DState, box_lengths, payload: torch.Tensor,
         r2 = DX * DX + DY * DY + DZ * DZ
         out.append(kernel(DX, DY, DZ, r2, cf[s]))
         del DX, DY, DZ, r2
-    return torch.cat(out).reshape(nx, ny, nz, C, out_dim)
+    return torch.cat(out).reshape(nx_out, ny, nz, C, out_dim)
 
 
 def scatter_to_flat(state: Cells3DState, values: torch.Tensor, n: int) -> torch.Tensor:

@@ -7,9 +7,11 @@ ring-rotated dense RPY apply; `slab_local` the slab-local row resort;
 `slab_rows` and `slab_segments` the z-slab spheres and rods engines;
 `balanced_slab` the density-balanced z-slab decomposition (and its settling
 demonstrator), on which `balanced_lcp` runs the LCP spheres pipeline and
-`granular_shard` the granular DEM with migrating contact history. The
-reference's package exports (`slab`, `sharded_step`) and its other engines
-wait (ROADMAP queue 1, item 8).
+`granular_shard` the granular DEM with migrating contact history;
+`spectral_shard` the spectral-Ewald RPY mobility over the ranks,
+`chromatin_shard` the whole-chain chromatin engine and `filaments_shard`
+the whole-filament engine. The reference's package exports (`slab`,
+`sharded_step`) and LCP rpy_ring over ranks wait (ROADMAP queue 1, item 8).
 """
 
 from mundy_tpu_torch.parallel.balanced_lcp import make_balanced_lcp_step
@@ -28,16 +30,20 @@ from mundy_tpu_torch.parallel.comm import (
     ring_perms,
     spawn_ranks,
 )
+from mundy_tpu_torch.parallel.chromatin_shard import ShardEngine, make_sharded_chromatin_step
+from mundy_tpu_torch.parallel.filaments_shard import make_sharded_filaments_step
 from mundy_tpu_torch.parallel.granular_shard import make_granular_slab_step
 from mundy_tpu_torch.parallel.ring_rpy import hilbert_shard_permutation, make_ring_rpy_apply
 from mundy_tpu_torch.parallel.slab_local import local_resort_ok, slab_local_resort
 from mundy_tpu_torch.parallel.slab_rows import SlabEngine, make_slab_rows_spheres_step
 from mundy_tpu_torch.parallel.slab_segments import make_slab_rods_step
+from mundy_tpu_torch.parallel.spectral_shard import make_se_local_apply, make_sharded_se_rpy_apply
 
 __all__ = [
     "BalancedEngine",
     "Group",
     "RankError",
+    "ShardEngine",
     "SlabEngine",
     "backend_plan",
     "balanced_bounds",
@@ -47,7 +53,11 @@ __all__ = [
     "make_balanced_lcp_step",
     "make_balanced_settling_step",
     "make_granular_slab_step",
+    "make_se_local_apply",
     "make_ring_rpy_apply",
+    "make_sharded_chromatin_step",
+    "make_sharded_filaments_step",
+    "make_sharded_se_rpy_apply",
     "make_slab_rods_step",
     "make_slab_rows_spheres_step",
     "reference_settling_step",

@@ -23,7 +23,7 @@ The backend rule (`backend_plan`), explicit and printed by `spawn_ranks`:
 Nothing switches backend on a failure, and no rank asked for CUDA carries on
 on the CPU.
 
-`spawn_ranks(fn, n, device, ...)` starts n processes with the "spawn" start
+`spawn_ranks(fn, n, device="cuda", ...)` starts n processes with the "spawn" start
 method, joins them through a FileStore in a temporary directory (no TCP
 port), runs `fn(group, *args)` on each and returns their results in rank
 order. It waits at most `timeout` seconds: on expiry it kills every rank and
@@ -251,11 +251,12 @@ class RankError(RuntimeError):
     """A rank raised; the message carries its traceback."""
 
 
-def spawn_ranks(fn: Callable, n: int, device="cpu", args: tuple = (),
+def spawn_ranks(fn: Callable, n: int, device="cuda", args: tuple = (),
                 timeout: float = 120.0, threads: int = 1,
                 log: Optional[Callable[[str], None]] = print) -> list:
-    """Run fn(group, *args) on n spawned ranks; their results in rank
-    order. Prints the plan (ranks, backend, devices) through `log`. Raises
+    """Run fn(group, *args) on n spawned ranks on `device` (the card unless
+    the caller asks for "cpu"; without a card a "cuda" call raises before
+    any rank starts); their results in rank order. Prints the plan (ranks, backend, devices) through `log`. Raises
     RankError with the traceback of the first rank that failed, and
     TimeoutError, after killing every rank, when they have not all finished
     within `timeout` seconds."""

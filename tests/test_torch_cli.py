@@ -147,11 +147,25 @@ def test_main_defaults_to_the_card(tmp_path):
         main([y])
 
 
-def test_main_refuses_several_devices(tmp_path):
-    """--devices 2 runs spheres, rods, lcp_spheres and granular
-    (tests/test_torch_sharded.py); an app whose sharded engine waits raises
-    before any rank starts, naming its step of item 8."""
-    for app, step in (("chromatin", 3), ("filaments", 4)):
-        y = _yaml(tmp_path, app, num_steps=2)
-        with pytest.raises(NotImplementedError, match=f"item 8 step {step}"):
-            main([y, "--device", "cpu", "--devices", "2"])
+def test_main_refuses_several_devices(tmp_path, capfd):
+    """--devices 2 runs every app (tests/test_torch_sharded.py,
+    test_torch_*_shard.py); what no sharded engine runs raises before any
+    rank starts (no plan line), each refusal naming its rule: the repo's
+    hp1_chromatin.yaml (7 chains over 2 ranks), chromatin hydro outside the
+    three modes, crosslinkers and filaments that do not split, and LCP
+    rpy_ring over ranks (item 8 step 4)."""
+    hp1 = str(ROOT / "examples" / "hp1_chromatin.yaml")
+    lcp = str(ROOT / "examples" / "lcp_spheres_100k.yaml")
+    cases = [
+        (hp1, (), ValueError, "num_chains % ranks"),
+        (hp1, ("num_chains=8", "hydro=rpy_neighbors"), ValueError,
+         "runs hydro none, rpy_spectral, rpy_periphery"),
+        (hp1, ("num_chains=8", "num_crosslinkers=3"), ValueError, "num_crosslinkers % ranks"),
+        (_yaml(tmp_path, "filaments", num_filaments=5), (), ValueError,
+         "num_filaments % ranks"),
+        (lcp, ("hydro=rpy_ring",), NotImplementedError, "item 8 step 4"),
+    ]
+    for y, sets, err, match in cases:
+        with pytest.raises(err, match=match):
+            main([y, "--device", "cpu", "--devices", "2", "--set", *sets])
+    assert "ranks 2" not in capfd.readouterr().out

@@ -15,9 +15,6 @@ REF_INITS = sorted((ROOT / "mundy_tpu").glob("*/__init__.py"))
 
 # names the port leaves out, with the reason
 EXCEPTIONS = {
-    ("neighbor", "neighbor_matrix_query"):
-        "a cross-set query for device meshes: ported with the multi-device "
-        "engines (ROADMAP queue 1, item 8)",
     ("core", "pytree_dataclass"):
         "PyTorch has no pytrees: the port's container is "
         "core.containers.frozen_dataclass",

@@ -25,6 +25,7 @@ from mundy_tpu_torch.ops.kernels import row_hertz as k6
 from mundy_tpu_torch.ops.kernels import row_segments as k4
 from mundy_tpu_torch.ops.kernels import se_grid as k5
 from mundy_tpu_torch.ops.kernels import seg_onehot as k3
+from mundy_tpu_torch.parallel.comm import Group
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "mundy_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -367,8 +368,9 @@ def test_scatter_gridding_refuses_cuda_tensors():
 def test_chromatin_unported_modes_raise(hydro):
     """The periphery BIE modes are ported: each constructs and steps on the
     CPU when asked (the card is the default), within its periphery. The
-    sharded mode (mesh=) is not ported: it raises, never runs something
-    else."""
+    sharded mode (mesh=, tests/test_torch_spectral_shard.py) refuses a mesh
+    that is not a parallel.comm.Group and N % ranks != 0, never runs
+    something else."""
     cfg = ChromatinConfig(num_chains=2, beads_per_chain=16, num_crosslinkers=4,
                           hydro=hydro, periphery_radius=8.0, periphery_order=6,
                           dtype="float64")
@@ -377,9 +379,12 @@ def test_chromatin_unported_modes_raise(hydro):
     st = sim.run_block(sim.init(), 2)
     assert st.step == 2 and not bool(st.overflow)
     assert bool(torch.isfinite(st.pos).all()) and float(st.pos.norm(dim=1).max()) < 8.0
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ChromatinSim(ChromatinConfig(num_chains=2, beads_per_chain=16), device="cpu",
-                     mesh=object())
+    spectral = ChromatinConfig(num_chains=2, beads_per_chain=16, hydro="rpy_spectral",
+                               box_size=16.0)
+    with pytest.raises(TypeError, match="mesh= takes a parallel.comm.Group"):
+        ChromatinSim(spectral, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="N % ranks == 0"):
+        ChromatinSim(spectral, device="cpu", mesh=Group(0, 3, "cpu", "gloo"))
 
 
 def test_chromatin_slice_modules_import_without_jax():

@@ -12,8 +12,10 @@ driver/main.py), and the backend rule of parallel/comm.py.
   example YAMLs (cut in size and steps) over the balanced engines: the plan
   line and the decomposition line once, rank 0 alone writes the final VTK
   and the checkpoint.
-- ShardedSim refuses what its engines do not run and the apps whose
-  engines wait (ROADMAP queue 1, item 8).
+- ShardedSim refuses what its engines do not run; refuse_unported refuses,
+  before any rank starts, the configs the engines cannot split and LCP
+  rpy_ring over ranks (ROADMAP queue 1, item 8 step 4); spawn_ranks without
+  a device raises here, where there is no card.
 - regrow grows the slab engine's row capacity (ROADMAP queue 3): a
   capacity too small for a row overflows, main's loop regrows and retries,
   and the run ends where one with room to spare ends.
@@ -29,6 +31,8 @@ import torch
 
 import torch_rank_bodies as bodies
 
+from mundy_tpu_torch.driver.apps.chromatin import ChromatinConfig
+from mundy_tpu_torch.driver.apps.filaments import FilamentsConfig
 from mundy_tpu_torch.driver.apps.granular import GranularConfig, GranularSim
 from mundy_tpu_torch.driver.apps.lcp_spheres import LCPSpheresConfig, LCPSpheresSim
 from mundy_tpu_torch.driver.apps.rods import RodsConfig
@@ -122,10 +126,45 @@ def test_backend_rule():
     assert "staged through pinned host buffers" in shared.describe()
 
 
-@pytest.mark.parametrize("app,step", [("chromatin", 3), ("filaments", 4)])
-def test_unported_apps_raise(app, step):
-    with pytest.raises(NotImplementedError, match=f"item 8 step {step}"):
-        refuse_unported(app)
+UNPORTED = {
+    "chromatin-chains": ("chromatin", ChromatinConfig(num_chains=7), ValueError,
+                         "num_chains % ranks == 0"),
+    "chromatin-hydro": ("chromatin", ChromatinConfig(num_chains=2, hydro="rpy_neighbors",
+                                                     box_size=20.0),
+                        ValueError, "runs hydro none, rpy_spectral, rpy_periphery"),
+    "lcp-rpy_ring": ("lcp_spheres", LCPSpheresConfig(hydro="rpy_ring"), NotImplementedError,
+                     "item 8 step 4"),
+    "filaments-split": ("filaments", FilamentsConfig(num_filaments=5), ValueError,
+                        "num_filaments % ranks == 0"),
+    "no-app": ("proteins", None, ValueError, "no sharded engine for app 'proteins'"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(UNPORTED))
+def test_unported_apps_raise(case):
+    """What no sharded engine runs over 2 ranks is refused, each refusal
+    naming its rule (LCP rpy_ring over ranks its step of item 8); every
+    app has a route, and a config that splits passes."""
+    app, cfg, err, match = UNPORTED[case]
+    with pytest.raises(err, match=match):
+        refuse_unported(app, cfg, 2)
+    refuse_unported("chromatin", ChromatinConfig(num_chains=8, num_crosslinkers=16,
+                                                 hydro="rpy_periphery",
+                                                 periphery_radius=9.0), 2)
+    refuse_unported("filaments", FilamentsConfig(num_filaments=8), 2)
+    refuse_unported("lcp_spheres", LCPSpheresConfig(hydro="rpy_ring"), 1)
+
+
+def test_spawn_ranks_needs_a_card_by_default():
+    """spawn_ranks runs on the card unless the caller asks for the CPU:
+    without a card a call with no device raises before any rank starts."""
+    import multiprocessing
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default runs there")
+    with pytest.raises(RuntimeError, match="need a CUDA device"):
+        spawn_ranks(bodies.raise_on_rank, 2, args=(0,), timeout=60.0)
+    assert not multiprocessing.active_children()
 
 
 def test_refusals_of_the_engines():

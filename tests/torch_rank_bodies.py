@@ -6,6 +6,7 @@ never the JAX package. Each body returns numpy arrays on rank 0 (None on the
 others); the tests compare them with the JAX reference in their own process.
 """
 
+import functools
 import sys
 
 import numpy as np
@@ -254,6 +255,139 @@ def field_reductions(group, x, y, mask):
            "amax": tf.field_amax(tx, tm, axis_names=group),
            "amin": tf.field_amin(tx, tm, axis_names=group)}
     return {k: float(v) for k, v in out.items()} if group.rank == 0 else None
+
+
+@functools.lru_cache(maxsize=None)
+def _se_op(box: float, n: int):
+    """The float64 spectral-Ewald operator of a test box (built once a rank)."""
+    from mundy_tpu_torch.mobility.spectral import build_spectral_ewald
+
+    return build_spectral_ewald(box, 0.5, 1.0, tol=1e-4, n_particles=n, dtype=torch.float64,
+                                device="cpu")
+
+
+def se_sharded(group, box, n, kind, pos, forces, slack):
+    """The sharded spectral-Ewald apply (parallel/spectral_shard.py) over
+    this rank's block of the (n, 3) inputs, float64, with the tile or rows
+    geometry sized for n / d bodies times `slack`; rank 0 returns the
+    gathered velocities, the overflow flag, the geometry and the cells'
+    x-slab split."""
+    from mundy_tpu_torch.mobility.spectral import make_se_geometry, make_se_geometry_tiles
+    from mundy_tpu_torch.neighbor.cells3d import make_cell_grid3d
+    from mundy_tpu_torch.parallel.spectral_shard import make_sharded_se_rpy_apply
+
+    f64 = torch.float64
+    op = _se_op(box, n)
+    make = make_se_geometry_tiles if kind == "tiles" else make_se_geometry
+    geom = make(op, n // group.size, capacity_slack=slack)
+    cells_grid = make_cell_grid3d([box] * 3, op.base.r_cut, n, dtype=f64, device="cpu")
+    if kind == "column":  # every body in one binning column: a roomy cell capacity
+        cells_grid = cells_grid.replace(capacity=max(cells_grid.capacity, n))
+    apply = make_sharded_se_rpy_apply(group, op, geom, cells_grid, n, (box,) * 3)
+    nl = n // group.size
+    sl = slice(group.rank * nl, (group.rank + 1) * nl)
+    u, ovf = apply(torch.as_tensor(pos[sl]), torch.as_tensor(forces[sl]))
+    out = {"u": torch.cat(group.all_gather(u)).numpy(), "overflow": bool(ovf),
+           "geom": tuple(geom)[:4], "nx": cells_grid.nx}
+    return out if group.rank == 0 else None
+
+
+def chromatin_engine(group, cfg, steps, carry=None):
+    """parallel/chromatin_shard's engine over the port's ChromatinSim (CPU)
+    from its init (or from `carry`, a ChromatinState's arrays for
+    chromatin_state_from_numpy), over blocks of `steps`; rank 0 returns, per
+    block, the gathered positions, crosslinker states and bound targets, and
+    the overflow and rebuild count."""
+    from mundy_tpu_torch.driver.apps.chromatin import ChromatinSim
+    from mundy_tpu_torch.parallel.chromatin_shard import make_sharded_chromatin_step
+
+    sim = ChromatinSim(cfg, device="cpu")
+    s0 = sim.init()
+    eng = make_sharded_chromatin_step(group, sim)
+    st = eng.shard(s0)
+    out = []
+    for n in steps:
+        st = eng.step_block(st, n)
+        g = eng.gather(st)
+        row = {"pos": g["pos"].numpy(), "overflow": bool(g["overflow"]),
+               "rebuilds": st["rebuild_count"], "step": st["step"]}
+        if "xl_state" in g:
+            row["xl_state"] = g["xl_state"].numpy()
+            row["bound_to"] = torch.where(g["xl_active"], g["xl_target"], -1).numpy()
+        out.append(row)
+    return out if group.rank == 0 else None
+
+
+def chromatin_mesh(group, cfg, steps):
+    """ChromatinSim(mesh=group) with hydro rpy_spectral from its init over
+    `steps` steps; rank 0 returns the positions, the overflow flag and
+    whether the sharded apply was built."""
+    from mundy_tpu_torch.driver.apps.chromatin import ChromatinSim
+
+    sim = ChromatinSim(cfg, device="cpu", mesh=group)
+    st = sim.run_block(sim.init(), steps)
+    out = {"pos": st.pos.numpy(), "overflow": bool(st.overflow),
+           "sharded": sim.sharded_se is not None}
+    return out if group.rank == 0 else None
+
+
+def filaments_engine(group, cfg, pos, key_words, steps):
+    """parallel/filaments_shard's engine over the port's FilamentsSim (CPU)
+    from init(pos, key_words), over blocks of `steps`; rank 0 returns the
+    gathered positions, the overflow flag and the rebuild count per block."""
+    from mundy_tpu_torch.driver.apps.filaments import FilamentsSim
+    from mundy_tpu_torch.parallel.filaments_shard import make_sharded_filaments_step
+
+    sim = FilamentsSim(cfg, device="cpu")
+    eng = make_sharded_filaments_step(group, sim)
+    st = eng.shard(sim.init(pos=torch.as_tensor(pos), key_words=key_words))
+    out = []
+    for n in steps:
+        st = eng.step_block(st, n)
+        g = eng.gather(st)
+        out.append({"pos": g["pos"].numpy(), "overflow": bool(g["overflow"]),
+                    "rebuilds": st["rebuild_count"], "step": st["step"]})
+    return out if group.rank == 0 else None
+
+
+def block_route(group, app, cfg, blocks, init_kw=None, tight_k=None):
+    """ShardedSim(app) over the port's ChromatinSim or FilamentsSim (CPU)
+    from init(**init_kw), over `blocks`, regrown as main's loop does when a
+    block overflows; `tight_k` first shrinks the contact rows (chromatin:
+    the sim's contact_K; filaments: max_neighbors) so that the first block
+    overflows. Rank 0 returns the positions, the step, the regrows, the
+    contact width after them and the decomposition line, and for chromatin
+    the positions of the last rebuild and the searches of the state."""
+    from mundy_tpu_torch.driver.apps.chromatin import ChromatinSim
+    from mundy_tpu_torch.driver.apps.filaments import FilamentsSim
+    from mundy_tpu_torch.driver.sharded import ShardedSim
+
+    sim = (ChromatinSim if app == "chromatin" else FilamentsSim)(cfg, device="cpu")
+    runner = ShardedSim(app, sim, group)
+    st = sim.init(**(init_kw or {}))
+    if tight_k is not None:
+        if app == "chromatin":
+            sim.contact_K = tight_k
+        else:
+            cfg.max_neighbors = tight_k
+    regrows = 0
+    for n in blocks:
+        new = runner.run_block(st, n)
+        while bool(new.overflow):
+            st = runner.regrow(st)
+            regrows += 1
+            new = runner.run_block(st, n)
+        st = new
+    out = {"pos": st.pos.numpy(), "step": st.step, "regrows": regrows,
+           "describe": runner.describe(), "rebuilds": st.rebuild_count,
+           "k": sim.contact_K if app == "chromatin" else cfg.max_neighbors}
+    if app == "chromatin":
+        out.update(ref_pos=st.ref_pos.numpy(), nmat_idx=st.nmat.idx.numpy(),
+                   kmc_idx=st.kmc_nmat.idx.numpy())
+    if app == "chromatin" and sim.X:
+        out["xl_state"] = st.xl_state.numpy()
+        out["bound_to"] = st.xl_bound_to.numpy()
+    return out if group.rank == 0 else None
 
 
 def run_all(group, jobs):
