@@ -25,8 +25,11 @@ density-balanced z-slab engines (settling, LCP through ShardedSim, the
 granular and LCP YAMLs through `main --devices 2`, float64 against the CPU),
 then the whole-chain and whole-filament block engines (the 1M chromatin
 YAML through ShardedSim with K5s and K5i on every rank, config #4 and HP1
-through ShardedSim, float64 against the CPU, `main --devices 2`). Each
-group of phases prints its seconds ("[a]-[b] took").
+through ShardedSim, float64 against the CPU, `main --devices 2`), then LCP
+rpy_ring over ranks (K2 and K3 on every rank) and the last three engines
+(parallel/sharded_step.py's v1 and v2, parallel/slab_lcp.py with K3),
+float64 against the CPU, rpy_ring through `main --devices 2`. Each group of
+phases prints its seconds ("[a]-[b] took").
 
 1. build K1-K6 with nvcc (sm_90a), one process per source, all at once;
    print each kernel's registers and spills and the card with its power
@@ -41,12 +44,12 @@ group of phases prints its seconds ("[a]-[b] took").
    same run on the CPU, which takes the plain versions;
 5. the 1M config #1 (phi = 0.05) for 100 steps through run_block, with the
    K1 count set to 0 just before: one K1 launch per step; then
-   torch.profiler over 8 more steps;
+   torch.profiler over 4 more steps;
 6. the 1M LCP bench protocol of bench.py:39-74: init, 3 settle blocks of 9
    steps, a 2-step block at fixed capacities that must not overflow, then a
    24-step timed window with the K2/K3 counts set to 0 just before: one K3
    launch per step, one K2 launch per broad phase; then torch.profiler over
-   8 more steps;
+   4 more steps;
 7. K2 vs its plain version at the row shape of the window's final state:
    ids and counts exactly equal; its bound from the ordered pairs within
    the cut in x and from occupancy, beside the first design's count;
@@ -63,7 +66,7 @@ group of phases prints its seconds ("[a]-[b] took").
     volume fraction in a box 10^(1/3) larger), max |diff| within 1e-5 of
     max|force| and of max|torque|; its bound from the pairs within reach
     in x and in 3D, both counted and printed;
-12. examples/rods_100k.yaml, 200 of its 1000 steps, through load_yaml /
+12. examples/rods_100k.yaml, 100 of its 1000 steps, through load_yaml /
     config_from_dict -> RowRodsSim(...).run(): no rod lost, no overflow,
     finite, unit quaternions within 1e-5;
 13. config #3 in float64 (400 rods, box 24, 60 steps) on the card against
@@ -73,13 +76,13 @@ group of phases prints its seconds ("[a]-[b] took").
     with the K4 count set to 0 just before: one K4 launch per step; K4 vs
     its plain version once more on the final state, whose rows have moved
     since their last sort (within 1e-5 of each max); then one keyed noise
-    call timed alone, and torch.profiler over 8 more steps;
+    call timed alone, and torch.profiler over 4 more steps;
 15. K4's filaments op vs its plain version at the 2000 x 50 row-engine
     shape (float32, from FilamentsSim(contact_engine="rows").init, the
     reference's benchmark size): f_start and f_end max |diff| within 1e-5
     of their max; its bound from the pairs within reach in x and in 3D,
     both counted and printed;
-16. examples/filaments_sperm.yaml, 200 of its 1000 steps, through load_yaml /
+16. examples/filaments_sperm.yaml, 100 of its 1000 steps, through load_yaml /
     config_from_dict -> FilamentsSim(...).run() (float64, the active wave,
     the cell-list neighbor matrix): no overflow, finite, unit edge
     quaternions within 1e-10;
@@ -89,10 +92,10 @@ group of phases prints its seconds ("[a]-[b] took").
 18. the 2000 x 50 config #4 (box 120, D = 0.05, float32, the default
     neighbor-matrix engine, built through K2): 3 warm-up steps, then 200
     steps of run_block with the K2 count set to 0 just before: one K2
-    launch per broad phase; then torch.profiler over 8 more steps;
+    launch per broad phase; then torch.profiler over 4 more steps;
 19. the same config with contact_engine="rows": 200 steps with the K4
     filaments count set to 0 just before: one launch per step; then
-    torch.profiler over 8 more steps;
+    torch.profiler over 4 more steps;
 20. K5s and K5i (spectral-Ewald spread and interpolation) vs their plain
     versions at the config #5 shape: float32 pieces and forces from
     ChromatinSim.init on examples/chromatin_1m_spectral.yaml (1M beads, G =
@@ -102,15 +105,15 @@ group of phases prints its seconds ("[a]-[b] took").
     P^3 ids and values timed beside K5s as its library yardstick, and the
     ratio of the two printed;
 21. config #5 in float64 (2 x 64 beads, box 24, 16 crosslinkers,
-    rpy_spectral with the density split, 40 steps, skin rebuilds) on the
+    rpy_spectral with the density split, 24 steps, skin rebuilds) on the
     card against the CPU: equal rebuilds, overflow flags and binding states
     at every step, positions within 1e-7; then the same config twice on the
     card in float32, positions bit-equal (no atomics on the path);
 22. the 1M YAML: a regrow-aware warm-up of 2 steps through run_blocks,
-    then 3 steps of run_block with the K5s/K5i/K2 counts set to 0 just
+    then 2 steps of run_block with the K5s/K5i/K2 counts set to 0 just
     before: one K5s and one K5i launch per step, one K2 launch per rows
     broad phase, no overflow; each layer of the step timed alone; then
-    torch.profiler over 2 more steps;
+    torch.profiler over 1 more step;
 23. K6 (masked full-stencil Hertz, the monodisperse law on a constant
     radius plane) vs its plain version and vs K1 at the 1M config #1
     shape, each within 5e-5 of max|f| (the bound of
@@ -122,7 +125,7 @@ group of phases prints its seconds ("[a]-[b] took").
     at the init shape within 5e-5 of max|f| and bit-equal on a second
     launch, timed, its bound counted as [23]'s, then 100 steps of run_block
     with the K6 count set to 0 just before: one launch per step, no lost
-    sphere, no overflow; then torch.profiler over 8 more steps;
+    sphere, no overflow; then torch.profiler over 4 more steps;
 25. that config in float64 (2000 spheres, 60 steps) on the card against
     the CPU: equal rebuilds and layout, positions within 1e-7;
 26. K3t vs its plain version at the strided shape of [6]'s final state
@@ -141,7 +144,7 @@ group of phases prints its seconds ("[a]-[b] took").
     CPU: equal counters at every step, positions within 1e-8;
 29. the LCP line's hydro modes at examples/lcp_spheres_100k.yaml with only
     `hydro` changed, float32: rpy_neighbors for 10 steps and rpy_spectral
-    for 2 (G 128, P 6, the plain real-space scan on 13^3 cells) from init,
+    for 1 (G 128, P 6, the plain real-space scan on 13^3 cells) from init,
     with the K2, K3, K5s and K5i counts set to 0 before the sim is made:
     one K2 launch per broad phase, one K3 launch (and in rpy_spectral one
     K5s and one K5i launch) per mobility apply (BBPGD iterations + 2 per
@@ -151,26 +154,26 @@ group of phases prints its seconds ("[a]-[b] took").
     the final binning; one mobility apply timed by CUDA events, in
     rpy_spectral split into the real space and the wave part;
 30. the three modes (rpy_neighbors, rpy_ewald, rpy_spectral) in float64 at
-    the reference test's size (150 spheres, box 14, dt 2e-3, D 0.02, 14
+    the reference test's size (150 spheres, box 14, dt 2e-3, D 0.02, 10
     steps) on the card against the CPU: equal counters at every step, a
     skin rebuild, positions within 1e-7;
 31. the Ewald direct wave sum (2000 bodies in box 14, the rpy_ewald
     splitting) in float32 against float64 on the card, within 1e-5 of
     max|u| (full float32 products; TF32 would leave ~2e-3);
 32. examples/hp1_chromatin.yaml as written (rpy_periphery: 7 x 405 beads,
-    512 crosslinkers, periphery radius 25, order 12, float32), 200 of its
+    512 crosslinkers, periphery radius 25, order 12, float32), 100 of its
     1000 steps through run(), with the K5s/K5i counts set to 0 before the sim
     is made (no launch in this mode): init time with M^-1, ms/step on the
     host clock, doubly bound crosslinkers; no overflow, finite, every bead
     within the periphery radius + its own; one mobility apply at the final
     state by CUDA events, split into the dense RPY, the flow at the Q = 338
-    nodes and the BIE correction; then torch.profiler over 8 more steps;
+    nodes and the BIE correction; then torch.profiler over 4 more steps;
 33. the same YAML with `hydro: rpy_periphery_spectral`: the free-space
     operator's host build (seconds, and the peak of numpy's host
     allocations by tracemalloc), G, P, m and the tile R; 2 warm-up steps
-    through run_blocks, then 200 steps of run_block with the K5s/K5i counts
+    through run_blocks, then 100 steps of run_block with the K5s/K5i counts
     set to 0 just before: one launch of each per step, no overflow; then
-    torch.profiler over 8 more steps; one mobility apply split into the
+    torch.profiler over 4 more steps; one mobility apply split into the
     real space, the wave part and the BIE;
     K5s within 1e-5 of max|grid| of its plain version on the final
     binning (at P = 10, m = 12, slots below 0 counted), K5i within 1e-6
@@ -185,16 +188,16 @@ group of phases prints its seconds ("[a]-[b] took").
     reference's bound, tests/test_app_chromatin.py:228-250);
 34. both periphery modes in float64 at the reference test's size (2 x 48
     beads, 16 crosslinkers, periphery radius 8, order 8, D 0.002, skin
-    0.03, 30 steps) on the card against the CPU: equal rebuilds (more than
+    0.03, 12 steps) on the card against the CPU: equal rebuilds (more than
     one), overflow and binding states at every step, positions within
     1e-7;
 35. every examples/*.yaml through mundy_tpu_torch.driver.main.main([...,
-    "--device", "cuda"]) in this process: spheres_10k as written and
-    granular_settling for 1000 of its 5000 steps, with --output-dir
-    (trajectory frames every 100 and 500 steps, counted, and final.vtk
+    "--device", "cuda"]) in this process: spheres_10k for 500 of its 1000 steps and
+    granular_settling for 500 of its 5000 steps, with --output-dir
+    (trajectory frames every 100 and 250 steps, counted, and final.vtk
     checked), lcp_spheres_100k for 20 steps,
-    rods_100k for 100, filaments_sperm for 200, hp1_chromatin for 100 and
-    chromatin_1m_spectral for 2; each returns 0 and prints its ms/step; the
+    rods_100k for 100, filaments_sperm for 100, hp1_chromatin for 100 and
+    chromatin_1m_spectral for 1; each returns 0 and prints its ms/step; the
     K2/K3/K4/K5s/K5i counts are set to 0 before each run and printed after
     it, and must be non-zero on the paths that run them (K2 and K3 on the
     LCP YAML, K4 on rods, K2, K5s and K5i on the 1M chromatin YAML); the
@@ -202,7 +205,7 @@ group of phases prints its seconds ("[a]-[b] took").
 36. the flat SpheresSim (the engine `app: spheres` runs) at 1M with config
     #1's physics (bench.py:87-105) through run_block: 3 warm-up steps, then
     100 steps, ms/step beside [5]'s row engine, rebuilds, no overflow; then
-    torch.profiler over 8 more steps;
+    torch.profiler over 4 more steps;
 37. float64 on the card against the CPU: the flat SpheresSim (2000
     spheres, 60 steps, monodisperse and polydispersity 0.4) and the
     granular app (500 spheres settling from a layer 0.6 < z < 8, 300
@@ -223,11 +226,11 @@ group of phases prints its seconds ("[a]-[b] took").
 41. the ellipsoid narrow phase at benchmarks/ellipsoid_bench.py's shape
     (20,000 rods, length 1.5, radius 0.25, box 81.4, K 32, PGD 24, L-BFGS
     8, warm PGD 6): the cold and the warm narrow phase by CUDA events over
-    8 calls each, in ms and ns per candidate pair (N x K), then 20 app
+    8 calls each, in ms and ns per candidate pair (N x K), then 10 app
     steps of run_block on the host clock; torch.profiler over 2 warm steps
-    ([39] over 8 steps of its sim between rebuilds);
+    ([39] over 4 steps of its sim between rebuilds);
 42. the three narrow phases in float64 (300 rods, box 14, K 16, both
-    noises, 20 steps from a rebuild; the ellipsoid at length 0.5, where
+    noises, 12 steps from a rebuild; the ellipsoid at length 0.5, where
     the reference's descent contracts) on the card against the CPU: equal
     rebuild counts and neighbor ids, positions and quaternions within the
     bound printed beside each;
@@ -263,7 +266,7 @@ group of phases prints its seconds ("[a]-[b] took").
     d = 2 on gloo, two spawned ranks on this card (CUDA tensors staged
     through pinned host buffers): 30 steps from init against the
     single-device RowSpheresSim on the slab grid (2e-4, the reference's
-    bound, tests/test_parallel.py:205), then 3 warm-up and 100 timed steps
+    bound, tests/test_parallel.py:205), then 3 warm-up and 50 timed steps
     with K6's count and the group's byte and staging counters set to 0
     just before: ms/step per rank, one K6 launch per rank a step, rebuilds
     and their mode, bytes moved and staging ms a step; K6 on the
@@ -276,33 +279,35 @@ group of phases prints its seconds ("[a]-[b] took").
     in box 24) on the card against the same two ranks on the CPU: equal
     rows and rebuild counts, positions and quaternions within 1e-8;
 49. LCP rpy_ring on one rank: 4096 spheres at lcp_bench_config's volume
-    fraction for 10 steps (float32), with the K2 and K3 counts set to 0
+    fraction for 5 steps (float32), with the K2 and K3 counts set to 0
     before the sim is made (one K3 launch per mobility apply, K2 on each
     broad phase), one ring apply by CUDA events; 300 spheres in float64
     on the card against the CPU, equal counters at every step, 1e-8;
 50. `python -m mundy_tpu_torch.driver.main examples/spheres_10k.yaml
     --devices 2` (200 steps) and `rods_100k.yaml --devices 2` (20 steps)
-    as subprocesses on this card: exit 0, the plan line, one "stepped"
-    line (rank 0 prints), the final VTK and the checkpoint written;
+    as subprocesses on this card, at the end with the other CLI phases
+    ([53], [59], [64]), all at once: exit 0, the plan line, one
+    "stepped" line (rank 0 prints), the final VTK and the checkpoint
+    written;
 51. the density-balanced z-slab settling engine (parallel/balanced_slab.py)
     at 100,000 spheres from the reference test's clustered start (its box
     (10, 10, 24) scaled to the same number density), d = 2 on gloo, two
     spawned ranks on this card (CUDA tensors staged through pinned host
     buffers; a functional number, not scaling): own counts and bounds
-    before and after 30 steps, ms/step, bytes moved and staging per rank,
+    before and after 15 steps, ms/step, bytes moved and staging per rank,
     no overflow, no body lost; the uniform split's init on the same start
     overflows its own buffer;
 52. the balanced LCP engine (parallel/balanced_lcp.py) through
     ShardedSim("lcp_spheres") at config #2's 1M spheres (bench.py's
-    protocol config), in the same process group: 2 steps from init, then 8
+    protocol config), in the same process group: 2 steps from init, then 4
     steps with the group's counters and peak allocation reset: ms/step,
     BBPGD iterations per step (equal on both ranks), bytes moved, staging
     and peak allocation per rank, no overflow, max overlap <= 1e-3;
 53. `python -m mundy_tpu_torch.driver.main examples/lcp_spheres_100k.yaml
     --devices 2` (20 steps) and `granular_settling.yaml --devices 2` (200
-    steps) as subprocesses on this card: exit 0, the plan line, the
-    decomposition line and one "stepped" line once each, the final VTK
-    and the checkpoint written by rank 0 alone;
+    steps) as subprocesses on this card, with [50]'s at the end: exit 0, the plan
+    line, the decomposition line and one "stepped" line once each, the
+    final VTK and the checkpoint written by rank 0 alone;
 54. the three balanced engines in float64 at d = 2 (1024 settling spheres,
     1024 clustered LCP spheres with D 0.05, 300 granular spheres) on the
     card against the same two ranks on the CPU: equal rebuild counts and
@@ -311,8 +316,8 @@ group of phases prints its seconds ("[a]-[b] took").
 55. examples/chromatin_1m_spectral.yaml as written (2048 x 512 beads,
     65,536 crosslinkers, G 384) through ShardedSim("chromatin") at d = 2,
     two gloo ranks on this card (CUDA tensors staged through pinned host
-    buffers; a functional number, not scaling): 1 step from init, then 3
-    steps with the K5s/K5i counts and the group's counters set to 0 just
+    buffers; a functional number, not scaling): 1 step from init, then 1
+    step with the K5s/K5i counts and the group's counters set to 0 just
     before: ms/step, one K5s and one K5i launch a step on each rank, bytes
     moved a step with the grid all_reduce's share, staging, peak
     allocation; on rank 0 K5s and K5i against their plain versions at its
@@ -320,26 +325,61 @@ group of phases prints its seconds ("[a]-[b] took").
     ChromatinSim over the same blocks from the same state within 1e-4 with
     equal crosslinker states; no overflow, no bead dropped by the binning;
 56. config #4 (2000 x 50, box 120, float32) through ShardedSim("filaments")
-    at d = 1 on NCCL in this process (200 steps after 3) and at d = 2 on
-    gloo (100 steps after 3): ms/step, rebuilds, bytes moved; FilamentsSim
+    at d = 1 on NCCL in this process (100 steps after 3) and at d = 2 on
+    gloo (50 steps after 3): ms/step, rebuilds, bytes moved; FilamentsSim
     on the nmat engine over the same blocks within 1e-4;
 57. examples/hp1_chromatin.yaml as written (rpy_periphery) through
-    ShardedSim("chromatin") at d = 1 on NCCL, 200 steps against
-    ChromatinSim's 200 within 1e-5 and equal crosslinker states, no TF32
+    ShardedSim("chromatin") at d = 1 on NCCL, 50 steps against
+    ChromatinSim's 50 within 1e-5 and equal crosslinker states, no TF32
     in the M^-1 slab product, every bead inside the periphery;
 58. float64 at d = 2, card against CPU: the chromatin route with none,
     rpy_spectral and rpy_periphery at the reference tests' sizes,
     ChromatinSim(mesh=) with rpy_spectral, the filaments route: positions
     within 1e-8 (the keyed noise's float32 normals, as at [54]), equal
     rebuild counts and binding states;
-59. `--devices 2` through the CLI as subprocesses: filaments_sperm.yaml
-    (100 steps) and chromatin_1m_spectral.yaml with 64 chains, 2048
-    crosslinkers and 3 steps each exit 0 with the plan, decomposition and
-    "stepped" lines once and the checkpoint; hp1_chromatin.yaml (7 chains)
-    exits non-zero naming the num_chains % ranks rule before any rank
-    starts.
+59. `--devices 2` through the CLI as subprocesses, with [50]'s at the end:
+    filaments_sperm.yaml (100 steps) and chromatin_1m_spectral.yaml with 64
+    chains, 2048 crosslinkers and 1 step each exit 0 with the plan,
+    decomposition and "stepped" lines once and the checkpoint;
+    hp1_chromatin.yaml (7 chains) exits non-zero naming the num_chains %
+    ranks rule before any rank starts;
+60. LCP rpy_ring over ranks (LCPSpheresSim(group=): every rank the whole
+    state, the mobility through the ring in blocks of N / d, one
+    all_gather an apply) at 16,384 spheres of lcp_bench_config's volume
+    fraction, float32, d = 2 on gloo (two spawned ranks on this card, CUDA
+    tensors staged through pinned host buffers; a functional number, not
+    scaling), then d = 1 in this process: the K2 and K3 counts set to 0
+    before the sim is made, 1 step from init, then 3 timed steps with the
+    group's counters set to 0 just before: ms/step and BBPGD iterations
+    per step on each rank (equal on both ranks), bytes moved and staging a
+    step, K2 launches (broad phases) and K3 launches (= mobility applies,
+    iterations + 2 a step), one ring apply by CUDA events; on rank 0 K3 at
+    the strided windows of the final state and K2 at its rows bit-equal to
+    their plain versions; 300 spheres in float64 at d = 2 on the card
+    against one CPU rank: counters equal at every step, positions within
+    1e-8;
+61. parallel.sharded_step's v1 (all_gather halo) and v2 (x-slab halo and
+    migration) at 1,048,576 spheres with config #1's physics, float32, at
+    d = 2 in the same group: 5 steps after 1, ms/step, bytes moved (v1's
+    position all_gather), staging; finite, v2's flags 0 and every gid
+    owned by exactly one slot;
+62. parallel.slab_lcp at config #2's 1M protocol config, float32, d = 2:
+    a 1-step block from init, then a 4-step block: ms/step, BBPGD
+    iterations per step (equal on both ranks), the rebuild mode, K3
+    launches a rank (= iterations + 2 a step), bytes moved, staging; on
+    rank 0 K3 at the final pair list's windows bit-equal to its plain
+    version; no overflow, every sphere valid once;
+63. float64 at d = 2, card against CPU: v2 at 800 spheres (the reference
+    test's config) and slab_lcp at 512 spheres with D 0.05 in both rebuild
+    modes: gid and valid equal, positions within 1e-8, equal iterations
+    and rebuilds;
+64. `python -m mundy_tpu_torch.driver.main examples/lcp_spheres_100k.yaml
+    --devices 2 --set hydro=rpy_ring num_spheres=4096 box_size=31.0
+    num_steps=10` as a subprocess, with [50]'s at the end: exit 0, the
+    plan and rpy_ring lines and
+    one "stepped" line once each, rank 0's final VTK and checkpoint.
     `python3 chip_smoke.py --only-sharded` builds the kernels and runs
-    [46]-[59] alone.
+    [46]-[64] alone.
 
 Kernel times are medians of CUDA-event timings after a synchronize, kernel
 and plain version alternating; for K2, K3 and K3t the device time per
@@ -351,7 +391,8 @@ under "path_launches", and K2's, K3's, K4's, K5s's and K5i's those of each
 YAML through the CLI at [35], as "cli <yaml>"; K2's launches add those of
 [39] and [40], and its entry carries its times at [39]'s shape under
 "rods_nmat"; K6's, K4's, K2's and K3's carry their launches on [46]-[49]'s
-slab and rpy_ring paths under "path_launches"),
+slab and rpy_ring paths, and K2's and K3's those on [60]'s and [62]'s,
+under "path_launches"),
 then a final JSON line {"ok": true, "device": {...}}. Exits non-zero, with no
 result, without a CUDA device or without the package beside it.
 """
@@ -426,31 +467,31 @@ K6_RADII_REACH_OPS = K6_REACH_OPS + 2.0
 K6_RADII_CONTACT_OPS = K6_CONTACT_OPS + 5.0
 FIL_STEPS = 200
 # [12], [16] and [32]: steps of the YAMLs run as written otherwise (1000 each)
-YAML_STEPS = 200
-CHROM_STEPS = 3
-CHROM_SMALL_STEPS = 40
+YAML_STEPS = 100
+CHROM_STEPS = 2
+CHROM_SMALL_STEPS = 24
 HYDRO_STEPS = 10
-SPECTRAL_STEPS = 2
-HYDRO_SMALL_STEPS = 14
-HP1_SPECTRAL_STEPS = 200
-PERIPHERY_SMALL_STEPS = 30
+SPECTRAL_STEPS = 1
+HYDRO_SMALL_STEPS = 10
+HP1_SPECTRAL_STEPS = 100
+PERIPHERY_SMALL_STEPS = 12
 # the YAMLs [35] runs through the CLI: (file, --set overrides, --output-every
 # or None, the kernels its path launches)
 CLI_RUNS = (
-    ("spheres_10k", (), 100, ()),
-    ("granular_settling", ("num_steps=1000",), 500, ()),
+    ("spheres_10k", ("num_steps=500",), 100, ()),
+    ("granular_settling", ("num_steps=500",), 250, ()),
     ("lcp_spheres_100k", ("num_steps=20",), None, ("K2", "K3")),
     ("rods_100k", ("num_steps=100",), None, ("K4",)),
-    ("filaments_sperm", ("num_steps=200",), None, ()),
+    ("filaments_sperm", ("num_steps=100",), None, ()),
     ("hp1_chromatin", ("num_steps=100",), None, ()),
-    ("chromatin_1m_spectral", ("num_steps=2",), None, ("K2", "K5s", "K5i")),
+    ("chromatin_1m_spectral", ("num_steps=1",), None, ("K2", "K5s", "K5i")),
 )
 FLAT_STEPS = 100
 RESUME_STEPS = 200
 RODS_NMAT_STEPS = 100
 ELLIPSOID_RODS = 20_000
-ELLIPSOID_STEPS = 20
-RODS_F64_STEPS = 20
+ELLIPSOID_STEPS = 10
+RODS_F64_STEPS = 12
 SMALL_BOX_STEPS = 60
 SE_ROWS_BEADS = 1 << 20
 # [44]: the first design's digests of the K5s-rows grid and the K5i-rows u
@@ -460,28 +501,28 @@ SE_ROWS_FIRST = ("K5s-rows 8.1265 ms (8.1265-8.2471), K5i-rows 2.3897 ms (2.3877
                  "the rows wave apply 24.117-24.195 ms")
 # [46]-[50]: the multi-rank slice
 SLAB_PARITY_STEPS = 30
-SLAB_STEPS = 100
+SLAB_STEPS = 50
 F64_SPHERE_STEPS = 60
 F64_ROD_STEPS = 30
-RING_STEPS = 10
+RING_STEPS = 5
 # [51]-[54]: the density-balanced z-slab engines (parallel/balanced_*.py,
 # granular_shard.py) at d = 2
 SETTLE_N = 100_000
-SETTLE_STEPS = 30
+SETTLE_STEPS = 15
 LCP_SHARD_WARM = 2
-LCP_SHARD_STEPS = 8
+LCP_SHARD_STEPS = 4
 F64_SETTLE_STEPS = 40
 F64_LCP_STEPS = 10
 F64_GRANULAR_STEPS = 100
 # [55]-[59]: the whole-chain and whole-filament block engines
 # (parallel/chromatin_shard.py, spectral_shard.py, filaments_shard.py)
 CHROM_SHARD_WARM = 1
-CHROM_SHARD_STEPS = 3
+CHROM_SHARD_STEPS = 1
 CHROM_SHARD_BAR = 1e-4  # float32 positions up to |x| 152 (ulp 1.5e-5), 4 steps
-FIL_SHARD_STEPS = 200
-FIL_SHARD_STEPS_2 = 100
+FIL_SHARD_STEPS = 100
+FIL_SHARD_STEPS_2 = 50
 FIL_SHARD_BAR = 1e-4  # the reference's bar (tests/test_filaments_shard.py)
-HP1_SHARD_STEPS = 200
+HP1_SHARD_STEPS = 50
 HP1_SHARD_BAR = 1e-5
 F64_SHARD_STEPS = 6
 # the keyed noise's float32 normals differ in their last bits between the
@@ -489,6 +530,32 @@ F64_SHARD_STEPS = 6
 # a step moves a bead by sqrt(2 D dt) z = 4.47e-3 z (D = 0.05, dt 2e-4), so
 # one ulp of a normal is <= 1.06e-9 of position for |z| < 4: < 6.4e-9 in 6 steps
 F64_SHARD_BAR = 1e-8
+# [60]-[64]: LCP rpy_ring over ranks and the last three engines
+# (parallel/slab.py, sharded_step.py, slab_lcp.py) at d = 2
+RING_N = 16_384
+RING_SHARD_WARM = 1
+RING_SHARD_STEPS = 3
+RING_F64_STEPS = 14
+SHARDED_N = 1 << 20
+SHARDED_STEP_STEPS = 5
+SLAB_LCP_WARM = 1
+SLAB_LCP_STEPS = 4
+# [50], [53], [59], [64]: (yaml, --set overrides, --output-dir, steps or None
+# for a refusal) of each `--devices 2` subprocess, all started at once
+CLI_DEVICES_RUNS = {
+    50: [("spheres_10k", ("num_steps=200",), True, 200),
+         ("rods_100k", ("num_steps=20",), True, 20)],
+    53: [("lcp_spheres_100k", ("num_steps=20",), True, 20),
+         ("granular_settling", ("num_steps=200",), True, 200)],
+    59: [("filaments_sperm", ("num_steps=100",), False, 100),
+         ("chromatin_1m_spectral", ("num_chains=64", "num_crosslinkers=2048", "num_steps=1"),
+          False, 1),
+         ("hp1_chromatin", (), False, None)],
+    64: [("lcp_spheres_100k", ("hydro=rpy_ring", "num_spheres=4096", "box_size=31.0",
+                               "num_steps=10"), True, 10)],
+}
+F64_V2_STEPS = 30
+F64_SLAB_LCP_STEPS = 20
 
 # published H100 SXM peaks (NVIDIA data sheet): FP32 outside the
 # tensor cores, and HBM bandwidth
@@ -748,7 +815,7 @@ def build_all(_build) -> None:
                 print(f"    {os.path.basename(lib)}: {line.strip()}")
 
 
-def profile_window(run, torch, step_ms: float, steps: int = 8) -> None:
+def profile_window(run, torch, step_ms: float, steps: int = 4) -> None:
     """Where the time of a step goes: torch.profiler over run(steps), a
     window of `steps` steps. Prints device busy time, host reads and kernel
     launches per step, the device time of the largest kernels, and the idle
@@ -955,7 +1022,7 @@ def chromatin_phases(torch, dev, card: str) -> list:
         print(f"    {name}: {cuda_ms(fn, torch, 3):.3f} ms", flush=True)
     del f, pieces, grid
     profile_window(lambda n: sim.run_block(st, n), torch, 1e3 * elapsed / CHROM_STEPS,
-                   steps=2)
+                   steps=1)
     return [
         {"name": "se_spread", "route": "cuda", "source": "mundy_tpu_torch/csrc/se_grid.cu",
          "replaces": "mundy_tpu/ops/pallas/se_grid.py:429", "launches": s_launches,
@@ -2632,11 +2699,12 @@ def slab_reference(app: str, grid, torch, dev) -> dict:
 
 
 def sharded_phases(torch, dev, card: str, k5_single=None) -> dict:
-    """Phases 46-50: the z-slab spheres engine (K6) and rods engine (K4)
+    """Phases 46-49: the z-slab spheres engine (K6) and rods engine (K4)
     through ShardedSim at 1M on one rank (NCCL) and two ranks (gloo, both on
-    this card), float64 against the CPU at two ranks, LCP rpy_ring, and
-    `--devices 2` through the CLI; then [51]-[54] and [55]-[59]. Returns the
-    path launches of K6, K4, K2, K3, K5s and K5i by entry name."""
+    this card), float64 against the CPU at two ranks, LCP rpy_ring; then
+    [51]-[54], [55]-[58], [60]-[63], and last the `--devices 2` subprocesses
+    of [50], [53], [59] and [64] all at once.
+    Returns the path launches of K6, K4, K2, K3, K5s and K5i by entry name."""
     import numpy as np
     import tempfile
 
@@ -2730,10 +2798,12 @@ def sharded_phases(torch, dev, card: str, k5_single=None) -> dict:
     lcp_paths = lcp_ring_phase(torch, dev, card)
     for name, n in lcp_paths.items():
         paths[name]["lcp rpy_ring 4096"] = n
-    cli_devices_phase(torch)
-    print(f"[46]-[50] took {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"[46]-[49] took {time.perf_counter() - t_start:.1f} s", flush=True)
     balanced_phases(torch, card)
     paths.update(block_phases(torch, dev, card, k5_single))
+    for name, n in slice20_phases(torch, dev, card).items():  # [60]-[63]
+        paths[name].update(n)
+    devices_cli_phases()  # [50], [53], [59], [64]
     return paths
 
 
@@ -2800,37 +2870,59 @@ def lcp_ring_phase(torch, dev, card: str) -> dict:
     return got
 
 
-def cli_devices_phase(torch) -> None:
-    """[50]: spheres_10k.yaml and rods_100k.yaml through
-    `python -m mundy_tpu_torch.driver.main ... --devices 2` on this card,
-    cut in steps; each exits 0, prints the plan line once, and rank 0 alone
-    writes the final VTK and the checkpoint."""
+def cli_devices(runs, timeout: float = 500.0) -> list:
+    """Each (yaml, sets, outputs) of `runs` through `python -m
+    mundy_tpu_torch.driver.main examples/<yaml>.yaml --devices 2 --set
+    <sets> --checkpoint-dir ...` (and `--output-dir` where `outputs`) as a
+    subprocess on this card, all started together, so that their start-up
+    (each rank's interpreter, imports and CUDA context, most of a run's
+    wall time) overlaps. Returns, per run, a dict of the exit code, the
+    standard output and error, the wall seconds, the checkpoint files and
+    whether the final VTK was written; the run's directory is removed."""
     import shutil
     import tempfile
 
-    for yaml, steps in (("spheres_10k", 200), ("rods_100k", 20)):
+    def one(run):
+        yaml, sets, outputs = run
         out = tempfile.mkdtemp(prefix=f"chip_smoke_{yaml}_")
+        ck = os.path.join(out, "ck")
         cmd = [sys.executable, "-m", "mundy_tpu_torch.driver.main",
                os.path.join(HERE, "examples", f"{yaml}.yaml"), "--devices", "2",
-               "--set", f"num_steps={steps}", "--output-dir", os.path.join(out, "out"),
-               "--checkpoint-dir", os.path.join(out, "ck"), "--rank-timeout", "300"]
+               "--set", *sets, "--checkpoint-dir", ck, "--rank-timeout", "300"]
+        if outputs:
+            cmd += ["--output-dir", os.path.join(out, "out")]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=HERE, timeout=400,
-                              env=dict(os.environ, PYTHONPATH=HERE))
-        wall = time.perf_counter() - t0
-        lines = proc.stdout.splitlines()
-        files = sorted(os.listdir(os.path.join(out, "ck"))) if os.path.isdir(
-            os.path.join(out, "ck")) else []
-        said = [ln for ln in lines if ln.startswith(("ranks ", "sharded ", "stepped "))]
-        print(f"[50] {yaml}.yaml --devices 2, {steps} steps: rc {proc.returncode}, "
-              f"{wall:.1f} s wall; " + " | ".join(said) + f"; checkpoint files {files}",
-              flush=True)
-        if (proc.returncode != 0 or sum(ln.startswith("stepped ") for ln in lines) != 1
-                or not os.path.exists(os.path.join(out, "out", "final.vtk"))
-                or f"ckpt_{steps:012d}.npz" not in files):
-            print(proc.stdout[-3000:], proc.stderr[-3000:], flush=True)
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True, cwd=HERE,
+                                  timeout=timeout, env=dict(os.environ, PYTHONPATH=HERE))
+            return {"rc": proc.returncode, "lines": proc.stdout.splitlines(),
+                    "stdout": proc.stdout, "stderr": proc.stderr,
+                    "wall": time.perf_counter() - t0,
+                    "files": sorted(os.listdir(ck)) if os.path.isdir(ck) else [],
+                    "vtk": os.path.exists(os.path.join(out, "out", "final.vtk"))}
+        finally:
+            shutil.rmtree(out, ignore_errors=True)
+
+    with concurrent.futures.ThreadPoolExecutor(len(runs)) as pool:
+        return list(pool.map(one, runs))
+
+
+def cli_devices_phase(results: list) -> None:
+    """[50]: spheres_10k.yaml and rods_100k.yaml through
+    `python -m mundy_tpu_torch.driver.main ... --devices 2` on this card,
+    cut in steps (CLI_DEVICES_RUNS[50], run with the other CLI phases at
+    once):
+    each exits 0, prints the plan line once, and rank 0 alone writes the
+    final VTK and the checkpoint."""
+    for (yaml, sets, _, steps), r in zip(CLI_DEVICES_RUNS[50], results):
+        said = [ln for ln in r["lines"] if ln.startswith(("ranks ", "sharded ", "stepped "))]
+        print(f"[50] {yaml}.yaml --devices 2, {steps} steps: rc {r['rc']}, "
+              f"{r['wall']:.1f} s wall (the CLI phases at once); " + " | ".join(said)
+              + f"; checkpoint files {r['files']}", flush=True)
+        if (r["rc"] != 0 or sum(ln.startswith("stepped ") for ln in r["lines"]) != 1
+                or not r["vtk"] or f"ckpt_{steps:012d}.npz" not in r["files"]):
+            print(r["stdout"][-3000:], r["stderr"][-3000:], flush=True)
             fail(f"[50] {yaml}.yaml --devices 2 failed")
-        shutil.rmtree(out, ignore_errors=True)
 
 
 def settle_box(n: int) -> tuple:
@@ -2989,8 +3081,8 @@ def balanced_phases(torch, card: str) -> None:
     """Phases 51-54: the density-balanced z-slab engines at d = 2, two gloo
     ranks on this card with the CUDA tensors staged through pinned host
     buffers (functional numbers, not scaling): balanced settling at 100k
-    ([51]), the 1M LCP protocol through ShardedSim ([52]), the two example
-    YAMLs through `--devices 2` ([53]) and float64 card against CPU ([54])."""
+    ([51]), the 1M LCP protocol through ShardedSim ([52]) and float64 card
+    against CPU ([54]); [53] runs with the other CLI phases at the end."""
     import numpy as np
 
     from mundy_tpu_torch.parallel import comm
@@ -3036,7 +3128,6 @@ def balanced_phases(torch, card: str) -> None:
         fail("[52] the sharded 1M LCP run overflowed, lost a body, went non-finite, left an "
              "overlap or disagreed between ranks")
     # ---- 53 ----------------------------------------------------------------
-    cli_balanced_phase()
     # ---- 54 ----------------------------------------------------------------
     f64 = res[0]["f64"]
     g, c = f64["card"], f64["cpu"]
@@ -3055,42 +3146,26 @@ def balanced_phases(torch, card: str) -> None:
                                         for k, v in errs.items()), flush=True)
     if not all(same.values()) or any(errs[k] > bounds[k] for k in errs):
         fail("[54] a float64 balanced engine on the card disagrees with the CPU run")
-    print(f"[51]-[54] took {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"[51], [52], [54] took {time.perf_counter() - t_start:.1f} s", flush=True)
 
 
-def cli_balanced_phase() -> None:
+def cli_balanced_phase(results: list) -> None:
     """[53]: lcp_spheres_100k.yaml and granular_settling.yaml through
     `python -m mundy_tpu_torch.driver.main ... --devices 2` on this card,
-    cut in steps; each exits 0, prints the plan line and the decomposition
-    once, and rank 0 alone writes the final VTK and the checkpoint."""
-    import shutil
-    import tempfile
-
-    for yaml, steps in (("lcp_spheres_100k", 20), ("granular_settling", 200)):
-        out = tempfile.mkdtemp(prefix=f"chip_smoke_{yaml}_")
-        cmd = [sys.executable, "-m", "mundy_tpu_torch.driver.main",
-               os.path.join(HERE, "examples", f"{yaml}.yaml"), "--devices", "2",
-               "--set", f"num_steps={steps}", "--output-dir", os.path.join(out, "out"),
-               "--checkpoint-dir", os.path.join(out, "ck"), "--rank-timeout", "300"]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=HERE, timeout=400,
-                              env=dict(os.environ, PYTHONPATH=HERE))
-        wall = time.perf_counter() - t0
-        lines = proc.stdout.splitlines()
-        files = sorted(os.listdir(os.path.join(out, "ck"))) if os.path.isdir(
-            os.path.join(out, "ck")) else []
-        said = [ln for ln in lines if ln.startswith(("ranks ", "sharded ", "stepped "))]
-        print(f"[53] {yaml}.yaml --devices 2, {steps} steps: rc {proc.returncode}, "
-              f"{wall:.1f} s wall; " + " | ".join(said) + f"; checkpoint files {files}",
-              flush=True)
-        once = all(sum(ln.startswith(h) for ln in lines) == 1
+    cut in steps (CLI_DEVICES_RUNS[53]): each exits 0, prints the plan line and
+    the decomposition once, and rank 0 alone writes the final VTK and the
+    checkpoint."""
+    for (yaml, sets, _, steps), r in zip(CLI_DEVICES_RUNS[53], results):
+        said = [ln for ln in r["lines"] if ln.startswith(("ranks ", "sharded ", "stepped "))]
+        print(f"[53] {yaml}.yaml --devices 2, {steps} steps: rc {r['rc']}, "
+              f"{r['wall']:.1f} s wall (the CLI phases at once); " + " | ".join(said)
+              + f"; checkpoint files {r['files']}", flush=True)
+        once = all(sum(ln.startswith(h) for ln in r["lines"]) == 1
                    for h in ("ranks ", "sharded ", "stepped "))
-        if (proc.returncode != 0 or not once
-                or not os.path.exists(os.path.join(out, "out", "final.vtk"))
-                or files != [f"ckpt_{steps:012d}.json", f"ckpt_{steps:012d}.npz"]):
-            print(proc.stdout[-3000:], proc.stderr[-3000:], flush=True)
+        if (r["rc"] != 0 or not once or not r["vtk"]
+                or r["files"] != [f"ckpt_{steps:012d}.json", f"ckpt_{steps:012d}.npz"]):
+            print(r["stdout"][-3000:], r["stderr"][-3000:], flush=True)
             fail(f"[53] {yaml}.yaml --devices 2 failed")
-        shutil.rmtree(out, ignore_errors=True)
 
 
 # ---- 55-59: the whole-chain and whole-filament block engines ------------------
@@ -3349,8 +3424,8 @@ def block_phases(torch, dev, card: str, k5_single=None) -> dict:
     """Phases 55-59: the whole-chain and whole-filament block engines. [56]
     and [57] at d = 1 on NCCL in this process; [55], [56] and [58] at d = 2,
     two gloo ranks on this card with the CUDA tensors staged through pinned
-    host buffers (functional numbers, not scaling); [59] three YAMLs through
-    `--devices 2`. `k5_single`: [20]'s single-device K5s and K5i ms, printed
+    host buffers (functional numbers, not scaling); [59] runs with the other
+    CLI phases at the end. `k5_single`: [20]'s single-device K5s and K5i ms, printed
     beside [55]'s. Returns K5s's and K5i's launches on [55]'s path."""
     import tempfile
 
@@ -3461,59 +3536,447 @@ def block_phases(torch, dev, card: str, k5_single=None) -> dict:
     if not all(same.values()) or any(e > F64_SHARD_BAR for e in errs.values()):
         fail("[58] a float64 block engine on the card disagrees with the CPU run")
     # ---- 59 ----------------------------------------------------------------
-    cli_block_phase()
-    print(f"[55]-[59] took {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"[55]-[58] took {time.perf_counter() - t_start:.1f} s", flush=True)
     return {"se_spread": {f"chromatin_shard d=2 rank {k}": ch[k]["launches"][0]
                           for k in range(2)},
             "se_interp": {f"chromatin_shard d=2 rank {k}": ch[k]["launches"][1]
                           for k in range(2)}}
 
 
-def cli_block_phase() -> None:
+def cli_block_phase(results: list) -> None:
     """[59]: filaments_sperm.yaml and chromatin_1m_spectral.yaml (cut in
     chains and steps) through `python -m mundy_tpu_torch.driver.main ...
     --devices 2` on this card, and hp1_chromatin.yaml, whose 7 chains do not
     split over 2 ranks: it exits non-zero, naming the rule, before any rank
-    starts."""
-    import shutil
-    import tempfile
-
-    runs = (("filaments_sperm", ("num_steps=100",), 100),
-            ("chromatin_1m_spectral", ("num_chains=64", "num_crosslinkers=2048",
-                                       "num_steps=3"), 3),
-            ("hp1_chromatin", (), None))
-    for yaml, sets, steps in runs:
-        out = tempfile.mkdtemp(prefix=f"chip_smoke_{yaml}_")
-        cmd = [sys.executable, "-m", "mundy_tpu_torch.driver.main",
-               os.path.join(HERE, "examples", f"{yaml}.yaml"), "--devices", "2",
-               "--set", *sets, "--checkpoint-dir", os.path.join(out, "ck"),
-               "--rank-timeout", "400"]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=HERE, timeout=500,
-                              env=dict(os.environ, PYTHONPATH=HERE))
-        wall = time.perf_counter() - t0
-        lines = proc.stdout.splitlines()
-        files = sorted(os.listdir(os.path.join(out, "ck"))) if os.path.isdir(
-            os.path.join(out, "ck")) else []
-        said = [ln for ln in lines if ln.startswith(("ranks ", "sharded ", "stepped "))]
+    starts (CLI_DEVICES_RUNS[59])."""
+    for (yaml, sets, _, steps), r in zip(CLI_DEVICES_RUNS[59], results):
+        said = [ln for ln in r["lines"] if ln.startswith(("ranks ", "sharded ", "stepped "))]
         if steps is None:
-            err = (proc.stderr.strip().splitlines() or [""])[-1]
-            print(f"[59] {yaml}.yaml --devices 2: rc {proc.returncode}, {wall:.1f} s wall, "
+            err = (r["stderr"].strip().splitlines() or [""])[-1]
+            print(f"[59] {yaml}.yaml --devices 2: rc {r['rc']}, {r['wall']:.1f} s wall, "
                   f"plan lines {len(said)}; {err}", flush=True)
-            if proc.returncode == 0 or said or "num_chains % ranks" not in err:
-                print(proc.stdout[-3000:], proc.stderr[-3000:], flush=True)
+            if r["rc"] == 0 or said or "num_chains % ranks" not in err:
+                print(r["stdout"][-3000:], r["stderr"][-3000:], flush=True)
                 fail(f"[59] {yaml}.yaml --devices 2 was not refused by its rule")
         else:
-            print(f"[59] {yaml}.yaml --devices 2 {' '.join(sets)}: rc {proc.returncode}, "
-                  f"{wall:.1f} s wall; " + " | ".join(said) + f"; checkpoint files {files}",
-                  flush=True)
-            once = all(sum(ln.startswith(h) for ln in lines) == 1
+            print(f"[59] {yaml}.yaml --devices 2 {' '.join(sets)}: rc {r['rc']}, "
+                  f"{r['wall']:.1f} s wall (the CLI phases at once); " + " | ".join(said)
+                  + f"; checkpoint files {r['files']}", flush=True)
+            once = all(sum(ln.startswith(h) for ln in r["lines"]) == 1
                        for h in ("ranks ", "sharded ", "stepped "))
-            if (proc.returncode != 0 or not once
-                    or files != [f"ckpt_{steps:012d}.json", f"ckpt_{steps:012d}.npz"]):
-                print(proc.stdout[-3000:], proc.stderr[-3000:], flush=True)
+            if (r["rc"] != 0 or not once
+                    or r["files"] != [f"ckpt_{steps:012d}.json", f"ckpt_{steps:012d}.npz"]):
+                print(r["stdout"][-3000:], r["stderr"][-3000:], flush=True)
                 fail(f"[59] {yaml}.yaml --devices 2 failed")
-        shutil.rmtree(out, ignore_errors=True)
+
+
+def ring_shard_run(group) -> dict:
+    """[60] on one rank of `group` (one rank: the single-device sim): LCP
+    rpy_ring at RING_N spheres of lcp_bench_config's volume fraction
+    (float32), with the K2 and K3 counts set to 0 before the sim is made;
+    RING_SHARD_WARM steps from init, then RING_SHARD_STEPS timed steps with
+    the group's counters set to 0 just before; one ring apply by CUDA
+    events; then, on rank 0, K3 at the strided windows of the final state
+    and K2 at its rows against their plain versions."""
+    import torch
+
+    from mundy_tpu_torch.driver.apps.lcp_spheres import LCPSpheresConfig, LCPSpheresSim
+    from mundy_tpu_torch.neighbor.rows import build_rows, make_row_grid
+    from mundy_tpu_torch.ops.kernels import row_extract as k2
+    from mundy_tpu_torch.ops.kernels import seg_onehot as k3
+
+    dev = group.device
+    cfg = dataclasses.replace(lcp_bench_config(LCPSpheresConfig, RING_N), hydro="rpy_ring")
+    k2.row_neighbor_extract.launches = 0
+    k3.strided_onehot_segment_sum.launches = 0
+    t0 = time.perf_counter()
+    sim = LCPSpheresSim(cfg, device=dev, group=group)
+    st = sim.init()
+    iters, ms = [], []
+    for k in range(RING_SHARD_WARM + RING_SHARD_STEPS):
+        if k == RING_SHARD_WARM:
+            torch.cuda.synchronize(dev)
+            warm_s = time.perf_counter() - t0
+            group.reset_counters()
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        st = sim.run_block(st, 1, resize=False)
+        torch.cuda.synchronize(dev)
+        ms.append(1e3 * (time.perf_counter() - t1))
+        iters.append(st.lcp_iters)
+    out = {"iters": iters, "ms": ms[RING_SHARD_WARM:], "warm_s": warm_s,
+           "bytes": group.bytes_moved / RING_SHARD_STEPS,
+           "stage_ms": 1e3 * group.stage_s / RING_SHARD_STEPS,
+           "k2": k2.row_neighbor_extract.launches, "k3": k3.strided_onehot_segment_sum.launches,
+           "applies": sum(i + 2 for i in iters), "rebuilds": st.rebuild_count,
+           "overflow": bool(st.overflow), "finite": bool(torch.isfinite(st.pos).all()),
+           "box": cfg.box_size}
+    f = torch.randn((RING_N, 3), device=dev, generator=torch.Generator(dev).manual_seed(60))
+    mob, _ = sim._mobility(st.pos, st.hydro_nmat)
+    out["apply_ms"] = cuda_ms(lambda: mob(f), torch, 5)  # every rank: a collective
+    if group.rank == 0:
+        values, loc, n_act = k3_window_inputs(sim, st, RING_N, 60, torch)
+        out["k3_equal"] = bool(torch.equal(
+            k3.strided_onehot_segment_sum(values, loc, sim.seg_block),
+            k3.strided_segment_sum_plain(values, loc, sim.seg_block)))
+        out["k3_shape"] = (tuple(loc.shape), n_act)
+        cutoff = 2 * sim.search_radius
+        grid = make_row_grid([0, 0, 0], [cfg.box_size] * 3, cutoff, RING_N,
+                             capacity_slack=sim.rows_slack, dtype=torch.float32, align=8,
+                             device=dev)
+        rs = build_rows(st.pos, torch.arange(RING_N, dtype=torch.int32, device=dev), grid)
+        args = (rs.pos, rs.gid, rs.valid, ((cfg.box_size,) * 3, (True,) * 3), cutoff,
+                min(cfg.max_neighbors, sim.rows_k), RING_N)
+        ids_k, cnt_k = k2.row_neighbor_extract(*args)
+        ids_p, cnt_p = k2.row_neighbor_extract_plain(*args)
+        out["k2_equal"] = bool(torch.equal(ids_k, ids_p) and torch.equal(cnt_k, cnt_p))
+        out["k2_shape"] = tuple(rs.valid.shape)
+        out["overlap"] = sim.max_overlap(st)
+    return out
+
+
+def ring_f64_run(group) -> dict:
+    """[60]'s float64 check on one rank: 300 spheres of rpy_ring over the
+    group on the card, and on rank 0 the same on one CPU rank; rank 0
+    returns both runs' per-step counters and final positions."""
+    import torch
+
+    from mundy_tpu_torch.driver.apps.lcp_spheres import LCPSpheresConfig, LCPSpheresSim
+
+    small = LCPSpheresConfig(num_spheres=300, box_size=18.0, radius=0.5, dt=2e-3,
+                             diffusion_coeff=0.02, dtype="float64", chunk=256,
+                             max_allowable_overlap=1e-6, max_col_iterations=2000,
+                             hydro="rpy_ring")
+    pos0 = torch.rand((300, 3), dtype=torch.float64,
+                      generator=torch.Generator().manual_seed(60)) * 18.0
+    runs = {"card": (group.device, group)}
+    if group.rank == 0:
+        runs["cpu"] = ("cpu", None)
+    trace = {}
+    for where, (d, g) in runs.items():
+        sim = LCPSpheresSim(small, device=d, group=g)
+        s = sim.init(pos=pos0, key_words=(0, 60))
+        rows = []
+        for _ in range(RING_F64_STEPS):
+            s = sim.run_block(s, 1, resize=False)
+            rows.append((s.lcp_iters, int(s.act_count), s.rebuild_count, bool(s.overflow)))
+        trace[where] = (rows, s.pos.cpu().numpy())
+    return trace if group.rank == 0 else None
+
+
+def sharded_step_run(group) -> dict:
+    """[61] on one rank: config #1's physics (bench_config) at SHARDED_N
+    spheres through parallel.sharded_step's v1 and v2, 1 step from init and
+    SHARDED_STEP_STEPS timed steps each, the group's counters set to 0 just
+    before them."""
+    import torch
+
+    from mundy_tpu_torch.driver.apps.spheres import SpheresConfig
+    from mundy_tpu_torch.parallel.sharded_step import (make_sharded_spheres_step,
+                                                       make_slab_spheres_step)
+
+    c = bench_config(SpheresConfig, SHARDED_N)
+    kw = dict(n_total=SHARDED_N, box_size=c.box_size, radius=c.radius, youngs=c.youngs_modulus,
+              poisson=c.poissons_ratio, viscosity=c.viscosity, diffusion=c.diffusion_coeff,
+              dt=c.dt, skin=c.skin, max_neighbors=c.max_neighbors,
+              cell_capacity=c.cell_capacity, dtype=torch.float32)
+    dev, out = group.device, {}
+    for name, make in (("v1", make_sharded_spheres_step), ("v2", make_slab_spheres_step)):
+        step, init = make(group, **kw)
+        st = init((0, 61))
+        st = st if isinstance(st, tuple) else (st,)
+        for k in range(1 + SHARDED_STEP_STEPS):
+            if k == 1:
+                torch.cuda.synchronize(dev)
+                group.reset_counters()
+                t0 = time.perf_counter()
+            *st, over = step(*st, (0, 61), k)
+        torch.cuda.synchronize(dev)
+        r = {"ms": 1e3 * (time.perf_counter() - t0) / SHARDED_STEP_STEPS,
+             "bytes": group.bytes_moved / SHARDED_STEP_STEPS,
+             "stage_ms": 1e3 * group.stage_s / SHARDED_STEP_STEPS,
+             "finite": bool(torch.isfinite(st[0]).all()), "overlap": float(over)}
+        if name == "v2":
+            pos, active, gid, flags = st
+            r["capacity"] = int(active.shape[0])
+            r["flags"] = int(flags)
+            r["finite"] = bool(torch.isfinite(pos[active]).all())
+            owned = torch.cat(group.all_gather(torch.where(active, gid, -1)))
+            owned = torch.sort(owned[owned >= 0]).values
+            r["owned_once"] = bool(owned.numel() == SHARDED_N and torch.equal(
+                owned, torch.arange(SHARDED_N, dtype=owned.dtype, device=owned.device)))
+            r["own"] = int(active.sum())
+        out[name] = r
+        del st
+        torch.cuda.empty_cache()
+    return out
+
+
+def slab_lcp_run(group) -> dict:
+    """[62] on one rank: config #2's protocol config (lcp_bench_config) at
+    1M through parallel.slab_lcp, a block of SLAB_LCP_WARM steps from init,
+    then a block of SLAB_LCP_STEPS timed steps, with the K3 count set to 0
+    before the first and the group's counters before the second; then, on
+    rank 0, K3 at the final pair list's windows against its plain version."""
+    import torch
+
+    from mundy_tpu_torch.driver.apps.lcp_spheres import LCPSpheresConfig
+    from mundy_tpu_torch.ops.kernels import seg_onehot as k3
+    from mundy_tpu_torch.ops.segments import sorted_blocked_planes
+    from mundy_tpu_torch.parallel.slab_lcp import make_slab_lcp_spheres_step
+
+    c = lcp_bench_config(LCPSpheresConfig, N_BIG)
+    dev = group.device
+    init, step_block, grid = make_slab_lcp_spheres_step(
+        group, n_total=N_BIG, box_size=c.box_size, radius=c.radius, viscosity=c.viscosity,
+        diffusion=c.diffusion_coeff, dt=c.dt, constraint_buffer=c.constraint_buffer,
+        max_allowable_overlap=c.max_allowable_overlap, dtype=torch.float32)
+    t0 = time.perf_counter()
+    st = init((0, 62))
+    k3.strided_onehot_segment_sum.launches = 0
+    st = step_block(st, SLAB_LCP_WARM)
+    torch.cuda.synchronize(dev)
+    warm_s, warm_iters = time.perf_counter() - t0, st["iters"]
+    group.reset_counters()
+    t0 = time.perf_counter()
+    st = step_block(st, SLAB_LCP_STEPS)
+    torch.cuda.synchronize(dev)
+    iters = warm_iters + st["iters"]
+    out = {"ms": 1e3 * (time.perf_counter() - t0) / SLAB_LCP_STEPS, "warm_s": warm_s,
+           "iters": iters, "applies": sum(i + 2 for i in iters),
+           "k3": k3.strided_onehot_segment_sum.launches, "mode": st["mode"],
+           "rebuilds": st["rebuilds"], "bytes": group.bytes_moved / SLAB_LCP_STEPS,
+           "stage_ms": 1e3 * group.stage_s / SLAB_LCP_STEPS, "overflow": bool(st["overflow"]),
+           "finite": bool(torch.isfinite(st["pos"][st["valid"]]).all()),
+           "valid": int(group.psum(st["valid"].sum().reshape(1))[0]),
+           "grid": (grid.ny, grid.nz, grid.row_capacity), "nzl": st["pos"].shape[1]}
+    if group.rank == 0:
+        n_slots = st["valid"].numel()
+        g = torch.rand(st["pmask"].shape, generator=torch.Generator(dev).manual_seed(62),
+                       device=dev)
+        vals = torch.where(st["pmask"][:, None], g[:, None] * torch.randn(
+            (g.shape[0], 3), generator=torch.Generator(dev).manual_seed(63), device=dev), 0.0)
+        planes, loc = sorted_blocked_planes(vals, st["ii"], n_slots, st["windows"])
+        B = st["windows"].block_bodies
+        out["k3_equal"] = all(bool(torch.equal(k3.strided_onehot_segment_sum(p, loc, B),
+                                               k3.strided_segment_sum_plain(p, loc, B)))
+                              for p in planes)
+        out["k3_shape"] = (tuple(loc.shape), B, int(st["pmask"].sum()))
+    return out
+
+
+def slice20_f64_rank(group) -> dict:
+    """[63] on one rank: v2 (800 spheres, the reference test's config) and
+    slab_lcp (512 spheres with D 0.05, both rebuild modes) in float64 on the
+    card (this group) and on the CPU (a CPU group of the same ranks) from the
+    same start; rank 0 returns the gathered slots."""
+    import torch
+
+    from mundy_tpu_torch.parallel.comm import Group
+    from mundy_tpu_torch.parallel.sharded_step import make_slab_spheres_step
+    from mundy_tpu_torch.parallel.slab_lcp import make_slab_lcp_spheres_step
+
+    cpu = Group(group.rank, group.size, "cpu", group.backend)
+    pos_v2 = torch.rand((800, 3), dtype=torch.float64,
+                        generator=torch.Generator().manual_seed(63)) * 20.0
+    box = float((512 * (4 / 3) * math.pi * 0.125 / 0.05) ** (1 / 3))
+    pos_lcp = torch.rand((512, 3), dtype=torch.float64,
+                         generator=torch.Generator().manual_seed(64)) * box
+    res = {}
+    for where, g in (("card", group), ("cpu", cpu)):
+        step, init = make_slab_spheres_step(g, n_total=800, box_size=20.0, radius=0.5,
+                                            youngs=200.0, diffusion=0.05, dt=2e-4,
+                                            dtype=torch.float64)
+        st = init((0, 63), pos=pos_v2)
+        for k in range(F64_V2_STEPS):
+            *st, _ = step(*st, (0, 63), k)
+        runs = {"v2": dict(zip(("pos", "valid", "gid"), (
+            torch.cat(g.all_gather(x)).cpu().numpy() for x in st[:3])))}
+        for mode in ("local", "global"):
+            init, step_block, _ = make_slab_lcp_spheres_step(
+                g, n_total=512, box_size=box, dt=1e-3, diffusion=0.05,
+                pair_capacity_per_body=8, dtype=torch.float64, rebuild_mode=mode)
+            s = step_block(init((0, 64), pos=pos_lcp), F64_SLAB_LCP_STEPS)
+            runs[mode] = {k: torch.cat(g.all_gather(s[k]), dim=1).cpu().numpy()
+                          for k in ("pos", "valid", "gid")}
+            runs[mode].update(iters=s["iters"], rebuilds=s["rebuilds"])
+        res[where] = runs
+    return res if group.rank == 0 else None
+
+
+def slice20_ranks(group) -> dict:
+    """The d = 2 rank body of [60]-[63], in one process group."""
+    import torch
+
+    out = {"ring": ring_shard_run(group)}
+    out["ring_f64"] = ring_f64_run(group)
+    torch.cuda.empty_cache()
+    out["sharded_step"] = sharded_step_run(group)
+    torch.cuda.empty_cache()
+    out["slab_lcp"] = slab_lcp_run(group)
+    torch.cuda.empty_cache()
+    out["f64"] = slice20_f64_rank(group)
+    return out
+
+
+def cli_ring_phase(results: list) -> None:
+    """[64]: examples/lcp_spheres_100k.yaml with hydro=rpy_ring (4096
+    spheres, box 31, 10 steps) through `python -m
+    mundy_tpu_torch.driver.main ... --devices 2` on this card
+    (CLI_DEVICES_RUNS[64]):
+    exit 0, the plan and the rpy_ring line and one "stepped" line once each,
+    the final VTK and the checkpoint written by rank 0 alone."""
+    (yaml, sets, _, steps), r = CLI_DEVICES_RUNS[64][0], results[0]
+    said = [ln for ln in r["lines"] if ln.startswith(("ranks ", "sharded ", "stepped "))]
+    print(f"[64] {yaml}.yaml --devices 2 {' '.join(sets)}: rc {r['rc']}, "
+          f"{r['wall']:.1f} s wall (the CLI phases at once); " + " | ".join(said)
+          + f"; checkpoint files {r['files']}", flush=True)
+    once = all(sum(ln.startswith(h) for ln in r["lines"]) == 1
+               for h in ("ranks ", "sharded over 2 ranks: LCP rpy_ring", "stepped "))
+    if (r["rc"] != 0 or not once or not r["vtk"]
+            or r["files"] != [f"ckpt_{steps:012d}.json", f"ckpt_{steps:012d}.npz"]):
+        print(r["stdout"][-3000:], r["stderr"][-3000:], flush=True)
+        fail("[64] lcp_spheres_100k.yaml --devices 2 with hydro=rpy_ring failed")
+
+
+def devices_cli_phases() -> None:
+    """[50], [53], [59] and [64]: every `--devices 2` subprocess of
+    CLI_DEVICES_RUNS started at once (cli_devices), then each phase's
+    checks."""
+    t0 = time.perf_counter()
+    runs = [run for phase in CLI_DEVICES_RUNS.values() for run in phase]
+    results = cli_devices([(yaml, sets, outputs) for yaml, sets, outputs, _ in runs])
+    k = 0
+    for phase, check in ((50, cli_devices_phase), (53, cli_balanced_phase),
+                         (59, cli_block_phase), (64, cli_ring_phase)):
+        n = len(CLI_DEVICES_RUNS[phase])
+        check(results[k:k + n])
+        k += n
+    print(f"[50], [53], [59], [64] took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def slice20_phases(torch, dev, card: str) -> dict:
+    """Phases 60-64: LCP rpy_ring over ranks ([60]: d = 2, then d = 1 in
+    this process), parallel.sharded_step's v1 and v2 at 1M ([61]), slab_lcp
+    at config #2's 1M ([62]), float64 card against CPU ([63]), all at d = 2
+    in one group of two gloo ranks on this card (CUDA tensors staged through
+    pinned host buffers: functional numbers, not scaling); [64] runs with
+    the other CLI phases at the end. Returns K2's and K3's launches on these
+    paths by entry name."""
+    import numpy as np
+
+    from mundy_tpu_torch.parallel import comm
+
+    t_start = time.perf_counter()
+    torch.cuda.empty_cache()
+    d2 = comm.spawn_ranks(slice20_ranks, 2, "cuda", timeout=600.0, threads=4,
+                          log=lambda line: print(f"[60]-[63] d = 2: {line}", flush=True))
+    torch.cuda.empty_cache()
+    one = ring_shard_run(comm.Group.single(dev))
+    torch.cuda.empty_cache()
+    # ---- 60 ----------------------------------------------------------------
+    ring = [d2[k]["ring"] for k in range(2)]
+    r0 = ring[0]
+    for d, ranks in ((2, ring), (1, [one])):
+        print(f"[60] LCP rpy_ring, {RING_N} spheres in box {r0['box']:.3f} (float32), d = {d}"
+              + (" on one card (gloo, staged)" if d == 2 else " (one rank)")
+              + f": init + {RING_SHARD_WARM} step {ranks[0]['warm_s']:.2f} s, then "
+              f"{RING_SHARD_STEPS} steps: " + "; ".join(
+                  f"rank {k} ms/step {[round(m, 3) for m in r['ms']]}, BBPGD iterations "
+                  f"{r['iters']}, launches K2 {r['k2']}, K3 {r['k3']} (mobility applies "
+                  f"{r['applies']}), bytes moved/step {r['bytes']:.0f}, staging "
+                  f"{r['stage_ms']:.3f} ms/step, one ring apply {r['apply_ms']:.3f} ms by CUDA "
+                  f"events" for k, r in enumerate(ranks))
+              + f"; rebuilds {ranks[0]['rebuilds']}; {card}", flush=True)
+    print(f"    rank 0 at d = 2: K3 at (nb, W) {r0['k3_shape'][0]} ({r0['k3_shape'][1]} active "
+          f"pairs) bit-equal to its plain version {r0['k3_equal']}; K2 at (ny, nz, R) "
+          f"{r0['k2_shape']} equal to its plain version {r0['k2_equal']}; max overlap "
+          f"{r0['overlap']:.3e} (d = 1: {one['overlap']:.3e}); {card}", flush=True)
+    if any(r["overflow"] or not r["finite"] for r in ring + [one]):
+        fail("[60] an rpy_ring run overflowed or went non-finite")
+    if ring[0]["iters"] != ring[1]["iters"]:
+        fail(f"[60] the ranks took different BBPGD iterations: {ring[0]['iters']}, "
+             f"{ring[1]['iters']}")
+    if any(r["k3"] != r["applies"] or r["k2"] < 1 for r in ring + [one]):
+        fail(f"[60] launches {[(r['k2'], r['k3'], r['applies']) for r in ring + [one]]}")
+    if not (r0["k3_equal"] and r0["k2_equal"] and one["k3_equal"] and one["k2_equal"]):
+        fail("[60] K2 or K3 disagrees with its plain version at the rpy_ring state")
+    rows_card, pos_card = d2[0]["ring_f64"]["card"]
+    rows_cpu, pos_cpu = d2[0]["ring_f64"]["cpu"]
+    err = float(np.abs(pos_card - pos_cpu).max())
+    print(f"[60] float64 300 spheres, {RING_F64_STEPS} steps, d = 2 on the card vs one CPU "
+          f"rank: counters equal at every step {rows_card == rows_cpu}, rebuilds "
+          f"{rows_card[-1][2]}, max|pos diff| {err:.3e}", flush=True)
+    if not (rows_card == rows_cpu and err <= 1e-8):
+        fail("[60] the float64 rpy_ring run over ranks on the card disagrees with the CPU")
+    # ---- 61 ----------------------------------------------------------------
+    ss = [d2[k]["sharded_step"] for k in range(2)]
+    for name in ("v1", "v2"):
+        print(f"[61] sharded_step {name}, {SHARDED_N} spheres (config #1's physics, float32), "
+              f"d = 2 on one card (gloo, staged), {SHARDED_STEP_STEPS} steps after 1: "
+              + "; ".join(f"rank {k} {r[name]['ms']:.3f} ms/step, bytes moved/step "
+                          f"{r[name]['bytes']:.0f}" + (f" (the position all_gather "
+                                                        f"{SHARDED_N // 2 * 12} B)"
+                                                        if name == "v1" else
+                                                        f", own {r[name]['own']} of capacity "
+                                                        f"{r[name]['capacity']}")
+                          + f", staging {r[name]['stage_ms']:.3f} ms/step"
+                          for k, r in enumerate(ss))
+              + f"; max overlap {ss[0][name]['overlap']:.4f}"
+              + (f", flags {ss[0]['v2']['flags']}, every gid owned once "
+                 f"{ss[0]['v2']['owned_once']}" if name == "v2" else "") + f"; {card}",
+              flush=True)
+    if not all(r[n]["finite"] for r in ss for n in ("v1", "v2")):
+        fail("[61] a sharded_step run went non-finite")
+    if ss[0]["v2"]["flags"] or not ss[0]["v2"]["owned_once"]:
+        fail("[61] v2 overflowed or lost or duplicated a sphere")
+    # ---- 62 ----------------------------------------------------------------
+    sl = [d2[k]["slab_lcp"] for k in range(2)]
+    s0 = sl[0]
+    print(f"[62] slab_lcp, {N_BIG} spheres (config #2's protocol config, float32), d = 2 on "
+          f"one card (gloo, staged): grid (ny, nz, R) {s0['grid']}, {s0['nzl']} planes per rank, "
+          f"{s0['mode']} rebuilds; {SLAB_LCP_WARM} step from init {s0['warm_s']:.2f} s, then "
+          f"{SLAB_LCP_STEPS} steps: " + "; ".join(
+              f"rank {k} {r['ms']:.1f} ms/step, BBPGD iterations {r['iters']}, K3 launches "
+              f"{r['k3']} (applies {r['applies']}), bytes moved/step {r['bytes']:.0f}, staging "
+              f"{r['stage_ms']:.2f} ms/step" for k, r in enumerate(sl))
+          + f"; rebuilds {s0['rebuilds']}, valid {s0['valid']}; {card}", flush=True)
+    print(f"    rank 0: K3 at (nb, W) {s0['k3_shape'][0]}, B {s0['k3_shape'][1]} "
+          f"({s0['k3_shape'][2]} ordered pairs) bit-equal to its plain version "
+          f"{s0['k3_equal']}; {card}", flush=True)
+    if any(r["overflow"] or not r["finite"] for r in sl) or s0["valid"] != N_BIG:
+        fail("[62] the slab_lcp run overflowed, lost a sphere or went non-finite")
+    if sl[0]["iters"] != sl[1]["iters"] or any(r["k3"] != r["applies"] for r in sl):
+        fail(f"[62] iterations {[r['iters'] for r in sl]}, K3 launches "
+             f"{[(r['k3'], r['applies']) for r in sl]}")
+    if not s0["k3_equal"]:
+        fail("[62] K3 disagrees with its plain version at rank 0's windows")
+    # ---- 63 ----------------------------------------------------------------
+    f64 = d2[0]["f64"]
+    msgs, ok = [], True
+    for name in ("v2", "local", "global"):
+        g, c = f64["card"][name], f64["cpu"][name]
+        same = bool(np.array_equal(g["gid"], c["gid"]) and np.array_equal(g["valid"], c["valid"]))
+        v = c["valid"]
+        err = float(np.abs(g["pos"][v] - c["pos"][v]).max())
+        extra = "" if name == "v2" else (f", rebuilds {g['rebuilds']} (cpu {c['rebuilds']}), "
+                                         f"iterations equal {g['iters'] == c['iters']}")
+        msgs.append(f"{'v2' if name == 'v2' else 'slab_lcp ' + name}: gid and valid equal "
+                    f"{same}, max|pos diff| {err:.3e}{extra}")
+        ok = ok and same and err <= 1e-8 and (name == "v2" or (
+            g["iters"] == c["iters"] and g["rebuilds"] == c["rebuilds"]))
+    print("[63] float64 at d = 2, card vs CPU: " + "; ".join(msgs), flush=True)
+    if not ok:
+        fail("[63] a float64 run on the card disagrees with the CPU run")
+    # ---- 64 ----------------------------------------------------------------
+    print(f"[60]-[63] took {time.perf_counter() - t_start:.1f} s", flush=True)
+    return {"row_neighbor_extract": {
+                **{f"lcp rpy_ring {RING_N} d=2 rank {k}": r["k2"] for k, r in enumerate(ring)},
+                f"lcp rpy_ring {RING_N} d=1": one["k2"]},
+            "strided_onehot_segment_sum": {
+                **{f"lcp rpy_ring {RING_N} d=2 rank {k}": r["k3"] for k, r in enumerate(ring)},
+                f"lcp rpy_ring {RING_N} d=1": one["k3"],
+                **{f"slab_lcp 1M d=2 rank {k}": r["k3"] for k, r in enumerate(sl)}}}
 
 
 def main() -> None:
@@ -3560,7 +4023,7 @@ def main() -> None:
 
     # ---- 1. build ---------------------------------------------------------
     build_all(_build)
-    if sys.argv[1:] == ["--only-sharded"]:  # a short run of [46]-[59] alone
+    if sys.argv[1:] == ["--only-sharded"]:  # a short run of [46]-[64] alone
         print(json.dumps({"path_launches": sharded_phases(torch, dev, card)}), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
@@ -4129,7 +4592,7 @@ def main() -> None:
     rods = rods_nmat_phases(torch, dev, card)
     t_group = took("[39]-[42]", t_group)
     k5_single = (k5_entries[0]["ms"], k5_entries[1]["ms"])
-    sharded_paths = sharded_phases(torch, dev, card, k5_single)  # [46]-[59]
+    sharded_paths = sharded_phases(torch, dev, card, k5_single)  # [46]-[64]
 
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     kernels = [

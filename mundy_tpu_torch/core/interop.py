@@ -53,3 +53,37 @@ def neighbor_matrix_from_numpy(idx, mask, overflow, device="cpu") -> NeighborMat
     """A NeighborMatrix from the reference's idx (N, K), mask and flag."""
     return NeighborMatrix(idx=_t(idx, torch.int32, device), mask=_t(mask, torch.bool, device),
                           overflow=_t(bool(overflow), torch.bool, device))
+
+
+def slab_spheres_state_from_numpy(rank: int, size: int, pos, active, gid, flags,
+                                  device="cpu") -> tuple:
+    """This rank's (pos, active, gid, flags) of parallel.sharded_step's v2
+    step from the reference's make_slab_spheres_step arrays: pos (d C, 3),
+    active (d C,), gid (d C,), sharded over the mesh axis in rank order,
+    and the overflow bitmask."""
+    c = np.shape(pos)[0] // size
+    sl = slice(rank * c, (rank + 1) * c)
+    return (_t(np.asarray(pos)[sl], device=device),
+            _t(np.asarray(active)[sl], torch.bool, device),
+            _t(np.asarray(gid)[sl], torch.int32, device),
+            _t(int(np.asarray(flags)), torch.int32, device))
+
+
+def slab_lcp_state_from_numpy(rank: int, size: int, state: dict, mode: str,
+                              device="cpu") -> dict:
+    """This rank's state of parallel.slab_lcp from the reference engine's
+    state dict (numpy arrays, `key` its raw key data): the rows (ny, nz, R,
+    ...) cut into the rank's nz / d planes, gamma (d C,) into its C slots,
+    its lcp_iters; `mode` the port engine's rebuild mode."""
+    nzl = np.shape(state["pos"])[1] // size
+    planes = slice(rank * nzl, (rank + 1) * nzl)
+    c = np.shape(state["gamma"])[0] // size
+    rows = {k: np.asarray(state[k])[:, planes] for k in ("pos", "valid", "gid", "ref_pos")}
+    return {"pos": _t(rows["pos"], device=device),
+            "valid": _t(rows["valid"], torch.bool, device),
+            "gid": _t(rows["gid"], torch.int32, device),
+            "ref_pos": _t(rows["ref_pos"], device=device),
+            "gamma": _t(np.asarray(state["gamma"])[rank * c:(rank + 1) * c], device=device),
+            "lcp_iters": int(np.asarray(state["lcp_iters"])[rank]), "iters": [],
+            "overflow": _t(bool(np.asarray(state["overflow"])), torch.bool, device),
+            "key": key_words(state["key"]), "step": 0, "rebuilds": 0, "mode": mode}

@@ -26,10 +26,16 @@ The mobility (`hydro`):
   correction on), ring-rotated over the ranks of a parallel.comm.Group
   (parallel/ring_rpy.py); init Hilbert-orders the drawn positions so each
   rank's contiguous block is spatially local. The reference builds a mesh of
-  every visible device; the port takes one rank unless given a group, and
-  refuses more than one: the convex solver's reductions over ranks are
-  ported, and what waits is LCPSpheresSim itself over ranks, its pair list,
-  active set and solve sharded (ROADMAP queue 1, item 8 step 4).
+  every visible device and shards only the mobility; the port takes one
+  rank unless given a group (`group=`, one process per rank), and then, as
+  the reference, every rank holds the whole state (broad phase, pair list,
+  active set, solve) and the mobility takes the rank's block of N / d
+  bodies through the ring and all_gathers the (N, 3) velocities
+  (num_spheres % ranks must be 0). The gathered velocities make every
+  rank's positions the same bit for bit, and the host decisions that could
+  still part the ranks are taken together: the BBPGD exit test
+  (`PGDConfig.replicas`), the skin trigger and the overflow flag are pmaxes
+  over the ranks, so no rank runs a ring apply that another skips.
 In the RPY modes each BBPGD iteration applies D^T M D: the force assembly
 through K3, the mobility, the separation rate.
 
@@ -87,7 +93,10 @@ from mundy_tpu_torch.neighbor.cells3d import build_cells3d, make_cell_grid3d
 from mundy_tpu_torch.neighbor.rows import make_row_grid, neighbor_matrix_rows
 from mundy_tpu_torch.ops.segments import segment_windows
 from mundy_tpu_torch.parallel.comm import Group
-from mundy_tpu_torch.parallel.ring_rpy import hilbert_shard_permutation, make_ring_rpy_apply
+from mundy_tpu_torch.parallel.ring_rpy import (
+    hilbert_shard_permutation,
+    make_replicated_ring_apply,
+)
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -155,7 +164,9 @@ class LCPSpheresState:
 
 
 class LCPSpheresSim:
-    """Assembled LCP spheres simulation for LCPSpheresConfig on one device."""
+    """Assembled LCP spheres simulation for LCPSpheresConfig on one device,
+    or, in `rpy_ring` mode with a `group` of several ranks, on this rank of
+    the group (its device)."""
 
     def __init__(self, config: LCPSpheresConfig, device="cuda", group: Optional[Group] = None):
         self.config = c = config
@@ -165,15 +176,14 @@ class LCPSpheresSim:
             raise RuntimeError("LCPSpheresSim(device='cuda') needs a CUDA "
                                "device, and torch sees none")
         self.ring_apply = None
+        self.group = None  # the ranks of a replicated rpy_ring run
         if c.hydro == "rpy_ring":
             group = group if group is not None else Group.single(self.device)
             if group.size > 1:
-                raise NotImplementedError(
-                    f"hydro='rpy_ring' over {group.size} ranks: LCPSpheresSim over ranks "
-                    "(its pair list, active set and solve sharded; the convex solver's "
-                    "reductions over ranks are ported) waits (ROADMAP queue 1, item 8 step 4)")
-            self.ring_apply = make_ring_rpy_apply(group, c.radius, c.viscosity,
-                                                  include_self=True, overlap_correction=True)
+                self.group = group
+            self.ring_apply = make_replicated_ring_apply(
+                group, c.num_spheres, c.radius, c.viscosity, include_self=True,
+                overlap_correction=True)
         self.dtype = _DTYPES[c.dtype]
         box = [c.box_size] * 3
         self.metric = periodic(box, dtype=self.dtype, device=self.device)
@@ -491,7 +501,8 @@ class LCPSpheresSim:
             act.setup, mobility, c.num_spheres, c.dt,
             max_allowable_overlap=c.max_allowable_overlap,
             max_iterations=c.max_col_iterations, gamma0=act.gamma0,
-            u_ext=u_ext, alpha0=state.lcp_alpha, apply_override=apply_band)
+            u_ext=u_ext, alpha0=state.lcp_alpha, apply_override=apply_band,
+            replicas=self.group)
         if u_ext is not None:
             vel = vel + u_ext
         new_pos = euler_step(state.pos, vel,
@@ -509,7 +520,10 @@ class LCPSpheresSim:
         disp = self.metric.sep(state.ref_pos, state.pos)
         skin_sq = torch.tensor((0.5 * self.config.constraint_buffer) ** 2,
                                dtype=self.dtype, device=self.device)
-        return bool((disp * disp).sum(-1).max() > skin_sq)
+        fired = ((disp * disp).sum(-1).max() > skin_sq).reshape(1)
+        if self.group is not None:
+            fired = self.group.pmax(fired.to(torch.int32)) > 0
+        return bool(fired[0])
 
     def step(self, state: LCPSpheresState) -> LCPSpheresState:
         """One step, rebuilding first when the skin trigger fired."""
@@ -524,6 +538,9 @@ class LCPSpheresSim:
         between-block refits of the rows broad phase and the active window."""
         for _ in range(n_steps):
             state = self.step(state)
+        if self.group is not None:  # every rank reads the same flag
+            ovf = self.group.pmax(state.overflow.reshape(1).to(torch.int32))[0] > 0
+            state = state.replace(overflow=ovf)
         if resize:
             state = self._refit_broad(state)
             state = self._resize_active(state)

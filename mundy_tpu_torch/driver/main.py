@@ -13,6 +13,7 @@ compiles nothing per run here, and each config's dtype selects float64.
 (parallel.comm.spawn_ranks, which prints the ranks, the backend and the
 devices; its rule: NCCL with a card per rank, gloo on the CPU or on a shared
 card): every rank builds the sim and a driver.sharded.ShardedSim around it
+(LCP rpy_ring: LCPSpheresSim over the ranks itself, driver.sharded.rank_sim)
 and runs the same loop; rank 0 alone prints progress and writes the results
 and checkpoints. What no sharded engine runs (driver.sharded.refuse_unported:
 an app with no route, a config its engine cannot split over N ranks) raises
@@ -28,14 +29,13 @@ import time
 
 import torch
 
-from mundy_tpu_torch.core.config import load_yaml
 from mundy_tpu_torch.driver.configurator import (
     available_apps,
     build_simulation_from_yaml,
     config_from_spec,
     load_spec,
 )
-from mundy_tpu_torch.driver.sharded import ShardedSim, refuse_unported
+from mundy_tpu_torch.driver.sharded import rank_sim, refuse_unported
 from mundy_tpu_torch.io import latest_checkpoint, load_checkpoint, save_checkpoint
 from mundy_tpu_torch.parallel.comm import spawn_ranks
 
@@ -97,14 +97,12 @@ def main(argv=None) -> int:
 
 
 def _rank_main(group, args) -> int:
-    """One rank of `--devices N`: the sim on the rank's device wrapped in
-    ShardedSim, through the same loop; rank 0 alone prints and writes."""
-    config, sim = build_simulation_from_yaml(args.config, _parse_overrides(args.overrides),
-                                             device=group.device)
-    app = load_yaml(args.config)["app"]
-    sim = ShardedSim(app, sim, group)
+    """One rank of `--devices N`: the rank's sim (driver.sharded.rank_sim)
+    through the same loop; rank 0 alone prints and writes."""
+    config, sim, plan = rank_sim(load_spec(args.config, _parse_overrides(args.overrides)),
+                                 group)
     if group.rank == 0:
-        print(sim.describe(), flush=True)
+        print(plan, flush=True)
     return _run(args, config, sim, group.device.type, lead=group.rank == 0)
 
 

@@ -29,11 +29,16 @@ route GranularState's positions and velocities, the chromatin and filaments
 routes the whole app state (every rank holds it; the engine keeps its own
 block). Each route refuses what its engine does not run (polydisperse
 spheres; ellipsoids and friction; LCP hydro modes other than "none"), and
-`refuse_unported`, which main calls before any rank starts, refuses LCP
-rpy_ring over ranks (ROADMAP queue 1, item 8 step 4), chromatin hydro modes
-other than "none", "rpy_spectral" and "rpy_periphery", and chains,
-crosslinkers or filaments that do not split evenly over the ranks. The
-balanced engines need at least two ranks.
+`refuse_unported`, which main calls before any rank starts, refuses
+chromatin hydro modes other than "none", "rpy_spectral" and
+"rpy_periphery", and chains, crosslinkers, filaments or rpy_ring spheres
+that do not split evenly over the ranks. The balanced engines need at least
+two ranks.
+
+LCP `hydro="rpy_ring"` takes no ShardedSim: LCPSpheresSim(config,
+group=group) is distributed itself (every rank holds the whole state, the
+ring shards the mobility, as the reference's LCPSpheresSim over a mesh of
+every visible device), so `rank_sim` hands main that sim on each rank.
 
 `regrow` grows what overflowed and re-shards from the last good state. The
 slab engines grow their row capacity (driver/regrow.grow_int, as the
@@ -72,6 +77,7 @@ from mundy_tpu_torch.parallel.filaments_shard import (
     filaments_shard_rules,
     make_sharded_filaments_step,
 )
+from mundy_tpu_torch.parallel.ring_rpy import ring_split_rule
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 ROUTED = ("spheres", "rods", "lcp_spheres", "granular", "chromatin", "filaments")
@@ -79,23 +85,44 @@ BALANCED = ("lcp_spheres", "granular")
 BLOCKS = ("chromatin", "filaments")  # the whole-chain and whole-filament block engines
 
 
+def ring_route(app: str, config) -> bool:
+    """Whether the app runs over ranks as LCPSpheresSim(group=) itself."""
+    return app == "lcp_spheres" and config.hydro == "rpy_ring"
+
+
 def refuse_unported(app: str, config=None, d: int = 1) -> None:
-    """Raise, before any rank starts, for what no sharded engine runs over
-    d ranks: ValueError for an app with no route or a config its engine
-    cannot split (each message names the rule), NotImplementedError for LCP
-    rpy_ring over ranks, naming its step of ROADMAP queue 1 item 8."""
+    """Raise ValueError, before any rank starts, for what no sharded engine
+    runs over d ranks: an app with no route or a config its engine cannot
+    split (each message names the rule)."""
     if app not in ROUTED:
         raise ValueError(f"--devices > 1: no sharded engine for app '{app}'")
     if config is None:
         return
-    if app == "lcp_spheres" and config.hydro == "rpy_ring" and d > 1:
-        raise NotImplementedError(
-            f"--devices {d}: LCP hydro='rpy_ring' over ranks (LCPSpheresSim's pair list, "
-            "active set and solve sharded) is not ported yet (ROADMAP queue 1, item 8 step 4)")
+    if ring_route(app, config):
+        ring_split_rule(config.num_spheres, d)
     if app == "chromatin":
         chromatin_shard_rules(config, d)
     elif app == "filaments":
         filaments_shard_rules(config, d)
+
+
+def rank_sim(spec: dict, group: Group) -> tuple:
+    """(config, sim, plan line) of this rank of `--devices N` for an app
+    spec: LCPSpheresSim over the group for LCP rpy_ring, else ShardedSim
+    around the app's sim."""
+    from mundy_tpu_torch.driver.configurator import build_simulation, config_from_spec
+
+    app, config = config_from_spec(spec)
+    if ring_route(app, config):
+        from mundy_tpu_torch.driver.apps.lcp_spheres import LCPSpheresSim
+
+        d = group.size
+        return (config, LCPSpheresSim(config, device=group.device, group=group),
+                f"sharded over {d} ranks: LCP rpy_ring, every rank the whole state, the "
+                f"mobility ring-rotated in blocks of {config.num_spheres // d} spheres")
+    config, sim = build_simulation(spec, device=group.device)
+    sim = ShardedSim(app, sim, group)
+    return config, sim, sim.describe()
 
 
 class ShardedSim:

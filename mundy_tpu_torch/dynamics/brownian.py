@@ -47,9 +47,10 @@ def _rotl(v, r: int):
 def threefry_2x32(key, x0, x1):
     """Threefry-2x32 (20 rounds) of the counter words (x0, x1) under `key`.
 
-    key: two uint32 words as python ints; x0, x1: python ints or int64
-    tensors holding uint32 values (broadcastable). Returns the two output
-    words in the same representation."""
+    key: two uint32 words, as python ints or int64 tensors (one key per
+    element, broadcastable against the counters); x0, x1: python ints or
+    int64 tensors holding uint32 values (broadcastable). Returns the two
+    output words, tensors where any input is one."""
     k0, k1 = key
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
     x0 = (x0 + ks[0]) & _MASK
@@ -63,10 +64,16 @@ def threefry_2x32(key, x0, x1):
     return x0, x1
 
 
-def fold_in(key, data: int):
+def fold_in(key, data):
     """jax.random.fold_in for a raw threefry key: hash of the seed words
-    (0, uint32(data)) under `key`. Returns two uint32 words as python ints."""
-    return threefry_2x32(key, 0, int(data) & _MASK)
+    (0, uint32(data)) under `key`. With python ints it returns two python
+    ints; with an integer tensor of data (or tensor key words) one key per
+    element, as `vmap(fold_in)` gives them, in one vectorised hash."""
+    if isinstance(data, torch.Tensor):
+        data = data.to(torch.int64) & _MASK
+    else:
+        data = int(data) & _MASK
+    return threefry_2x32(key, 0, data)
 
 
 def _erf_inv_f32(x: torch.Tensor) -> torch.Tensor:
@@ -145,6 +152,11 @@ def uniform_pm1(key, n: int, dtype=torch.float32, device=None) -> torch.Tensor:
         raise TypeError(f"the JAX stream draws float32 or float64, not {dtype}")
     i = torch.arange(3 * n, dtype=torch.int64, device=device)
     y0, y1 = threefry_2x32(key, torch.zeros_like(i), i)
+    return _pm1_of_words(y0, y1, dtype).reshape(n, 3)
+
+
+def _pm1_of_words(y0, y1, dtype) -> torch.Tensor:
+    """uniform_pm1's map of the threefry words of each element."""
     if dtype == torch.float32:
         bits = ((y0 ^ y1) >> 9) | 0x3F800000
         floats = bits.to(torch.int32).view(torch.float32) - 1.0
@@ -152,8 +164,9 @@ def uniform_pm1(key, n: int, dtype=torch.float32, device=None) -> torch.Tensor:
         # the top 52 bits of the 64-bit word (y0 << 32) | y1
         bits = (y0 << 20) | (y1 >> 12) | 0x3FF0000000000000
         floats = bits.view(torch.float64) - 1.0
-    lo = torch.tensor(np.nextafter(-1.0, 0.0, dtype=_NP[dtype]), dtype=dtype, device=device)
-    return torch.maximum(lo, floats * (1.0 - lo) + lo).reshape(n, 3)
+    lo = torch.tensor(np.nextafter(-1.0, 0.0, dtype=_NP[dtype]), dtype=dtype,
+                      device=floats.device)
+    return torch.maximum(lo, floats * (1.0 - lo) + lo)
 
 
 def normal(key, n: int, dtype=torch.float32, device=None) -> torch.Tensor:
@@ -161,6 +174,20 @@ def normal(key, n: int, dtype=torch.float32, device=None) -> torch.Tensor:
     draws them: sqrt(2) erf_inv of uniform_pm1."""
     erf_inv = _erf_inv_f32 if dtype == torch.float32 else _erf_inv_f64
     return _SQRT2 * erf_inv(uniform_pm1(key, n, dtype, device))
+
+
+def normal_per_key(keys, dtype=torch.float32) -> torch.Tensor:
+    """(G, 3) standard normals, row g as jax.random.normal(k_g, (3,), dtype)
+    draws them from the g-th key: `keys` holds the two words of G keys as
+    (G,) int64 tensors (fold_in of a tensor of data gives them), so G draws
+    cost one vectorised hash."""
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the JAX stream draws float32 or float64, not {dtype}")
+    k0, k1 = (k[:, None] for k in keys)
+    i = torch.arange(3, dtype=torch.int64, device=k0.device)[None, :]
+    y0, y1 = threefry_2x32((k0, k1), torch.zeros_like(i), i)
+    erf_inv = _erf_inv_f32 if dtype == torch.float32 else _erf_inv_f64
+    return _SQRT2 * erf_inv(_pm1_of_words(y0, y1, dtype))
 
 
 def _scaled(z: torch.Tensor, diffusion, dt) -> torch.Tensor:

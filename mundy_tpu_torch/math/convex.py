@@ -15,6 +15,13 @@ value the host reads to steer the loop (keep going, stalls, iterations since
 the best residual, take the best) comes from those reduced values, so every
 rank leaves the loop at the same iteration.
 
+A replicated solve (every rank holding the whole x, as LCPSpheresSim's
+`rpy_ring` mode over ranks does) passes its Group as `PGDConfig.replicas`
+instead: nothing is summed over the ranks (that would count each entry d
+times), and the one host read per iteration, the exit test, is a pmax of
+the ranks' stop flags, so every rank leaves at the same iteration even
+where their arithmetic differs in its last bits.
+
 ref: `mundy/math/src/mundy_math/convex.hpp` (`solve_cqpp:790`,
 `solve_lcp:840`, `BBStepStrategy:498`, residual policies `:434-495`) and the
 BBPGD loop of `scrap/lcp_spheres/StkNgpLCP.cpp:705-875`.
@@ -76,6 +83,9 @@ class PGDConfig:
     # the ranks of a sharded solve (parallel.comm.Group: psum/pmax over
     # them), the reference's axis_names; None = one device
     group: Optional[object] = None
+    # the ranks of a replicated solve, which take the exit test together
+    # (a pmax of their stop flags); None = no other rank
+    replicas: Optional[object] = None
 
 
 class SolveResult(NamedTuple):
@@ -163,6 +173,8 @@ def solve_cqpp(apply_A: Callable[[torch.Tensor], torch.Tensor], q: torch.Tensor,
     x_best, res_best = x0, res0
     while it < config.max_iters:
         keep_going = (res >= tol_t) & (stalls < 2) & (since_best < config.patience)
+        if config.replicas is not None:
+            keep_going = config.replicas.pmax((~keep_going).to(torch.int32).reshape(1))[0] == 0
         if not bool(keep_going):  # the one host read per iteration
             break
         x_new = space.project(x - alpha * g)

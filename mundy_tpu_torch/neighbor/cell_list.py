@@ -201,7 +201,8 @@ def neighbor_matrix_query(pos_all: torch.Tensor, clist: CellList, query_pos: tor
                           query_gid: torch.Tensor, search_radius,
                           metric: Optional[Metric] = None, max_neighbors: int = 32,
                           chunk: int = 4096,
-                          exclude: Optional[torch.Tensor] = None) -> NeighborMatrix:
+                          exclude: Optional[torch.Tensor] = None,
+                          query_radius: Optional[torch.Tensor] = None) -> NeighborMatrix:
     """Neighbor rows for a subset of bodies: `query_pos` (Q, 3) with global
     ids `query_gid` (Q,) against the cell list built over `pos_all` (N, 3).
     `search_radius` is a scalar or (N,) per body; `exclude` an optional
@@ -209,18 +210,25 @@ def neighbor_matrix_query(pos_all: torch.Tensor, clist: CellList, query_pos: tor
     global ids and equal the matching rows of neighbor_matrix(pos_all, ...):
     the same candidate order, compaction and exclusions, so a rank can
     rebuild only its own rows. Padding queries carry gid -1 and find
-    nothing."""
+    nothing. `query_radius` (Q,), when given, takes the place of
+    `search_radius` (pass None there): the pair cutoff is twice each
+    query's own radius, and a query whose radius is not positive finds
+    nothing (the sharded spheres steps' contract: inactive slots carry a
+    negative radius)."""
     n = pos_all.shape[0]
     q = query_pos.shape[0]
     dev = pos_all.device
-    radius = torch.broadcast_to(torch.as_tensor(search_radius, dtype=pos_all.dtype,
-                                                device=dev), (n,))
+    if query_radius is None:
+        radius = torch.broadcast_to(torch.as_tensor(search_radius, dtype=pos_all.dtype,
+                                                    device=dev), (n,))
     q_pad = ((q + chunk - 1) // chunk) * chunk
     qp = torch.cat([query_pos, query_pos.new_zeros((q_pad - q, 3))])
     qg = torch.cat([query_gid.to(torch.int32),
                     torch.full((q_pad - q,), -1, dtype=torch.int32, device=dev)])
     if exclude is not None:
         excl_p = torch.cat([exclude, exclude.new_full((q_pad - q, exclude.shape[1]), -1)])
+    if query_radius is not None:
+        qr = torch.cat([query_radius.to(pos_all.dtype), query_radius.new_zeros(q_pad - q)])
     coords_all = _cell_coords(clist.grid, qp)
     idx_parts, mask_parts, ovf = [], [], torch.zeros((), dtype=torch.bool, device=dev)
     for start in range(0, q_pad, chunk):
@@ -236,9 +244,13 @@ def neighbor_matrix_query(pos_all: torch.Tensor, clist: CellList, query_pos: tor
         else:
             sep = metric.sep(p[:, None, :], cand_pos)
         d2 = (sep * sep).sum(-1)
-        cutoff = radius[torch.clamp(me, min=0).to(torch.int64)][:, None] + radius[cand_idx]
-        ok = ((cand >= 0) & (d2 <= cutoff * cutoff) & (cand != me[:, None])
-              & (me >= 0)[:, None])
+        live = (me >= 0)[:, None]
+        if query_radius is None:
+            cutoff = radius[torch.clamp(me, min=0).to(torch.int64)][:, None] + radius[cand_idx]
+        else:
+            cutoff = 2.0 * qr[sl][:, None]
+            live = live & (cutoff > 0)  # squaring would revive a negative radius
+        ok = (cand >= 0) & (d2 <= cutoff * cutoff) & (cand != me[:, None]) & live
         if exclude is not None:
             ok &= (cand[:, :, None] != excl_p[sl][:, None, :]).all(dim=-1)
         row_idx, row_ok, count = _compact_rows(cand, ok, max_neighbors, n)

@@ -44,20 +44,32 @@ def strided_segment_sum_plain(values: torch.Tensor, loc: torch.Tensor,
                               block_segments: int) -> torch.Tensor:
     """Plain PyTorch version of K3 (any device): (nb, D, W) values and
     (nb, W) local ids -> (nb, D, B) per-block segment sums; ids outside
-    [0, B) are dropped. Pass w adds slot w of every block at once (blocks
-    never collide), so each segment is summed over its slots in increasing
-    w from zero."""
+    [0, B) are dropped. Each segment is summed over its slots in increasing
+    w from zero: pass k adds, in every block at once, the k-th slot (in w
+    order) of each segment, so the passes are as many as the longest
+    segment's slots, and no two adds of a pass meet."""
     _check(values, loc)
     nb, D, W = values.shape
     B = block_segments
-    # column B of each block collects the dropped ids
-    col = torch.where((loc >= 0) & (loc < B), loc.to(torch.int64), B)
-    rows = torch.arange(nb, device=values.device)
-    out = values.new_zeros((nb, B + 1, D))
-    for w in range(W):
-        c = col[:, w]
-        out[rows, c] = out[rows, c] + values[:, :, w]
-    return out[:, :B].permute(0, 2, 1).contiguous()
+    dev = values.device
+    kept = (loc >= 0) & (loc < B)
+    col = torch.where(kept, loc.to(torch.int64), B)  # B: the dropped ids
+    # each slot's rank among its segment's slots, in w order
+    order = torch.argsort(col, dim=1, stable=True)
+    sc = torch.gather(col, 1, order)
+    first = torch.ones_like(sc, dtype=torch.bool)
+    first[:, 1:] = sc[:, 1:] != sc[:, :-1]
+    ar = torch.arange(W, device=dev).expand(nb, W)
+    rank_sorted = ar - torch.cummax(torch.where(first, ar, 0), dim=1).values
+    rank = torch.empty_like(rank_sorted).scatter_(1, order, rank_sorted)
+    rank = torch.where(kept, rank, -1)
+    vt = values.transpose(1, 2)  # (nb, W, D)
+    out = values.new_zeros((nb, B, D))
+    for k in range(int(rank.max()) + 1 if rank.numel() else 0):
+        b, w = torch.nonzero(rank == k, as_tuple=True)
+        c = col[b, w]
+        out[b, c] = out[b, c] + vt[b, w]
+    return out.permute(0, 2, 1).contiguous()
 
 
 def _launch(values: torch.Tensor, loc: torch.Tensor, B: int) -> torch.Tensor:

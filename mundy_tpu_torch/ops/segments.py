@@ -108,19 +108,12 @@ def strided_t(gamma: torch.Tensor, normals: torch.Tensor, ids: torch.Tensor,
     return strided_onehot_t(gamma.reshape(nb, W).contiguous(), n, loc, B).reshape(nb * W)
 
 
-def segment_sum_sorted_blocked(values: torch.Tensor, ids: torch.Tensor, n_segments: int,
-                               windows: SegmentWindows) -> torch.Tensor:
-    """sum over the rows with ids == s of values -> (n_segments, D).
-
-    values (C, D), zero on padded rows; ids (C,) sorted ascending, pads
-    carrying >= n_segments. Block b sums the W rows from windows.starts[b]
-    whose ids fall in [b B, (b+1) B); rows beyond a block's window are
-    dropped, as in the reference (callers check `windows.overflow` at
-    rebuild). The windows are gathered into K3's strided (nb, 3, W) planes,
-    three value columns at a time, so every segment is summed in row order
-    in full precision and two runs on the card are bit-equal (the
-    reference's bf16 three-term split for the TPU's matrix unit is not
-    carried over)."""
+def sorted_blocked_planes(values: torch.Tensor, ids: torch.Tensor, n_segments: int,
+                          windows: SegmentWindows) -> tuple:
+    """K3's inputs of segment_sum_sorted_blocked: (planes, loc), the (nb, 3,
+    W) value planes of each three columns of `values` (zero-padded to a
+    multiple of 3) and the (nb, W) block-local ids, pads and rows past
+    n_segments at the dropped id B."""
     B, W = windows.block_bodies, windows.window
     nb = windows.starts.shape[0]
     C, D = values.shape
@@ -130,12 +123,33 @@ def segment_sum_sorted_blocked(values: torch.Tensor, ids: torch.Tensor, n_segmen
                       torch.full((W,), nb * B + B, dtype=torch.int64, device=dev)])
     # a window starts at most C rows in (the reference's dynamic slice clamps so)
     rows = torch.clamp(windows.starts.to(torch.int64), 0, C)[:, None] + torch.arange(W, device=dev)
-    loc = (ipad[rows] - torch.arange(nb, device=dev)[:, None] * B).to(torch.int32).contiguous()
+    # pads (ids >= n_segments) take the dropped id B: a last block that
+    # reaches past n_segments would otherwise sum them into a cut segment
+    idw = ipad[rows]
+    loc = torch.where(idw < n_segments, idw - torch.arange(nb, device=dev)[:, None] * B,
+                      B).to(torch.int32).contiguous()
     vw = vpad[rows]  # (nb, W, D)
     d3 = -(-D // 3) * 3
     if d3 != D:
         vw = torch.cat([vw, vw.new_zeros((nb, W, d3 - D))], dim=2)
-    outs = [strided_onehot_segment_sum(vw[:, :, c:c + 3].transpose(1, 2).contiguous(), loc, B)
-            for c in range(0, d3, 3)]
-    out = torch.cat(outs, dim=1)[:, :D]  # (nb, D, B)
+    return [vw[:, :, c:c + 3].transpose(1, 2).contiguous() for c in range(0, d3, 3)], loc
+
+
+def segment_sum_sorted_blocked(values: torch.Tensor, ids: torch.Tensor, n_segments: int,
+                               windows: SegmentWindows) -> torch.Tensor:
+    """sum over the rows with ids == s of values -> (n_segments, D).
+
+    values (C, D), zero on padded rows; ids (C,) sorted ascending, pads
+    carrying >= n_segments. Block b sums the W rows from windows.starts[b]
+    whose ids fall in [b B, (b+1) B); rows beyond a block's window are
+    dropped, as in the reference (callers check `windows.overflow` at
+    rebuild). The windows are gathered into K3's strided (nb, 3, W) planes,
+    three value columns at a time (sorted_blocked_planes), so every segment
+    is summed in row order in full precision and two runs on the card are
+    bit-equal (the reference's bf16 three-term split for the TPU's matrix
+    unit is not carried over)."""
+    B = windows.block_bodies
+    planes, loc = sorted_blocked_planes(values, ids, n_segments, windows)
+    nb, D = loc.shape[0], values.shape[1]
+    out = torch.cat([strided_onehot_segment_sum(p, loc, B) for p in planes], dim=1)[:, :D]
     return out.transpose(1, 2).reshape(nb * B, D)[:n_segments]

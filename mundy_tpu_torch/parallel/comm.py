@@ -91,12 +91,15 @@ class Group:
     copying CUDA tensors to and from host memory (gloo on a shared card),
     not counting the wait for the kernels that produce them."""
 
-    def __init__(self, rank: int, size: int, device, backend: str, stage: bool = False):
+    def __init__(self, rank: int, size: int, device, backend: str, stage: bool = False,
+                 pg=None, members: Optional[tuple] = None):
         self.rank = int(rank)
         self.size = int(size)
         self.device = torch.device(device)
         self.backend = backend
         self.stage = bool(stage)
+        self.pg = pg  # the process group (None: the default one)
+        self.members = members  # global rank of each rank of a subgroup
         self.bytes_moved = 0
         self.stage_s = 0.0
         self._pinned = {}  # (role, shape, dtype) -> a reused pinned host buffer
@@ -107,6 +110,21 @@ class Group:
         the identity (ppermute a copy). A one-rank process group (NCCL on a
         card) runs its reductions through the backend all the same."""
         return cls(0, 1, device, "none")
+
+    def subgroup(self, ranks: Sequence[int]) -> Optional["Group"]:
+        """The Group of `ranks` of this group, renumbered 0.. in that order,
+        on its members, None elsewhere. A collective: every rank calls it
+        with the same ranks."""
+        ranks = tuple(int(r) for r in ranks)
+        glob = tuple(self.members[r] for r in ranks) if self.members else ranks
+        pg = dist.new_group(list(glob))
+        if self.rank not in ranks:
+            return None
+        return Group(ranks.index(self.rank), len(ranks), self.device, self.backend, self.stage,
+                     pg=pg, members=glob)
+
+    def _peer(self, r: int) -> int:
+        return self.members[r] if self.members else r
 
     def reset_counters(self) -> None:
         self.bytes_moved = 0
@@ -168,10 +186,10 @@ class Group:
         out = self._recv_buffer(wire, "recv").zero_()
         ops = []
         if dst:
-            ops.append(dist.P2POp(dist.isend, wire, dst[0]))
+            ops.append(dist.P2POp(dist.isend, wire, self._peer(dst[0]), group=self.pg))
             self.bytes_moved += wire.numel() * wire.element_size()
         if src:
-            ops.append(dist.P2POp(dist.irecv, out, src[0]))
+            ops.append(dist.P2POp(dist.irecv, out, self._peer(src[0]), group=self.pg))
         for req in dist.batch_isend_irecv(ops):
             req.wait()
         return self._from_wire(out, x)
@@ -182,7 +200,7 @@ class Group:
         wire = self._to_wire(x)
         if wire is x:
             wire = x.clone()
-        dist.all_reduce(wire, op=op)
+        dist.all_reduce(wire, op=op, group=self.pg)
         self.bytes_moved += wire.numel() * wire.element_size()
         return self._from_wire(wire, x)
 
@@ -200,7 +218,7 @@ class Group:
             return [x.clone()]
         wire = self._to_wire(x)
         outs = [self._recv_buffer(wire, f"gather{r}") for r in range(self.size)]
-        dist.all_gather(outs, wire)
+        dist.all_gather(outs, wire, group=self.pg)
         self.bytes_moved += wire.numel() * wire.element_size()
         return [self._from_wire(o, x) for o in outs]
 

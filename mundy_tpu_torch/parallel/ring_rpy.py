@@ -10,6 +10,12 @@ self pair excluded, the overlap branch as asked and the self term added.
 The reference permutes the blocks once more after the last hop, sending
 every block home unused; here the ring stops after d - 1 hops. Position and
 force travel in one (n, 6) message per hop.
+
+`make_replicated_ring_apply` is the form LCPSpheresSim's `rpy_ring` mode
+calls over ranks (the reference's shard_map of the ring over global
+arrays): every rank holds the whole (N, 3) positions and forces, takes its
+contiguous block through the ring and all_gathers the velocities, one
+all_gather an apply, so every rank ends with the same (N, 3) result.
 """
 
 from __future__ import annotations
@@ -67,6 +73,33 @@ def make_ring_rpy_apply(group: Group, radius: float, viscosity: float,
         if include_self:
             u = u + rpy_self_mobility(f_local, radius, viscosity)
         return u
+
+    return apply
+
+
+def ring_split_rule(n_total: int, d: int) -> None:
+    """Raise ValueError unless the N bodies split into d equal blocks."""
+    if n_total % d != 0:
+        raise ValueError(f"hydro='rpy_ring' over {d} ranks needs num_spheres % ranks == 0, "
+                         f"got {n_total} spheres")
+
+
+def make_replicated_ring_apply(group: Group, n_total: int, radius: float, viscosity: float,
+                               include_self: bool = True, overlap_correction: bool = False,
+                               chunk: int = 512
+                               ) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+    """apply(pos, f) -> the (N, 3) velocities, where every rank holds the
+    whole (N, 3) positions and forces: rank r's block [r N/d, (r+1) N/d)
+    through the ring apply, then one all_gather of the velocity blocks."""
+    ring_split_rule(n_total, group.size)
+    block = make_ring_rpy_apply(group, radius, viscosity, include_self, overlap_correction,
+                                chunk)
+    n_loc = n_total // group.size
+    mine = slice(group.rank * n_loc, (group.rank + 1) * n_loc)
+
+    def apply(pos: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+        u = block(pos[mine], f[mine])
+        return torch.cat(group.all_gather(u)) if group.size > 1 else u
 
     return apply
 

@@ -98,17 +98,17 @@ def resolve_rebuild_mode(rebuild_mode: str, d: int, nzl: int, nz: int) -> str:
     return rebuild_mode
 
 
-def halo_planes(group: Group, packed: torch.Tensor, box_size: float):
+def halo_planes(group: Group, packed: torch.Tensor, box_size: float, shift: bool = True):
     """(lo, hi): the (ny, 1, R, C) boundary planes of the ring neighbours
     below and above this rank's slab, channel 2 (z) shifted by the global
     wrap on the box's edge ranks (half-edges and flags are translation
-    invariant)."""
+    invariant); `shift` False for channels that are not positions."""
     up, dn = ring_perms(group.size)
     lo = group.ppermute(packed[:, -1:].contiguous(), up)  # from the rank below
     hi = group.ppermute(packed[:, :1].contiguous(), dn)  # from the rank above
-    if group.rank == 0:
+    if shift and group.rank == 0:
         lo[..., 2] = lo[..., 2] + (-box_size)
-    if group.rank == group.size - 1:
+    if shift and group.rank == group.size - 1:
         hi[..., 2] = hi[..., 2] + box_size
     return lo, hi
 

@@ -149,11 +149,11 @@ def test_main_defaults_to_the_card(tmp_path):
 
 def test_main_refuses_several_devices(tmp_path, capfd):
     """--devices 2 runs every app (tests/test_torch_sharded.py,
-    test_torch_*_shard.py); what no sharded engine runs raises before any
-    rank starts (no plan line), each refusal naming its rule: the repo's
-    hp1_chromatin.yaml (7 chains over 2 ranks), chromatin hydro outside the
-    three modes, crosslinkers and filaments that do not split, and LCP
-    rpy_ring over ranks (item 8 step 4)."""
+    test_torch_*_shard.py, LCP rpy_ring below); what no sharded engine runs
+    raises before any rank starts (no plan line), each refusal naming its
+    rule: the repo's hp1_chromatin.yaml (7 chains over 2 ranks), chromatin
+    hydro outside the three modes, and crosslinkers, filaments and rpy_ring
+    spheres that do not split."""
     hp1 = str(ROOT / "examples" / "hp1_chromatin.yaml")
     lcp = str(ROOT / "examples" / "lcp_spheres_100k.yaml")
     cases = [
@@ -163,9 +163,26 @@ def test_main_refuses_several_devices(tmp_path, capfd):
         (hp1, ("num_chains=8", "num_crosslinkers=3"), ValueError, "num_crosslinkers % ranks"),
         (_yaml(tmp_path, "filaments", num_filaments=5), (), ValueError,
          "num_filaments % ranks"),
-        (lcp, ("hydro=rpy_ring",), NotImplementedError, "item 8 step 4"),
+        (lcp, ("hydro=rpy_ring", "num_spheres=4097"), ValueError, "num_spheres % ranks"),
     ]
     for y, sets, err, match in cases:
         with pytest.raises(err, match=match):
             main([y, "--device", "cpu", "--devices", "2", "--set", *sets])
     assert "ranks 2" not in capfd.readouterr().out
+
+
+def test_main_devices_runs_rpy_ring(tmp_path, capfd):
+    """--devices 2 with LCP hydro=rpy_ring: LCPSpheresSim over the two ranks
+    (no ShardedSim), its plan line once, rank 0's checkpoint with every
+    sphere finite and no overflow."""
+    lcp = str(ROOT / "examples" / "lcp_spheres_100k.yaml")
+    ck = tmp_path / "ck"
+    assert main([lcp, "--device", "cpu", "--devices", "2", "--checkpoint-dir", str(ck),
+                 "--set", "hydro=rpy_ring", "num_spheres=200", "box_size=12.0",
+                 "num_steps=4", "dtype=float64"]) == 0
+    out = capfd.readouterr().out
+    assert out.count("sharded over 2 ranks: LCP rpy_ring") == 1
+    assert out.count("step 4/4") == 1
+    arrays = {k.split("|", 1)[1]: v for k, v in np.load(ck / "ckpt_000000000004.npz").items()}
+    assert arrays["pos"].shape == (200, 3) and np.isfinite(arrays["pos"]).all()
+    assert not arrays["overflow"] and arrays["step"] == 4

@@ -5,7 +5,6 @@ subpackage of the same name. The reference's __init__s are read with
 
 import ast
 import importlib
-import importlib.util
 import pathlib
 
 import pytest
@@ -18,11 +17,6 @@ EXCEPTIONS = {
     ("core", "pytree_dataclass"):
         "PyTorch has no pytrees: the port's container is "
         "core.containers.frozen_dataclass",
-}
-EXCEPTED_PACKAGES = {
-    "parallel": "the reference's parallel/__init__ exports only slab and sharded_step "
-                "names, which the port takes last (ROADMAP queue 1, item 8 step 5); "
-                "its engines so far are in mundy_tpu_torch.parallel's own __all__",
 }
 
 
@@ -38,17 +32,16 @@ def _exports():
 
 
 EXPORTS = sorted(set(_exports()))
-PORTED = [(sub, name) for sub, name in EXPORTS if sub not in EXCEPTED_PACKAGES]
 
 
 def test_the_reference_exports_were_read():
     subs = {sub for sub, _ in EXPORTS}
     assert {"forces", "math", "geom", "state", "neighbor", "mobility", "core",
-            "constraints", "dynamics", "kmc", "mech", "io"} <= subs
+            "constraints", "dynamics", "kmc", "mech", "io", "parallel"} <= subs
     assert len(EXPORTS) > 150
 
 
-@pytest.mark.parametrize("sub,name", PORTED, ids=lambda v: str(v))
+@pytest.mark.parametrize("sub,name", EXPORTS, ids=lambda v: str(v))
 def test_reference_name_importable_from_port(sub, name):
     if (sub, name) in EXCEPTIONS:
         mod = importlib.import_module(f"mundy_tpu_torch.{sub}")
@@ -57,18 +50,6 @@ def test_reference_name_importable_from_port(sub, name):
     mod = importlib.import_module(f"mundy_tpu_torch.{sub}")
     assert hasattr(mod, name), f"mundy_tpu_torch.{sub} lacks {name}"
     assert name in getattr(mod, "__all__", [name]) or not name[0].isalpha()
-
-
-@pytest.mark.parametrize("sub", sorted(EXCEPTED_PACKAGES))
-def test_excepted_packages_are_not_ported_yet(sub):
-    """An excepted subpackage (its reason in EXCEPTED_PACKAGES) exports none
-    of the reference's names yet, whether or not the port has begun it;
-    once it does, its names join the test above."""
-    names = [n for s, n in EXPORTS if s == sub]
-    assert names
-    if importlib.util.find_spec(f"mundy_tpu_torch.{sub}") is not None:
-        mod = importlib.import_module(f"mundy_tpu_torch.{sub}")
-        assert not [n for n in names if hasattr(mod, n)]
 
 
 def test_frozen_dataclass_stands_in_for_pytree_dataclass():

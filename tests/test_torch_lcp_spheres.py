@@ -70,12 +70,12 @@ def test_run_block_trajectory_matches(started):
 
 
 def test_untouched_branches_raise():
-    """`rpy_ring` over more than one rank needs LCPSpheresSim itself over
-    ranks (the convex solver's reductions are ported) and is refused; on one
-    rank it runs
-    (tests/test_torch_ring_rpy.py; the other hydro modes:
+    """`rpy_ring` over more than one rank runs LCPSpheresSim over the ranks
+    (tests/test_torch_ring_lcp.py) and needs the spheres to split into
+    equal blocks; an uneven split is refused before any collective (one
+    rank: tests/test_torch_ring_rpy.py; the other hydro modes:
     tests/test_torch_lcp_hydro.py; the polydisperse branch:
     tests/test_torch_polydisperse.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
-        LCPSpheresSim(LCPSpheresConfig(**dict(KW, hydro="rpy_ring")), device="cpu",
-                      group=Group(0, 2, "cpu", "gloo"))
+    with pytest.raises(ValueError, match="num_spheres % ranks"):
+        LCPSpheresSim(LCPSpheresConfig(**dict(KW, hydro="rpy_ring", num_spheres=2001)),
+                      device="cpu", group=Group(0, 2, "cpu", "gloo"))

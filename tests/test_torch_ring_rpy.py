@@ -13,8 +13,9 @@ line's `rpy_ring` mode.
   and from the JAX initial state the BBPGD iterations, active counts,
   rebuilds and overflow are equal at every step of a block with a skin
   rebuild, the positions within 1e-8 (the Brownian normals, as in
-  tests/test_torch_lcp_hydro.py). Over more than one rank the mode is
-  refused (ROADMAP queue 1, item 8 step 4).
+  tests/test_torch_lcp_hydro.py). Over more than one rank the mode runs
+  LCPSpheresSim over the ranks (tests/test_torch_ring_lcp.py) and refuses
+  spheres that do not split into equal blocks.
 """
 
 import jax
@@ -133,5 +134,10 @@ def test_lcp_ring_draws_hilbert_order():
 
 
 def test_lcp_ring_refuses_several_ranks():
-    with pytest.raises(NotImplementedError, match="item 8 step 4"):
-        LCPSpheresSim(LCPSpheresConfig(**KW), device="cpu", group=Group(0, 2, "cpu", "gloo"))
+    """Over ranks the spheres must split into equal blocks: 300 do over 2
+    and 4 ranks (the wrapper is made without a collective) and not over 7."""
+    for d in (2, 4):
+        sim = LCPSpheresSim(LCPSpheresConfig(**KW), device="cpu", group=Group(0, d, "cpu", "gloo"))
+        assert sim.group.size == d
+    with pytest.raises(ValueError, match="num_spheres % ranks"):
+        LCPSpheresSim(LCPSpheresConfig(**KW), device="cpu", group=Group(0, 7, "cpu", "gloo"))

@@ -132,8 +132,8 @@ UNPORTED = {
     "chromatin-hydro": ("chromatin", ChromatinConfig(num_chains=2, hydro="rpy_neighbors",
                                                      box_size=20.0),
                         ValueError, "runs hydro none, rpy_spectral, rpy_periphery"),
-    "lcp-rpy_ring": ("lcp_spheres", LCPSpheresConfig(hydro="rpy_ring"), NotImplementedError,
-                     "item 8 step 4"),
+    "lcp-rpy_ring": ("lcp_spheres", LCPSpheresConfig(hydro="rpy_ring", num_spheres=10_001),
+                     ValueError, "num_spheres % ranks"),
     "filaments-split": ("filaments", FilamentsConfig(num_filaments=5), ValueError,
                         "num_filaments % ranks == 0"),
     "no-app": ("proteins", None, ValueError, "no sharded engine for app 'proteins'"),
@@ -143,8 +143,8 @@ UNPORTED = {
 @pytest.mark.parametrize("case", sorted(UNPORTED))
 def test_unported_apps_raise(case):
     """What no sharded engine runs over 2 ranks is refused, each refusal
-    naming its rule (LCP rpy_ring over ranks its step of item 8); every
-    app has a route, and a config that splits passes."""
+    naming its rule (LCP rpy_ring spheres that do not split into equal
+    blocks too); every app has a route, and a config that splits passes."""
     app, cfg, err, match = UNPORTED[case]
     with pytest.raises(err, match=match):
         refuse_unported(app, cfg, 2)

@@ -15,7 +15,7 @@ import torch
 from mundy_tpu_torch.parallel.balanced_lcp import make_balanced_lcp_step
 from mundy_tpu_torch.parallel.balanced_slab import make_balanced_settling_step, ovf_bits_of
 from mundy_tpu_torch.parallel.granular_shard import make_granular_slab_step
-from mundy_tpu_torch.parallel.ring_rpy import make_ring_rpy_apply
+from mundy_tpu_torch.parallel.ring_rpy import make_replicated_ring_apply
 from mundy_tpu_torch.parallel.slab_rows import make_slab_rows_spheres_step
 from mundy_tpu_torch.parallel.slab_segments import make_slab_rods_step
 
@@ -27,14 +27,12 @@ def gather_planes(group, x: torch.Tensor) -> np.ndarray:
 
 
 def ring_apply(group, pos, forces, radius, viscosity, overlap_correction):
-    """This rank's block of the ring apply of the (N, 3) inputs; rank 0
-    returns the gathered (N, 3) velocities."""
-    n_loc = pos.shape[0] // group.size
-    sl = slice(group.rank * n_loc, (group.rank + 1) * n_loc)
-    apply = make_ring_rpy_apply(group, radius, viscosity, include_self=True,
-                                overlap_correction=overlap_correction)
-    u = apply(torch.as_tensor(pos[sl]), torch.as_tensor(forces[sl]))
-    full = torch.cat(group.all_gather(u)).numpy()
+    """The ring apply of the (N, 3) inputs, this rank's block through the
+    ring and the velocities all_gathered; rank 0 returns them."""
+    apply = make_replicated_ring_apply(group, pos.shape[0], radius, viscosity,
+                                       include_self=True,
+                                       overlap_correction=overlap_correction)
+    full = apply(torch.as_tensor(pos), torch.as_tensor(forces)).numpy()
     return full if group.rank == 0 else None
 
 
@@ -412,3 +410,134 @@ def sleep_on_rank(group, seconds: float):
 
     time.sleep(seconds)
     return group.rank
+
+
+def _ring_lcp_run(group, cfg_kw, pos0, key_words, steps):
+    """LCPSpheresSim(hydro="rpy_ring") over `group` from pos0: per-step
+    counters, whether every rank holds the same counters and positions,
+    the overlap before and after, and the ring's gamma against the dense
+    operator's at the final state."""
+    from mundy_tpu_torch.constraints.collision import collision_setup_spheres, resolve_collisions
+    from mundy_tpu_torch.driver.apps.lcp_spheres import LCPSpheresConfig, LCPSpheresSim
+    from mundy_tpu_torch.mobility.rpy import rpy_apply_dense
+    from mundy_tpu_torch.ops.segments import SegmentWindows
+
+    cfg = LCPSpheresConfig(**cfg_kw)
+    sim = LCPSpheresSim(cfg, device="cpu", group=group)
+    st = sim.init(pos=torch.as_tensor(pos0), key_words=key_words)
+    over0 = sim.max_overlap(st)
+    group.reset_counters()
+    rows = []
+    for _ in range(steps):
+        st = sim.run_block(st, 1, resize=False)
+        rows.append((st.lcp_iters, int(st.act_count), st.rebuild_count, bool(st.overflow)))
+    moved = group.bytes_moved
+    mine = torch.tensor(rows, dtype=torch.int64)
+    same = (all(torch.equal(x, mine) for x in group.all_gather(mine))
+            and all(torch.equal(x, st.pos) for x in group.all_gather(st.pos)))
+    windows = SegmentWindows(starts=st.seg_starts, block_bodies=sim.seg_block,
+                             window=sim.seg_window, overflow=torch.zeros((), dtype=torch.bool))
+    setup = collision_setup_spheres(st.pos, torch.tensor(cfg.radius, dtype=torch.float64),
+                                    st.pairs, metric=sim.metric, windows=windows)
+    g_ring = resolve_collisions(setup, lambda f: sim.ring_apply(st.pos, f), cfg.num_spheres,
+                                cfg.dt, max_allowable_overlap=1e-8, replicas=group)[0]
+    g_dense = resolve_collisions(
+        setup, lambda f: rpy_apply_dense(st.pos, f, cfg.radius, cfg.viscosity,
+                                         overlap_correction=True),
+        cfg.num_spheres, cfg.dt, max_allowable_overlap=1e-8, replicas=group)[0]
+    return {"rows": rows, "pos": st.pos.numpy(), "ranks_agree": same, "over0": over0,
+            "over1": sim.max_overlap(st), "gamma_err": float((g_ring - g_dense).abs().max()),
+            "bytes": moved}
+
+
+def ring_lcp(group, cfg_kw, pos0, key_words, steps, sizes):
+    """LCP rpy_ring over the first d ranks for each d of `sizes` (a
+    subgroup where d is less than the group); rank 0 returns {d: result}."""
+    out = {}
+    for d in sizes:
+        sub = group if d == group.size else group.subgroup(range(d))
+        if sub is not None:
+            out[d] = _ring_lcp_run(sub, cfg_kw, pos0, key_words, steps)
+    return out if group.rank == 0 else None
+
+
+def _stack_slots(group, *xs) -> list:
+    """Each (C, ...) slot array of this rank, every rank's stacked in rank
+    order into (d C, ...), as numpy."""
+    return [torch.cat(group.all_gather(x)).numpy() for x in xs]
+
+
+def slab_v2(group, kw, state_np, key_words, steps):
+    """parallel.sharded_step's v2 from the reference engine's arrays
+    (core.interop), then `steps` steps; rank 0 returns the stacked slots
+    after the init it would draw itself (from `pos`), after the carried
+    state and after the steps, with each step's max overlap."""
+    from mundy_tpu_torch.core.interop import slab_spheres_state_from_numpy
+    from mundy_tpu_torch.parallel.sharded_step import make_slab_spheres_step
+
+    step, init = make_slab_spheres_step(group, dtype=torch.float64, **kw)
+    own = _stack_slots(group, *init(key_words, pos=torch.as_tensor(state_np["raw"]))[:3])
+    st = slab_spheres_state_from_numpy(group.rank, group.size, state_np["pos"],
+                                       state_np["active"], state_np["gid"], state_np["flags"])
+    carried = _stack_slots(group, *st[:3])
+    overlaps = []
+    for s in range(steps):
+        *st, mo = step(*st, key_words, s)
+        overlaps.append(float(mo))
+    out = dict(zip(("pos", "active", "gid"), _stack_slots(group, *st[:3])),
+               flags=int(st[3]), overlaps=overlaps, own=own, carried=carried)
+    return out if group.rank == 0 else None
+
+
+def slab_v1(group, kw, raw, key_words, steps):
+    """parallel.sharded_step's v1 from the (N, 3) positions over `steps`
+    steps; rank 0 returns the gathered positions and the overlaps."""
+    from mundy_tpu_torch.parallel.sharded_step import make_sharded_spheres_step
+
+    step, init = make_sharded_spheres_step(group, dtype=torch.float64, **kw)
+    pos = init(key_words, pos=torch.as_tensor(raw))
+    overlaps = []
+    for s in range(steps):
+        pos, mo = step(pos, key_words, s)
+        overlaps.append(float(mo))
+    full = torch.cat(group.all_gather(pos)).numpy()
+    return {"pos": full, "overlaps": overlaps} if group.rank == 0 else None
+
+
+def slab_primitives(group, box, halo_width, halo_cap, pos, active, gid):
+    """halo_exchange and migrate of parallel.slab on this rank's slots of
+    the stacked (d C, ...) inputs; rank 0 returns every rank's outputs
+    stacked."""
+    from mundy_tpu_torch.parallel.slab import ShardState, halo_exchange, migrate
+
+    c = pos.shape[0] // group.size
+    sl = slice(group.rank * c, (group.rank + 1) * c)
+    p, a, g = (torch.as_tensor(x[sl]) for x in (pos, active, gid))
+    hp, hm, hovf = halo_exchange(p, a, group, box, halo_width, halo_cap)
+    m = migrate(ShardState(p, a, g, torch.zeros((), dtype=torch.bool)), group, box)
+    out = dict(zip(("halo_pos", "halo_mask", "halo_ovf", "pos", "active", "gid", "ovf"),
+                   _stack_slots(group, hp, hm, hovf.reshape(1), m.pos, m.active, m.gid,
+                                m.overflow.reshape(1))))
+    return out if group.rank == 0 else None
+
+
+def slab_lcp_run(group, kw, state_np, mode, steps):
+    """parallel.slab_lcp from the reference engine's init state
+    (core.interop) over `steps` steps in one block; rank 0 returns the
+    gathered rows, the per-step iterations, the rebuilds and the flag."""
+    from mundy_tpu_torch.core.interop import slab_lcp_state_from_numpy
+    from mundy_tpu_torch.parallel.slab_lcp import make_slab_lcp_spheres_step
+
+    init, step_block, _grid = make_slab_lcp_spheres_step(group, dtype=torch.float64,
+                                                         rebuild_mode=mode, **kw)
+    own = init(state_np["key"], pos=torch.as_tensor(state_np["raw"]))
+    st = slab_lcp_state_from_numpy(group.rank, group.size, state_np, own["mode"])
+    same_init = all(torch.equal(own[k], st[k]) for k in ("pos", "valid", "gid"))
+    st = step_block(st, steps)
+    out = {k: gather_planes(group, st[k]) for k in ("pos", "valid", "gid")}
+    agree = group.all_gather(torch.tensor([int(same_init)] + st["iters"]))
+    out.update(iters=st["iters"], lcp_iters=st["lcp_iters"], rebuilds=st["rebuilds"],
+               overflow=bool(st["overflow"]), mode=st["mode"],
+               init_equal=all(int(x[0]) for x in agree),
+               iters_agree=all(torch.equal(x, agree[0]) for x in agree))
+    return out if group.rank == 0 else None
