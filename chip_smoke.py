@@ -28,8 +28,10 @@ YAML through ShardedSim with K5s and K5i on every rank, config #4 and HP1
 through ShardedSim, float64 against the CPU, `main --devices 2`), then LCP
 rpy_ring over ranks (K2 and K3 on every rank) and the last three engines
 (parallel/sharded_step.py's v1 and v2, parallel/slab_lcp.py with K3),
-float64 against the CPU, rpy_ring through `main --devices 2`. Each group of
-phases prints its seconds ("[a]-[b] took").
+float64 against the CPU, rpy_ring through `main --devices 2`, then the
+f32-vs-f64 drift harness (mundy_tpu_torch/driver/drift.py) with its float32
+leg on the card (K2 and K3 on the LCP legs). Each group of phases prints its
+seconds ("[a]-[b] took").
 
 1. build K1-K6 with nvcc (sm_90a), one process per source, all at once;
    print each kernel's registers and spills and the card with its power
@@ -380,6 +382,18 @@ phases prints its seconds ("[a]-[b] took").
     one "stepped" line once each, rank 0's final VTK and checkpoint.
     `python3 chip_smoke.py --only-sharded` builds the kernels and runs
     [46]-[64] alone.
+65. the f32-vs-f64 drift harness (mundy_tpu_torch/driver/drift.py,
+    benchmarks/drift_f32.py's counterpart) with its float32 leg on the
+    card: spheres and LCP at 2000 spheres for 100 steps with the float64
+    leg on the CPU, and LCP at 1,048,576 spheres for 20 steps with the
+    float64 leg on the card in float64 (DRIFT_RUNS): each run's JSON, the
+    bars of tests/test_drift.py (per-step drift < 1e-4, in float32 ulps of
+    the box: 8e-4 at 1M; spheres divergence at step 20 < 3e-2; both legs'
+    max overlap < 5e-4 at the run's end), and the K2 and K3
+    launches of the float32 LCP legs (> 0; counts set to 0 just before,
+    each launch put down to the leg that made it).
+    `python3 chip_smoke.py --only-drift` builds the kernels and runs [65]
+    alone.
 
 Kernel times are medians of CUDA-event timings after a synchronize, kernel
 and plain version alternating; for K2, K3 and K3t the device time per
@@ -391,8 +405,8 @@ under "path_launches", and K2's, K3's, K4's, K5s's and K5i's those of each
 YAML through the CLI at [35], as "cli <yaml>"; K2's launches add those of
 [39] and [40], and its entry carries its times at [39]'s shape under
 "rods_nmat"; K6's, K4's, K2's and K3's carry their launches on [46]-[49]'s
-slab and rpy_ring paths, and K2's and K3's those on [60]'s and [62]'s,
-under "path_launches"),
+slab and rpy_ring paths, and K2's and K3's those on [60]'s and [62]'s
+and on [65]'s float32 LCP legs, under "path_launches"),
 then a final JSON line {"ok": true, "device": {...}}. Exits non-zero, with no
 result, without a CUDA device or without the package beside it.
 """
@@ -556,6 +570,22 @@ CLI_DEVICES_RUNS = {
 }
 F64_V2_STEPS = 30
 F64_SLAB_LCP_STEPS = 20
+# [65]: (config, N, steps, where the float64 leg runs) of each drift run:
+# the harness's defaults, then the per-step drift at BASELINE.json's 1M LCP
+# size, whose float64 leg runs on the card (with it on the host the harness
+# took 191 s for one step: PERF.md), for 20 steps, the window after which
+# tests/test_drift.py reads its overlap bar (one step from the random start
+# leaves the deepest overlaps in both legs, as in the reference)
+DRIFT_RUNS = (("spheres", 2000, 100, "cpu"), ("lcp", 2000, 100, "cpu"),
+              ("lcp", 1_048_576, 20, "cuda"))
+# the bars of tests/test_drift.py, set at its N = 600 (box 18.45). The
+# per-step bar is float32 rounding of positions below 32 times ~50; it is
+# held in ulps: a box in a higher binade scales it by the ratio of the
+# float32 ulps (1 at N = 2000, box 27.58; 8 at 1M, box 222.4)
+DRIFT_PER_STEP_BAR = 1e-4
+DRIFT_TEST_N = 600
+DRIFT_SPHERES_20_BAR = 3e-2
+DRIFT_OVERLAP_BAR = 5e-4
 
 # published H100 SXM peaks (NVIDIA data sheet): FP32 outside the
 # tensor cores, and HBM bandwidth
@@ -3979,6 +4009,88 @@ def slice20_phases(torch, dev, card: str) -> dict:
                 **{f"slab_lcp 1M d=2 rank {k}": r["k3"] for k, r in enumerate(sl)}}}
 
 
+def drift_phase(torch, card: str) -> dict:
+    """[65]: the f32-vs-f64 drift harness (mundy_tpu_torch/driver/drift.py)
+    with its float32 leg on the card, for each of DRIFT_RUNS. K2's and K3's
+    counts are set to 0 just before the runs and read just after; each
+    launch is put down to the leg (float32 or float64) whose init() or
+    run_block() made it. Fails on a bar of tests/test_drift.py, a
+    non-finite number, or no K2 or K3 launch over the float32 LCP legs.
+    Returns the float32 legs' launches, {kernel name: count}."""
+    import numpy as np
+
+    from mundy_tpu_torch.driver import drift
+    from mundy_tpu_torch.driver.apps.lcp_spheres import LCPSpheresSim
+    from mundy_tpu_torch.ops.kernels import row_extract as k2
+    from mundy_tpu_torch.ops.kernels import seg_onehot as k3
+
+    t_start = time.perf_counter()
+    legs = {torch.float32: [0, 0], torch.float64: [0, 0]}  # (K2, K3) a leg
+    ulp_test = float(np.spacing(np.float32(drift._box(DRIFT_TEST_N))))
+
+    def counted(method):
+        def wrapper(self, *args, **kwargs):
+            c2 = k2.row_neighbor_extract.launches
+            c3 = k3.strided_onehot_segment_sum.launches
+            try:
+                return method(self, *args, **kwargs)
+            finally:
+                legs[self.dtype][0] += k2.row_neighbor_extract.launches - c2
+                legs[self.dtype][1] += k3.strided_onehot_segment_sum.launches - c3
+        return wrapper
+
+    originals = {name: getattr(LCPSpheresSim, name) for name in ("init", "run_block")}
+    bad = []
+    k2.row_neighbor_extract.launches = 0
+    k3.strided_onehot_segment_sum.launches = 0
+    try:
+        for name, method in originals.items():
+            setattr(LCPSpheresSim, name, counted(method))
+        for config, n, steps, ref in DRIFT_RUNS:
+            t0 = time.perf_counter()
+            before = [list(v) for v in legs.values()]
+            bar = DRIFT_PER_STEP_BAR * float(np.spacing(np.float32(drift._box(n)))) / ulp_test
+            out = drift.run(config, n, steps, device="cuda", ref_device=ref)
+            torch.cuda.synchronize()
+            f32 = [a - b for a, b in zip(legs[torch.float32], before[0])]
+            f64 = [a - b for a, b in zip(legs[torch.float64], before[1])]
+            print(f"[65] drift {config} N = {n}, {steps} steps, float32 on the card, float64 "
+                  f"on {ref}: per-step drift {out['per_step_drift']!r} (bar {bar!r}), divergence "
+                  f"{out['divergence']}" + (
+                      f", max overlap f64 {out['max_overlap_f64']!r} f32 "
+                      f"{out['max_overlap_f32']!r}, K2/K3 launches float32 leg {f32}, "
+                      f"float64 leg {f64}" if config == "lcp" else "")
+                  + f", {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+            numbers = [out["per_step_drift"], *out["divergence"].values()]
+            if config == "lcp":
+                numbers += [out["max_overlap_f64"], out["max_overlap_f32"]]
+            if out["backend_f32"] != "cuda" or not all(map(math.isfinite, numbers)):
+                bad.append(f"{config} {n}: the float32 leg left the card or a number "
+                           "is not finite")
+            if not out["per_step_drift"] < bar:
+                bad.append(f"{config} {n}: per-step drift {out['per_step_drift']} >= {bar}")
+            if config == "spheres" and not out["divergence"]["20"] < DRIFT_SPHERES_20_BAR:
+                bad.append(f"spheres {n}: divergence at 20 {out['divergence']['20']}")
+            if config == "lcp" and not max(out["max_overlap_f64"],
+                                           out["max_overlap_f32"]) < DRIFT_OVERLAP_BAR:
+                bad.append(f"lcp {n}: max overlap {out['max_overlap_f64']}, "
+                           f"{out['max_overlap_f32']}")
+    finally:
+        for name, method in originals.items():
+            setattr(LCPSpheresSim, name, method)
+    k2_f32, k3_f32 = legs[torch.float32]
+    total = (k2.row_neighbor_extract.launches, k3.strided_onehot_segment_sum.launches)
+    print(f"[65] K2 and K3 launches over the float32 LCP legs: {k2_f32}, {k3_f32} "
+          f"(all legs {total[0]}, {total[1]})", flush=True)
+    if bad:
+        fail("[65] " + "; ".join(bad))
+    if not (k2_f32 > 0 and k3_f32 > 0) or sum(legs[torch.float64]) + k2_f32 + k3_f32 != sum(total):
+        fail(f"[65] K2 or K3 was not launched over the float32 LCP legs ({k2_f32}, {k3_f32}), "
+             "or a launch fell outside the legs")
+    print(f"[65] took {time.perf_counter() - t_start:.1f} s", flush=True)
+    return {"row_neighbor_extract": k2_f32, "strided_onehot_segment_sum": k3_f32}
+
+
 def main() -> None:
     import torch
 
@@ -4023,6 +4135,11 @@ def main() -> None:
 
     # ---- 1. build ---------------------------------------------------------
     build_all(_build)
+    if sys.argv[1:] == ["--only-drift"]:  # a short run of [65] alone
+        print(json.dumps({"path_launches": drift_phase(torch, card)}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
+        return
     if sys.argv[1:] == ["--only-sharded"]:  # a short run of [46]-[64] alone
         print(json.dumps({"path_launches": sharded_phases(torch, dev, card)}), flush=True)
         print(json.dumps({"ok": True, "device": {
@@ -4593,6 +4710,7 @@ def main() -> None:
     t_group = took("[39]-[42]", t_group)
     k5_single = (k5_entries[0]["ms"], k5_entries[1]["ms"])
     sharded_paths = sharded_phases(torch, dev, card, k5_single)  # [46]-[64]
+    drift_paths = drift_phase(torch, card)  # [65]
 
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     kernels = [
@@ -4635,6 +4753,8 @@ def main() -> None:
             entry.setdefault("path_launches", {}).update(cli_paths[entry["name"]])
         if entry["name"] in sharded_paths:  # the multi-rank paths, [46]-[49] and [55]
             entry.setdefault("path_launches", {}).update(sharded_paths[entry["name"]])
+        if entry["name"] in drift_paths:  # the float32 LCP legs of the drift harness, [65]
+            entry.setdefault("path_launches", {})["drift lcp float32"] = drift_paths[entry["name"]]
         if entry["name"] == "row_neighbor_extract":  # RodsSim's broad phase, [39]-[40]
             entry.setdefault("path_launches", {}).update(rods["paths"])
             entry["launches"] += sum(rods["paths"].values())

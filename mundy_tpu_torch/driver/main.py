@@ -53,6 +53,14 @@ def _parse_overrides(pairs) -> dict:
     return out
 
 
+def require_device(device) -> None:
+    """Raise for `--device cuda` (the default) when torch sees no card: a
+    CLI run never carries on on the CPU on its own."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda (the default) needs a CUDA device, and torch sees "
+                           "none; pass --device cpu to run on the CPU")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description=f"mundy_tpu_torch driver. Apps: {', '.join(available_apps())}")
@@ -80,9 +88,7 @@ def main(argv=None) -> int:
                          "the run fails (also each collective's timeout)")
     args = ap.parse_args(argv)
 
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda (the default) needs a CUDA device, and torch sees "
-                           "none; pass --device cpu to run on the CPU")
+    require_device(args.device)
     if args.devices and args.devices > 1:
         app, config = config_from_spec(load_spec(args.config, _parse_overrides(args.overrides)))
         refuse_unported(app, config, args.devices)

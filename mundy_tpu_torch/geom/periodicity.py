@@ -51,6 +51,10 @@ class Metric:
         """Wrap points into the primary cell."""
         return self.from_fractional(self.frac_wrap_to_unit_cell(self.to_fractional(p)))
 
+    def shift_image(self, p: torch.Tensor, image: torch.Tensor) -> torch.Tensor:
+        """Shift a point by integer image counts (..., 3)."""
+        return p + self.from_fractional(image.to(p.dtype))
+
     def distance(self, p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
         return torch.linalg.vector_norm(self.sep(p1, p2), dim=-1)
 

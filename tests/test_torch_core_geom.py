@@ -93,6 +93,23 @@ def test_metric_sep_wrap_match(kind):
             np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
 
+@pytest.mark.parametrize("kind", ["periodic", "partial", "free", "triclinic"])
+def test_metric_shift_image_matches(kind):
+    """Metric.shift_image on random points and integer images (int32, as
+    the reference's image counts are) against the JAX method in float64."""
+    jm, tm = _metrics(kind)
+    rng = np.random.default_rng(4)
+    p = rng.uniform(-15, 25, (500, 3))
+    image = rng.integers(-3, 4, (500, 3), dtype=np.int32)
+    got = tm.shift_image(torch.as_tensor(p), torch.as_tensor(image))
+    ref = np.asarray(jm.shift_image(jnp.asarray(p), jnp.asarray(image)))
+    assert got.dtype == torch.float64
+    if kind == "triclinic":
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-12)
+    else:
+        np.testing.assert_array_equal(got.numpy(), ref)
+
+
 def test_round_half_even_minimum_image():
     """Exact half-box separations round to even in both frameworks."""
     jm, tm = _metrics("periodic")
