@@ -74,6 +74,7 @@ from mundy_tpu_torch.driver.regrow import grow_int, run_blocks
 from mundy_tpu_torch.dynamics.brownian import brownian_velocity_keyed
 from mundy_tpu_torch.dynamics.integrators import euler_step
 from mundy_tpu_torch.geom.periodicity import periodic
+from mundy_tpu_torch.io.telemetry import at_step, host_read, trace
 from mundy_tpu_torch.mobility.ewald import build_ewald_rpy, ewald_rpy_apply
 from mundy_tpu_torch.mobility.local_drag import local_drag_mobility
 from mundy_tpu_torch.mobility.rpy import rpy_apply_neighbors
@@ -380,13 +381,15 @@ class LCPSpheresSim:
         c = self.config
         if self._n_cells() < 5:
             return False
-        g = make_row_grid([0, 0, 0], [c.box_size] * 3, 2 * self.search_radius,
-                          c.num_spheres, capacity_slack=self.rows_slack,
-                          dtype=self.dtype, align=8)
-        p = np.mod(pos.cpu().numpy(), c.box_size)
-        iy = np.minimum((p[:, 1] // float(g.cell_yz[0])).astype(np.int64), g.ny - 1)
-        iz = np.minimum((p[:, 2] // float(g.cell_yz[1])).astype(np.int64), g.nz - 1)
-        occ = np.bincount(iy * g.nz + iz, minlength=g.ny * g.nz)
+        with trace("refit.rows_slack"):
+            g = make_row_grid([0, 0, 0], [c.box_size] * 3, 2 * self.search_radius,
+                              c.num_spheres, capacity_slack=self.rows_slack,
+                              dtype=self.dtype, align=8)
+            cell_y, cell_z = g.cell_yz.tolist()  # a host tensor: no device read
+            p = np.mod(host_read("refit.positions", pos), c.box_size)
+            iy = np.minimum((p[:, 1] // cell_y).astype(np.int64), g.ny - 1)
+            iz = np.minimum((p[:, 2] // cell_z).astype(np.int64), g.nz - 1)
+            occ = np.bincount(iy * g.nz + iz, minlength=g.ny * g.nz)
         mean = c.num_spheres / (g.ny * g.nz)
         target_cap = ((int(occ.max() * 1.12) + 6 + 7) // 8) * 8
         slack = max(1.15, (target_cap - 8) / mean)
@@ -405,16 +408,19 @@ class LCPSpheresSim:
         return out[:cap]
 
     def _rebuild(self, state: LCPSpheresState) -> LCPSpheresState:
-        nmat, pairs, hmat, seg_starts, dual_full, ovf = self._broad_phase(state.pos)
-        # warm-start multipliers survive the rebuild by pair identity: scatter
-        # the active ones onto the old full list, remap into the new list
-        gfull_old = self._scatter_gamma(
-            torch.zeros((self.pair_capacity,), dtype=self.dtype, device=self.device),
-            state)
-        gamma_full = remap_gamma(state.pairs, gfull_old, pairs,
-                                 probes=self._pair_run_bound(),
-                                 old_starts=body_pair_starts(state.nmat),
-                                 old_nmat=state.nmat)
+        at_step(state.step)
+        with trace("rebuild"):
+            nmat, pairs, hmat, seg_starts, dual_full, ovf = self._broad_phase(state.pos)
+            # warm-start multipliers survive the rebuild by pair identity:
+            # scatter the active ones onto the old full list, remap into the
+            # new list
+            gfull_old = self._scatter_gamma(
+                torch.zeros((self.pair_capacity,), dtype=self.dtype, device=self.device),
+                state)
+            gamma_full = remap_gamma(state.pairs, gfull_old, pairs,
+                                     probes=self._pair_run_bound(),
+                                     old_starts=body_pair_starts(state.nmat),
+                                     old_nmat=state.nmat)
         return state.replace(
             nmat=nmat, pairs=pairs, hydro_nmat=hmat, seg_starts=seg_starts,
             dual_full=dual_full, prev_cum=torch.zeros_like(state.prev_cum),
@@ -464,50 +470,57 @@ class LCPSpheresSim:
         pair list (separations and normals from the current positions)."""
         c = self.config
         fused_drag = c.hydro == "none"
-        setup_full = collision_setup_spheres(state.pos, self._radius(), state.pairs,
-                                             metric=self.metric)
-        act = active_pair_subset_strided(
-            setup_full, self._dyn_margin(setup_full), c.num_spheres,
-            self.seg_block, self.act_window, state.seg_starts,
-            dual_full=state.dual_full if fused_drag else None,
-            prev=(state.prev_cum, state.gamma, self.act_window),
-            gamma_full=state.gamma_full)
-        mobility, hydro_ovf = self._mobility(state.pos, state.hydro_nmat)
-        apply_band = None
-        if fused_drag:
-            # scalar mobility: the banded Delassus apply (the active list is
-            # i-sorted, so M[p, q] lives within the per-body neighbor cap)
-            if self.radii is not None:
-                nsafe = c.num_spheres - 1
-                mob_i = self.inv_drag[torch.clamp(act.setup.pairs.i, max=nsafe).long()]
-                mob_j = self.inv_drag[torch.clamp(act.setup.pairs.j, max=nsafe).long()]
-            else:
-                mob_i = mob_j = torch.tensor(
-                    1.0 / (6.0 * _math.pi * c.viscosity * c.radius),
-                    dtype=self.dtype, device=self.device)
-            apply_band = make_band_delassus_apply(act.setup, act.dual, c.dt,
-                                                  self._pair_run_bound(),
-                                                  mobility_i=mob_i, mobility_j=mob_j)
-        # Brownian drift is a known velocity: it enters the LCP's constant
-        # term so the solve enforces non-penetration of the end-of-step
-        # positions
-        u_ext = None
-        if c.diffusion_coeff > 0:
-            u_ext = brownian_velocity_keyed(
-                state.key, state.step,
-                torch.arange(c.num_spheres, dtype=torch.int32, device=self.device),
-                c.diffusion_coeff, c.dt, dtype=self.dtype)
-        gamma, vel, res = resolve_collisions(
-            act.setup, mobility, c.num_spheres, c.dt,
-            max_allowable_overlap=c.max_allowable_overlap,
-            max_iterations=c.max_col_iterations, gamma0=act.gamma0,
-            u_ext=u_ext, alpha0=state.lcp_alpha, apply_override=apply_band,
-            replicas=self.group)
-        if u_ext is not None:
-            vel = vel + u_ext
-        new_pos = euler_step(state.pos, vel,
-                             torch.tensor(c.dt, dtype=self.dtype, device=self.device),
-                             metric=self.metric)
+        at_step(state.step)
+        with trace("step"):
+            with trace("assemble"):
+                setup_full = collision_setup_spheres(state.pos, self._radius(), state.pairs,
+                                                     metric=self.metric)
+                act = active_pair_subset_strided(
+                    setup_full, self._dyn_margin(setup_full), c.num_spheres,
+                    self.seg_block, self.act_window, state.seg_starts,
+                    dual_full=state.dual_full if fused_drag else None,
+                    prev=(state.prev_cum, state.gamma, self.act_window),
+                    gamma_full=state.gamma_full)
+                mobility, hydro_ovf = self._mobility(state.pos, state.hydro_nmat)
+                apply_band = None
+                if fused_drag:
+                    # scalar mobility: the banded Delassus apply (the active
+                    # list is i-sorted, so M[p, q] lives within the per-body
+                    # neighbor cap)
+                    if self.radii is not None:
+                        nsafe = c.num_spheres - 1
+                        mob_i = self.inv_drag[torch.clamp(act.setup.pairs.i, max=nsafe).long()]
+                        mob_j = self.inv_drag[torch.clamp(act.setup.pairs.j, max=nsafe).long()]
+                    else:
+                        mob_i = mob_j = torch.tensor(
+                            1.0 / (6.0 * _math.pi * c.viscosity * c.radius),
+                            dtype=self.dtype, device=self.device)
+                    apply_band = make_band_delassus_apply(act.setup, act.dual, c.dt,
+                                                          self._pair_run_bound(),
+                                                          mobility_i=mob_i, mobility_j=mob_j)
+            # Brownian drift is a known velocity: it enters the LCP's constant
+            # term so the solve enforces non-penetration of the end-of-step
+            # positions
+            u_ext = None
+            if c.diffusion_coeff > 0:
+                with trace("noise"):
+                    u_ext = brownian_velocity_keyed(
+                        state.key, state.step,
+                        torch.arange(c.num_spheres, dtype=torch.int32, device=self.device),
+                        c.diffusion_coeff, c.dt, dtype=self.dtype)
+            with trace("solve"):
+                gamma, vel, res = resolve_collisions(
+                    act.setup, mobility, c.num_spheres, c.dt,
+                    max_allowable_overlap=c.max_allowable_overlap,
+                    max_iterations=c.max_col_iterations, gamma0=act.gamma0,
+                    u_ext=u_ext, alpha0=state.lcp_alpha, apply_override=apply_band,
+                    replicas=self.group)
+            with trace("integrate"):
+                if u_ext is not None:
+                    vel = vel + u_ext
+                new_pos = euler_step(state.pos, vel,
+                                     torch.tensor(c.dt, dtype=self.dtype, device=self.device),
+                                     metric=self.metric)
         return state.replace(
             pos=new_pos, gamma=gamma, gamma_sel=act.sel, prev_cum=act.cum,
             step=state.step + 1, lcp_iters=res.num_iters,
@@ -523,7 +536,7 @@ class LCPSpheresSim:
         fired = ((disp * disp).sum(-1).max() > skin_sq).reshape(1)
         if self.group is not None:
             fired = self.group.pmax(fired.to(torch.int32)) > 0
-        return bool(fired[0])
+        return host_read("skin", fired[0])
 
     def step(self, state: LCPSpheresState) -> LCPSpheresState:
         """One step, rebuilding first when the skin trigger fired."""
@@ -542,8 +555,9 @@ class LCPSpheresSim:
             ovf = self.group.pmax(state.overflow.reshape(1).to(torch.int32))[0] > 0
             state = state.replace(overflow=ovf)
         if resize:
-            state = self._refit_broad(state)
-            state = self._resize_active(state)
+            with trace("refit"):
+                state = self._refit_broad(state)
+                state = self._resize_active(state)
         return state
 
     def _refit_broad(self, state: LCPSpheresState) -> LCPSpheresState:
@@ -551,9 +565,9 @@ class LCPSpheresSim:
         and rows_slack to the measured max row occupancy. A shrink must be
         demanded by two consecutive blocks."""
         c = self.config
-        if self._n_cells() < 5 or bool(state.overflow):
+        if self._n_cells() < 5 or host_read("refit.overflow", state.overflow):
             return state
-        kmax = int(state.nmat.mask.sum(dim=1).max())
+        kmax = int(host_read("refit.kmax", state.nmat.mask.sum(dim=1).max()))
         k_tight = max(4, -(-(kmax + 1) // 4) * 4)
         want_k = k_tight < min(c.max_neighbors, self.rows_k)
         slack_old = self.rows_slack
@@ -574,7 +588,7 @@ class LCPSpheresSim:
         """Between blocks: re-fit the active window W to the measured
         per-block maximum. Growing is immediate; a shrink by less than 25%
         must be demanded by two consecutive blocks."""
-        blk_max = int(state.act_block_max)
+        blk_max = int(host_read("resize.blk_max", state.act_block_max))
         target_w = max(64, (int(blk_max * 1.1) + 63) // 64 * 64)
         if target_w == self.act_window:
             self._act_shrink_streak = 0

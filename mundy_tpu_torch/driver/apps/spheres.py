@@ -32,6 +32,7 @@ from mundy_tpu_torch.dynamics.brownian import brownian_velocity_keyed
 from mundy_tpu_torch.dynamics.integrators import euler_step
 from mundy_tpu_torch.forces.contact import hertzian_contact_forces
 from mundy_tpu_torch.geom.periodicity import periodic
+from mundy_tpu_torch.io.telemetry import at_step, host_read, trace
 from mundy_tpu_torch.neighbor.cell_list import (
     NeighborMatrix,
     build_cell_list,
@@ -177,17 +178,24 @@ class SpheresSim:
         """Force, Brownian velocity and Euler step against the current
         neighbor matrix (no rebuild)."""
         c = self.config
-        force = hertzian_contact_forces(state.pos, self.radius, self.youngs, self.poisson,
-                                        state.nmat, metric=self.metric)
-        vel = self.inv_drag * force
-        if c.diffusion_coeff > 0.0:
-            vel = vel + brownian_velocity_keyed(state.key, state.step, self.gids,
-                                                self.diffusion, c.dt, dtype=self.dtype)
-        pos = euler_step(state.pos, vel, self.dt, metric=self.metric)
+        at_step(state.step)
+        with trace("step"):
+            with trace("forces"):
+                force = hertzian_contact_forces(state.pos, self.radius, self.youngs,
+                                                self.poisson, state.nmat, metric=self.metric)
+                vel = self.inv_drag * force
+            if c.diffusion_coeff > 0.0:
+                with trace("noise"):
+                    vel = vel + brownian_velocity_keyed(state.key, state.step, self.gids,
+                                                        self.diffusion, c.dt, dtype=self.dtype)
+            with trace("integrate"):
+                pos = euler_step(state.pos, vel, self.dt, metric=self.metric)
         return state.replace(pos=pos, step=state.step + 1)
 
     def _rebuild(self, state: SpheresState) -> SpheresState:
-        nmat, ovf = self._build_nmat(state.pos)
+        at_step(state.step)
+        with trace("rebuild"):
+            nmat, ovf = self._build_nmat(state.pos)
         return state.replace(nmat=nmat, ref_pos=state.pos,
                              rebuild_count=state.rebuild_count + 1,
                              overflow=state.overflow | ovf)
@@ -198,7 +206,7 @@ class SpheresSim:
 
     def step(self, state: SpheresState) -> SpheresState:
         """One step, rebuilding first when a sphere has moved beyond skin/2."""
-        if bool(self._moved(state)):
+        if host_read("skin", self._moved(state)):
             state = self._rebuild(state)
         return self._inner_step(state)
 
@@ -214,7 +222,7 @@ class SpheresSim:
                 done += 1
                 # the flag only decides the next iteration: skip the read
                 # (and its sync) once the block is complete
-                fired = done < n_steps and bool(self._moved(state))
+                fired = done < n_steps and host_read("skin", self._moved(state))
         return state
 
     def regrow(self, state: SpheresState) -> SpheresState:

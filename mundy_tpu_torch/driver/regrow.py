@@ -18,11 +18,13 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from mundy_tpu_torch.io.telemetry import host_read, trace
+
 GROW = 1.6  # geometric capacity growth per regrow
 
 
 def _overflowed(state: Any) -> bool:
-    return bool(state.overflow)
+    return bool(host_read("overflow", state.overflow))
 
 
 def _sync(state: Any) -> None:
@@ -52,21 +54,24 @@ def run_blocks(sim, state, num_steps: int, block: int,
             raise RuntimeError("capacity overflow persists after "
                                f"{regrows} regrows")
         log(f"capacity overflow at init: regrow #{regrows + 1}")
-        state = sim.regrow(state)
+        with trace("regrow"):
+            state = sim.regrow(state)
         regrows += 1
     _sync(state)
     t0 = time.perf_counter()
     done = 0
     while done < num_steps:
         n = min(block, num_steps - done)
-        new_state = sim.run_block(state, n)
+        with trace("block"):
+            new_state = sim.run_block(state, n)
         if _overflowed(new_state):
             if regrows >= max_regrows:
                 raise RuntimeError("capacity overflow persists after "
                                    f"{regrows} regrows")
             log(f"capacity overflow in block at step {done}: "
                 f"regrow #{regrows + 1}, retrying block")
-            state = sim.regrow(state)  # retry from the last GOOD state
+            with trace("regrow"):
+                state = sim.regrow(state)  # retry from the last GOOD state
             regrows += 1
             continue
         state = new_state

@@ -27,6 +27,7 @@ import ctypes
 
 import torch
 
+from mundy_tpu_torch.io.telemetry import host_read
 from mundy_tpu_torch.ops.kernels import _build
 
 _DTYPES = {torch.float32: "f32", torch.float64: "f64"}
@@ -65,7 +66,7 @@ def strided_segment_sum_plain(values: torch.Tensor, loc: torch.Tensor,
     rank = torch.where(kept, rank, -1)
     vt = values.transpose(1, 2)  # (nb, W, D)
     out = values.new_zeros((nb, B, D))
-    for k in range(int(rank.max()) + 1 if rank.numel() else 0):
+    for k in range(host_read("seg_sum.plain", rank.max()) + 1 if rank.numel() else 0):
         b, w = torch.nonzero(rank == k, as_tuple=True)
         c = col[b, w]
         out[b, c] = out[b, c] + vt[b, w]
