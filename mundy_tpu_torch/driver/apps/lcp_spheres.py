@@ -44,7 +44,8 @@ host reads the skin trigger and rebuilds when it fired, and the BBPGD loop
 reads its exit condition once per iteration. The reference's jit
 recompiles on a capacity change are plain capacity changes here; the
 shrink hysteresis (two consecutive blocks) is kept exactly, because it
-decides the trajectory.
+decides the trajectory; the between-block refit keeps one more spare slot
+of rows_k than the reference (`_refit_broad`).
 
 ref: `scrap/lcp_spheres/StkNgpLCP.cpp` main + time loop (SURVEY.md 3.1).
 """
@@ -100,6 +101,22 @@ from mundy_tpu_torch.parallel.ring_rpy import (
 )
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+def row_occupancy(pos: torch.Tensor, box_size: float, grid) -> torch.Tensor:
+    """(ny * nz,) int32 count of the positions in each (y, z) row of `grid`,
+    on the positions' device: y and z wrapped into [0, box_size], floor
+    divided by the row cell edges, clamped into the grid. Bit-equal to numpy's
+    `np.mod`, `//` and `np.bincount` chain in the positions' dtype (both
+    divide floor as Python does). No host read: `torch.bincount` on CUDA
+    reads its input's max on the host, integer `index_add_` does not."""
+    cell_y, cell_z = grid.cell_yz.tolist()  # a host tensor: no device read
+    p = torch.remainder(pos[:, 1:3], box_size)
+    iy = torch.div(p[:, 0], cell_y, rounding_mode="floor").to(torch.int64)
+    iz = torch.div(p[:, 1], cell_z, rounding_mode="floor").to(torch.int64)
+    row = iy.clamp_(max=grid.ny - 1) * grid.nz + iz.clamp_(max=grid.nz - 1)
+    occ = torch.zeros((grid.ny * grid.nz,), dtype=torch.int32, device=pos.device)
+    return occ.index_add_(0, row, torch.ones_like(row, dtype=torch.int32))
 
 
 @dataclasses.dataclass
@@ -376,7 +393,7 @@ class LCPSpheresSim:
 
     def _refit_rows_slack(self, pos) -> bool:
         """Set rows_slack so the row capacity sits just above the measured
-        max row occupancy (host bincount over the current positions).
+        max row occupancy (counted on the positions' device; one scalar read).
         Returns True when the slack changed (the caller rebuilds)."""
         c = self.config
         if self._n_cells() < 5:
@@ -385,13 +402,9 @@ class LCPSpheresSim:
             g = make_row_grid([0, 0, 0], [c.box_size] * 3, 2 * self.search_radius,
                               c.num_spheres, capacity_slack=self.rows_slack,
                               dtype=self.dtype, align=8)
-            cell_y, cell_z = g.cell_yz.tolist()  # a host tensor: no device read
-            p = np.mod(host_read("refit.positions", pos), c.box_size)
-            iy = np.minimum((p[:, 1] // cell_y).astype(np.int64), g.ny - 1)
-            iz = np.minimum((p[:, 2] // cell_z).astype(np.int64), g.nz - 1)
-            occ = np.bincount(iy * g.nz + iz, minlength=g.ny * g.nz)
+            occ_max = host_read("refit.occ_max", row_occupancy(pos, c.box_size, g).max())
         mean = c.num_spheres / (g.ny * g.nz)
-        target_cap = ((int(occ.max() * 1.12) + 6 + 7) // 8) * 8
+        target_cap = ((int(occ_max * 1.12) + 6 + 7) // 8) * 8
         slack = max(1.15, (target_cap - 8) / mean)
         if abs(slack - self.rows_slack) / self.rows_slack < 0.05:
             return False
@@ -563,12 +576,16 @@ class LCPSpheresSim:
     def _refit_broad(self, state: LCPSpheresState) -> LCPSpheresState:
         """Between blocks: shrink rows_k to the measured max neighbor count
         and rows_slack to the measured max row occupancy. A shrink must be
-        demanded by two consecutive blocks."""
+        demanded by two consecutive blocks. rows_k keeps two slots above the
+        measured max (init keeps one): over hundreds of rebuilds of millions
+        of spheres the max reaches one above its reading, and one slot over
+        rows_k overflows and regrows (4,194,304 spheres: K 8 from a reading
+        of 7 overflowed near step 700)."""
         c = self.config
         if self._n_cells() < 5 or host_read("refit.overflow", state.overflow):
             return state
         kmax = int(host_read("refit.kmax", state.nmat.mask.sum(dim=1).max()))
-        k_tight = max(4, -(-(kmax + 1) // 4) * 4)
+        k_tight = max(4, -(-(kmax + 2) // 4) * 4)
         want_k = k_tight < min(c.max_neighbors, self.rows_k)
         slack_old = self.rows_slack
         want_slack = self._refit_rows_slack(state.pos)

@@ -92,7 +92,7 @@ TREE = {
     "bbpgd.iter": {"solve"}, "read:bbpgd.exit": {"solve"},
     "read:seg_sum.plain": {"solve", "bbpgd.iter"},
     "refit": {"block"}, "read:refit.overflow": {"refit"}, "read:refit.kmax": {"refit"},
-    "refit.rows_slack": {"refit"}, "read:refit.positions": {"refit.rows_slack"},
+    "refit.rows_slack": {"refit"}, "read:refit.occ_max": {"refit.rows_slack"},
     "read:resize.blk_max": {"refit"},
 }
 
@@ -133,13 +133,12 @@ def test_every_scalar_read_of_a_block_is_a_counted_host_read_in_the_span_tree(ap
                                              dtype="float32"), device="cpu")
         want = {"block", "step", "assemble", "noise", "solve", "bbpgd.iter",
                 "read:bbpgd.exit", "integrate", "read:skin", "refit", "read:refit.overflow",
-                "read:refit.kmax", "refit.rows_slack", "read:refit.positions",
+                "read:refit.kmax", "refit.rows_slack", "read:refit.occ_max",
                 "read:resize.blk_max", "read:overflow"}
     state = sim.init()
     spans, reads, dense = _traced_block(sim, state, steps)
     assert reads == dense > 0
-    assert reads == sum(1 for s in spans if s[0].startswith("read:")
-                        and s[0] != "read:refit.positions")
+    assert reads == sum(1 for s in spans if s[0].startswith("read:"))
     tree = _tree(spans)
     assert want <= set(tree), want - set(tree)
     for name, parents in tree.items():
